@@ -1,0 +1,130 @@
+"""Typed configuration for the port: the dataclasses of `sais_tpu.config`
+that the RGB gesture-decoding path reads, copied with the same fields and
+defaults (the reference values).
+
+- window geometry:   prepare_dataset.py:1711-1715 (0.5 s windows @ 30 fps)
+- TTA offsets:       prepare_dataset.py:2649-2651 (+0, +3, +6 frames)
+- temporal encoder:  prepare_model.py:74-81 (4 layers, 4 heads, d_model=rep_dim)
+- post-processing:   process_inference_results.py:230-234
+- preprocessing:     extract_representations.py:145-162, main_dino.py:300-326
+- ViT-S/16:          dino-main/vision_transformer.py:243-247
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """DINO ViT backbone (dino-main/vision_transformer.py:134-247)."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    layernorm_eps: float = 1e-6
+    in_channels: int = 3
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessConfig:
+    """Center-crop 0.8/0.8, resize to 224, ImageNet normalization
+    (main_dino.py:300-326, extract_representations.py:145-162)."""
+
+    crop_height_frac: float = 0.8
+    crop_width_frac: float = 0.8
+    resize: int = 224
+    mean: Sequence[float] = (0.485, 0.456, 0.406)
+    std: Sequence[float] = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalConfig:
+    """Post-norm, ReLU torch TransformerEncoder over per-frame features
+    (prepare_model.py:74-81): ffn 2048, LayerNorm eps 1e-5.
+
+    use_flash: the fused flash-attention kernel for long windows is not
+    ported yet; see `models.full_model.resolve_flash`."""
+
+    rep_dim: int = 384
+    num_layers: int = 4
+    num_heads: int = 4
+    ffn_dim: int = 2048
+    layernorm_eps: float = 1e-5
+    max_positions: int = 2000  # learned pos-emb table (prepare_model.py:67)
+    use_flash: Optional[bool] = None
+    flash_min_len: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """SAIS temporal model, Prototypes task (prepare_model.py:18-515)."""
+
+    rep_dim: int = 384
+    proj_dim: int = 256          # linear: rep_dim -> 256 (prepare_model.py:47)
+    aux_logit_dim: int = 3       # linear2: 256 -> 3 (prepare_model.py:50)
+    nclasses: int = 2
+    modalities: str = "RGB-Flow"  # 'RGB' | 'Flow' | 'RGB-Flow'
+    temporal: TemporalConfig = dataclasses.field(default_factory=TemporalConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowConfig:
+    """Sliding windows over unlabeled video (prepare_dataset.py:1711-1715,
+    2642-2651).  The first window starts at frame index -1, which wraps to
+    the last frame like numpy (data/windows.py keeps that)."""
+
+    duration_s: float = 0.5
+    hop_s: float = 0.5
+    fps: float = 30.0
+    stride_divisor: int = 10
+    tta_offsets: Sequence[int] = (0, 3, 6)
+    flow_jump_factor: int = 15   # fps // 2 (generate_paths.py:43)
+
+    @property
+    def duration_frames(self) -> int:
+        return int(self.duration_s * self.fps)
+
+    @property
+    def hop_frames(self) -> int:
+        return int(self.hop_s * self.fps)
+
+
+@dataclasses.dataclass(frozen=True)
+class PostprocessConfig:
+    """Gesture CSV post-processing (process_inference_results.py:230-244)."""
+
+    decision_threshold: float = 0.515
+    entropy_threshold: float = 0.66
+    merge_gap_s: int = 3
+    fps: int = 30
+    class_names: Sequence[str] = ("in-view", "out-of-view")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """End-to-end configuration for `extract` + `decode`."""
+
+    vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
+    preprocess: PreprocessConfig = dataclasses.field(default_factory=PreprocessConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    window: WindowConfig = dataclasses.field(default_factory=WindowConfig)
+    postprocess: PostprocessConfig = dataclasses.field(default_factory=PostprocessConfig)
+    compute_dtype: str = "bfloat16"
