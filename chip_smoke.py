@@ -7,25 +7,44 @@ Phases, each of which fails the run:
 
 1. device: a CUDA device must be present; prints its name and power limit
    (nvidia-smi) and the torch / CUDA versions.
-2. build: compiles every kernel of kernels/csrc with nvcc for sm_90a.
+2. build: compiles every kernel of kernels/csrc with nvcc for sm_90a, one
+   nvcc process per source, all started together.
 3. K1 (fused_vit_block) at ViT-S/16 widths, batch 256, bf16: the CUDA
    kernel against its plain PyTorch version at L = 197 and at L = 208 with
    keys >= 197 masked; CUDA-event times of the kernel, the plain version
    and one composition of PyTorch library calls (layer_norm, linear,
    scaled_dot_product_attention, gelu); the least time the card could take.
-4. main path at full width: random ViT-S/16 and one fold of the 4-layer
+4. K2 (flash_attention), f32, H = 4, Dh = 96: the CUDA kernel against its
+   plain version (out and lse) at (B*S, L) = (8, 2001), the reference's
+   2000-frame cap plus CLS, and (132, 301), full-length 10 s windows at
+   30 fps, with masked tails that differ per element and one element with
+   every key masked (its output must be exactly 0); CUDA-event times of
+   the kernel, the plain version and scaled_dot_product_attention with the
+   additive mask, at the steps path's shape and at (8, 2001); the least
+   time the card could take.  Then prototypes_forward at (8, 1, 2000, 384)
+   in auto mode must take K2 (one launch per layer) and agree with the
+   dense path.
+5. gesture path at full width: random ViT-S/16 and one fold of the 4-layer
    temporal model + prototypes (fixed torch.Generator seeds), 300
    synthetic 480x640 frames (10 s at 30 fps, numpy seed 0):
    FeatureExtractor.extract_array (bf16, batch 256) then
    GestureDecoder.decode over 3 TTA offsets, CSV to a temporary directory.
-   The K1 launch count must be exactly 12 per frame batch; features and
-   probabilities are checked against the same path through the plain
-   version.  Extraction frames/s is the median of three timed runs after
-   a warm-up at the same shapes.
-5. prints the kernels line (JSON), then, last, the device line (JSON).
+   K1 must launch exactly 12 times per frame batch and K2 not at all (the
+   16-token windows stay dense); features and probabilities are checked
+   against the same path through the plain version.  Extraction frames/s
+   is the median of three timed runs after a warm-up at the same shapes.
+6. steps path at full width (`steps --stride-divisor 4096 --flash on`):
+   StepRecognizer over a synthetic 20,000-frame feature track (11.1 min at
+   30 fps, numpy seed 0): 132 windows x 3 TTA offsets of 301 / 298 / 295
+   tokens, CSV to a temporary directory.  K2 must launch exactly 12 times
+   (4 layers x 3 TTA) and K1 not at all; window probabilities are checked
+   against the same path through K2's plain version (on the CPU) and
+   against the dense path.  Wall time is the median of three after a
+   warm-up at the same shapes.
+7. prints the kernels line (JSON), then, last, the device line (JSON).
 
 It also prints torch.profiler tables (device time per kernel, device idle
-share) of K1 calls, of one extraction and of one decode.
+share) of K1 calls, K2 calls, one extraction, one decode and one steps run.
 """
 
 from __future__ import annotations
@@ -39,6 +58,7 @@ import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16, at 700 W (data sheet)
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
 
@@ -192,6 +212,139 @@ def phase_k1():
     return result
 
 
+def k2_inputs(b, l, seed, masked):
+    """q, k, v (b, 4, l, 96) on the card; with `masked`, element i keeps
+    l - (37 i mod l) keys and the last element none."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, 4, l, 96), generator=g).cuda()
+               for _ in range(3))
+    valid = [l] * b
+    if masked:
+        valid = [l - (37 * i) % l for i in range(b - 1)] + [0]
+    mask = (torch.arange(l)[None, :]
+            >= torch.tensor(valid)[:, None]).cuda()
+    return q, k, v, mask, valid
+
+
+def k2_bound_ms(b, h, l, dh, valid):
+    """Least time for K2 on this data: 4 Dh flops for each (query, valid
+    key) pair, against q, k, v, the bias read once and out, lse written
+    once."""
+    flops = 4 * h * l * dh * sum(valid)
+    nbytes = 4 * (4 * b * h * l * dh + b * l + b * h * l)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_k2():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from sais_tpu_torch.config import ModelConfig, TemporalConfig
+    from sais_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_fwd, flash_attention_reference,
+        key_bias)
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_forward,
+                                                  prototypes_init)
+    from sais_tpu_torch.models.heads import prototype_probs
+
+    worst = 0.0
+    for b, l in ((8, 2001), (132, 301)):
+        q, k, v, mask, valid = k2_inputs(b, l, seed=l, masked=True)
+        bias = key_bias(mask)
+        out = flash_attention(q, k, v, mask)
+        _, lse = flash_attention_fwd(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_reference(q, k, v, bias)
+        ref[-1] = 0.0      # flash_attention's all-masked element
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        lerr = (lse[:-1] - ref_lse[:-1]).abs().max().item()
+        lscale = max(1.0, ref_lse[:-1].abs().max().item())
+        zero = torch.count_nonzero(out[-1]).item()
+        # Limits: both compute in f32 and differ only in summation order
+        # and the online rescaling, a few f32 ulps: 1e-4 of the largest
+        # value.  The all-masked element is exactly 0 and its lse -1e30.
+        print(f"K2 (B*S, L) = ({b}, {l}), keys kept {valid[:3]}..."
+              f"{valid[-2:]}: max|out-plain| {err:.4g} (max|plain| "
+              f"{scale:.4g}), max|lse-plain| {lerr:.4g} (max|lse| "
+              f"{lscale:.4g}), nonzero outputs of the all-masked element "
+              f"{zero}", flush=True)
+        check(math.isfinite(err) and err <= 1e-4 * scale,
+              f"K2 out disagrees at L={l}: {err} > 1e-4 * {scale}")
+        check(math.isfinite(lerr) and lerr <= 1e-4 * lscale,
+              f"K2 lse disagrees at L={l}: {lerr} > 1e-4 * {lscale}")
+        check(zero == 0, f"all-masked element has {zero} nonzero outputs")
+        check(bool((lse[-1] == ref_lse[-1]).all()),
+              "all-masked element's lse differs from the plain version")
+        worst = max(worst, err)
+        del q, k, v, out, ref, lse, ref_lse
+
+    # Times at the steps path's shape (its keys are all valid, the mask
+    # is all False as GestureDecoder passes it) and at (8, 2001) masked.
+    result = {}
+    for b, l, masked in ((132, 301, False), (8, 2001, True)):
+        q, k, v, mask, valid = k2_inputs(b, l, seed=b, masked=masked)
+        bias = key_bias(mask)
+        lib_mask = bias[:, None, None, :]
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, mask))
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_reference(q, k, v, bias), iters=5,
+            warmup=1)
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask))
+        lib_err = (F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask)[:b - 1]
+            - flash_attention(q, k, v, mask)[:b - 1]).abs().max().item()
+        bound_ms, bound_by, flops, nbytes = k2_bound_ms(b, 4, l, 96, valid)
+        print(f"K2 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''}: "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library (SDPA, f32 additive mask) "
+              f"{library_ms:.4f} ms (max|lib-kernel| {lib_err:.3g}); bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+        if not result:
+            result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+            _profile(lambda: flash_attention(q, k, v, mask), "k2_profile",
+                     5)
+        del q, k, v
+    result["max_abs_err"] = worst
+
+    # Auto mode on the card: a 2001-token window takes K2.
+    cfg = ModelConfig(modalities="RGB")
+    dense_cfg = ModelConfig(modalities="RGB",
+                            temporal=TemporalConfig(use_flash=False))
+    model = full_model_init(torch.Generator().manual_seed(3), cfg).cuda()
+    protos = prototypes_init(torch.Generator().manual_seed(4), 3)[1].cuda()
+    rgb = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 1, 2000, 384)).astype(np.float32)).cuda()
+    rgb_mask = torch.zeros((8, 1, 2001), dtype=torch.bool).cuda()
+    with torch.inference_mode():
+        flash_attention.launches = 0
+        out = prototypes_forward(model, cfg, rgb, rgb_mask)
+        torch.cuda.synchronize()
+        auto_launches = flash_attention.launches
+        dense = prototypes_forward(model, dense_cfg, rgb, rgb_mask)
+        perr = (prototype_probs(out.video_rep, protos)
+                - prototype_probs(dense.video_rep, protos)).abs().max().item()
+    print(f"auto mode, prototypes_forward (8, 1, 2000, 384): K2 launches "
+          f"{auto_launches}, attention {tuple(out.attn.shape)}, max|prob "
+          f"flash - dense| {perr:.3g}", flush=True)
+    check(auto_launches == cfg.temporal.num_layers,
+          f"auto mode launched K2 {auto_launches} times at 2001 tokens, "
+          f"expected {cfg.temporal.num_layers}")
+    check(tuple(out.attn.shape) == (8, 2001), "flash path attention shape")
+    # Limit 5e-4: the JAX package's own flash-vs-dense limit
+    # (tests/test_flash_wiring.py).
+    check(perr <= 5e-4, f"auto-mode probabilities differ from dense: {perr}")
+    return result
+
+
 def _profile(fn, name: str, steps: int):
     """torch.profiler over `steps` calls of fn: prints the per-kernel table
     and the device's busy time (the union of its kernel and copy
@@ -227,7 +380,8 @@ def phase_main_path(nframes: int):
     import torch
     from sais_tpu_torch.config import ModelConfig, PipelineConfig
     from sais_tpu_torch.infer.pipeline import FeatureExtractor, GestureDecoder
-    from sais_tpu_torch.infer.postprocess import write_gestures_csv
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
+    from sais_tpu_torch.kernels.flash_attention import flash_attention
     from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                                   vit_block_reference)
     from sais_tpu_torch.models.full_model import (full_model_init,
@@ -248,17 +402,17 @@ def phase_main_path(nframes: int):
     dec.decode("smoke", fx.extract_array(frames))
     torch.cuda.synchronize()
 
-    fused_vit_block.launches = 0
+    fused_vit_block.launches = flash_attention.launches = 0
     t0 = time.perf_counter()
     feats = fx.extract_array(frames)
     t1 = time.perf_counter()
     rows = dec.decode("smoke", feats)
     with tempfile.TemporaryDirectory() as tmp:
         csv = os.path.join(tmp, "Custom_inference_gestures.csv")
-        write_gestures_csv(rows, csv)
+        write_rows_csv(rows, csv)
         csv_ok = os.path.getsize(csv) > 0
     t2 = time.perf_counter()
-    launches = fused_vit_block.launches
+    launches, k2_launches = fused_vit_block.launches, flash_attention.launches
 
     # Two more extractions, for the median: the host's staging copy of raw
     # frames varies from run to run on a shared host.
@@ -273,11 +427,13 @@ def phase_main_path(nframes: int):
           f"extract {median_s:.4f} s median of "
           f"{', '.join(f'{s:.4f}' for s in extract_s)} "
           f"({nframes / median_s:.1f} frames/s), decode + CSV "
-          f"{t2 - t1:.4f} s, {len(rows)} intervals; K1 launches {launches}",
-          flush=True)
+          f"{t2 - t1:.4f} s, {len(rows)} intervals; K1 launches {launches}, "
+          f"K2 launches {k2_launches}", flush=True)
     check(launches == 12 * batches,
           f"K1 launched {launches} times on the main path, expected "
           f"{12 * batches}")
+    check(k2_launches == 0,
+          f"K2 launched {k2_launches} times on 16-token gesture windows")
     check(csv_ok, "no CSV written")
     check(feats.shape == (nframes, 384) and np.isfinite(feats).all(),
           f"features {feats.shape} not finite / wrong shape")
@@ -314,6 +470,96 @@ def phase_main_path(nframes: int):
     return launches
 
 
+def phase_steps(nframes: int):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                       TemporalConfig)
+    from sais_tpu_torch.data.tasks import step_window_config
+    from sais_tpu_torch.infer.pipeline import GestureDecoder
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
+    from sais_tpu_torch.infer.skill import StepRecognizer
+    from sais_tpu_torch.kernels.flash_attention import flash_attention
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+
+    # `steps --stride-divisor 4096 --flash on --fps 30`: stride 1, windows
+    # of 300 / 297 / 294 frames + CLS over the 3 TTA offsets
+    cfg = PipelineConfig(
+        model=ModelConfig(modalities="RGB", nclasses=3,
+                          temporal=TemporalConfig(use_flash=True)),
+        window=dataclasses.replace(step_window_config(30.0),
+                                   stride_divisor=4096))
+    fold = (full_model_init(torch.Generator().manual_seed(1), cfg.model),
+            prototypes_init(torch.Generator().manual_seed(2), 3)[1])
+    feats = np.random.default_rng(0).standard_normal(
+        (nframes, 384)).astype(np.float32)
+    rec = StepRecognizer(GestureDecoder([fold], cfg), fps=30.0)
+    rec.recognize("steps", feats)     # warm-up at the same shapes
+    torch.cuda.synchronize()
+
+    fused_vit_block.launches = flash_attention.launches = 0
+    t0 = time.perf_counter()
+    rows = rec.recognize("steps", feats)
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "steps_steps.csv")
+        write_rows_csv(rows, csv, rec.columns)
+        with open(csv) as f:
+            csv_lines = len(f.readlines())
+    wall = [time.perf_counter() - t0]
+    launches, k1_launches = flash_attention.launches, fused_vit_block.launches
+    for _ in range(2):
+        t = time.perf_counter()
+        rec.recognize("steps", feats)
+        wall.append(time.perf_counter() - t)
+    median_s = sorted(wall)[1]
+    nwin = (nframes - 300) // 150 + 1
+    print(f"steps path: {nframes} frames, {len(rows)} windows x 3 TTA of "
+          f"301 / 298 / 295 tokens: {median_s:.4f} s median of "
+          f"{', '.join(f'{s:.4f}' for s in wall)} (CSV included in the "
+          f"first); K2 launches {launches}, K1 launches {k1_launches}",
+          flush=True)
+    check(launches == 12, f"K2 launched {launches} times on the steps "
+          "path, expected 12 (4 layers x 3 TTA)")
+    check(k1_launches == 0, f"K1 launched {k1_launches} times on steps")
+    check(len(rows) == nwin and csv_lines == nwin + 1,
+          f"{len(rows)} step rows / {csv_lines} CSV lines, expected {nwin}")
+    probs = np.array([[r[c] for c in rec.class_names] for r in rows])
+    check(np.isfinite(probs).all() and np.abs(probs.sum(1) - 1).max() < 1e-5,
+          "step probabilities not finite or not summing to 1")
+
+    def step_probs(cfg, device):
+        dec = GestureDecoder([fold], cfg, device=device)
+        return np.array([[r[c] for c in rec.class_names] for r in
+                         StepRecognizer(dec, fps=30.0).recognize("steps",
+                                                                 feats)])
+
+    # The same path through K2's plain version (the decoder on the CPU),
+    # and the dense path on the card.
+    t = time.perf_counter()
+    plain = step_probs(cfg, "cpu")
+    plain_s = time.perf_counter() - t
+    dense_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, temporal=dataclasses.replace(cfg.model.temporal,
+                                                use_flash=False)))
+    dense = step_probs(dense_cfg, None)
+    perr, derr = np.abs(probs - plain).max(), np.abs(probs - dense).max()
+    # Limits: 1e-4 against the plain version (f32 on both sides, summation
+    # order only); 5e-4 against the dense path, the JAX package's own
+    # flash-vs-dense limit (tests/test_flash_wiring.py).
+    print(f"steps path vs plain version (CPU, {plain_s:.1f} s): max|prob "
+          f"diff| {perr:.3g}; vs dense path: {derr:.3g}; same argmax "
+          f"{int((probs.argmax(1) == plain.argmax(1)).sum())}/{nwin}",
+          flush=True)
+    check(perr <= 1e-4, f"steps probabilities differ from plain: {perr}")
+    check(derr <= 5e-4, f"steps probabilities differ from dense: {derr}")
+    _profile(lambda: rec.recognize("steps", feats), "steps_profile", 1)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -329,7 +575,9 @@ def main():
     card = phase_device()
     phase_build()
     k1 = phase_k1()
+    k2 = phase_k2()
     launches = phase_main_path(nframes=300)
+    k2_launches = phase_steps(nframes=20000)
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
@@ -337,7 +585,14 @@ def main():
         "launches": launches, "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]
+        "library_ms": k1["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "sais_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "sais_tpu/kernels/flash_attention.py:50",
+        "launches": k2_launches, "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"]}]
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

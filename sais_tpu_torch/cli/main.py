@@ -1,14 +1,22 @@
-"""Command line of the port: `extract`, `decode` and `pipeline -mod RGB`,
-with the flags of `sais` (sais_tpu/cli/main.py).
+"""Command line of the port: `extract`, `decode`, `pipeline -mod RGB` and
+`steps`, with the flags of `sais` (sais_tpu/cli/main.py).
 
   python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> -mod RGB \
       --random-init
 
 reads <root>/videos/<video>.mp4, writes DINO features to
 <root>/results/ViT_SelfSupervised_ImageNet_RepsAndLabels.h5 and the
-gesture intervals to <root>/results/Custom_inference_gestures.csv.
-Everything runs on the card (`--device cuda`, the default) unless
-`--device cpu` is given.
+gesture intervals to <root>/results/Custom_inference_gestures.csv
+(`decode --save-artifacts` also writes the per-window reps, probabilities
+and attention under <root>/params/Fold_0).
+
+  python -m sais_tpu_torch.cli.main steps -f <video> -p <root> -mod RGB \
+      --random-init --stride-divisor 4096 --flash on
+
+recognizes steps over full-length 10 s / 5 s windows of the stored
+features (stride 1) with the temporal attention on K2, and writes
+<root>/results/<video>_steps.csv.  Everything runs on the card
+(`--device cuda`, the default) unless `--device cpu` is given.
 
 Checkpoints: --dino-weights takes the reference
 dino_deitsmall16_pretrain.pth; --params-dir takes reference folds
@@ -31,9 +39,18 @@ from sais_tpu_torch.config import PipelineConfig
 
 def _pipeline_config(args) -> PipelineConfig:
     cfg = PipelineConfig()
+    temporal = cfg.model.temporal
+    if args.flash != "auto":
+        temporal = dataclasses.replace(temporal, use_flash=args.flash == "on")
+    if args.max_positions:
+        # beyond the reference's 2000-slot pos-emb table
+        # (prepare_model.py:67), for full-length windows past the cap
+        temporal = dataclasses.replace(temporal,
+                                       max_positions=args.max_positions)
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, modalities=args.modalities,
-                                       nclasses=args.nclasses),
+                                       nclasses=args.nclasses,
+                                       temporal=temporal),
         compute_dtype=args.dtype)
 
 
@@ -70,26 +87,35 @@ def _load_folds(args, cfg):
                      "(params.pkl), which only the JAX package reads; "
                      "decode it with `sais decode`, or pass reference "
                      "folds (params.zip + prototypes.zip)")
-        model = FullModel(cfg.model)
-        model.load_state_dict(full_model_params_from_reference(
-            load_checkpoint(os.path.join(d, "params.zip"))))
+        sd = full_model_params_from_reference(
+            load_checkpoint(os.path.join(d, "params.zip")))
+        # the checkpoint's own table length, as the JAX package takes it
+        model = FullModel(dataclasses.replace(
+            cfg.model, temporal=dataclasses.replace(
+                cfg.model.temporal, max_positions=len(sd["frame_pos"]))))
+        model.load_state_dict(sd)
         _, protos = prototypes_from_reference(
             load_checkpoint(os.path.join(d, "prototypes.zip")))
         folds.append((model, protos))
     return folds
 
 
-def _check_modalities(args):
+def _check_ported(args):
     if args.modalities != "RGB":
         raise NotImplementedError(
             f"-mod {args.modalities}: the flow stream (RAFT, flow "
             "rendering) is not ported yet; use -mod RGB")
+    if args.seq_parallel:
+        raise NotImplementedError(
+            f"--seq-parallel {args.seq_parallel}: sequence-parallel ring "
+            "attention is not ported yet; one card runs full-length "
+            "windows on K2 (--flash on)")
 
 
 def cmd_extract(args):
     from sais_tpu_torch.infer.pipeline import FeatureExtractor
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
-    _check_modalities(args)
+    _check_ported(args)
     cfg = _pipeline_config(args)
     store = rgb_store_path(args.path)
     if not args.force and os.path.exists(store):
@@ -112,9 +138,9 @@ def cmd_extract(args):
 
 def cmd_decode(args):
     from sais_tpu_torch.infer.pipeline import GestureDecoder
-    from sais_tpu_torch.infer.postprocess import write_gestures_csv
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
-    _check_modalities(args)
+    _check_ported(args)
     cfg = _pipeline_config(args)
     folds = _load_folds(args, cfg)
     with FeatureStore(rgb_store_path(args.path)) as fs:
@@ -125,8 +151,46 @@ def cmd_decode(args):
     out = os.path.join(args.path, "results")
     os.makedirs(out, exist_ok=True)
     dest = os.path.join(out, "Custom_inference_gestures.csv")
-    write_gestures_csv(rows, dest)
+    write_rows_csv(rows, dest)
     print(f"wrote {len(rows)} gesture intervals to {dest}")
+    if args.save_artifacts:
+        # reps_and_labels_<phase> / attention_<phase> (train.py:113-119)
+        from sais_tpu_torch.train.checkpoint import save_inference_artifacts
+        art = dec.inference_artifacts(args.videoname, rgb)
+        save_inference_artifacts(
+            os.path.join(args.path, "params", "Fold_0"), "Custom_inference",
+            {"reps": art["reps"], "probs": art["probs"],
+             "videonames": art["videonames"]},
+            attention=art["attention"])
+        print("wrote inference artifacts under params/Fold_0")
+
+
+def cmd_steps(args):
+    """Sub-phase (step) recognition over a full-length video: 10 s / 5 s
+    sliding windows (prepare_dataset.py:459-486), fold-ensembled."""
+    from sais_tpu_torch.data.tasks import step_window_config
+    from sais_tpu_torch.infer.pipeline import GestureDecoder
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
+    from sais_tpu_torch.infer.skill import StepRecognizer
+    from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
+    _check_ported(args)
+    args.nclasses = 3    # the step classes NH / ND / NW
+    cfg = _pipeline_config(args)
+    window = step_window_config(args.fps)
+    if args.stride_divisor:
+        window = dataclasses.replace(window,
+                                     stride_divisor=args.stride_divisor)
+    cfg = dataclasses.replace(cfg, window=window)
+    folds = _load_folds(args, cfg)
+    with FeatureStore(rgb_store_path(args.path)) as fs:
+        rgb = fs.read_video(args.videoname)
+    rec = StepRecognizer(GestureDecoder(folds, cfg, device=args.device),
+                         fps=args.fps)
+    rows = rec.recognize(args.videoname, rgb)
+    dest = os.path.join(args.path, "results", f"{args.videoname}_steps.csv")
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    write_rows_csv(rows, dest, rec.columns)
+    print(f"wrote {len(rows)} step windows to {dest}")
 
 
 def cmd_pipeline(args):
@@ -140,7 +204,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sais_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in [("extract", cmd_extract), ("decode", cmd_decode),
-                     ("pipeline", cmd_pipeline)]:
+                     ("pipeline", cmd_pipeline), ("steps", cmd_steps)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
         sp.add_argument("-f", "--videoname", required=True)
@@ -161,6 +225,30 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (default) or cpu")
         sp.add_argument("--force", action="store_true",
                         help="re-extract features that already exist")
+        sp.add_argument("--save-artifacts", action="store_true",
+                        help="decode: also write the reps_and_labels / "
+                             "attention artifacts under params/Fold_0")
+        sp.add_argument("--flash", default="auto",
+                        choices=["auto", "on", "off"],
+                        help="flash attention (K2) in the temporal encoder; "
+                             "auto = on a CUDA device for windows of >= 512 "
+                             "tokens.  When it runs, saved attention "
+                             "artifacts hold the CLS-query row instead of "
+                             "the full (L, L) matrix")
+        sp.add_argument("--seq-parallel", type=int, default=0, metavar="N",
+                        help="not ported yet (sequence-parallel ring "
+                             "attention); any N > 0 is refused")
+        sp.add_argument("--stride-divisor", type=int, default=None,
+                        help="steps: per-window frame subsampling divisor "
+                             "(reference span // 10); 4096 gives stride 1, "
+                             "full-length windows")
+        sp.add_argument("--fps", type=float, default=20.0,
+                        help="steps: video fps for the 10 s / 5 s windows "
+                             "(prepare_dataset.py:471-473)")
+        sp.add_argument("--max-positions", type=int, default=0, metavar="N",
+                        help="temporal pos-emb table size (default: the "
+                             "reference's 2000); raise it for windows of "
+                             "more than 2000 frames")
     return p
 
 

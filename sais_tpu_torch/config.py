@@ -60,8 +60,9 @@ class TemporalConfig:
     """Post-norm, ReLU torch TransformerEncoder over per-frame features
     (prepare_model.py:74-81): ffn 2048, LayerNorm eps 1e-5.
 
-    use_flash: the fused flash-attention kernel for long windows is not
-    ported yet; see `models.full_model.resolve_flash`."""
+    use_flash: True / False forces the flash-attention kernel K2 in the
+    encoder, None (auto) takes it on a CUDA device for windows of
+    flash_min_len tokens or more; see `models.full_model.resolve_flash`."""
 
     rep_dim: int = 384
     num_layers: int = 4

@@ -16,7 +16,7 @@ import copy
 import os
 import queue
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,13 +141,13 @@ class GestureDecoder:
              torch.as_tensor(p, dtype=torch.float32).to(self.device))
             for m, p in fold_params]
 
-    def _run_batch(self, model: FullModel, protos: torch.Tensor,
-                   tta: TTABatch) -> np.ndarray:
-        """Chunked execution of one TTA variant -> (W, P) float64 probs."""
+    def _chunks(self, model: FullModel, protos: torch.Tensor,
+                tta: TTABatch):
+        """Yield (PrototypesOutput, probs) per device chunk of one TTA
+        variant, in window order."""
         mcfg = self.cfg.model
         use_rgb = mcfg.modalities in ("RGB", "RGB-Flow")
         use_flow = mcfg.modalities in ("Flow", "RGB-Flow")
-        outs = []
         with torch.inference_mode():
             for i in range(0, tta.rgb.shape[0], self.device_batch):
                 sl = slice(i, i + self.device_batch)
@@ -159,8 +159,13 @@ class GestureDecoder:
                     model, mcfg, dev(tta.rgb, use_rgb),
                     dev(tta.rgb_mask, use_rgb), dev(tta.flow, use_flow),
                     dev(tta.flow_mask, use_flow))
-                outs.append(prototype_probs(out.video_rep, protos))
-        return torch.cat(outs).cpu().numpy().astype(np.float64)
+                yield out, prototype_probs(out.video_rep, protos)
+
+    def _run_batch(self, model: FullModel, protos: torch.Tensor,
+                   tta: TTABatch) -> np.ndarray:
+        """Chunked execution of one TTA variant -> (W, P) float64 probs."""
+        probs = [p for _, p in self._chunks(model, protos, tta)]
+        return torch.cat(probs).cpu().numpy().astype(np.float64)
 
     def _check_flow(self, rgb_reps: np.ndarray,
                     flow_reps: Optional[np.ndarray]) -> np.ndarray:
@@ -198,3 +203,40 @@ class GestureDecoder:
         return decode_gesture_intervals(probs, manifest.start_frames,
                                         manifest.end_frames, video,
                                         self.cfg.postprocess)
+
+    def inference_artifacts(self, video: str, rgb_reps: np.ndarray,
+                            flow_reps: Optional[np.ndarray] = None,
+                            fold: int = 0) -> Dict[str, object]:
+        """Per-window reps and probabilities of every TTA augment plus the
+        first augment's attention, the artifacts the reference keeps per
+        inference phase (train.py:113-119).  The attention is the dense
+        encoder's (W, L, L) matrices, or the (W, L) CLS-query rows when
+        the windows take K2 (the only rows SAIS consumes,
+        prepare_model.py:221); force use_flash=False for full matrices."""
+        manifest = build_window_manifest(video, len(rgb_reps),
+                                         self.cfg.window)
+        if len(manifest) == 0:   # video shorter than one window
+            return {"reps": {}, "probs": {}, "attention": None,
+                    "start_frames": manifest.start_frames,
+                    "end_frames": manifest.end_frames, "videonames": []}
+        flow_reps = self._check_flow(rgb_reps, flow_reps)
+        tta_batches = build_tta_batches(rgb_reps, flow_reps, manifest,
+                                        self.cfg.window)
+        model, protos = self.folds[fold]
+        reps: Dict[int, np.ndarray] = {}
+        probs: Dict[int, np.ndarray] = {}
+        attention = None
+
+        def gather(ts):
+            return torch.cat(ts).cpu().numpy()
+
+        for ti, tta in enumerate(tta_batches):
+            chunks = list(self._chunks(model, protos, tta))
+            reps[ti] = gather([o.video_rep for o, _ in chunks])
+            probs[ti] = gather([p for _, p in chunks])
+            if ti == 0:   # attention from the first augment only
+                attention = gather([o.attn for o, _ in chunks])
+        return {"reps": reps, "probs": probs, "attention": attention,
+                "start_frames": manifest.start_frames,
+                "end_frames": manifest.end_frames,
+                "videonames": [video] * len(manifest)}

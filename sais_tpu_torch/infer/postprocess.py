@@ -13,7 +13,8 @@ process_inference_results.py:201-258:
    (:171-183);
 4. frames -> HH:MM:SS at 30 fps (:185-197);
 5. write results/Custom_inference_gestures.csv (:258) with the columns,
-   column order and leading index column of pandas' `DataFrame.to_csv`.
+   column order and leading index column of pandas' `DataFrame.to_csv`
+   (`write_rows_csv`, which also writes the steps CSV).
 """
 
 from __future__ import annotations
@@ -128,16 +129,18 @@ def decode_gesture_intervals(probs: np.ndarray, start_frames: np.ndarray,
     return rows
 
 
-def write_gestures_csv(rows: List[Row], path: str) -> None:
+def write_rows_csv(rows: List[Row], path: str,
+                   columns: Optional[Sequence[object]] = None) -> None:
     """The file pandas' `DataFrame(rows).to_csv(path)` writes: a header
     with an empty index label, then the row number and the values of each
-    row (floats as their shortest round-trip repr).  No rows: '""'."""
+    row (floats as their shortest round-trip repr).  No rows: the header
+    alone when `columns` names them, else '""' (pandas' empty frame)."""
     with open(path, "w", newline="") as f:
-        if not rows:
+        if not rows and columns is None:
             f.write('""\n')
             return
         w = csv.writer(f, lineterminator="\n")
-        columns = list(rows[0])
+        columns = list(rows[0]) if rows else list(columns)
         w.writerow([""] + columns)
         for i, row in enumerate(rows):
             w.writerow([i] + [row[c] for c in columns])

@@ -6,7 +6,8 @@ prepare_model.py:18-515), inference only:
   reps (B, S, F, D) + learned per-index positional embeddings
     -> prepend the learned frame CLS token
     -> 4-layer / 4-head encoder with key-padding mask (also returns the
-       last layer's head-averaged attention)
+       last layer's head-averaged attention; windows of flash_min_len
+       tokens or more take K2 on the card, see `resolve_flash`)
     -> ReLU -> CLS track (B, S, D)
   mean over snippets -> RGB + Flow sum -> ReLU -> linear(384 -> 256) video
   rep, and linear2(256 -> 3) auxiliary logits.
@@ -45,7 +46,9 @@ class FullModel(nn.Module):
 class TemporalOutput(NamedTuple):
     full_seq: torch.Tensor   # (B, S, F+1, D) post-ReLU encoder
     cls_seq: torch.Tensor    # (B, S, D)
-    attn: torch.Tensor       # (B*S, F+1, F+1) last layer, head-averaged
+    # last layer's head-averaged attention: (B*S, F+1, F+1) on the dense
+    # path, the CLS-query row (B*S, F+1) on the flash path (K2)
+    attn: torch.Tensor
 
 
 class PrototypesOutput(NamedTuple):
@@ -54,26 +57,25 @@ class PrototypesOutput(NamedTuple):
     attn: torch.Tensor
 
 
+def cls_attention(attn: torch.Tensor) -> torch.Tensor:
+    """Either attention form -> the CLS-query row (B*S, F+1): dense
+    (B*S, F+1, F+1) -> row 0; the flash path's already is the row."""
+    return attn[:, 0, :] if attn.dim() == 3 else attn
+
+
 def resolve_flash(cfg: ModelConfig, seq_len: int, device: torch.device
                   ) -> bool:
-    """Whether a window of `seq_len` tokens takes flash attention.  The
-    flash kernel (K2, sais_tpu/kernels/flash_attention.py) is not ported
-    yet, so this returns False or raises: forcing it raises, and in auto
-    mode a window of flash_min_len tokens or more raises on CUDA rather
-    than silently taking the dense path where the TPU would not.  Off the
-    card, auto mode stays dense, as the JAX package does off a TPU."""
+    """Whether a window of `seq_len` tokens runs its attention on K2.
+
+    cfg.temporal.use_flash True / False forces it (True on the CPU runs
+    K2's plain version, as JAX runs interpret mode off a TPU); None = auto:
+    K2 on a CUDA device once the window reaches flash_min_len tokens, the
+    TPU rule with the card in the TPU's place.  Reads only the device type,
+    so it needs no card to answer."""
     t = cfg.temporal
-    if t.use_flash:
-        raise NotImplementedError(
-            "use_flash=True: the flash-attention kernel K2 "
-            "(sais_tpu/kernels/flash_attention.py) is not ported yet")
-    if t.use_flash is None and seq_len >= t.flash_min_len \
-            and device.type == "cuda":
-        raise NotImplementedError(
-            f"a {seq_len}-token window takes flash attention (K2) in auto "
-            f"mode (flash_min_len={t.flash_min_len}), which is not ported "
-            "yet; set use_flash=False to run it dense")
-    return False
+    if t.use_flash is not None:
+        return bool(t.use_flash)
+    return seq_len >= t.flash_min_len and device.type == "cuda"
 
 
 def temporal_features(model: FullModel, reps: torch.Tensor,
@@ -82,12 +84,17 @@ def temporal_features(model: FullModel, reps: torch.Tensor,
     """prepareInputForTransformer + aggregateInputs (prepare_model.py:179-221),
     with self-attention (the reference's -sa, which inference uses)."""
     b, s, f, d = reps.shape
+    if f > model.frame_pos.shape[0]:
+        raise ValueError(
+            f"{f}-frame windows exceed the {model.frame_pos.shape[0]}-slot "
+            "positional table; raise max_positions (--max-positions)")
     x = reps + model.frame_pos[:f].to(reps.dtype)[None, None]
     cls = model.frame_cls.to(reps.dtype).expand(b, s, 1, d)
     x = torch.cat([cls, x], dim=2).reshape(b * s, f + 1, d)
     mask = pad_mask.reshape(b * s, f + 1) if pad_mask is not None else None
-    resolve_flash(cfg, f + 1, reps.device)
-    out, attn = encoder_forward(model.frame_encoder, x, cfg.temporal, mask)
+    out, attn = encoder_forward(model.frame_encoder, x, cfg.temporal, mask,
+                                use_flash=resolve_flash(cfg, f + 1,
+                                                        reps.device))
     full_seq = torch.relu(out).reshape(b, s, f + 1, d)
     return TemporalOutput(full_seq, full_seq[:, :, 0, :], attn)
 

@@ -14,8 +14,14 @@ attention weights (README.md:43-48).  Semantics kept exactly:
 Batch-major layout (torch's own encoder is sequence-major).  The modules
 keep torch's TransformerEncoderLayer names (`self_attn.in_proj_weight`,
 `linear1`, `norm1`, ...), so the reference's encoder weights map one to
-one.  The flash-attention variant for long windows waits for its kernel
-(see `full_model.resolve_flash`).
+one.
+
+`use_flash` runs every layer's attention through K2
+(`kernels.flash_attention`, the CUDA kernel on the card and its plain
+version on the CPU); the in_proj and out_proj products stay outside the
+kernel as `F.linear`, as in JAX.  The (L, L) weights are then never formed,
+and the encoder returns the last layer's head-averaged CLS-query row
+(B, L) instead of the full matrix.  `full_model.resolve_flash` decides.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sais_tpu_torch.config import TemporalConfig
+from sais_tpu_torch.kernels.flash_attention import (cls_attention_row,
+                                                    flash_attention)
 from sais_tpu_torch.models.vit import _layer_norm
 
 _NEG_INF = -1e30
@@ -81,12 +89,40 @@ def multihead_attention(x: torch.Tensor, mha: MultiheadAttention,
     return out, weights.mean(dim=1)
 
 
+def multihead_attention_flash(x: torch.Tensor, mha: MultiheadAttention,
+                              num_heads: int,
+                              key_padding_mask: Optional[torch.Tensor],
+                              want_cls_row: bool = False
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`multihead_attention` through K2, without the (L, L) weights.
+    q, k and v go to the kernel as (B, H, L, Dh) views of the projection
+    and its output comes back as a view of a (B, L, H, Dh) buffer, so no
+    operand is copied.  Returns (out, CLS-row attention (B, L) when asked,
+    else None)."""
+    b, l, d = x.shape
+    dh = d // num_heads
+    qkv = F.linear(x, mha.in_proj_weight, mha.in_proj_bias)
+    q, k, v = (t.reshape(b, l, num_heads, dh).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    out = flash_attention(q, k, v, key_padding_mask)
+    out = mha.out_proj(out.transpose(1, 2).reshape(b, l, d))
+    cls_row = (cls_attention_row(q, k, key_padding_mask)
+               if want_cls_row else None)
+    return out, cls_row
+
+
 def encoder_layer(x: torch.Tensor, layer: EncoderLayer, cfg: TemporalConfig,
-                  key_padding_mask: Optional[torch.Tensor]
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  key_padding_mask: Optional[torch.Tensor],
+                  use_flash: bool = False, want_cls_row: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Post-norm torch TransformerEncoderLayer (activation=relu)."""
-    y, attn = multihead_attention(x, layer.self_attn, cfg.num_heads,
-                                  key_padding_mask)
+    if use_flash:
+        y, attn = multihead_attention_flash(x, layer.self_attn,
+                                            cfg.num_heads, key_padding_mask,
+                                            want_cls_row)
+    else:
+        y, attn = multihead_attention(x, layer.self_attn, cfg.num_heads,
+                                      key_padding_mask)
     eps = cfg.layernorm_eps
     x = _layer_norm(x + y, layer.norm1.weight, layer.norm1.bias, eps)
     h = layer.linear2(torch.relu(layer.linear1(x)))
@@ -96,12 +132,16 @@ def encoder_layer(x: torch.Tensor, layer: EncoderLayer, cfg: TemporalConfig,
 
 def encoder_forward(encoder: TransformerEncoder, x: torch.Tensor,
                     cfg: TemporalConfig,
-                    key_padding_mask: Optional[torch.Tensor] = None
+                    key_padding_mask: Optional[torch.Tensor] = None,
+                    use_flash: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stacked encoder -> (output, last layer's head-averaged attention)."""
+    """Stacked encoder -> (output, last layer's head-averaged attention):
+    (B, L, L) dense, or the CLS-query row (B, L) with use_flash."""
     attn = None
-    for layer in encoder.layers:
-        x, attn = encoder_layer(x, layer, cfg, key_padding_mask)
+    n = len(encoder.layers)
+    for i, layer in enumerate(encoder.layers):
+        x, attn = encoder_layer(x, layer, cfg, key_padding_mask, use_flash,
+                                want_cls_row=use_flash and i == n - 1)
     return x, attn
 
 

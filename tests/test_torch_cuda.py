@@ -7,12 +7,22 @@ machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
-from sais_tpu_torch.config import ViTConfig
+from sais_tpu_torch.config import ModelConfig, ViTConfig
+from sais_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                    flash_attention_fwd,
+                                                    flash_attention_reference,
+                                                    key_bias)
 from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                               vit_block_reference)
+from sais_tpu_torch.models.full_model import (full_model_init,
+                                              prototypes_forward,
+                                              prototypes_init)
+from sais_tpu_torch.models.heads import prototype_probs
 from sais_tpu_torch.models.vit import vit_forward_fused, vit_init
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +96,106 @@ def test_vit_fused_path_on_kernel_matches_plain(cuda):
     assert fused_vit_block.launches == before + cfg.depth
     assert got.shape == (16, 384) and torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+
+
+def _qkv(seed, b, h, lq, lk, dh, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((b, h, lq, dh), generator=g).to(device),
+            torch.randn((b, h, lk, dh), generator=g).to(device),
+            torch.randn((b, h, lk, dh), generator=g).to(device))
+
+
+def _ragged_mask(b, l, device="cuda"):
+    """Masked tails that differ per element; the last element has every
+    key masked."""
+    mask = torch.zeros((b, l), dtype=torch.bool)
+    for i in range(b):
+        mask[i, l - 11 * i:] = True
+    mask[-1] = True
+    return mask.to(device)
+
+
+@pytest.mark.parametrize("b,h,lq,lk,dh", [(3, 4, 301, 301, 96),
+                                          (4, 2, 37, 37, 64),
+                                          (2, 4, 130, 130, 128),
+                                          (3, 1, 70, 200, 96),
+                                          (2, 3, 1, 65, 64)])
+def test_flash_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
+    """K2 against its plain version: out within 1e-4 of the largest plain
+    value, lse within 1e-4 of max(1, |lse|) on elements with a valid key
+    (both f32; summation order and the online rescaling differ by a few
+    ulps); the all-masked element gives zeros and lse -1e30 on both."""
+    q, k, v = _qkv(lq + lk, b, h, lq, lk, dh)
+    bias = key_bias(_ragged_mask(b, lk))
+    before = flash_attention.launches
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_reference(q, k, v, bias)
+    ok = slice(0, b - 1)
+    err = (out[ok] - ref[ok]).abs().max().item()
+    assert err <= 1e-4 * ref[ok].abs().max().item(), err
+    lerr = (lse[ok] - ref_lse[ok]).abs().max().item()
+    assert lerr <= 1e-4 * max(1.0, ref_lse[ok].abs().max().item()), lerr
+    assert (lse[-1] == -1e30).all() and (ref_lse[-1] == -1e30).all()
+    if lq == lk:
+        zeroed = flash_attention(q, k, v, bias < 0)
+        assert torch.count_nonzero(zeroed[-1]) == 0
+        torch.testing.assert_close(zeroed[ok], out[ok], rtol=0, atol=0)
+
+
+def test_flash_kernel_takes_projection_views(cuda):
+    """q, k and v as (B, H, L, Dh) views of one (B, L, 3 D) projection, as
+    the temporal encoder hands them over: the same result as contiguous
+    copies, and the output is a view of a (B, L, H, Dh) buffer."""
+    b, l, heads, dh = 2, 301, 4, 96
+    qkv = torch.randn((b, l, 3 * heads * dh), device="cuda")
+    q, k, v = (t.reshape(b, l, heads, dh).transpose(1, 2)
+               for t in qkv.split(heads * dh, dim=-1))
+    out = flash_attention(q, k, v)
+    ref = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert out.transpose(1, 2).is_contiguous()
+
+
+def test_flash_wrapper_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv(0, 2, 2, 40, 40, 64)
+    with pytest.raises(ValueError, match="f32"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="f32"):
+        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    q80, k80, v80 = _qkv(1, 2, 2, 40, 40, 80)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q80, k80, v80)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention_fwd(q, k, v, torch.zeros((2, 39), device="cuda"))
+
+
+def test_auto_rule_takes_k2_at_2001_tokens(cuda):
+    """prototypes_forward at (2, 1, 2000, 384) in auto mode on the card:
+    the window of 2001 tokens takes K2 (one launch per layer) and its
+    probabilities agree with the dense path within 5e-4, the JAX package's
+    flash-vs-dense limit."""
+    cfg = ModelConfig(modalities="RGB")
+    model = full_model_init(torch.Generator().manual_seed(0), cfg).to(cuda)
+    protos = prototypes_init(torch.Generator().manual_seed(1), 3)[1].to(cuda)
+    rgb = torch.randn((2, 1, 2000, 384),
+                      generator=torch.Generator().manual_seed(2)).to(cuda)
+    mask = torch.zeros((2, 1, 2001), dtype=torch.bool, device=cuda)
+    mask[1, 0, 1500:] = True
+    before = flash_attention.launches
+    with torch.inference_mode():
+        out = prototypes_forward(model, cfg, rgb, mask)
+        assert flash_attention.launches == before + cfg.temporal.num_layers
+        dense_cfg = ModelConfig(modalities="RGB", temporal=dataclasses.replace(
+            cfg.temporal, use_flash=False))
+        dense = prototypes_forward(model, dense_cfg, rgb, mask)
+    assert out.attn.shape == (2, 2001) and dense.attn.shape == (2, 2001, 2001)
+    err = (prototype_probs(out.video_rep, protos)
+           - prototype_probs(dense.video_rep, protos)).abs().max().item()
+    assert err <= 5e-4, err

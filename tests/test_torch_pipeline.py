@@ -24,7 +24,7 @@ from sais_tpu.models.vit import vit_init as jax_vit_init
 from sais_tpu_torch import config as tconfig
 from sais_tpu_torch.infer.pipeline import FeatureExtractor, GestureDecoder
 from sais_tpu_torch.infer.postprocess import (decode_gesture_intervals,
-                                              write_gestures_csv)
+                                              write_rows_csv)
 from sais_tpu_torch.models.full_model import FullModel
 from sais_tpu_torch.models.vit import VisionTransformer
 from sais_tpu_torch.port.weights import (full_model_params_from_jax,
@@ -101,7 +101,7 @@ def test_window_probs_and_rows_match_jax(nfolds):
 
 def _csv_text_equal(rows, df, tmp_path):
     path = tmp_path / "port.csv"
-    write_gestures_csv(rows, str(path))
+    write_rows_csv(rows, str(path))
     buf = io.StringIO()
     df.to_csv(buf)
     assert path.read_text() == buf.getvalue()
