@@ -1,5 +1,5 @@
-"""Command line of the port: `extract`, `decode`, `pipeline -mod RGB` and
-`steps`, with the flags of `sais` (sais_tpu/cli/main.py).
+"""Command line of the port: `extract`, `decode`, `pipeline -mod RGB`,
+`steps` and `train`, with the flags of `sais` (sais_tpu/cli/main.py).
 
   python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> -mod RGB \
       --random-init
@@ -15,11 +15,21 @@ and attention under <root>/params/Fold_0).
 
 recognizes steps over full-length 10 s / 5 s windows of the stored
 features (stride 1) with the temporal attention on K2, and writes
-<root>/results/<video>_steps.csv.  Everything runs on the card
-(`--device cuda`, the default) unless `--device cpu` is given.
+<root>/results/<video>_steps.csv.
+
+  python -m sais_tpu_torch.cli.main train -p <root> --segments segs.csv \
+      -bc -e 50 -bs 2 -lr 0.1 --flash auto
+
+trains the Prototypes task on the stored RGB features of the segments
+(Video / StartFrame / EndFrame / Gesture) with the reference's fold-video
+split, one fold per --nfolds, and writes <root>/params/Fold_<k>/params.pkl,
+prototypes.pkl and metrics.pkl in the JAX package's layout.  Everything
+runs on the card (`--device cuda`, the default) unless `--device cpu` is
+given.
 
 Checkpoints: --dino-weights takes the reference
-dino_deitsmall16_pretrain.pth; --params-dir takes reference folds
+dino_deitsmall16_pretrain.pth; --params-dir takes folds trained by either
+package (Fold_<i>/params.pkl + prototypes.pkl) or reference folds
 (Fold_<i>/params.zip + prototypes.zip).  --random-init runs freshly
 initialized models from fixed seeds.
 """
@@ -32,6 +42,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from sais_tpu_torch.config import PipelineConfig
@@ -66,12 +77,36 @@ def _load_vit(args, cfg):
     return vit_init(torch.Generator().manual_seed(0), cfg.vit)
 
 
-def _load_folds(args, cfg):
-    from sais_tpu_torch.models.full_model import (FullModel, full_model_init,
-                                                  prototypes_init)
-    from sais_tpu_torch.port.weights import (full_model_params_from_reference,
+def load_fold(d: str, cfg):
+    """(FullModel, prototypes) of one fold directory: params.pkl +
+    prototypes.pkl written by `train` (either package; the JAX pytree), or
+    the reference's params.zip + prototypes.zip.  The model keeps the
+    checkpoint's own positional-table length, as the JAX package does."""
+    from sais_tpu_torch.models.full_model import FullModel
+    from sais_tpu_torch.port.weights import (full_model_params_from_jax,
+                                             full_model_params_from_reference,
                                              load_checkpoint,
                                              prototypes_from_reference)
+    from sais_tpu_torch.train.checkpoint import load_training_result
+    if os.path.exists(os.path.join(d, "params.pkl")):
+        res = load_training_result(d)
+        sd = full_model_params_from_jax(res["params"])
+        protos = torch.as_tensor(np.asarray(res["prototypes"], np.float32))
+    else:
+        sd = full_model_params_from_reference(
+            load_checkpoint(os.path.join(d, "params.zip")))
+        _, protos = prototypes_from_reference(
+            load_checkpoint(os.path.join(d, "prototypes.zip")))
+    model = FullModel(dataclasses.replace(
+        cfg.model, temporal=dataclasses.replace(
+            cfg.model.temporal, max_positions=len(sd["frame_pos"]))))
+    model.load_state_dict(sd)
+    return model, protos
+
+
+def _load_folds(args, cfg):
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
     if not args.params_dir:
         if not args.random_init:
             sys.exit("need --params-dir or --random-init")
@@ -79,25 +114,8 @@ def _load_folds(args, cfg):
         _, protos = prototypes_init(torch.Generator().manual_seed(2),
                                     args.nclasses, cfg.model.proj_dim)
         return [(model, protos)]
-    folds = []
-    for fold in range(args.nfolds):
-        d = os.path.join(args.params_dir, f"Fold_{fold}")
-        if os.path.exists(os.path.join(d, "params.pkl")):
-            sys.exit(f"{d} holds a fold trained by the JAX package "
-                     "(params.pkl), which only the JAX package reads; "
-                     "decode it with `sais decode`, or pass reference "
-                     "folds (params.zip + prototypes.zip)")
-        sd = full_model_params_from_reference(
-            load_checkpoint(os.path.join(d, "params.zip")))
-        # the checkpoint's own table length, as the JAX package takes it
-        model = FullModel(dataclasses.replace(
-            cfg.model, temporal=dataclasses.replace(
-                cfg.model.temporal, max_positions=len(sd["frame_pos"]))))
-        model.load_state_dict(sd)
-        _, protos = prototypes_from_reference(
-            load_checkpoint(os.path.join(d, "prototypes.zip")))
-        folds.append((model, protos))
-    return folds
+    return [load_fold(os.path.join(args.params_dir, f"Fold_{fold}"), cfg)
+            for fold in range(args.nfolds)]
 
 
 def _check_ported(args):
@@ -193,6 +211,86 @@ def cmd_steps(args):
     print(f"wrote {len(rows)} step windows to {dest}")
 
 
+def _check_train_ported(args):
+    """`train` runs -t Prototypes --dataset segments --split-policy
+    fold-video -mod RGB on stored reps; the rest comes with later slices
+    (ROADMAP.md Queue 1)."""
+    _check_ported(args)
+    if args.dataset != "segments":
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: not ported yet; the EASE skill and "
+            "stitch branches (vua-ease, vua-ease-stitch) come with the "
+            "skill-training slice, the gesture-timestamp tables "
+            "(vua-gestures, dvc-ucl) with the reference dataset branches")
+    if args.split_policy != "fold-video":
+        raise NotImplementedError(
+            f"--split-policy {args.split_policy}: not ported yet; the named "
+            "reference split policies come with the reference dataset "
+            "branches")
+    if args.task != "Prototypes":
+        raise NotImplementedError(
+            f"-t {args.task}: not ported yet; the MIL and "
+            "ClassificationHead tasks come with the classification slice")
+    if args.data_type != "reps":
+        raise NotImplementedError(
+            f"--data-type {args.data_type}: not ported yet; raw-video "
+            "training (R3D / ViT snippets) comes with the raw-video slice")
+    if not args.segments:
+        sys.exit("train needs --segments <csv> (Video, StartFrame, "
+                 "EndFrame, Gesture)")
+
+
+def cmd_train(args):
+    """Training over folds (run_experiments.py:85-116): per fold, the
+    reference fold-video split and class balancing, PrototypeTrainer with
+    early stopping, the best snapshot saved under params/Fold_<k>."""
+    from sais_tpu_torch.config import TrainConfig
+    from sais_tpu_torch.data.collate import segment_batches
+    from sais_tpu_torch.data.datasets import (build_segment_dataset,
+                                              read_segments)
+    from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+    from sais_tpu_torch.train.checkpoint import save_training_result
+    from sais_tpu_torch.train.loop import PrototypeTrainer
+    _check_train_ported(args)
+    cfg = _pipeline_config(args)
+    segments = read_segments(args.segments)
+    store = FeatureStore(rgb_store_path(args.path))
+    try:
+        for fold in range(args.nfolds):
+            print(f"Fold: {fold}")
+            ds = build_segment_dataset(segments, fold,
+                                       balance=args.balance_classes)
+            mcfg = dataclasses.replace(cfg.model, nclasses=len(ds.classes))
+            # random init from fixed seeds: model 2k, prototypes 2k + 1
+            model = full_model_init(torch.Generator().manual_seed(2 * fold),
+                                    mcfg)
+            keys, protos = prototypes_init(
+                torch.Generator().manual_seed(2 * fold + 1), len(ds.classes),
+                mcfg.proj_dim)
+            trainer = PrototypeTrainer(
+                mcfg, TrainConfig(lr=args.lr, nepochs=args.nepochs,
+                                  batch_size=args.batch_size),
+                model, keys, protos, device=args.device)
+
+            def loader(rows, train):
+                # the epoch index seeds the per-epoch reshuffle
+                return lambda epoch=0: segment_batches(
+                    rows, store, ds.classes, cfg.window, args.batch_size,
+                    shuffle=train, seed=epoch, tta=not train)
+
+            loaders = {ph: loader(ds.frames[ph], ph == "train")
+                       for ph in ("train", "val", "test") if ds.frames[ph]}
+            result = trainer.fit(loaders, nepochs=args.nepochs)
+            savepath = os.path.join(args.path, "params", f"Fold_{fold}")
+            save_training_result(savepath, result)
+            print(f"saved fold {fold} (best epoch {result['best_epoch']}) "
+                  f"to {savepath}")
+    finally:
+        store.close()
+
+
 def cmd_pipeline(args):
     t0 = time.time()
     cmd_extract(args)
@@ -204,14 +302,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sais_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in [("extract", cmd_extract), ("decode", cmd_decode),
-                     ("pipeline", cmd_pipeline), ("steps", cmd_steps)]:
+                     ("pipeline", cmd_pipeline), ("steps", cmd_steps),
+                     ("train", cmd_train)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
-        sp.add_argument("-f", "--videoname", required=True)
+        sp.add_argument("-f", "--videoname", required=name != "train")
         sp.add_argument("-p", "--path", default=".")
         sp.add_argument("--dino-weights")
         sp.add_argument("--params-dir",
-                        help="reference folds: Fold_<i>/params.zip and "
+                        help="trained folds: Fold_<i>/params.pkl and "
+                             "prototypes.pkl (either package's `train`), "
+                             "or reference Fold_<i>/params.zip and "
                              "prototypes.zip")
         sp.add_argument("--random-init", action="store_true")
         sp.add_argument("--nfolds", type=int, default=1)
@@ -249,6 +350,30 @@ def build_parser() -> argparse.ArgumentParser:
                         help="temporal pos-emb table size (default: the "
                              "reference's 2000); raise it for windows of "
                              "more than 2000 frames")
+        # training flags (run_experiments.py:19-46 equivalents)
+        sp.add_argument("--segments",
+                        help="train: CSV with Video/StartFrame/EndFrame/"
+                             "Gesture")
+        sp.add_argument("-lr", "--lr", type=float, default=0.1)
+        sp.add_argument("-e", "--nepochs", type=int, default=50)
+        sp.add_argument("-bc", "--balance-classes", action="store_true")
+        sp.add_argument("-t", "--task", default="Prototypes",
+                        choices=["Prototypes", "MIL", "ClassificationHead"],
+                        help="train: Prototypes (the others are not "
+                             "ported yet)")
+        sp.add_argument("--split-policy", default="fold-video",
+                        choices=["fold-video", "per-gesture-video", "louo",
+                                 "instance"],
+                        help="train: fold-video (the others are not "
+                             "ported yet)")
+        sp.add_argument("--dataset", default="segments",
+                        choices=["segments", "vua-ease", "vua-ease-stitch",
+                                 "vua-gestures", "dvc-ucl"],
+                        help="train: segments (the others are not ported "
+                             "yet)")
+        sp.add_argument("-dt", "--data-type", default="reps",
+                        choices=["reps", "raw"],
+                        help="train: reps (raw is not ported yet)")
     return p
 
 

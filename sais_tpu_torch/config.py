@@ -1,11 +1,12 @@
 """Typed configuration for the port: the dataclasses of `sais_tpu.config`
-that the RGB gesture-decoding path reads, copied with the same fields and
-defaults (the reference values).
+that the RGB decoding and Prototypes training paths read, copied with the
+same fields and defaults (the reference values).
 
 - window geometry:   prepare_dataset.py:1711-1715 (0.5 s windows @ 30 fps)
 - TTA offsets:       prepare_dataset.py:2649-2651 (+0, +3, +6 frames)
 - temporal encoder:  prepare_model.py:74-81 (4 layers, 4 heads, d_model=rep_dim)
 - post-processing:   process_inference_results.py:230-234
+- training loop:     train.py:46-96, prepare_model.py:566-567
 - preprocessing:     extract_representations.py:145-162, main_dino.py:300-326
 - ViT-S/16:          dino-main/vision_transformer.py:243-247
 """
@@ -117,6 +118,16 @@ class PostprocessConfig:
     merge_gap_s: int = 3
     fps: int = 30
     class_names: Sequence[str] = ("in-view", "out-of-view")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training loop (train.py:46-96, prepare_model.py:566-567)."""
+
+    lr: float = 0.1              # main.sh:27 '-lr 1e-1'
+    nepochs: int = 50
+    max_patience: int = 5        # train.py:48
+    batch_size: int = 2          # main.sh:27 '-bs 2'
 
 
 @dataclasses.dataclass(frozen=True)

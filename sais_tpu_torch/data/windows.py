@@ -134,3 +134,14 @@ def build_tta_batches(video_reps: np.ndarray, flow_reps: np.ndarray,
         out.append(TTABatch(rgb.astype(np.float32), rgb_mask,
                             flow.astype(np.float32), flow_mask))
     return out
+
+
+def segment_frame_indices(start_frame: int, end_frame: int,
+                          cfg: WindowConfig, tta_offset: int = 0
+                          ) -> np.ndarray:
+    """Frame indices of one labeled segment on the reps path (train time):
+    both ends minus 1 (prepare_dataset.py:2642-2643), stride span //
+    stride_divisor (at least 1), start shifted by the TTA offset."""
+    s, e = start_frame - 1, end_frame - 1
+    stride = max((e - s) // cfg.stride_divisor, 1)
+    return np.arange(s + tta_offset, e, stride)

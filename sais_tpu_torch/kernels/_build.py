@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("fused_vit_block", "flash_attention")
+SOURCES = ("fused_vit_block", "flash_attention", "flash_attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,20 +1,24 @@
 """SAIS temporal model, Prototypes task, 'reps' data path.
 
 Counterpart of `sais_tpu/models/full_model.py` (reference fullModel,
-prepare_model.py:18-515), inference only:
+prepare_model.py:18-515):
 
   reps (B, S, F, D) + learned per-index positional embeddings
     -> prepend the learned frame CLS token
     -> 4-layer / 4-head encoder with key-padding mask (also returns the
        last layer's head-averaged attention; windows of flash_min_len
-       tokens or more take K2 on the card, see `resolve_flash`)
+       tokens or more take K2 forward and K3 backward on the card, see
+       `resolve_flash`)
     -> ReLU -> CLS track (B, S, D)
   mean over snippets -> RGB + Flow sum -> ReLU -> linear(384 -> 256) video
   rep, and linear2(256 -> 3) auxiliary logits.
 
-Masks are bool (B, S, F+1), True = padding; slot 0 (CLS) is never padded.
-The clip encoder, MIL modules and the classification head wait for the
-training slice.
+Inference runs `prototypes_forward` under `torch.inference_mode`; training
+(`train.loop.PrototypeTrainer`) runs the same function with gradients on,
+through the flash path's autograd Function where it is taken.  Masks are
+bool (B, S, F+1), True = padding; slot 0 (CLS) is never padded.  The clip
+encoder, MIL modules, importance and classification heads wait for the
+slices that train them.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from sais_tpu_torch.models.temporal import (TransformerEncoder,
 
 
 class FullModel(nn.Module):
-    """The parameters the Prototypes inference path reads."""
+    """The parameters the Prototypes path reads and trains."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()

@@ -1,12 +1,17 @@
-"""Prototype head: cosine similarity to prototypes, softmax, entropy.
+"""Prototype head: cosine similarity to prototypes, softmax, entropy, the
+NCE training loss and the label -> prototype column rule.
 
-Counterpart of the inference half of `sais_tpu/models/heads.py`
-(prepare_miscellaneous.py:14-46, process_inference_results.py:76-91,131).
-The MIL head and the NCE loss wait for the training slice.
+Counterpart of the Prototypes half of `sais_tpu/models/heads.py`
+(prepare_miscellaneous.py:14-46, :97-161, process_inference_results.py
+:76-91,131).  The MIL head and the importance head wait for the slices
+that train them.
 """
 
 from __future__ import annotations
 
+from typing import Any, Sequence
+
+import numpy as np
 import torch
 
 
@@ -29,6 +34,25 @@ def prototype_probs(video_reps: torch.Tensor,
     """exp(sim) / sum(exp(sim)), a softmax over prototypes
     (process_inference_results.py:88-91)."""
     return torch.softmax(prototype_similarities(video_reps, prototypes), -1)
+
+
+def labels_to_prototype_columns(labels: Sequence[Any],
+                                prototype_keys: Sequence[str]) -> np.ndarray:
+    """String-match labels to prototype columns, keeping the reference's
+    argmax quirk: a label that matches no key maps to column 0
+    (prepare_miscellaneous.py:32-37)."""
+    keys = list(prototype_keys)
+    return np.asarray([keys.index(str(lab)) if str(lab) in keys else 0
+                       for lab in labels], dtype=np.int32)
+
+
+def nce_loss(video_reps: torch.Tensor, prototypes: torch.Tensor,
+             label_cols: torch.Tensor) -> torch.Tensor:
+    """Temperature-free cosine InfoNCE against the prototypes
+    (prepare_miscellaneous.py:14-46): -mean(log softmax(sim)[i, col_i])."""
+    logp = torch.log_softmax(prototype_similarities(video_reps, prototypes),
+                             -1)
+    return -logp.gather(1, label_cols.long()[:, None])[:, 0].mean()
 
 
 def entropy(probs: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -16,12 +16,14 @@ keep torch's TransformerEncoderLayer names (`self_attn.in_proj_weight`,
 `linear1`, `norm1`, ...), so the reference's encoder weights map one to
 one.
 
-`use_flash` runs every layer's attention through K2
-(`kernels.flash_attention`, the CUDA kernel on the card and its plain
-version on the CPU); the in_proj and out_proj products stay outside the
-kernel as `F.linear`, as in JAX.  The (L, L) weights are then never formed,
-and the encoder returns the last layer's head-averaged CLS-query row
-(B, L) instead of the full matrix.  `full_model.resolve_flash` decides.
+`use_flash` runs every layer's attention through K2 forward and K3
+backward (`kernels.flash_attention.PackedFlashAttention`: the CUDA kernels
+on the card, their plain versions on the CPU); the in_proj and out_proj
+products stay outside the kernels as `F.linear`, as in JAX.  The (L, L)
+weights are then never formed, the path is differentiable, and the
+encoder returns the last layer's head-averaged CLS-query row (B, L),
+computed without gradient (training reads only the video representation),
+instead of the full matrix.  `full_model.resolve_flash` decides.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch.nn.functional as F
 
 from sais_tpu_torch.config import TemporalConfig
 from sais_tpu_torch.kernels.flash_attention import (cls_attention_row,
-                                                    flash_attention)
+                                                    flash_attention_packed,
+                                                    split_heads)
 from sais_tpu_torch.models.vit import _layer_norm
 
 _NEG_INF = -1e30
@@ -94,20 +97,22 @@ def multihead_attention_flash(x: torch.Tensor, mha: MultiheadAttention,
                               key_padding_mask: Optional[torch.Tensor],
                               want_cls_row: bool = False
                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """`multihead_attention` through K2, without the (L, L) weights.
-    q, k and v go to the kernel as (B, H, L, Dh) views of the projection
-    and its output comes back as a view of a (B, L, H, Dh) buffer, so no
-    operand is copied.  Returns (out, CLS-row attention (B, L) when asked,
-    else None)."""
+    """`multihead_attention` through K2 / K3, without the (L, L) weights.
+    q, k and v go to the kernels as (B, H, L, Dh) views of the projection,
+    the output comes back as a view of a (B, L, H, Dh) buffer and the
+    backward writes the projection's gradient into one (B, L, 3 D) buffer,
+    so no operand is copied.  Returns (out, CLS-row attention (B, L) when
+    asked, else None); the row is a reported quantity, computed without
+    gradient."""
     b, l, d = x.shape
-    dh = d // num_heads
     qkv = F.linear(x, mha.in_proj_weight, mha.in_proj_bias)
-    q, k, v = (t.reshape(b, l, num_heads, dh).transpose(1, 2)
-               for t in qkv.split(d, dim=-1))
-    out = flash_attention(q, k, v, key_padding_mask)
+    out = flash_attention_packed(qkv, num_heads, key_padding_mask)
     out = mha.out_proj(out.transpose(1, 2).reshape(b, l, d))
-    cls_row = (cls_attention_row(q, k, key_padding_mask)
-               if want_cls_row else None)
+    cls_row = None
+    if want_cls_row:
+        with torch.no_grad():
+            q, k, _ = split_heads(qkv, num_heads)
+            cls_row = cls_attention_row(q, k, key_padding_mask)
     return out, cls_row
 
 

@@ -4,6 +4,8 @@
   pytrees (leaves as numpy arrays) -> state_dicts of
   `models.vit.VisionTransformer` / `models.full_model.FullModel`.  JAX
   stores linear weights (in, out); torch stores (out, in).
+  `full_model_params_to_jax` is the inverse of the latter (the
+  `params.pkl` the port's `train` writes).
 - `load_dino_weights`: DINO `.pth` (dino_deitsmall16_pretrain.pth or a
   surgical pre-training checkpoint) -> VisionTransformer state_dict.
 - `full_model_params_from_reference` / `prototypes_from_reference`: the
@@ -96,6 +98,48 @@ def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     sd.update(_linear_from_jax(tree["linear"], "linear."))
     sd.update(_linear_from_jax(tree["linear2"], "linear2."))
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _npT(t: torch.Tensor) -> np.ndarray:
+    """A torch (out, in) linear weight -> the JAX (in, out) layout."""
+    return np.ascontiguousarray(_np(t).T)
+
+
+def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+    """FullModel state_dict -> `sais_tpu.models.full_model` params pytree
+    (numpy leaves), the inverse of `full_model_params_from_jax`: the
+    parameters the Prototypes path reads, in the JAX package's layout."""
+    nlayers = 1 + max(int(k.split(".")[2]) for k in sd
+                      if k.startswith("frame_encoder.layers."))
+    layers = []
+    for i in range(nlayers):
+        p = f"frame_encoder.layers.{i}."
+        layers.append({
+            "mha": {"in_w": _npT(sd[p + "self_attn.in_proj_weight"]),
+                    "in_b": _np(sd[p + "self_attn.in_proj_bias"]),
+                    "out_w": _npT(sd[p + "self_attn.out_proj.weight"]),
+                    "out_b": _np(sd[p + "self_attn.out_proj.bias"])},
+            "ff1_w": _npT(sd[p + "linear1.weight"]),
+            "ff1_b": _np(sd[p + "linear1.bias"]),
+            "ff2_w": _npT(sd[p + "linear2.weight"]),
+            "ff2_b": _np(sd[p + "linear2.bias"]),
+            "ln1_s": _np(sd[p + "norm1.weight"]),
+            "ln1_b": _np(sd[p + "norm1.bias"]),
+            "ln2_s": _np(sd[p + "norm2.weight"]),
+            "ln2_b": _np(sd[p + "norm2.bias"]),
+        })
+    return {"frame_cls": _np(sd["frame_cls"]),
+            "frame_pos": _np(sd["frame_pos"]),
+            "frame_encoder": {"layers": layers},
+            "linear": {"w": _npT(sd["linear.weight"]),
+                       "b": _np(sd["linear.bias"])},
+            "linear2": {"w": _npT(sd["linear2.weight"]),
+                        "b": _np(sd["linear2.bias"])}}
 
 
 def load_checkpoint(path: str) -> Any:

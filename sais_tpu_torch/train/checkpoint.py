@@ -1,9 +1,14 @@
-"""Inference artifacts on disk (reference train.py:113-121).
+"""Training results and inference artifacts on disk (reference
+train.py:105-121).
 
-Counterpart of `save_inference_artifacts` in `sais_tpu/train/checkpoint.py`
-(the rest of that module, orbax training checkpoints, waits for the
-training slice).  The files are pickles of numpy arrays, laid out as the
-JAX package writes them, so either package reads the other's.
+Counterpart of `save_training_result`, `load_training_result` and
+`save_inference_artifacts` in `sais_tpu/train/checkpoint.py` (its orbax
+checkpoint manager, DINO's restartable checkpoints, waits for the
+pre-training slice).  The files are pickles of numpy arrays, laid out as
+the JAX package writes them (params.pkl holds the JAX parameter pytree),
+so either package reads the other's: `sais decode --params-dir` decodes a
+fold the port trained, and the port's `decode` one the JAX package
+trained.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from sais_tpu_torch.port.weights import full_model_params_to_jax
 
 
 def _host(obj: Any) -> Any:
@@ -29,6 +36,32 @@ def _host(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return np.asarray(obj)
+
+
+def save_training_result(savepath: str, result: Dict[str, Any]) -> None:
+    """The best-val snapshot under params/Fold_<k> (train.py:105-112):
+    params.pkl (the JAX pytree of `result['model']`, a FullModel
+    state_dict), prototypes.pkl and metrics.pkl."""
+    os.makedirs(savepath, exist_ok=True)
+    payloads = {"params": full_model_params_to_jax(result["model"]),
+                "prototypes": _host(result["prototypes"]),
+                "metrics": result.get("metrics", {})}
+    for name, obj in payloads.items():
+        with open(os.path.join(savepath, name + ".pkl"), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def load_training_result(savepath: str) -> Dict[str, Any]:
+    """The pickles of a params/Fold_<k> directory, by name (params,
+    prototypes, metrics), as written by either package.  Unpickles: load
+    only folds you trust."""
+    out = {}
+    for name in ("params", "prototypes", "metrics"):
+        p = os.path.join(savepath, f"{name}.pkl")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                out[name] = pickle.load(f)
+    return out
 
 
 def save_inference_artifacts(savepath: str, phase: str,

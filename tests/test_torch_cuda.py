@@ -12,11 +12,11 @@ import dataclasses
 import pytest
 import torch
 
-from sais_tpu_torch.config import ModelConfig, ViTConfig
-from sais_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                    flash_attention_fwd,
-                                                    flash_attention_reference,
-                                                    key_bias)
+from sais_tpu_torch.config import (ModelConfig, TemporalConfig, TrainConfig,
+                                   ViTConfig)
+from sais_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_reference, key_bias)
 from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                               vit_block_reference)
 from sais_tpu_torch.models.full_model import (full_model_init,
@@ -199,3 +199,113 @@ def test_auto_rule_takes_k2_at_2001_tokens(cuda):
     err = (prototype_probs(out.video_rep, protos)
            - prototype_probs(dense.video_rep, protos)).abs().max().item()
     assert err <= 5e-4, err
+
+
+@pytest.mark.parametrize("b,h,lq,lk,dh", [(3, 4, 301, 301, 96),
+                                          (4, 2, 37, 37, 64),
+                                          (2, 4, 130, 130, 128),
+                                          (3, 1, 70, 200, 96),
+                                          (2, 3, 129, 65, 64)])
+def test_flash_bwd_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
+    """K3 against its plain version on out and lse from K2, with masked
+    tails that differ per element and one all-masked element: dq, dk and
+    dv each within 1e-4 of the largest plain value (both f32; only the
+    summation order differs)."""
+    q, k, v = _qkv(lq + 2 * lk, b, h, lq, lk, dh)
+    bias = key_bias(_ragged_mask(b, lk))
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(dh)
+                     ).to(cuda)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    ref = flash_attention_bwd_reference(q, k, v, bias, out, lse, do)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        err = (g - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), err
+
+
+def test_flash_attention_gradient_runs_k3(cuda):
+    """A gradient through `flash_attention` on the card runs K3 once and
+    agrees with the same gradient on the CPU (plain versions) within 1e-4
+    of the largest value; the all-masked element's dq, dk, dv are 0."""
+    b, h, l, dh = 3, 4, 150, 96
+    q, k, v = _qkv(11, b, h, l, l, dh, device="cpu")
+    mask = _ragged_mask(b, l, device="cpu")
+    g = torch.randn((b, h, l, dh), generator=torch.Generator().manual_seed(12))
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, mask.to(device))
+        out.backward(g.to(device))
+        return [t.grad.cpu() for t in leaves]
+
+    before = flash_attention_bwd.launches
+    got = grads(cuda)
+    assert flash_attention_bwd.launches == before + 1
+    for gg, rr in zip(got, grads("cpu")):
+        assert torch.count_nonzero(gg[-1]) == 0
+        err = (gg - rr).abs().max().item()
+        assert err <= 1e-4 * rr.abs().max().item(), err
+
+
+def test_flash_bwd_wrapper_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv(2, 2, 2, 40, 40, 64)
+    out, lse = flash_attention_fwd(q, k, v)
+    do = torch.randn_like(out)
+    with pytest.raises(ValueError, match="f32"):
+        flash_attention_bwd(q.double(), k.double(), v.double(), None,
+                            out, lse, do)
+    q80, k80, v80 = _qkv(3, 2, 2, 40, 40, 80)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q80, k80, v80, None, q80, lse, q80)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, k, v, None, out, lse,
+                            do.transpose(2, 3).contiguous().transpose(2, 3))
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(q, k, v, None, out, lse, do,
+                            grads=(shifted, torch.empty_like(k),
+                                   torch.empty_like(v)))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, None, out, lse[:, :, :-1], do)
+
+
+def test_prototype_trainer_step_on_card_matches_cpu(cuda):
+    """Two SGD steps of a 2-layer, D 384 (Dh 96) PrototypeTrainer with
+    flash attention (K2 / K3 on the card, their plain versions on the CPU)
+    from the same initial parameters: the same losses within 1e-5 and the
+    same parameters within 1e-4 relative (f32 both sides, summation order
+    only).  Each step launches K2 and K3 once per layer."""
+    import numpy as np
+
+    from sais_tpu_torch.train.loop import PrototypeTrainer
+    cfg = ModelConfig(modalities="RGB", temporal=TemporalConfig(
+        num_layers=2, ffn_dim=512, use_flash=True, max_positions=128))
+    rng = np.random.default_rng(0)
+    mask = np.zeros((4, 1, 101), bool)
+    mask[1, 0, 60:] = True
+    batch = {"rgb": rng.standard_normal((4, 1, 100, 384)).astype(np.float32),
+             "rgb_mask": mask, "label_cols": np.array([0, 1, 1, 0], np.int32),
+             "labels": np.array([0, 1, 1, 0], np.int32)}
+
+    def run(device):
+        model = full_model_init(torch.Generator().manual_seed(0), cfg)
+        keys, protos = prototypes_init(torch.Generator().manual_seed(1), 2)
+        tr = PrototypeTrainer(cfg, TrainConfig(lr=0.1), model, keys, protos,
+                              device=device)
+        losses = [float(tr.train_step(batch)[0]) for _ in range(2)]
+        return losses, tr.snapshot()
+
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    losses, (sd, protos) = run(cuda)
+    assert flash_attention.launches - f0 == 4
+    assert flash_attention_bwd.launches - b0 == 4
+    ref_losses, (ref_sd, ref_protos) = run("cpu")
+    np.testing.assert_allclose(losses, ref_losses, rtol=0, atol=1e-5)
+    torch.testing.assert_close(protos, ref_protos, rtol=1e-4, atol=1e-6)
+    for name, p in sd.items():
+        torch.testing.assert_close(p, ref_sd[name], rtol=1e-4, atol=1e-6,
+                                   msg=name)

@@ -164,8 +164,10 @@ def test_cli_pipeline_rgb_on_cpu(tmp_path, monkeypatch, capsys):
 
 def test_cli_decode_reads_reference_folds(tmp_path, monkeypatch, capsys):
     """`decode --params-dir` with reference folds (Fold_<i>/params.zip +
-    prototypes.zip written by torch.save); a fold trained by the JAX
-    package (params.pkl) is refused with a clear error."""
+    prototypes.zip written by torch.save), and beside one a fold trained
+    by the JAX package (params.pkl + prototypes.pkl from its
+    save_training_result): the port reads it, and its window
+    probabilities equal the JAX decoder's on that fold within 1e-3."""
     from sais_tpu_torch.cli import main as cli
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
     from tests.golden.torch_temporal import random_full_model_state_dict
@@ -189,10 +191,23 @@ def test_cli_decode_reads_reference_folds(tmp_path, monkeypatch, capsys):
     cli.main(argv)
     assert "gesture intervals" in capsys.readouterr().out
     assert (tmp_path / "results" / "Custom_inference_gestures.csv").exists()
-    os.makedirs(tmp_path / "params" / "Fold_1")
-    (tmp_path / "params" / "Fold_1" / "params.pkl").write_bytes(b"")
-    with pytest.raises(SystemExit, match="params.pkl"):
-        cli.main(argv + ["--nfolds", "2"])
+    from sais_tpu.train.checkpoint import save_training_result
+    jfold, _ = _folds(1)
+    params, protos = jfold[0]
+    save_training_result(str(tmp_path / "params" / "Fold_1"),
+                         {"model": params, "prototypes": protos,
+                          "metrics": {"loss": [0.5]}})
+    cli.main(argv + ["--nfolds", "2"])
+    assert "gesture intervals" in capsys.readouterr().out
+    model, got_protos = cli.load_fold(str(tmp_path / "params" / "Fold_1"),
+                                      tiny_cfg(tconfig))
+    reps = np.random.default_rng(0).standard_normal((90, DIM)).astype(
+        np.float32)
+    ref = JaxDecoder(jfold, tiny_cfg(jconfig)).window_probs("vid", reps,
+                                                            None)
+    got = GestureDecoder([(model, got_protos)], tiny_cfg(tconfig),
+                         device="cpu").window_probs("vid", reps)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
@@ -213,8 +228,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 
 def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     """Every module of the port, imported in a fresh interpreter, leaves
-    jax, the JAX package and the host libraries it loads lazily (cv2,
-    h5py, pandas) out of sys.modules."""
+    jax, the JAX package, the host libraries it loads lazily (cv2, h5py)
+    and the ones it does without (pandas, sklearn) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sais_tpu_torch\n"
@@ -222,7 +237,8 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
         " 'sais_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'sais_tpu', 'cv2', 'h5py', 'pandas'))\n"
+        " ('jax', 'jaxlib', 'sais_tpu', 'cv2', 'h5py', 'pandas',"
+        " 'sklearn'))\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('sais_tpu_torch.')]), bad)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,4 +247,4 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
-    assert int(count) >= 20 and bad.strip() == "[]", res.stdout
+    assert int(count) >= 25 and bad.strip() == "[]", res.stdout
