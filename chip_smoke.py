@@ -70,11 +70,35 @@ Phases, each of which fails the run:
    level moves, in the norm; the dense path against itself under 1e-7
    input noise is printed beside it); median step time of five after a
    warm-up, for both paths.
-9. prints the kernels line (JSON), then, last, the device line (JSON).
+9. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
+   (fused_block_bwd_attn), bf16, D = 384, 6 heads of 64, MLP 1536: each
+   CUDA kernel against its plain version (out and x1; dx1 and the f32 MLP
+   weight gradients; dx and the f32 attention weight gradients) at the
+   pretrain step's shapes (B, L) = (128, 197) and (512, 37) and at (64,
+   208) with keys >= 197 masked, each without and with branch scales (a
+   quarter of them 0); CUDA-event times with the scales of the kernel, its
+   plain version and the PyTorch library composition (K4: layer_norm,
+   linear, SDPA, gelu; K5 and K6: the autograd backward of the MLP and
+   attention halves, forward + backward minus forward); the least time the
+   card could take.
+10. pretrain path at full width (`pretrain -bs 64` without the video
+   I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
+   local at 96, drop path 0.1, adamw, fused blocks) from fixed seeds, 64
+   synthetic 480x640 frames (numpy seed 0), border crop and
+   multi_crop_batch on the card; one warm-up step, then five steps (host
+   clock, loss fetched each step; img/s from the median).  K4, K5 and K6
+   must launch exactly 24 times a step (12 blocks x 2 crop groups) and K1
+   12 (the teacher); every loss finite; one step's loss and every
+   parameter gradient, with the same weights, crops and drop-path draws,
+   against the same step through the plain versions on the card (loss
+   1e-3 relative, each gradient 5e-2 of its largest value).
+11. prints the kernels line (JSON), then, last, the device line (JSON).
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
-K3 calls and one long train step (with K2's and K3's shares).
+K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls and
+one pretrain step (with K4's, K5's, K6's and K1's shares, read from
+profiler ranges: K1 and K4 share their kernels' names).
 """
 
 from __future__ import annotations
@@ -375,12 +399,13 @@ def phase_k2():
     return result
 
 
-def _profile(fn, name: str, steps: int, shares=None):
+def _profile(fn, name: str, steps: int, shares=None, ranges=()):
     """torch.profiler over `steps` calls of fn: prints the per-kernel table
     and the device's busy time (the union of its kernel and copy
     intervals) against the host's wall time.  `shares`: label -> kernel
     name fragment, whose summed device time is printed as a share of the
-    busy time.  Returns (busy us, wall us, {label: us})."""
+    busy time; `ranges`: names of record_function ranges whose device time
+    is printed the same way.  Returns (busy us, wall us, {label: us})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -414,6 +439,15 @@ def _profile(fn, name: str, steps: int, shares=None):
         print(f"{name}: {label} {got[label]:.0f} us, "
               f"{100 * got[label] / busy_us:.1f}% of device busy time",
               flush=True)
+    averages = {e.key: e for e in prof.key_averages()}
+    for label in ranges:
+        e = averages.get(label)
+        us = 0.0 if e is None else getattr(
+            e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+        got[label] = us
+        print(f"{name}: {label} {us:.0f} us of device time in "
+              f"{0 if e is None else e.count} calls, "
+              f"{100 * us / busy_us:.1f}% of device busy time", flush=True)
     return busy_us, wall_us, got
 
 
@@ -963,6 +997,363 @@ def phase_train():
     return train_k2, train_k3
 
 
+# ---------------------------------------------------------------------------
+# K4, K5, K6: the ViT block's training kernels
+# ---------------------------------------------------------------------------
+
+# (B, L, valid): the pretrain step's global and local crop groups, and one
+# masked shape (keys >= 197 of 208 masked, as the JAX package pads rows)
+TRAIN_SHAPES = ((128, 197, 197), (512, 37, 37), (64, 208, 197))
+
+
+def train_scales(b, l, seed):
+    """Per-image branch scales in {0, 1/0.9} (about a quarter dropped, image
+    0's attention branch and image 1's MLP branch among them), (B, L, 1)
+    bf16 on the card."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    keep = (torch.rand((2, b), generator=g) < 0.75).float()
+    keep[0, 0] = keep[1, 1] = 0.0
+    return [(k / 0.9).to(torch.bfloat16)[:, None, None].expand(b, l, 1)
+            .contiguous().cuda() for k in keep]
+
+
+def train_bounds(b, l, d, mlp):
+    """Least times of K4, K5, K6 on (B, L, D): the products the JAX bodies
+    execute per image (K4 24 L D^2 + 4 L^2 D, K5 40 L D^2, K6 22 L D^2 + 12
+    L^2 D; MLP 4 D) at the bf16 peak, against the bytes each must move: its
+    bf16 activations and branch scales read and written once, its bf16
+    weights read once, its f32 weight gradients written once."""
+    assert mlp == 4 * d
+    act, scale = 2 * b * l * d, 2 * b * l
+    w_mlp = 2 * d * mlp + mlp + 3 * d          # fc1, fc2, LN2 elements
+    w_attn = 4 * d * d + 4 * d + 2 * d         # qkv, proj, LN1 elements
+    out = {}
+    for name, flops, nbytes in (
+            ("K4", 24 * b * l * d * d + 4 * b * l * l * d,
+             3 * act + 2 * scale + 2 * (w_mlp + w_attn)),
+            ("K5", 40 * b * l * d * d, 3 * act + scale + 6 * w_mlp),
+            ("K6", 22 * b * l * d * d + 12 * b * l * l * d,
+             3 * act + scale + 6 * w_attn)):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     nbytes)
+    return out
+
+
+def library_mlp_half(x1, lib_w, eps):
+    """out = x1 + fc2(gelu_tanh(fc1(LN2(x1)))) as PyTorch library calls."""
+    import torch.nn.functional as F
+    fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b = lib_w
+    y = F.layer_norm(x1, (x1.shape[-1],), ln2_s, ln2_b, eps)
+    h = F.gelu(F.linear(y, fc1_w, fc1_b), approximate="tanh")
+    return x1 + F.linear(h, fc2_w, fc2_b)
+
+
+def library_attn_half(x, lib_w, heads, valid_len, eps):
+    """x1 = x + proj(SDPA(qkv(LN1(x)))) as PyTorch library calls."""
+    import torch
+    import torch.nn.functional as F
+    qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b = lib_w
+    b, l, d = x.shape
+    y = F.layer_norm(x, (d,), ln1_s, ln1_b, eps)
+    q, k, v = F.linear(y, qkv_w, qkv_b).view(b, l, 3, heads,
+                                             d // heads).permute(2, 0, 3, 1, 4)
+    mask = None
+    if valid_len < l:
+        mask = (torch.arange(l, device=x.device) < valid_len)[None, :]
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return x + F.linear(ctx.transpose(1, 2).reshape(b, l, d), proj_w, proj_b)
+
+
+def library_bwd_ms(fn, inputs, cot):
+    """Backward time of a library composition: forward + backward minus
+    forward, CUDA events."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+
+    def fwd():
+        return fn(*leaves)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, cot)
+
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(fwd, iters=10)
+    return cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
+
+
+def phase_train_kernels():
+    import torch
+    from sais_tpu_torch.kernels.fused_mha import (
+        block_bwd_attn_reference, block_bwd_mlp_reference,
+        fused_block_bwd_attn, fused_block_bwd_mlp, fused_block_fwd_train,
+        vit_block_train_reference)
+    d, heads, mlp, eps = 384, 6, 1536, 1e-6
+    worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+    result = {}
+    for b, l, valid in TRAIN_SHAPES:
+        x, ws = k1_inputs(b, l, d, heads, mlp, seed=l + 3)
+        mlp_w, attn_w = ws[4:8] + ws[10:12], ws[0:4] + ws[8:10]
+        dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            l)).to("cuda", torch.bfloat16)
+        kw = dict(num_heads=heads, valid_len=valid, eps=eps)
+        for scaled in (False, True):
+            s1, s2 = train_scales(b, l, l) if scaled else (None, None)
+            got = fused_block_fwd_train(x, *ws, s1=s1, s2=s2, **kw)
+            torch.cuda.synchronize()
+            ref = vit_block_train_reference(x, *ws, s1=s1, s2=s2, **kw)
+            x1 = ref[1]
+            checks = [("K4", n, a[:, :valid], r[:, :valid]) for n, a, r in
+                      zip(("out", "x1"), got, ref)]
+            got = fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps, s2=s2)
+            torch.cuda.synchronize()
+            ref = block_bwd_mlp_reference(x1, dout, *mlp_w, eps=eps, s2=s2)
+            dx1 = ref[0]
+            checks += [("K5", n, a, r) for n, a, r in zip(
+                ("dx1", "dfc1_w", "dfc1_b", "dfc2_w", "dfc2_b", "dln2_s",
+                 "dln2_b"), got, ref)]
+            got = fused_block_bwd_attn(x, dx1, *attn_w, s1=s1, **kw)
+            torch.cuda.synchronize()
+            ref = block_bwd_attn_reference(x, dx1, *attn_w, s1=s1, **kw)
+            checks += [("K6", n, a, r) for n, a, r in zip(
+                ("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dln1_s",
+                 "dln1_b"), got, ref)]
+            line = []
+            for kernel, name, a, r in checks:
+                err = (a.float() - r.float()).abs().max().item()
+                scale = r.float().abs().max().item()
+                line.append(f"{name} {err:.3g}/{scale:.3g}")
+                # Limit 2e-2 * max|plain|: the two round at the same points
+                # and sum in another order, which moves a bf16 value by an
+                # ulp or two (2**-8) and an f32 sum over B*L rows by less.
+                check(math.isfinite(err) and err <= 2e-2 * scale,
+                      f"{kernel} {name} disagrees with its plain version at "
+                      f"(B, L, valid) = ({b}, {l}, {valid}), scaled "
+                      f"{scaled}: {err} > 2e-2 * {scale}")
+                worst[kernel] = max(worst[kernel], err)
+            print(f"K4-K6 (B, L, valid) = ({b}, {l}, {valid})"
+                  f"{' scaled' if scaled else ''}: max|kernel-plain| / "
+                  f"max|plain|: {', '.join(line)}", flush=True)
+        del got, ref, checks
+        if valid != l:
+            del x, ws, x1, dx1, dout
+            continue
+        # times with branch scales, as the pretrain step runs them
+        s1, s2 = train_scales(b, l, l)
+        kw = dict(num_heads=heads, valid_len=valid, eps=eps)
+        runs = {
+            "K4": (lambda: fused_block_fwd_train(x, *ws, s1=s1, s2=s2, **kw),
+                   lambda: vit_block_train_reference(x, *ws, s1=s1, s2=s2,
+                                                     **kw)),
+            "K5": (lambda: fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps,
+                                               s2=s2),
+                   lambda: block_bwd_mlp_reference(x1, dout, *mlp_w, eps=eps,
+                                                   s2=s2)),
+            "K6": (lambda: fused_block_bwd_attn(x, dx1, *attn_w, s1=s1, **kw),
+                   lambda: block_bwd_attn_reference(x, dx1, *attn_w, s1=s1,
+                                                    **kw))}
+        lib_w = [w.t().contiguous() if w.dim() == 2 else w for w in ws]
+        library = {
+            "K4": cuda_time_ms(lambda: library_block(x, lib_w, heads, valid,
+                                                     eps)),
+            "K5": library_bwd_ms(
+                lambda a, *w: library_mlp_half(a, w, eps),
+                [x1] + lib_w[4:8] + lib_w[10:12], dout),
+            "K6": library_bwd_ms(
+                lambda a, *w: library_attn_half(a, w, heads, valid, eps),
+                [x] + lib_w[0:4] + lib_w[8:10], dx1)}
+        bounds = train_bounds(b, l, d, mlp)
+        for name, (kernel, plain) in runs.items():
+            ms = cuda_time_ms(kernel)
+            plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+            bound_ms, bound_by, flops, nbytes = bounds[name]
+            print(f"{name} B={b} L={l} D={d} scaled: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+                  f"ms, library {library[name]:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} "
+                  f"GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+                  f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+            if (b, l) == (128, 197):
+                result[name] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=library[name],
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        if (b, l) == (128, 197):
+            _profile(lambda: [fn() for fn, _ in runs.values()],
+                     "k4_k5_k6_profile", 3)
+        del x, ws, x1, dx1, dout
+        torch.cuda.empty_cache()
+    for name in result:
+        result[name]["max_abs_err"] = worst[name]
+    return result
+
+
+class _Ranged:
+    """`fn` called inside a profiler range named `label`.  It stands in for
+    a kernel wrapper in its module, so its `launches` reads and writes the
+    wrapper's own count."""
+
+    def __init__(self, label, fn, counter):
+        self.label, self.fn, self.counter = label, fn, counter
+
+    @property
+    def launches(self):
+        return self.counter.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.counter.launches = n
+
+    def __call__(self, *args, **kwargs):
+        from torch.profiler import record_function
+        with record_function(self.label):
+            return self.fn(*args, **kwargs)
+
+
+class _Annotated:
+    """Within the block, K1, K4, K5 and K6 run under profiler ranges named
+    after them (their kernels share names), and `plain=True` routes the
+    same path through the plain versions instead; restored on exit."""
+
+    def __init__(self, plain=False):
+        self.plain = plain
+
+    def __enter__(self):
+        import functools
+
+        from sais_tpu_torch.kernels import fused_mha
+        from sais_tpu_torch.models import vit
+        from sais_tpu_torch.train import dino
+        fns = {"fused_block_fwd_train": ("K4",
+                                         fused_mha.vit_block_train_reference),
+               "fused_block_bwd_mlp": ("K5",
+                                       fused_mha.block_bwd_mlp_reference),
+               "fused_block_bwd_attn": ("K6",
+                                        fused_mha.block_bwd_attn_reference)}
+        self.saved = [(fused_mha, n, getattr(fused_mha, n)) for n in fns]
+        self.saved.append((dino, "vit_forward_fused", dino.vit_forward_fused))
+        for name, (label, plain) in fns.items():
+            kernel = getattr(fused_mha, name)
+            setattr(fused_mha, name, _Ranged(
+                label, plain if self.plain else kernel, kernel))
+        k1 = fused_mha.fused_vit_block
+        dino.vit_forward_fused = functools.partial(
+            vit.vit_forward_fused, block=_Ranged(
+                "K1", fused_mha.vit_block_reference if self.plain else k1,
+                k1))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_pretrain(batch: int = 64):
+    """`pretrain` at full width: ViT-S/16, DINO head out_dim 65536, 2 global
+    crops at 224 + 8 local at 96, batch 64, adamw, drop path 0.1, the
+    student on K4-K6 and the teacher on K1."""
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                  fused_block_bwd_mlp,
+                                                  fused_block_fwd_train,
+                                                  fused_vit_block)
+    from sais_tpu_torch.ops.augment import (center_border_crop,
+                                            multi_crop_batch)
+    from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
+
+    cfg = DINOConfig(out_dim=65536, batch_size=batch, n_global_crops=2,
+                     n_local_crops=8, drop_path_rate=0.1)
+    counters = (fused_block_fwd_train, fused_block_bwd_mlp,
+                fused_block_bwd_attn, fused_vit_block)
+    t0 = time.perf_counter()
+    trainer = DINOTrainer(ViTConfig(), cfg, niter_per_ep=1000,
+                          generator=torch.Generator().manual_seed(0),
+                          optimizer="adamw", fused_blocks=True)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (batch, 480, 640, 3), dtype=np.uint8)
+    images = torch.from_numpy(np.ascontiguousarray(
+        center_border_crop(frames))).cuda().float() / 255.0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    crops = multi_crop_batch(gen, images, 2, 8, 224, 96)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g, l = crops
+    check(tuple(g.shape) == (2 * batch, 224, 224, 3)
+          and tuple(l.shape) == (8 * batch, 96, 96, 3)
+          and bool(torch.isfinite(g).all() and torch.isfinite(l).all()),
+          f"crops {tuple(g.shape)} / {tuple(l.shape)} not finite / wrong")
+    print(f"pretrain: ViT-S/16 + DINO head (out_dim 65536), batch {batch}: "
+          f"crops {tuple(g.shape)} + {tuple(l.shape)}; set-up "
+          f"{setup_s:.1f} s", flush=True)
+
+    losses = [trainer.step(g, l)]    # warm-up
+    torch.cuda.synchronize()
+    times, per_step = [], []
+    for c in counters:
+        c.launches = 0
+    for _ in range(5):
+        before = [c.launches for c in counters]
+        t = time.perf_counter()
+        losses.append(trainer.step(g, l))   # the loss is fetched
+        times.append(time.perf_counter() - t)
+        per_step.append([c.launches - b0 for c, b0 in zip(counters, before)])
+    launches = [c.launches for c in counters]
+    step_s = sorted(times)[2]
+    print(f"pretrain: 5 steps {', '.join(f'{1e3 * t:.2f}' for t in times)}"
+          f" ms (median {1e3 * step_s:.2f} ms, {batch / step_s:.1f} img/s); "
+          f"losses {[round(x, 5) for x in losses]}; launches a step "
+          f"(K4, K5, K6, K1) {per_step[0]}, over the 5 steps {launches}",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), "non-finite pretrain loss")
+    check(all(p == [24, 24, 24, 12] for p in per_step),
+          f"launches a step {per_step}, expected K4, K5, K6 24 and K1 12")
+
+    # one step's loss and gradients, kernels against plain versions, from
+    # the same weights, crops and drop-path draws (no update in between)
+    temp = float(trainer.temp_sched[0])
+
+    def grads(plain):
+        gen = torch.Generator(device="cuda").manual_seed(123)
+        with _Annotated(plain=plain):
+            loss, _ = trainer.loss_and_grads(g, l, temp, gen)
+        out = {n: p.grad.detach().clone()
+               for n, p in trainer.student.named_parameters()
+               if p.grad is not None}
+        return loss.item(), out
+
+    loss_k, grad_k = grads(False)
+    t = time.perf_counter()
+    loss_p, grad_p = grads(True)
+    plain_s = time.perf_counter() - t
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    gaps = {n: (grad_k[n] - grad_p[n]).abs().max().item()
+            / max(grad_p[n].abs().max().item(), 1e-30) for n in grad_p}
+    worst = sorted(gaps.items(), key=lambda kv: kv[1])[-3:]
+    print(f"pretrain step, kernels vs plain versions on the card (plain "
+          f"{plain_s:.1f} s): loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{rel:.3g}); {len(gaps)} gradients, worst max|diff| / max|plain| "
+          f"{', '.join(f'{n} {v:.3g}' for n, v in worst)}", flush=True)
+    # Limits: the loss within 1e-3 relative; each gradient within 5e-2 of
+    # its largest value (12 bf16 blocks, the gesture path's feature limit).
+    check(rel <= 1e-3, f"pretrain loss differs from the plain path: {rel}")
+    check(set(gaps) == set(grad_k), "kernel and plain paths differ in "
+          "which parameters get a gradient")
+    check(worst[-1][1] <= 5e-2, f"gradient {worst[-1][0]} differs from the "
+          f"plain path: {worst[-1][1]}")
+    for p in trainer.student.parameters():
+        p.grad = None
+
+    with _Annotated():
+        _profile(lambda: trainer.step(g, l), "pretrain_step_profile", 1,
+                 ranges=("K4", "K5", "K6", "K1"))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, step_s
+
+
 
 def main():
     try:
@@ -984,6 +1375,8 @@ def main():
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
+    train_k = phase_train_kernels()
+    pretrain_launches, _ = phase_pretrain()
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
@@ -1006,6 +1399,22 @@ def main():
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"]}]
+    for (name, source, replaces), launches in zip((
+            ("fused_block_fwd_train", "fused_vit_block.cu", ":421"),
+            ("fused_block_bwd_mlp", "fused_block_bwd_mlp.cu", ":475"),
+            ("fused_block_bwd_attn", "fused_block_bwd_attn.cu",
+             ":531, :630")), pretrain_launches):
+        k = train_k[{"fused_block_fwd_train": "K4",
+                     "fused_block_bwd_mlp": "K5",
+                     "fused_block_bwd_attn": "K6"}[name]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sais_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"sais_tpu/kernels/fused_mha.py{replaces}",
+            "launches": launches, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"]})
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

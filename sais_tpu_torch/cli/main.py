@@ -1,5 +1,6 @@
 """Command line of the port: `extract`, `decode`, `pipeline -mod RGB`,
-`steps` and `train`, with the flags of `sais` (sais_tpu/cli/main.py).
+`steps`, `train` and `pretrain`, with the flags of `sais`
+(sais_tpu/cli/main.py).
 
   python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> -mod RGB \
       --random-init
@@ -23,9 +24,18 @@ features (stride 1) with the temporal attention on K2, and writes
 trains the Prototypes task on the stored RGB features of the segments
 (Video / StartFrame / EndFrame / Gesture) with the reference's fold-video
 split, one fold per --nfolds, and writes <root>/params/Fold_<k>/params.pkl,
-prototypes.pkl and metrics.pkl in the JAX package's layout.  Everything
-runs on the card (`--device cuda`, the default) unless `--device cpu` is
-given.
+prototypes.pkl and metrics.pkl in the JAX package's layout.
+
+  python -m sais_tpu_torch.cli.main pretrain -p <root> -bs 64 -e 100
+
+DINO self-supervised pre-training of a ViT-S/16 (--arch) over the frames
+of every <root>/videos/*.mp4 (border crop, globally shuffled batches,
+multi-crop augmentation on the device), the student backbone on K4-K6 and
+the teacher on K1; restartable checkpoints under <root>/pretrain/ckpt and
+per-epoch log lines in <root>/pretrain/log.txt.
+
+Everything runs on the card (`--device cuda`, the default) unless
+`--device cpu` is given.
 
 Checkpoints: --dino-weights takes the reference
 dino_deitsmall16_pretrain.pth; --params-dir takes folds trained by either
@@ -291,6 +301,111 @@ def cmd_train(args):
         store.close()
 
 
+def _check_pretrain_ported(args):
+    """`pretrain` runs the video source with a plain head and the fused
+    student backbone; the rest comes with the next slice (ROADMAP.md)."""
+    if args.data_parallel:
+        raise NotImplementedError(
+            "--data-parallel: data-parallel pre-training is not ported yet; "
+            "it comes with the next slice (the fused DINO loss K7 and its "
+            "per-shard variant)")
+    if args.use_bn_in_head:
+        raise NotImplementedError(
+            "--use-bn-in-head: the BatchNorm DINO head is not ported yet; "
+            "it comes with the next slice (beside the fused DINO loss K7)")
+    if args.source != "videos":
+        raise NotImplementedError(
+            f"--source {args.source}: pre-training on rendered optical "
+            "flow is not ported yet; it comes with the next slice, with "
+            "the flow stream (RAFT)")
+
+
+def cmd_pretrain(args):
+    """DINO self-supervised pre-training over surgical video frames
+    (reference dino-main/main_dino.py train path, VUA fine-tuning recipe):
+    frames stream from every mp4 under <root>/videos, augmentation is the
+    device multi-crop pipeline, checkpoints resume transparently."""
+    import glob
+
+    from sais_tpu_torch import resolve_device
+    from sais_tpu_torch.io.shuffle_stream import FrameShuffleStream
+    from sais_tpu_torch.io.video import VideoReader
+    from sais_tpu_torch.models import zoo
+    from sais_tpu_torch.ops.augment import (center_border_crop,
+                                            multi_crop_batch)
+    from sais_tpu_torch.train.checkpoint import CheckpointManager
+    from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
+    from sais_tpu_torch.utils.logging import MetricLogger
+    _check_pretrain_ported(args)
+    videos = sorted(glob.glob(os.path.join(args.path, "videos", "*.mp4")))
+    if not videos:
+        sys.exit(f"no videos under {os.path.join(args.path, 'videos')}")
+    bs = args.batch_size
+    dcfg = DINOConfig(out_dim=args.out_dim, epochs=args.nepochs,
+                      batch_size=bs, n_local_crops=args.local_crops,
+                      warmup_epochs=min(10, max(args.nepochs // 10, 0)),
+                      drop_path_rate=args.drop_path)
+    vit_cfg = zoo.config(args.arch)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        zoo.check_fused_length(args.arch, vit_cfg, dcfg.global_size)
+
+    def _frame_count(v):
+        with VideoReader(v) as r:
+            return r.frame_count
+
+    def _source(v):
+        def it():
+            with VideoReader(v) as r:
+                yield from r.frames()
+        return it
+
+    # steps an epoch from the total frame count
+    niter = max(sum(_frame_count(v) for v in videos) // bs, 1)
+    trainer = DINOTrainer(vit_cfg, dcfg, niter_per_ep=niter,
+                          generator=torch.Generator().manual_seed(0),
+                          optimizer=args.optimizer, device=device)
+    outdir = os.path.join(args.path, "pretrain")
+    mgr = CheckpointManager(os.path.join(outdir, "ckpt"))
+    start_epoch, state = mgr.restore_latest(trainer.state())
+    if start_epoch is not None:
+        trainer.load_state(state)
+        print(f"resumed from epoch {start_epoch}")
+    log_path = os.path.join(outdir, "log.txt")
+    hf, wf = (0.8, 0.7) if args.crop_policy == "gronau" else (0.8, 0.8)
+
+    def _border(frame):
+        # SurgDataset border removal, on the loader thread (slicing only)
+        return center_border_crop(frame[None], hf, wf, args.trim_right)[0]
+
+    for epoch in range(start_epoch or 0, args.nepochs):
+        logger = MetricLogger(jsonl_path=log_path)
+        pending = None   # one step in flight: step k's loss is fetched
+        # after step k + 1 is enqueued
+        stream = FrameShuffleStream(
+            [_source(v) for v in videos], bs,
+            buffer_frames=args.shuffle_buffer, workers=args.loader_threads,
+            seed=epoch, transform=_border)
+        with stream:
+            for bi, batch in enumerate(stream.batches(drop_last=True)):
+                gen = torch.Generator(device=device).manual_seed(
+                    hash((epoch, bi)) % (2 ** 31))
+                frames = torch.from_numpy(batch).to(device).float() / 255.0
+                g, l = multi_crop_batch(gen, frames, dcfg.n_global_crops,
+                                        dcfg.n_local_crops, dcfg.global_size,
+                                        dcfg.local_size)
+                loss_dev = trainer.step_async(g, l)
+                if pending is not None:
+                    logger.update(loss=trainer.check_loss(pending))
+                pending = loss_dev
+        if pending is not None:
+            logger.update(loss=trainer.check_loss(pending))
+        mgr.save(epoch + 1, trainer.state())
+        logger.write_epoch(epoch)
+        print(f"epoch {epoch}: loss {logger.meters['loss'].global_avg:.4f}")
+    print(f"pretraining done; checkpoints in {outdir}")
+
+
 def cmd_pipeline(args):
     t0 = time.time()
     cmd_extract(args)
@@ -303,10 +418,11 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in [("extract", cmd_extract), ("decode", cmd_decode),
                      ("pipeline", cmd_pipeline), ("steps", cmd_steps),
-                     ("train", cmd_train)]:
+                     ("train", cmd_train), ("pretrain", cmd_pretrain)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
-        sp.add_argument("-f", "--videoname", required=name != "train")
+        sp.add_argument("-f", "--videoname",
+                        required=name not in ("train", "pretrain"))
         sp.add_argument("-p", "--path", default=".")
         sp.add_argument("--dino-weights")
         sp.add_argument("--params-dir",
@@ -374,6 +490,42 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("-dt", "--data-type", default="reps",
                         choices=["reps", "raw"],
                         help="train: reps (raw is not ported yet)")
+        # pretraining flags (main_dino.py argparse equivalents)
+        sp.add_argument("--out-dim", type=int, default=65536)
+        sp.add_argument("--local-crops", type=int, default=8)
+        sp.add_argument("--source", default="videos",
+                        choices=["videos", "flows"],
+                        help="pretrain input: decoded video frames (flows "
+                             "is not ported yet)")
+        sp.add_argument("--crop-policy", default="default",
+                        choices=["default", "gronau"],
+                        help="pretrain border removal: 0.8/0.8 center crop, "
+                             "or 0.8/0.7 for Gronau videos "
+                             "(main_dino.py getCropDims)")
+        sp.add_argument("--trim-right", type=int, default=0,
+                        help="extra right-hand pixel trim after the border "
+                             "crop (VUA_Lab/AFB timer overlay: 130, "
+                             "main_dino.py:306-308)")
+        sp.add_argument("--arch", default="vits16",
+                        help="pretrain backbone geometry: vits16 / vits8 / "
+                             "vitb16 / vitb8 or their dino_* aliases (the "
+                             "patch-8 ones exceed the kernels' 256 tokens "
+                             "and are refused on the card)")
+        sp.add_argument("--loader-threads", type=int, default=4,
+                        help="parallel decode threads feeding the shuffle "
+                             "buffer")
+        sp.add_argument("--shuffle-buffer", type=int, default=1024,
+                        help="frames held in the shuffle reservoir")
+        sp.add_argument("--optimizer", default="adamw",
+                        choices=["adamw", "sgd", "lars"])
+        sp.add_argument("--drop-path", type=float, default=0.1,
+                        help="pretrain: student stochastic-depth rate "
+                             "(main_dino.py --drop_path_rate)")
+        sp.add_argument("--use-bn-in-head", action="store_true",
+                        help="not ported yet (the BatchNorm DINO head)")
+        sp.add_argument("--data-parallel", type=int, nargs="?", const=-1,
+                        default=0, metavar="M",
+                        help="not ported yet (data-parallel pre-training)")
     return p
 
 

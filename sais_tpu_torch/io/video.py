@@ -32,6 +32,10 @@ class VideoReader:
         return float(self._cap.get(self._cv2.CAP_PROP_FPS))
 
     @property
+    def frame_count(self) -> int:
+        return int(self._cap.get(self._cv2.CAP_PROP_FRAME_COUNT))
+
+    @property
     def size(self) -> Tuple[int, int]:
         """(height, width)."""
         return (int(self._cap.get(self._cv2.CAP_PROP_FRAME_HEIGHT)),

@@ -6,8 +6,9 @@ interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited source is
-never served by a stale build.  Builds run at first use, never at import.
+The library name carries a hash of the source and of the shared headers
+(`csrc/*.cuh`), so an edited source is never served by a stale build.
+Builds run at first use, never at import.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("fused_vit_block", "flash_attention", "flash_attention_bwd")
+SOURCES = ("fused_vit_block", "flash_attention", "flash_attention_bwd",
+           "fused_block_bwd_mlp", "fused_block_bwd_attn")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -44,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+    """The library of one source; its name hashes the source, every shared
+    header of csrc/ and the flags."""
+    data = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(ARCH_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,0 +1,464 @@
+// K6: backward of the attention half of a pre-norm ViT block in bf16, for
+// Hopper (sm_90a).
+//
+// Replaces sais_tpu/kernels/fused_mha.py::_attn_bwd_kernel and its tail
+// _attn_bwd_tail (reached through _fused_block_bwd_attn), the backward
+// through
+//
+//   x1 = x + [s1 *] proj(attn(qkv(LN1(x))))
+//
+// with the JAX kernel's rounding points:
+//
+//   y     = bf16(LN1(x)), qkv = bf16(y @ Wqkv) + bqkv      recomputed
+//   dbr   = bf16(dx1 * s1)                                 (dx1 unscaled)
+//   dctx  = bf16(dbr @ Wproj^T)
+//   per (image, head): s = (q * dh^-0.5) k^T + mask, p = softmax_f32(s),
+//     pb = bf16(p), ctx = bf16(pb v), dp = dctx v^T (f32),
+//     ds = bf16(p (dp - rowsum(dp p))),
+//     dq = bf16((ds k) dh^-0.5), dk = bf16((ds^T q) dh^-0.5), dv = bf16(pb^T dctx)
+//   dqkv  = [dq heads | dk heads | dv heads]               as Wqkv's columns
+//   dWproj = ctx^T dbr, dbproj = sum dbr, dWqkv = y^T dqkv, dbqkv = sum dqkv
+//   dy    = dqkv @ Wqkv^T (f32), dln1_s = sum dy * xhat, dln1_b = sum dy
+//   dx    = bf16(LN1_bwd(dy) + f32(dx1))
+//
+// What bounds it on an H100: 22 L D^2 + 12 L^2 D flops an image against
+// ~0.6 MB of activations, so tensor-core operations (2.0 TFLOP a DINO step
+// at batch 64).  As in K5, the weight gradients are products with K = B*L
+// rows split into f32 partials summed in split order, and the bias and
+// LayerNorm gradients fixed-order column sums: no atomics.
+//
+// The attention backward (attention_bwd_kernel) takes one (image, head) a
+// block: Q, K, V and dctx of the head (L <= 256 rows of 64) live in shared
+// memory (at most 147 KB).  p of a whole head is 256 x 256 f32 = 256 KB, so
+// it is never stored: phase A gives each warp 16-query tiles and walks the
+// keys in 16-key chunks twice, first for each row's max, sum and
+// rowsum(dp p) (per lane, online, merged over the quad), then for p, ds,
+// ctx and dq in registers; phase B gives each warp 16-key tiles and walks
+// the queries, computing s^T and dp^T directly from the saved row
+// statistics, for dk and dv.  Every product is mma.sync m16n8k16; the score
+// accumulators are re-packed to bf16 A fragments in registers.  Keys at or
+// past valid_len score -1e30 (p exactly 0), tile padding -inf.
+
+#include "vit_block_common.cuh"
+
+namespace {
+
+constexpr int ATTB_WARPS = 8;
+constexpr int ATTB_THREADS = 32 * ATTB_WARPS;
+constexpr int ATTB_LD = DH + 8;   // padded smem rows: ldmatrix without conflicts
+
+template <int KT>
+constexpr size_t attention_bwd_smem() {
+  return 4 * (size_t)(16 * KT) * ATTB_LD * sizeof(bf16) +
+         3 * (size_t)(16 * KT) * sizeof(float);
+}
+
+// qkv: (B*L, 3D) [q heads | k heads | v heads]; dctx, ctx: (B*L, D);
+// dqkv: (B*L, 3D) in qkv's layout.
+template <int KT>
+__global__ void __launch_bounds__(ATTB_THREADS)
+    attention_bwd_kernel(const bf16* __restrict__ qkv,
+                         const bf16* __restrict__ dctx,
+                         bf16* __restrict__ ctx, bf16* __restrict__ dqkv,
+                         int L, int D, int valid_len) {
+  constexpr int LK = 16 * KT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (LK, ATTB_LD) each
+  bf16* Ks = Qs + LK * ATTB_LD;
+  bf16* Vs = Ks + LK * ATTB_LD;
+  bf16* Cs = Vs + LK * ATTB_LD;                    // dctx of the head
+  float* row_m = reinterpret_cast<float*>(Cs + LK * ATTB_LD);
+  float* row_l = row_m + LK;
+  float* row_d = row_l + LK;
+
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qkv_stride = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * L * qkv_stride + h * DH;
+  const bf16* dbase = dctx + (size_t)b * L * D + h * DH;
+  const float scale = 0.125f;   // DH ** -0.5, a power of two
+
+  // rows past L are zero-filled
+  for (int i = tid; i < LK * (DH / 8); i += ATTB_THREADS) {
+    const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    const bool ok = j < L;
+    const bf16* src = base + (size_t)(ok ? j : 0) * qkv_stride + c;
+    cp_async16(Qs + j * ATTB_LD + c, src, ok);
+    cp_async16(Ks + j * ATTB_LD + c, src + D, ok);
+    cp_async16(Vs + j * ATTB_LD + c, src + 2 * D, ok);
+    cp_async16(Cs + j * ATTB_LD + c, dbase + (size_t)(ok ? j : 0) * D + c,
+               ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- phase A: query rows; dq and ctx --------------------------------
+  for (int qt = warp; qt < (L + 15) / 16; qt += ATTB_WARPS) {
+    const int q0 = qt * 16;
+    uint32_t qa[DH / 16][4], da[DH / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < DH / 16; ++kq) {
+      load_a_frag(qa[kq], Qs + q0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+      load_a_frag(da[kq], Cs + q0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+    }
+    // s and dp of key chunk kt (16 keys): [n8 tile][4] accumulators, rows
+    // g (elements 0, 1) and g + 8 (2, 3), keys 16 kt + 8 j + 2 t + e.
+    auto scores = [&](int kt, float (*s)[4], float (*dp)[4]) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] =
+            dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < DH / 16; ++kq) {
+        uint32_t kb[4], vb[4];
+        load_b_frags_nk(kb, Ks + kt * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        load_b_frags_nk(vb, Vs + kt * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        mma_bf16_16816(s[0], qa[kq], kb[0], kb[1]);
+        mma_bf16_16816(s[1], qa[kq], kb[2], kb[3]);
+        mma_bf16_16816(dp[0], da[kq], vb[0], vb[1]);
+        mma_bf16_16816(dp[1], da[kq], vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kt * 16 + j * 8 + 2 * t + e;
+          const float add = col >= valid_len ? kNegInf : 0.f;
+          s[j][e] = col >= L ? -INFINITY : s[j][e] * scale + add;
+          s[j][2 + e] = col >= L ? -INFINITY : s[j][2 + e] * scale + add;
+        }
+    };
+
+    // pass 1: per lane, online over chunks: max m, sum l of exp(s - m) and
+    // d = sum dp exp(s - m); then merged over the 4 lanes of the quad
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4], dp[2][4];
+      scores(kt, s, dp);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        if (mx == -INFINITY) continue;   // no key of this lane yet
+        const float alpha = m[r] == -INFINITY ? 0.f : __expf(m[r] - mx);
+        l[r] *= alpha;
+        d[r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = s[j][2 * r + e];
+            const float pe = v == -INFINITY ? 0.f : expf(v - mx);
+            l[r] += pe;
+            d[r] += pe * dp[j][2 * r + e];
+          }
+        m[r] = mx;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mq = m[r];
+      mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 1));
+      mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+      const float a = m[r] == -INFINITY ? 0.f : expf(m[r] - mq);
+      float lq = l[r] * a, dq = d[r] * a;
+      lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+      dq += __shfl_xor_sync(0xffffffffu, dq, 1);
+      dq += __shfl_xor_sync(0xffffffffu, dq, 2);
+      m[r] = mq;
+      l[r] = lq;
+      d[r] = dq / lq;   // rowsum(dp * p)
+    }
+    if (t == 0) {
+      row_m[q0 + g] = m[0];
+      row_l[q0 + g] = l[0];
+      row_d[q0 + g] = d[0];
+      row_m[q0 + g + 8] = m[1];
+      row_l[q0 + g + 8] = l[1];
+      row_d[q0 + g + 8] = d[1];
+    }
+
+    // pass 2: p, ds; ctx += pb v, dq += ds k
+    float oc[DH / 8][4], oq[DH / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd)
+      oc[nd][0] = oc[nd][1] = oc[nd][2] = oc[nd][3] = oq[nd][0] = oq[nd][1] =
+          oq[nd][2] = oq[nd][3] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      float s[2][4], dp[2][4];
+      scores(kt, s, dp);
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          p[j][e] = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[r]) / l[r];
+          ds[j][e] = p[j][e] * (dp[j][e] - d[r]);
+        }
+      uint32_t pa[4], sa[4];
+      pa[0] = pack_bf16(p[0][0], p[0][1]);
+      pa[1] = pack_bf16(p[0][2], p[0][3]);
+      pa[2] = pack_bf16(p[1][0], p[1][1]);
+      pa[3] = pack_bf16(p[1][2], p[1][3]);
+      sa[0] = pack_bf16(ds[0][0], ds[0][1]);
+      sa[1] = pack_bf16(ds[0][2], ds[0][3]);
+      sa[2] = pack_bf16(ds[1][0], ds[1][1]);
+      sa[3] = pack_bf16(ds[1][2], ds[1][3]);
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; nd += 2) {
+        uint32_t vb[4], kb[4];
+        load_b_frags_kn(vb, Vs + kt * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        load_b_frags_kn(kb, Ks + kt * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        mma_bf16_16816(oc[nd], pa, vb[0], vb[1]);
+        mma_bf16_16816(oc[nd + 1], pa, vb[2], vb[3]);
+        mma_bf16_16816(oq[nd], sa, kb[0], kb[1]);
+        mma_bf16_16816(oq[nd + 1], sa, kb[2], kb[3]);
+      }
+    }
+    const int r0 = q0 + g, r1 = q0 + g + 8;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (r0 < L) {
+        const size_t row = (size_t)b * L + r0;
+        *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
+            __floats2bfloat162_rn(oc[nd][0], oc[nd][1]);
+        *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH +
+                                           col) =
+            __floats2bfloat162_rn(oq[nd][0] * scale, oq[nd][1] * scale);
+      }
+      if (r1 < L) {
+        const size_t row = (size_t)b * L + r1;
+        *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
+            __floats2bfloat162_rn(oc[nd][2], oc[nd][3]);
+        *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH +
+                                           col) =
+            __floats2bfloat162_rn(oq[nd][2] * scale, oq[nd][3] * scale);
+      }
+    }
+  }
+  __syncthreads();   // every query row's m, l and rowsum(dp p) are saved
+
+  // ---- phase B: key rows; dk and dv -----------------------------------
+  for (int kt = warp; kt < (L + 15) / 16; kt += ATTB_WARPS) {
+    const int k0 = kt * 16;
+    uint32_t ka[DH / 16][4], va[DH / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < DH / 16; ++kq) {
+      load_a_frag(ka[kq], Ks + k0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+      load_a_frag(va[kq], Vs + k0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+    }
+    // rows of this lane: keys k0 + g and k0 + g + 8
+    const float add0 = k0 + g >= valid_len ? kNegInf : 0.f;
+    const float add1 = k0 + g + 8 >= valid_len ? kNegInf : 0.f;
+    const bool key0 = k0 + g < L, key1 = k0 + g + 8 < L;
+    float ok_[DH / 8][4], ov[DH / 8][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd)
+      ok_[nd][0] = ok_[nd][1] = ok_[nd][2] = ok_[nd][3] = ov[nd][0] =
+          ov[nd][1] = ov[nd][2] = ov[nd][3] = 0.f;
+    for (int qc = 0; qc < KT; ++qc) {
+      // s^T = K Q^T and dp^T = V dctx^T for 16 keys x 16 queries
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        st[j][0] = st[j][1] = st[j][2] = st[j][3] = dpt[j][0] = dpt[j][1] =
+            dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < DH / 16; ++kq) {
+        uint32_t qb[4], cb[4];
+        load_b_frags_nk(qb, Qs + qc * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        load_b_frags_nk(cb, Cs + qc * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        mma_bf16_16816(st[0], ka[kq], qb[0], qb[1]);
+        mma_bf16_16816(st[1], ka[kq], qb[2], qb[3]);
+        mma_bf16_16816(dpt[0], va[kq], cb[0], cb[1]);
+        mma_bf16_16816(dpt[1], va[kq], cb[2], cb[3]);
+      }
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = qc * 16 + j * 8 + 2 * t + (e & 1);
+          const bool key_ok = (e >> 1) ? key1 : key0;
+          const float add = (e >> 1) ? add1 : add0;
+          float pe = 0.f, de = 0.f;
+          if (q < L && key_ok) {
+            pe = expf(st[j][e] * scale + add - row_m[q]) / row_l[q];
+            de = pe * (dpt[j][e] - row_d[q]);
+          }
+          p[j][e] = pe;
+          ds[j][e] = de;
+        }
+      uint32_t pa[4], sa[4];
+      pa[0] = pack_bf16(p[0][0], p[0][1]);
+      pa[1] = pack_bf16(p[0][2], p[0][3]);
+      pa[2] = pack_bf16(p[1][0], p[1][1]);
+      pa[3] = pack_bf16(p[1][2], p[1][3]);
+      sa[0] = pack_bf16(ds[0][0], ds[0][1]);
+      sa[1] = pack_bf16(ds[0][2], ds[0][3]);
+      sa[2] = pack_bf16(ds[1][0], ds[1][1]);
+      sa[3] = pack_bf16(ds[1][2], ds[1][3]);
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; nd += 2) {
+        uint32_t cb[4], qb[4];
+        load_b_frags_kn(cb, Cs + qc * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        load_b_frags_kn(qb, Qs + qc * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        mma_bf16_16816(ov[nd], pa, cb[0], cb[1]);
+        mma_bf16_16816(ov[nd + 1], pa, cb[2], cb[3]);
+        mma_bf16_16816(ok_[nd], sa, qb[0], qb[1]);
+        mma_bf16_16816(ok_[nd + 1], sa, qb[2], qb[3]);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (key0) {
+        bf16* out = dqkv + ((size_t)b * L + k0 + g) * 3 * D + h * DH + col;
+        *reinterpret_cast<__nv_bfloat162*>(out + D) =
+            __floats2bfloat162_rn(ok_[nd][0] * scale, ok_[nd][1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
+            __floats2bfloat162_rn(ov[nd][0], ov[nd][1]);
+      }
+      if (key1) {
+        bf16* out = dqkv + ((size_t)b * L + k0 + g + 8) * 3 * D + h * DH + col;
+        *reinterpret_cast<__nv_bfloat162*>(out + D) =
+            __floats2bfloat162_rn(ok_[nd][2] * scale, ok_[nd][3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
+            __floats2bfloat162_rn(ov[nd][2], ov[nd][3]);
+      }
+    }
+  }
+}
+
+template <int KT>
+cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
+                                 bf16* dqkv, int B, int L, int D, int heads,
+                                 int valid_len, cudaStream_t stream) {
+  constexpr size_t smem = attention_bwd_smem<KT>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_bwd_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(heads, B);
+  attention_bwd_kernel<KT><<<grid, ATTB_THREADS, smem, stream>>>(
+      qkv, dctx, ctx, dqkv, L, D, valid_len);
+  return cudaGetLastError();
+}
+
+cudaError_t attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
+                          bf16* dqkv, int B, int L, int D, int heads,
+                          int valid_len, cudaStream_t stream) {
+  switch ((L + 15) / 16) {
+#define SAIS_ATTB_CASE(kt)                                                   \
+  case kt:                                                                   \
+    return launch_attention_bwd<kt>(qkv, dctx, ctx, dqkv, B, L, D, heads,    \
+                                    valid_len, stream);
+    SAIS_ATTB_CASE(1) SAIS_ATTB_CASE(2) SAIS_ATTB_CASE(3) SAIS_ATTB_CASE(4)
+    SAIS_ATTB_CASE(5) SAIS_ATTB_CASE(6) SAIS_ATTB_CASE(7) SAIS_ATTB_CASE(8)
+    SAIS_ATTB_CASE(9) SAIS_ATTB_CASE(10) SAIS_ATTB_CASE(11) SAIS_ATTB_CASE(12)
+    SAIS_ATTB_CASE(13) SAIS_ATTB_CASE(14) SAIS_ATTB_CASE(15) SAIS_ATTB_CASE(16)
+#undef SAIS_ATTB_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// f32 elements of the workspace fused_block_bwd_attn needs.
+size_t fused_block_bwd_attn_workspace(int rows, int dim) {
+  size_t n = wgrad_workspace(dim, dim, rows);
+  const size_t wq = wgrad_workspace(dim, 3 * dim, rows);
+  if (wq > n) n = wq;
+  const size_t cs = (size_t)colsum_splits(rows) * 3 * dim;
+  return cs > n ? cs : n;
+}
+
+// x, dx1: (B*L, dim) bf16; s1: (B*L,) bf16 or null; weights bf16 in the
+// JAX layout (qkv_w (dim, 3 dim), proj_w (dim, dim)).  Outputs: dx (B*L,
+// dim) bf16; dqkv_w (dim, 3 dim), dqkv_b (3 dim), dproj_w (dim, dim),
+// dproj_b, dln1_s, dln1_b (dim) f32.  Scratch: buf_y, buf_dbr, buf_dctx,
+// buf_ctx (B*L, dim) bf16 (buf_dbr only read when s1 is given), buf_qkv,
+// buf_dqkv (B*L, 3 dim) bf16, buf_dy (B*L, dim) f32, buf_stats (2 B*L)
+// f32, workspace (fused_block_bwd_attn_workspace) f32.
+int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
+                         const void* qkv_w, const void* qkv_b,
+                         const void* proj_w, const void* proj_b,
+                         const void* ln1_s, const void* ln1_b, void* dx,
+                         void* dqkv_w, void* dqkv_b, void* dproj_w,
+                         void* dproj_b, void* dln1_s, void* dln1_b,
+                         void* buf_y, void* buf_dbr, void* buf_dctx,
+                         void* buf_ctx, void* buf_qkv, void* buf_dqkv,
+                         void* buf_dy, void* buf_stats, void* workspace,
+                         int batch, int seq, int dim, int heads, int valid_len,
+                         float eps, void* stream_ptr) {
+  if (heads <= 0 || dim != heads * DH || dim % BK != 0 || seq < 1 ||
+      seq > 16 * 16 || valid_len < 1 || valid_len > seq || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  const int rows = batch * seq;
+  const bf16* xb = w(x);
+  bf16* y = static_cast<bf16*>(buf_y);
+  bf16* dctx = static_cast<bf16*>(buf_dctx);
+  bf16* ctx = static_cast<bf16*>(buf_ctx);
+  bf16* qkv = static_cast<bf16*>(buf_qkv);
+  bf16* dqkv = static_cast<bf16*>(buf_dqkv);
+  float* dy = static_cast<float*>(buf_dy);
+  float* mean = static_cast<float*>(buf_stats);
+  float* rstd = mean + rows;
+  float* ws = static_cast<float*>(workspace);
+  const bf16* dbr = w(dx1);
+  cudaError_t e;
+  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, mean, rstd, rows, dim, eps,
+                      stream))) return (int)e;
+  if ((e = gemm<EPI_BIAS, false, false>(y, w(qkv_w), w(qkv_b), qkv, rows,
+                                        3 * dim, dim, stream))) return (int)e;
+  if (s1 != nullptr) {
+    if ((e = scale_rows(w(dx1), w(s1), static_cast<bf16*>(buf_dbr), rows,
+                        dim, stream))) return (int)e;
+    dbr = w(buf_dbr);
+  }
+  // dctx = bf16(dbr @ Wproj^T)
+  if ((e = gemm<EPI_NONE, false, true>(dbr, w(proj_w), nullptr, dctx, rows,
+                                       dim, dim, stream))) return (int)e;
+  if ((e = attention_bwd(qkv, dctx, ctx, dqkv, batch, seq, dim, heads,
+                         valid_len, stream))) return (int)e;
+  if ((e = wgrad(ctx, dbr, static_cast<float*>(dproj_w), ws, dim, dim, rows,
+                 stream))) return (int)e;
+  if ((e = wgrad(y, dqkv, static_cast<float*>(dqkv_w), ws, dim, 3 * dim,
+                 rows, stream))) return (int)e;
+  // dy = dqkv @ Wqkv^T in f32
+  if ((e = gemm<EPI_F32, false, true>(dqkv, w(qkv_w), nullptr, dy, rows, dim,
+                                      3 * dim, stream))) return (int)e;
+  if ((e = ln_bwd(dy, xb, mean, rstd, w(ln1_s), w(dx1),
+                  static_cast<bf16*>(dx), rows, dim, stream))) return (int)e;
+  if ((e = colsum<COLSUM_BF16>(dbr, nullptr, nullptr, nullptr, ws,
+                               static_cast<float*>(dproj_b), rows, dim,
+                               stream))) return (int)e;
+  if ((e = colsum<COLSUM_BF16>(dqkv, nullptr, nullptr, nullptr, ws,
+                               static_cast<float*>(dqkv_b), rows, 3 * dim,
+                               stream))) return (int)e;
+  if ((e = colsum<COLSUM_F32>(dy, nullptr, nullptr, nullptr, ws,
+                              static_cast<float*>(dln1_b), rows, dim,
+                              stream))) return (int)e;
+  if ((e = colsum<COLSUM_F32_XHAT>(dy, xb, mean, rstd, ws,
+                                   static_cast<float*>(dln1_s), rows, dim,
+                                   stream))) return (int)e;
+  return 0;
+}
+
+const char* sais_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,16 +1,21 @@
-// K1: forward of one pre-norm ViT block in bf16, for Hopper (sm_90a).
+// K1 and K4: forward of one pre-norm ViT block in bf16, for Hopper (sm_90a).
 //
-// Replaces sais_tpu/kernels/fused_mha.py::_block_kernel (reached through
+// K1 replaces sais_tpu/kernels/fused_mha.py::_block_kernel (reached through
 // fused_vit_block), the Pallas kernel that keeps a whole block for a few
-// images in TPU VMEM.  It computes, with the same rounding points:
+// images in TPU VMEM.  K4 replaces _block_fwd_train_kernel (reached through
+// _fused_block_fwd_train), the training forward: the same block, which also
+// keeps the post-attention residual x1 for the backward (K5, K6) and can
+// scale each residual branch per row (stochastic depth, s1 and s2 in
+// {0, 1/keep}, constant within an image).  Both compute, with the same
+// rounding points:
 //
 //   y    = bf16(LN1(x))                          LN in f32
 //   qkv  = bf16(y @ Wqkv) + bqkv                 f32 accumulation, bias in bf16
 //   s    = (q_f32 * dh^-0.5) @ k_f32^T + mask    mask -1e30 at keys >= valid_len
 //   ctx  = bf16(bf16(softmax_f32(s)) @ v)        per image, per head
-//   x1   = x + (bf16(ctx @ Wproj) + bproj)       bf16 adds
+//   x1   = x + [s1 *] (bf16(ctx @ Wproj) + bproj)       bf16 adds and product
 //   h    = bf16(gelu_tanh(f32(bf16(LN2(x1)) @ W1 -> bf16, + b1)))
-//   out  = x1 + (bf16(h @ W2) + b2)
+//   out  = x1 + [s2 *] (bf16(h @ W2) + b2)
 //
 // What bounds it on an H100: at ViT-S/16 (L = 197, D = 384, MLP 1536) a
 // block is 0.757 GFLOP per image against ~0.3 MB of activations, far above
@@ -28,266 +33,23 @@
 //                                   tile's whole key row of scores in
 //                                   registers, two-pass f32 softmax, P
 //                                   re-used as the A operand
-//   (4) gemm_kernel<EPI_RESIDUAL>    ctx @ Wproj + b + x -> x1
+//   (4) gemm_kernel<EPI_RESIDUAL>    [s1 *] (ctx @ Wproj + b) + x -> x1
 //   (5) layer_norm_kernel           LN2 -> y
 //   (6) gemm_kernel<EPI_GELU>        y @ W1 + b1, tanh-GELU -> h
-//   (7) gemm_kernel<EPI_RESIDUAL>    h @ W2 + b2 + x1 -> out
+//   (7) gemm_kernel<EPI_RESIDUAL>    [s2 *] (h @ W2 + b2) + x1 -> out
 //
-// Every product is mma.sync m16n8k16 with ldmatrix fragments; the GEMMs'
-// epilogues work on the accumulators in registers.  The intermediates (y,
-// qkv / h, x1) round-trip through device memory, about 4x the bytes of the
-// TPU kernel; still far below the compute bound.  Later work: wgmma + TMA
-// GEMMs (mma.sync reaches about two thirds of the card's bf16 peak at
-// best), LN fused into the GEMM prologue.
+// Every product is mma.sync m16n8k16 with ldmatrix fragments
+// (vit_block_common.cuh); the GEMMs' epilogues work on the accumulators in
+// registers.  The intermediates (y, qkv / h, x1) round-trip through device
+// memory, about 4x the bytes of the TPU kernel; still far below the compute
+// bound.  Later work: wgmma + TMA GEMMs (mma.sync reaches about two thirds
+// of the card's bf16 peak at best), LN fused into the GEMM prologue.
 //
 // The kernels allocate nothing: the caller passes the scratch buffers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "vit_block_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;   // the JAX kernel's additive key mask
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// LayerNorm in f32, rounded to bf16.  One warp per row.
-// ---------------------------------------------------------------------------
-__global__ void layer_norm_kernel(const bf16* __restrict__ x,
-                                  const bf16* __restrict__ scale,
-                                  const bf16* __restrict__ bias,
-                                  bf16* __restrict__ y, int rows, int d,
-                                  float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * d;
-  float sum = 0.f;
-  for (int c = lane; c < d; c += 32) sum += __bfloat162float(xr[c]);
-  const float mean = warp_sum(sum) / d;
-  float sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float t = __bfloat162float(xr[c]) - mean;
-    sq += t * t;
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / d + eps);
-  bf16* yr = y + (size_t)row * d;
-  for (int c = lane; c < d; c += 32) {
-    const float v = (__bfloat162float(xr[c]) - mean) * rstd *
-                        __bfloat162float(scale[c]) +
-                    __bfloat162float(bias[c]);
-    yr[c] = __float2bfloat16(v);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core building blocks: mma.sync m16n8k16 (bf16 in, f32 accumulate)
-// with fragments loaded from shared memory by ldmatrix.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8.  Without .trans, lane (g, t) = (lane / 4, lane % 4) receives
-// elements [g][2t, 2t+1] of each matrix; with .trans, [2t, 2t+1][g].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// The A fragment (16 x 16) at the top left of a row-major tile; ld in
-// elements.
-__device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* tile,
-                                            int ld, int lane) {
-  ldmatrix_x4(a, tile + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// B fragments of two adjacent n8 tiles from a row-major (k, n) tile:
-// b[0..1] for columns 0..7, b[2..3] for columns 8..15.
-__device__ __forceinline__ void load_b_frags_kn(uint32_t* b, const bf16* tile,
-                                                int ld, int lane) {
-  ldmatrix_x4_trans(b, tile + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// The same from a row-major (n, k) tile, i.e. B stored column by column.
-__device__ __forceinline__ void load_b_frags_nk(uint32_t* b, const bf16* tile,
-                                                int ld, int lane) {
-  ldmatrix_x4(b, tile + ((lane & 7) + ((lane >> 4) << 3)) * ld +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// ---------------------------------------------------------------------------
-// C = epilogue(bf16(A @ W) + bias): A (M, K) and W (K, N) bf16 row-major.
-// ---------------------------------------------------------------------------
-enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
-
-// 128 x 128 x 64 block tiles in a 3-stage cp.async ring; 8 warps (2 x 4),
-// each a 64 x 32 tile of m16n8k16 accumulators.  Two blocks fit an SM
-// (125 registers a thread, 108 KB of shared memory each); taller or wider
-// tiles, 64 x 64 warp tiles and a 4th stage all measured slower.
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int WTM = 64, WTN = 32;   // one warp's output tile
-constexpr int BM = WARPS_M * WTM, BN = WARPS_N * WTN;
-constexpr int BK = 64, STAGES = 3;
-constexpr int LDA_S = BK + 8;   // padded smem rows: ldmatrix without conflicts
-constexpr int LDB_S = BN + 8;
-constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
-constexpr size_t GEMM_SMEM =
-    (size_t)STAGES * (BM * LDA_S + BK * LDB_S) * sizeof(bf16);
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;   // 0 source bytes: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  // jax.nn.gelu(approximate=True): x * 0.5 * (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
-  return v * (0.5f * (1.f + tanhf(0.7978845608028654f *
-                                  (v + 0.044715f * (v * v * v)))));
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                const bf16* __restrict__ bias,
-                const bf16* __restrict__ residual, bf16* __restrict__ C,
-                int M, int N, int K) {
-  constexpr int MT = WTM / 16, NT = WTN / 8;   // m16 and n8 tiles per warp
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + STAGES * BM * LDA_S;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_stage = [&](int slot, int k0) {
-    bf16* as = As + slot * BM * LDA_S;
-    bf16* bs = Bs + slot * BK * LDB_S;
-    for (int i = tid; i < BM * (BK / 8); i += GEMM_THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = m0 + r < M;
-      cp_async16(as + r * LDA_S + c,
-                 A + (size_t)(ok ? m0 + r : 0) * K + k0 + c, ok);
-    }
-    for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bool ok = n0 + c < N;
-      cp_async16(bs + r * LDB_S + c,
-                 W + (size_t)(k0 + r) * N + (ok ? n0 + c : 0), ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int ktiles = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... and every warp is done with kt - 1
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_stage(nk % STAGES, nk * BK);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % STAGES) * BM * LDA_S + warp_m * WTM * LDA_S;
-    const bf16* bs = Bs + (kt % STAGES) * BK * LDB_S + warp_n * WTN;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        load_a_frag(a[i], as + i * 16 * LDA_S + kk, LDA_S, lane);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2)
-        load_b_frags_kn(&b[j][0], bs + kk * LDB_S + j * 8, LDB_S, lane);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue from the accumulators: lane (g, t) holds columns 2t, 2t+1 of
-  // rows g and g + 8 of each m16 x n8 tile.
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = n0 + warp_n * WTN + j * 8 + 2 * t;
-    if (col >= N) continue;   // N is a multiple of 8: col + 1 < N as well
-    const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + warp_m * WTM + i * 16 + g + 8 * half;
-        if (row >= M) continue;
-        float v[2] = {acc[i][j][2 * half], acc[i][j][2 * half + 1]};
-        float res[2] = {0.f, 0.f};
-        if (EPI == EPI_RESIDUAL) {
-          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(
-              residual + (size_t)row * N + col);
-          res[0] = __low2float(rv);
-          res[1] = __high2float(rv);
-        }
-        const float bb[2] = {__low2float(bv), __high2float(bv)};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          v[e] = bf16_round(bf16_round(v[e]) + bb[e]);          // bf16(acc) + bias in bf16
-          if (EPI == EPI_GELU) v[e] = bf16_round(gelu_tanh(v[e])); // f32 GELU -> bf16
-          if (EPI == EPI_RESIDUAL) v[e] = res[e] + v[e];
-        }
-        *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Masked softmax attention for head dim 64.  A block of 4 warps takes every
@@ -295,18 +57,7 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 // memory.  A warp holds the scores of 16 queries against all 16*KT keys in
 // registers.
 // ---------------------------------------------------------------------------
-constexpr int DH = 64;
 constexpr int ATT_THREADS = 128;
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 constexpr int ATT_LD = DH + 8;   // padded smem rows: ldmatrix without conflicts
 
 template <int KT>
@@ -480,49 +231,20 @@ cudaError_t attention(const bf16* qkv, bf16* ctx, int B, int L, int D,
   }
 }
 
-template <int EPI>
-cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
-                 const bf16* residual, bf16* C, int M, int N, int K,
-                 cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(A, W, bias,
-                                                              residual, C, M,
-                                                              N, K);
-  return cudaGetLastError();
-}
-
-cudaError_t layer_norm(const bf16* x, const bf16* s, const bf16* b, bf16* y,
-                       int rows, int d, float eps, cudaStream_t stream) {
-  const int threads = 256, rows_per_block = threads / 32;
-  layer_norm_kernel<<<(rows + rows_per_block - 1) / rows_per_block, threads, 0,
-                      stream>>>(x, s, b, y, rows, d, eps);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// Return codes: 0 on success, a cudaError_t value after a failed launch, or
-// cudaErrorInvalidValue for shapes the kernels do not take (the Python
-// wrapper checks those first).
-int fused_vit_block_fwd(const void* x, const void* qkv_w, const void* qkv_b,
-                        const void* proj_w, const void* proj_b,
-                        const void* fc1_w, const void* fc1_b,
-                        const void* fc2_w, const void* fc2_b,
-                        const void* ln1_s, const void* ln1_b,
-                        const void* ln2_s, const void* ln2_b, void* out,
-                        void* buf_y, void* buf_big, void* buf_x1, int batch,
-                        int seq, int dim, int heads, int mlp, int valid_len,
-                        float eps, void* stream_ptr) {
+cudaError_t block_forward(const void* x, const void* qkv_w,
+                          const void* qkv_b, const void* proj_w,
+                          const void* proj_b, const void* fc1_w,
+                          const void* fc1_b, const void* fc2_w,
+                          const void* fc2_b, const void* ln1_s,
+                          const void* ln1_b, const void* ln2_s,
+                          const void* ln2_b, const void* s1, const void* s2,
+                          void* out, void* buf_y, void* buf_big, void* buf_x1,
+                          int batch, int seq, int dim, int heads, int mlp,
+                          int valid_len, float eps, void* stream_ptr) {
   if (heads <= 0 || dim != heads * DH || dim % BK != 0 || mlp % BK != 0 ||
       seq < 1 || seq > 16 * 16 || valid_len < 1 || valid_len > seq ||
       batch < 1)
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -532,18 +254,65 @@ int fused_vit_block_fwd(const void* x, const void* qkv_w, const void* qkv_b,
   bf16* o = static_cast<bf16*>(out);
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
   cudaError_t e;
-  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, M, dim, eps, stream))) return e;
-  if ((e = gemm<EPI_BIAS>(y, w(qkv_w), w(qkv_b), nullptr, big, M, 3 * dim,
-                          dim, stream))) return e;
+  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, nullptr, nullptr, M, dim,
+                      eps, stream))) return e;
+  if ((e = gemm<EPI_BIAS, false, false>(y, w(qkv_w), w(qkv_b), big, M,
+                                        3 * dim, dim, stream))) return e;
   if ((e = attention(big, y, batch, seq, dim, heads, valid_len, stream))) return e;
-  if ((e = gemm<EPI_RESIDUAL>(y, w(proj_w), w(proj_b), xb, x1, M, dim, dim,
-                              stream))) return e;
-  if ((e = layer_norm(x1, w(ln2_s), w(ln2_b), y, M, dim, eps, stream))) return e;
-  if ((e = gemm<EPI_GELU>(y, w(fc1_w), w(fc1_b), nullptr, big, M, mlp, dim,
-                          stream))) return e;
-  if ((e = gemm<EPI_RESIDUAL>(big, w(fc2_w), w(fc2_b), x1, o, M, dim, mlp,
-                              stream))) return e;
-  return 0;
+  if ((e = gemm<EPI_RESIDUAL, false, false>(y, w(proj_w), w(proj_b), x1, M,
+                                            dim, dim, stream, xb, w(s1))))
+    return e;
+  if ((e = layer_norm(x1, w(ln2_s), w(ln2_b), y, nullptr, nullptr, M, dim,
+                      eps, stream))) return e;
+  if ((e = gemm<EPI_GELU, false, false>(y, w(fc1_w), w(fc1_b), big, M, mlp,
+                                        dim, stream))) return e;
+  if ((e = gemm<EPI_RESIDUAL, false, false>(big, w(fc2_w), w(fc2_b), o, M,
+                                            dim, mlp, stream, x1, w(s2))))
+    return e;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Return codes: 0 on success, a cudaError_t value after a failed launch, or
+// cudaErrorInvalidValue for shapes the kernels do not take (the Python
+// wrapper checks those first).
+
+// K1: the inference block; x1 lives in the caller's scratch buffer.
+int fused_vit_block_fwd(const void* x, const void* qkv_w, const void* qkv_b,
+                        const void* proj_w, const void* proj_b,
+                        const void* fc1_w, const void* fc1_b,
+                        const void* fc2_w, const void* fc2_b,
+                        const void* ln1_s, const void* ln1_b,
+                        const void* ln2_s, const void* ln2_b, void* out,
+                        void* buf_y, void* buf_big, void* buf_x1, int batch,
+                        int seq, int dim, int heads, int mlp, int valid_len,
+                        float eps, void* stream_ptr) {
+  return (int)block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                            fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, nullptr,
+                            nullptr, out, buf_y, buf_big, buf_x1, batch, seq,
+                            dim, heads, mlp, valid_len, eps, stream_ptr);
+}
+
+// K4: the training forward.  x1 is an output; s1 and s2 (one bf16 scale a
+// row, (B*L,)) may both be null.
+int fused_block_fwd_train(const void* x, const void* qkv_w,
+                          const void* qkv_b, const void* proj_w,
+                          const void* proj_b, const void* fc1_w,
+                          const void* fc1_b, const void* fc2_w,
+                          const void* fc2_b, const void* ln1_s,
+                          const void* ln1_b, const void* ln2_s,
+                          const void* ln2_b, const void* s1, const void* s2,
+                          void* out, void* x1, void* buf_y, void* buf_big,
+                          int batch, int seq, int dim, int heads, int mlp,
+                          int valid_len, float eps, void* stream_ptr) {
+  if ((s1 == nullptr) != (s2 == nullptr)) return (int)cudaErrorInvalidValue;
+  return (int)block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                            fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, s1, s2,
+                            out, buf_y, buf_big, x1, batch, seq, dim, heads,
+                            mlp, valid_len, eps, stream_ptr);
 }
 
 const char* sais_cuda_error_string(int code) {

@@ -1,16 +1,30 @@
-"""K1: the forward of one whole pre-norm ViT block (LN -> qkv -> masked
-softmax attention -> proj + residual -> LN -> tanh-GELU MLP + residual).
+"""The pre-norm ViT block (LN -> qkv -> masked softmax attention -> proj +
+residual -> LN -> tanh-GELU MLP + residual) on hand-written CUDA kernels:
 
-Counterpart of `sais_tpu/kernels/fused_mha.py::fused_vit_block` (Pallas
-body `_block_kernel`).  `fused_vit_block` launches the hand-written CUDA
-kernels of `csrc/fused_vit_block.cu` for a CUDA tensor and runs the plain
-PyTorch version `vit_block_reference` for a CPU tensor; it never falls
-back from one to the other.
+- K1 `fused_vit_block`, the inference forward (counterpart of
+  `sais_tpu/kernels/fused_mha.py::fused_vit_block`, Pallas body
+  `_block_kernel`);
+- K4 `fused_block_fwd_train`, the training forward, which also returns the
+  post-attention residual x1 and takes optional per-row branch scales
+  (`_fused_block_fwd_train`, body `_block_fwd_train_kernel`);
+- K5 `fused_block_bwd_mlp`, the backward of the MLP half
+  (`_fused_block_bwd_mlp`, body `_mlp_bwd_kernel`);
+- K6 `fused_block_bwd_attn`, the backward of the attention half
+  (`_fused_block_bwd_attn`, bodies `_attn_bwd_kernel` and
+  `_attn_bwd_tail`);
+- `TrainableFusedBlock`, the autograd Function of K4 with K5 and K6 as its
+  backward (`make_pallas_trainable_fused_block`).
+
+Each wrapper launches its kernel (`csrc/fused_vit_block.cu`,
+`csrc/fused_block_bwd_mlp.cu`, `csrc/fused_block_bwd_attn.cu`) for a CUDA
+tensor, counted in its `.launches`, and runs its plain PyTorch version for a
+CPU tensor; it never falls back from one to the other.
 
 Interface as in the JAX package: x (B, L, D), weights (in, out), the key
-mask from `valid_len`.  The TPU kernel's row padding to a multiple of 16
-and its grouping of images per program are MXU tiling choices that change
-no value, so the port runs exact shapes.
+mask from `valid_len`, branch scales s1 and s2 (B, L, 1) in x's dtype.  The
+TPU kernels' row padding to a multiple of 16, their grouping of images per
+program and their packed block-diagonal attention for short sequences are
+MXU tiling choices that change no value, so the port runs exact shapes.
 """
 
 from __future__ import annotations
@@ -37,13 +51,13 @@ def _mm(a, w, dtype):
     return torch.matmul(a.float(), w.float()).to(dtype)
 
 
-def vit_block_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
-                        fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads: int,
-                        valid_len: int, eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of K1 with the kernel's rounding points
-    (mirrors `_xla_block_tanh`): f32 LN and softmax, f32-accumulated
-    products rounded to x's dtype, biases and residuals added in that
-    dtype, tanh GELU in f32, keys >= valid_len masked with -1e30."""
+def _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
+                   fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads, valid_len,
+                   eps, s1=None, s2=None):
+    """(out, x1) with the kernels' rounding points (mirrors
+    `_xla_block_tanh`): f32 LN and softmax, f32-accumulated products
+    rounded to x's dtype, biases, branch scales and residuals applied in
+    that dtype, tanh GELU in f32, keys >= valid_len masked with -1e30."""
     b, l, d = x.shape
     dh = d // num_heads
     dtype = x.dtype
@@ -57,99 +71,453 @@ def vit_block_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
     p = torch.softmax(s + key_mask, dim=-1)
     ctx = torch.einsum("bhlm,bmhd->blhd", p.to(dtype).float(),
                        v.float()).to(dtype)
-    x = x + (_mm(ctx.reshape(b, l, d), proj_w, dtype) + proj_b)
+    o = _mm(ctx.reshape(b, l, d), proj_w, dtype) + proj_b
+    if s1 is not None:
+        o = o * s1.to(dtype)
+    x1 = x + o
 
-    y = layer_norm_f32(x, ln2_s, ln2_b, eps).to(dtype)
+    y = layer_norm_f32(x1, ln2_s, ln2_b, eps).to(dtype)
     hdn = _mm(y, fc1_w, dtype) + fc1_b
     hdn = F.gelu(hdn.float(), approximate="tanh").to(dtype)
-    return x + (_mm(hdn, fc2_w, dtype) + fc2_b)
+    o = _mm(hdn, fc2_w, dtype) + fc2_b
+    if s2 is not None:
+        o = o * s2.to(dtype)
+    return x1 + o, x1
 
 
-# Shapes the CUDA kernels take (kernels/csrc/fused_vit_block.cu).
+def vit_block_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
+                        fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads: int,
+                        valid_len: int, eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of K1 (see `_block_forward`)."""
+    return _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                          fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads,
+                          valid_len, eps)[0]
+
+
+def vit_block_train_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                              fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
+                              num_heads: int, valid_len: int,
+                              eps: float = 1e-6, s1=None, s2=None):
+    """Plain PyTorch version of K4: (out, x1), with x1 = x + [s1 *] attn
+    and out = x1 + [s2 *] mlp (the product rounded to x's dtype)."""
+    return _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                          fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads,
+                          valid_len, eps, s1, s2)
+
+
+def _ln_stats(x, eps):
+    """(xhat, rstd) of LayerNorm over the last axis, float32."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + eps)
+    return (x32 - mean) * rstd, rstd
+
+
+def _ln_bwd(dy, xhat, rstd, scale32):
+    """dx of y = xhat * scale + bias for upstream dy (all float32)."""
+    dxh = dy * scale32
+    return rstd * (dxh - dxh.mean(-1, keepdim=True)
+                   - xhat * (dxh * xhat).mean(-1, keepdim=True))
+
+
+def gelu_tanh_and_grad(h32):
+    """tanh-approximate GELU and its derivative, float32 (JAX
+    `_gelu_tanh_and_grad`)."""
+    c, a = 0.7978845608028654, 0.044715
+    t = torch.tanh(c * (h32 + a * h32 ** 3))
+    return (0.5 * h32 * (1.0 + t),
+            0.5 * (1.0 + t) + 0.5 * h32 * (1.0 - t * t) * c
+            * (1.0 + 3 * a * h32 ** 2))
+
+
+def block_bwd_mlp_reference(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s,
+                            ln2_b, eps: float = 1e-6, s2=None):
+    """Plain PyTorch version of K5, the backward through out = x1 + [s2 *]
+    fc2(gelu(fc1(LN2(x1)))) with `_mlp_bwd_kernel`'s rounding points.
+    Returns (dx1 in x1's dtype, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dln2_s,
+    dln2_b in float32, shaped as the weights).  The branch sees dout * s2,
+    the residual passes into dx1 unscaled."""
+    dtype = x1.dtype
+    d = x1.shape[-1]
+    x1f, doutf = x1.reshape(-1, d), dout.reshape(-1, d)
+    xhat, rstd = _ln_stats(x1f, eps)
+    s32 = ln2_s.float()
+    y = (xhat * s32 + ln2_b.float()).to(dtype)
+    h = _mm(y, fc1_w, dtype) + fc1_b
+    g32, dg32 = gelu_tanh_and_grad(h.float())
+    g = g32.to(dtype)
+    do2 = doutf * s2.reshape(-1, 1).to(dtype) if s2 is not None else doutf
+    dfc2_w = g.float().t() @ do2.float()
+    dfc2_b = do2.float().sum(0)
+    dh = ((do2.float() @ fc2_w.float().t()) * dg32).to(dtype)
+    dfc1_w = y.float().t() @ dh.float()
+    dfc1_b = dh.float().sum(0)
+    dy = dh.float() @ fc1_w.float().t()
+    dx1 = (_ln_bwd(dy, xhat, rstd, s32) + doutf.float()).to(dtype)
+    return (dx1.reshape(x1.shape), dfc1_w, dfc1_b, dfc2_w, dfc2_b,
+            (dy * xhat).sum(0), dy.sum(0))
+
+
+def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
+                             ln1_b, num_heads: int, valid_len: int,
+                             eps: float = 1e-6, s1=None):
+    """Plain PyTorch version of K6, the backward through x1 = x + [s1 *]
+    proj(attn(qkv(LN1(x)))) with `_attn_bwd_kernel` / `_attn_bwd_tail`'s
+    rounding points.  Returns (dx in x's dtype, dqkv_w, dqkv_b, dproj_w,
+    dproj_b, dln1_s, dln1_b in float32, shaped as the weights); dqkv's
+    columns are [dq heads | dk heads | dv heads], as qkv_w's are."""
+    b, l, d = x.shape
+    dh = d // num_heads
+    dtype = x.dtype
+    scale = dh ** -0.5
+    key_mask = torch.where(torch.arange(l, device=x.device) >= valid_len,
+                           _NEG_INF, 0.0)
+    xf, dx1f = x.reshape(-1, d), dx1.reshape(-1, d)
+    xhat, rstd = _ln_stats(xf, eps)
+    s32 = ln1_s.float()
+    y = (xhat * s32 + ln1_b.float()).to(dtype)
+    qkv = (_mm(y, qkv_w, dtype) + qkv_b).reshape(b, l, 3, num_heads, dh)
+    q, k, v = (t.float() for t in qkv.unbind(2))
+    dbr = dx1f * s1.reshape(-1, 1).to(dtype) if s1 is not None else dx1f
+    dctx = _mm(dbr, proj_w.t(), dtype).reshape(b, l, num_heads, dh).float()
+
+    s = torch.einsum("blhd,bmhd->bhlm", q * scale, k)
+    p = torch.softmax(s + key_mask, dim=-1)
+    pb = p.to(dtype).float()
+    ctx = torch.einsum("bhlm,bmhd->blhd", pb, v).to(dtype)
+    dv = torch.einsum("bhlm,blhd->bmhd", pb, dctx)
+    dp = torch.einsum("blhd,bmhd->bhlm", dctx, v)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dtype).float()
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, k) * scale
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, q) * scale
+    dqkv = torch.stack([dq, dk, dv], 2).to(dtype).reshape(-1, 3 * d)
+
+    ctx = ctx.reshape(-1, d)
+    dproj_w = ctx.float().t() @ dbr.float()
+    dproj_b = dbr.float().sum(0)
+    dqkv_w = y.float().t() @ dqkv.float()
+    dqkv_b = dqkv.float().sum(0)
+    dy = dqkv.float() @ qkv_w.float().t()
+    dx = (_ln_bwd(dy, xhat, rstd, s32) + dx1f.float()).to(dtype)
+    return (dx.reshape(x.shape), dqkv_w, dqkv_b, dproj_w, dproj_b,
+            (dy * xhat).sum(0), dy.sum(0))
+
+
+# Shapes the CUDA kernels take (kernels/csrc/*.cu).
 HEAD_DIM = 64
 MAX_LEN = 256
 K_TILE = 64
 
 
-def _check_cuda_args(x, weights, num_heads, valid_len):
+def _check_operands(name, tensors, shapes):
+    """bf16, contiguous, 16-byte aligned, on the first tensor's device, of
+    the given shapes (None: any)."""
+    dev = tensors[0].device
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} operand {i}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise ValueError(f"all {name} operands must be bf16 on one "
+                             f"device; operand {i} is {t.dtype} on "
+                             f"{t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} operands must be contiguous and "
+                             "16-byte aligned")
+
+
+def _check_geometry(x, num_heads, valid_len, mlp=None):
     if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"fused_vit_block on CUDA takes bf16 (B, L, D); "
-                         f"got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"the CUDA kernels take bf16 (B, L, D); got "
+                         f"{x.dtype} {tuple(x.shape)}")
     b, l, d = x.shape
-    mlp = weights[4].shape[1]
     if num_heads <= 0 or d != num_heads * HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}; got "
+        raise ValueError(f"the CUDA kernels take head dim {HEAD_DIM}; got "
                          f"D={d} with {num_heads} heads")
-    if d % K_TILE or mlp % K_TILE:
+    if d % K_TILE or (mlp is not None and mlp % K_TILE):
         raise ValueError(f"D={d} and MLP width {mlp} must be multiples of "
                          f"{K_TILE}")
     if not 1 <= l <= MAX_LEN:
         raise NotImplementedError(
-            f"sequence length {l} outside the kernel's 1..{MAX_LEN} (the "
+            f"sequence length {l} outside the kernels' 1..{MAX_LEN} (the "
             "score rows of a query live in registers)")
     if not 1 <= valid_len <= l:
         raise ValueError(f"valid_len={valid_len} outside 1..{l}")
-    shapes = [(d, 3 * d), (3 * d,), (d, d), (d,), (d, mlp), (mlp,),
-              (mlp, d), (d,), (d,), (d,), (d,), (d,)]
-    for i, (w, shape) in enumerate(zip(weights, shapes)):
-        if tuple(w.shape) != shape:
-            raise ValueError(f"weight {i}: shape {tuple(w.shape)}, "
-                             f"expected {shape}")
-    for t in (x, *weights):
-        if t.device != x.device or t.dtype != torch.bfloat16:
-            raise ValueError("all K1 operands must be bf16 on x's device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("K1 operands must be contiguous and 16-byte "
-                             "aligned")
+
+
+def _block_shapes(d, mlp):
+    return [(d, 3 * d), (3 * d,), (d, d), (d,), (d, mlp), (mlp,), (mlp, d),
+            (d,), (d,), (d,), (d,), (d,)]
+
+
+def _check_cuda_args(x, weights, num_heads, valid_len):
+    mlp = weights[4].shape[1]
+    _check_geometry(x, num_heads, valid_len, mlp)
+    _check_operands("K1/K4", [x, *weights], [None] + _block_shapes(
+        x.shape[2], mlp))
+
+
+def _scale_operand(s, x):
+    """A (B, L, 1) branch scale as the kernels take it: bf16, contiguous."""
+    if s is None:
+        return None
+    if tuple(s.shape) != (*x.shape[:2], 1):
+        raise ValueError(f"branch scale shape {tuple(s.shape)}, expected "
+                         f"{(*x.shape[:2], 1)}")
+    return s.to(torch.bfloat16).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (first call builds)."""
+def _lib(name: str) -> ctypes.CDLL:
+    """A built library with its C signatures declared (first call builds)."""
     from sais_tpu_torch.kernels import _build
-    lib = _build.load("fused_vit_block")
-    lib.fused_vit_block_fwd.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.fused_vit_block_fwd.restype = ctypes.c_int
-    lib.sais_cuda_error_string.argtypes = [ctypes.c_int]
+    lib = _build.load(name)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "fused_vit_block":
+        lib.fused_vit_block_fwd.argtypes = (
+            [ptr] * 17 + [i32] * 6 + [ctypes.c_float, ptr])
+        lib.fused_vit_block_fwd.restype = i32
+        lib.fused_block_fwd_train.argtypes = (
+            [ptr] * 19 + [i32] * 6 + [ctypes.c_float, ptr])
+        lib.fused_block_fwd_train.restype = i32
+    elif name == "fused_block_bwd_mlp":
+        lib.fused_block_bwd_mlp_workspace.argtypes = [i32] * 3
+        lib.fused_block_bwd_mlp_workspace.restype = ctypes.c_size_t
+        lib.fused_block_bwd_mlp.argtypes = (
+            [ptr] * 23 + [i32] * 3 + [ctypes.c_float, ptr])
+        lib.fused_block_bwd_mlp.restype = i32
+    elif name == "fused_block_bwd_attn":
+        lib.fused_block_bwd_attn_workspace.argtypes = [i32] * 2
+        lib.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
+        lib.fused_block_bwd_attn.argtypes = (
+            [ptr] * 25 + [i32] * 5 + [ctypes.c_float, ptr])
+        lib.fused_block_bwd_attn.restype = i32
+    lib.sais_cuda_error_string.argtypes = [i32]
     lib.sais_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(lib, fn, name, device, *args):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} CUDA launch failed: "
+                           + lib.sais_cuda_error_string(rc).decode())
+
+
+def _on_cuda(x, name):
+    """True for a CUDA tensor (the kernel), False for a CPU tensor (the
+    plain version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    return True
 
 
 def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
                     fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads: int,
                     valid_len: int, eps: float = 1e-6) -> torch.Tensor:
-    """One pre-norm ViT block.  CUDA tensor: the hand-written kernel (bf16
-    only, counted in `fused_vit_block.launches`).  CPU tensor: the plain
-    version `vit_block_reference`."""
+    """K1, one pre-norm ViT block.  CUDA tensor: the hand-written kernel
+    (bf16 only, counted in `fused_vit_block.launches`).  CPU tensor: the
+    plain version `vit_block_reference`."""
     weights = (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b,
                ln1_s, ln1_b, ln2_s, ln2_b)
-    if x.device.type == "cpu":
+    if not _on_cuda(x, "fused_vit_block"):
         return vit_block_reference(x, *weights, num_heads=num_heads,
                                    valid_len=valid_len, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_vit_block: no kernel for {x.device}")
     _check_cuda_args(x, weights, num_heads, valid_len)
     b, l, d = x.shape
     mlp = fc1_w.shape[1]
-    lib = _lib()
+    lib = _lib("fused_vit_block")
     out = torch.empty_like(x)
     buf_y = torch.empty((b * l, d), dtype=x.dtype, device=x.device)
     buf_big = torch.empty((b * l, max(3 * d, mlp)), dtype=x.dtype,
                           device=x.device)
     buf_x1 = torch.empty((b * l, d), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = lib.fused_vit_block_fwd(
-            *(t.data_ptr() for t in (x, *weights, out, buf_y, buf_big,
-                                     buf_x1)),
-            b, l, d, num_heads, mlp, valid_len, eps, stream)
-    if rc != 0:
-        raise RuntimeError("fused_vit_block CUDA launch failed: "
-                           + lib.sais_cuda_error_string(rc).decode())
+    _launch(lib, lib.fused_vit_block_fwd, "fused_vit_block", x.device,
+            *(_ptr(t) for t in (x, *weights, out, buf_y, buf_big, buf_x1)),
+            b, l, d, num_heads, mlp, valid_len, eps)
     fused_vit_block.launches += 1
     return out
 
 
 fused_vit_block.launches = 0
+
+
+def fused_block_fwd_train(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                          fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
+                          num_heads: int, valid_len: int, eps: float = 1e-6,
+                          s1=None, s2=None):
+    """K4, the training forward of one block: (out, x1).  s1, s2: optional
+    (B, L, 1) branch scales (stochastic depth), both or neither.  CUDA
+    tensor: the hand-written kernel (counted in
+    `fused_block_fwd_train.launches`); CPU tensor: the plain version
+    `vit_block_train_reference`."""
+    weights = (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b,
+               ln1_s, ln1_b, ln2_s, ln2_b)
+    if (s1 is None) != (s2 is None):
+        raise ValueError("pass both branch scales s1 and s2, or neither")
+    if not _on_cuda(x, "fused_block_fwd_train"):
+        return vit_block_train_reference(x, *weights, num_heads=num_heads,
+                                         valid_len=valid_len, eps=eps,
+                                         s1=s1, s2=s2)
+    _check_cuda_args(x, weights, num_heads, valid_len)
+    s1, s2 = _scale_operand(s1, x), _scale_operand(s2, x)
+    b, l, d = x.shape
+    mlp = fc1_w.shape[1]
+    lib = _lib("fused_vit_block")
+    out, x1 = torch.empty_like(x), torch.empty_like(x)
+    buf_y = torch.empty((b * l, d), dtype=x.dtype, device=x.device)
+    buf_big = torch.empty((b * l, max(3 * d, mlp)), dtype=x.dtype,
+                          device=x.device)
+    _launch(lib, lib.fused_block_fwd_train, "fused_block_fwd_train",
+            x.device, *(_ptr(t) for t in (x, *weights, s1, s2, out, x1, buf_y,
+                                          buf_big)),
+            b, l, d, num_heads, mlp, valid_len, eps)
+    fused_block_fwd_train.launches += 1
+    return out, x1
+
+
+fused_block_fwd_train.launches = 0
+
+
+def _f32_like(w, device):
+    return torch.empty(w.shape, dtype=torch.float32, device=device)
+
+
+def fused_block_bwd_mlp(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b,
+                        eps: float = 1e-6, s2=None):
+    """K5, the backward of the MLP half: (dx1, dfc1_w, dfc1_b, dfc2_w,
+    dfc2_b, dln2_s, dln2_b), weight gradients in float32.  CUDA tensor: the
+    hand-written kernel (counted in `fused_block_bwd_mlp.launches`); CPU
+    tensor: the plain version `block_bwd_mlp_reference`."""
+    weights = (fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b)
+    if not _on_cuda(x1, "fused_block_bwd_mlp"):
+        return block_bwd_mlp_reference(x1, dout, *weights, eps=eps, s2=s2)
+    mlp = fc1_w.shape[1]
+    _check_geometry(x1, x1.shape[2] // HEAD_DIM, 1, mlp)
+    b, l, d = x1.shape
+    _check_operands("K5", [x1, dout, *weights],
+                    [x1.shape, x1.shape, (d, mlp), (mlp,), (mlp, d), (d,),
+                     (d,), (d,)])
+    s2 = _scale_operand(s2, x1)
+    rows, dev = b * l, x1.device
+    lib = _lib("fused_block_bwd_mlp")
+    dx1 = torch.empty_like(x1)
+    grads = [_f32_like(w, dev) for w in weights]
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    buf_y = torch.empty((rows, d), **bf)
+    buf_do2 = torch.empty((rows, d), **bf) if s2 is not None else None
+    buf_h = torch.empty((rows, mlp), **bf)
+    buf_g = torch.empty((rows, mlp), **bf)
+    buf_dy = torch.empty((rows, d), **f32)
+    buf_stats = torch.empty((2 * rows,), **f32)
+    workspace = torch.empty(
+        (lib.fused_block_bwd_mlp_workspace(rows, d, mlp),), **f32)
+    _launch(lib, lib.fused_block_bwd_mlp, "fused_block_bwd_mlp", dev,
+            *(_ptr(t) for t in (x1, dout, s2, *weights, dx1, *grads, buf_y,
+                                buf_do2, buf_h, buf_g, buf_dy, buf_stats,
+                                workspace)),
+            rows, d, mlp, eps)
+    fused_block_bwd_mlp.launches += 1
+    return (dx1, *grads)
+
+
+fused_block_bwd_mlp.launches = 0
+
+
+def fused_block_bwd_attn(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
+                         num_heads: int, valid_len: int, eps: float = 1e-6,
+                         s1=None):
+    """K6, the backward of the attention half: (dx, dqkv_w, dqkv_b,
+    dproj_w, dproj_b, dln1_s, dln1_b), weight gradients in float32.  CUDA
+    tensor: the hand-written kernel (counted in
+    `fused_block_bwd_attn.launches`); CPU tensor: the plain version
+    `block_bwd_attn_reference`."""
+    weights = (qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b)
+    if not _on_cuda(x, "fused_block_bwd_attn"):
+        return block_bwd_attn_reference(x, dx1, *weights,
+                                        num_heads=num_heads,
+                                        valid_len=valid_len, eps=eps, s1=s1)
+    _check_geometry(x, num_heads, valid_len)
+    b, l, d = x.shape
+    _check_operands("K6", [x, dx1, *weights],
+                    [x.shape, x.shape, (d, 3 * d), (3 * d,), (d, d), (d,),
+                     (d,), (d,)])
+    s1 = _scale_operand(s1, x)
+    rows, dev = b * l, x.device
+    lib = _lib("fused_block_bwd_attn")
+    dx = torch.empty_like(x)
+    grads = [_f32_like(w, dev) for w in weights]
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    buf_y, buf_dctx, buf_ctx = (torch.empty((rows, d), **bf)
+                                for _ in range(3))
+    buf_dbr = torch.empty((rows, d), **bf) if s1 is not None else None
+    buf_qkv, buf_dqkv = (torch.empty((rows, 3 * d), **bf) for _ in range(2))
+    buf_dy = torch.empty((rows, d), **f32)
+    buf_stats = torch.empty((2 * rows,), **f32)
+    workspace = torch.empty(
+        (lib.fused_block_bwd_attn_workspace(rows, d),), **f32)
+    _launch(lib, lib.fused_block_bwd_attn, "fused_block_bwd_attn", dev,
+            *(_ptr(t) for t in (x, dx1, s1, *weights, dx, *grads, buf_y,
+                                buf_dbr, buf_dctx, buf_ctx, buf_qkv,
+                                buf_dqkv, buf_dy, buf_stats, workspace)),
+            b, l, d, num_heads, valid_len, eps)
+    fused_block_bwd_attn.launches += 1
+    return (dx, *grads)
+
+
+fused_block_bwd_attn.launches = 0
+
+
+class TrainableFusedBlock(torch.autograd.Function):
+    """One trainable block: K4 forward, K5 then K6 backward (counterpart of
+    `make_pallas_trainable_fused_block`).  Only x, x1, the scales and the
+    weights are saved; the backward recomputes the rest inside the kernels.
+    Weight gradients come back in the weights' dtype; the branch scales
+    are stochastic-depth draws, not parameters, and get no gradient.
+
+    apply(x, s1, s2, num_heads, valid_len, eps, *weights)."""
+
+    @staticmethod
+    def forward(ctx, x, s1, s2, num_heads, valid_len, eps, *weights):
+        out, x1 = fused_block_fwd_train(x, *weights, num_heads=num_heads,
+                                        valid_len=valid_len, eps=eps, s1=s1,
+                                        s2=s2)
+        ctx.save_for_backward(x, x1, s1, s2, *weights)
+        ctx.cfg = (num_heads, valid_len, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, x1, s1, s2, *weights = ctx.saved_tensors
+        num_heads, valid_len, eps = ctx.cfg
+        (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ln1_s,
+         ln1_b, ln2_s, ln2_b) = weights
+        dx1, dfc1_w, dfc1_b, dfc2_w, dfc2_b, dln2_s, dln2_b = \
+            fused_block_bwd_mlp(x1, gout.contiguous(), fc1_w, fc1_b, fc2_w,
+                                fc2_b, ln2_s, ln2_b, eps=eps, s2=s2)
+        dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dln1_s, dln1_b = \
+            fused_block_bwd_attn(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
+                                 ln1_b, num_heads=num_heads,
+                                 valid_len=valid_len, eps=eps, s1=s1)
+        grads = (dqkv_w, dqkv_b, dproj_w, dproj_b, dfc1_w, dfc1_b, dfc2_w,
+                 dfc2_b, dln1_s, dln1_b, dln2_s, dln2_b)
+        return (dx, None, None, None, None, None,
+                *(g.to(w.dtype) for g, w in zip(grads, weights)))
+
+
+def trainable_fused_block(x, weights, num_heads: int, valid_len: int,
+                          eps: float = 1e-6, s1=None, s2=None):
+    """`TrainableFusedBlock` with keyword arguments; `weights` in the
+    order of `fused_vit_block`'s."""
+    return TrainableFusedBlock.apply(x, s1, s2, num_heads, valid_len, eps,
+                                     *weights)

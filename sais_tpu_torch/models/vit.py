@@ -6,7 +6,7 @@ DINO's state_dict (dino-main/vision_transformer.py: `patch_embed.proj`,
 reference checkpoint `dino_deitsmall16_pretrain.pth` loads with
 `load_state_dict` as it is.
 
-Two forward paths, picked by the parameters' dtype:
+Two inference paths, picked by the parameters' dtype:
 
 - float32: the parity path of the JAX package (exact GELU, f32 scores,
   LayerNorm in f32 rounded to the activations' dtype);
@@ -15,6 +15,14 @@ Two forward paths, picked by the parameters' dtype:
   plain PyTorch version on the CPU.  It follows the JAX package's fused
   path on a TPU, including the tanh GELU of the Pallas kernel (JAX off a
   TPU runs bf16 through XLA with exact GELU instead).
+
+Two training paths (DINO pre-training), both bf16 over float32 master
+parameters, with stochastic depth:
+
+- `vit_features_trainable_fused`: every block one `TrainableFusedBlock`
+  (K4 forward, K5 and K6 backward), drop path as per-row branch scales;
+- `vit_forward_train`: plain PyTorch autograd with exact GELU (the JAX
+  package's `vit_forward` at compute dtype bf16).
 
 The patch embedding is the JAX formulation: patches in (kh, kw, c) order
 times the reshaped conv kernel, a plain matmul.
@@ -30,7 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sais_tpu_torch.config import ViTConfig
-from sais_tpu_torch.kernels.fused_mha import fused_vit_block, layer_norm_f32
+from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
+                                              layer_norm_f32,
+                                              trainable_fused_block)
 
 
 class PatchEmbed(nn.Module):
@@ -146,10 +156,12 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, npatch: int, gh: int,
     return torch.cat([pos_embed[:, :1], out.reshape(1, gh * gw, dim)], dim=1)
 
 
-def prepare_tokens(model: VisionTransformer, images: torch.Tensor
-                   ) -> torch.Tensor:
+def prepare_tokens(model: VisionTransformer, images: torch.Tensor,
+                   param_dtype=None) -> torch.Tensor:
     """Patch embedding + CLS token + positional embedding
-    (vision_transformer.py:196-207).  images: (B, H, W, C) normalized."""
+    (vision_transformer.py:196-207).  images: (B, H, W, C) normalized.
+    param_dtype: round the positional table to it before interpolating, as
+    the JAX package's fused paths do (they cast every parameter first)."""
     cfg = model.cfg
     b, h, w, _ = images.shape
     # the product is rounded to the activations' dtype before the bias is
@@ -160,7 +172,9 @@ def prepare_tokens(model: VisionTransformer, images: torch.Tensor
     cls = model.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
     gh, gw = h // cfg.patch_size, w // cfg.patch_size
-    pe = interpolate_pos_embed(model.pos_embed, gh * gw, gh, gw)
+    pos = model.pos_embed if param_dtype is None else model.pos_embed.to(
+        param_dtype)
+    pe = interpolate_pos_embed(pos, gh * gw, gh, gw)
     return x + pe.to(x.dtype)
 
 
@@ -196,6 +210,36 @@ def vit_forward(model: VisionTransformer, images: torch.Tensor
     return x[:, 0].float()
 
 
+def block_weights_bf16(blk: Block) -> list:
+    """A block's 12 parameters as the kernels take them: bf16, linear
+    weights (in, out), a zero qkv bias where the model has none.  The casts
+    are differentiable, so gradients reach the float32 parameters."""
+
+    def bf16(t, transpose=False):
+        t = t.to(torch.bfloat16)
+        return t.t().contiguous() if transpose else t
+
+    attn, mlp = blk.attn, blk.mlp
+    qkv_b = (bf16(attn.qkv.bias) if attn.qkv.bias is not None
+             else attn.qkv.weight.new_zeros(attn.qkv.weight.shape[0],
+                                            dtype=torch.bfloat16))
+    return [bf16(attn.qkv.weight, True), qkv_b, bf16(attn.proj.weight, True),
+            bf16(attn.proj.bias), bf16(mlp.fc1.weight, True),
+            bf16(mlp.fc1.bias), bf16(mlp.fc2.weight, True),
+            bf16(mlp.fc2.bias), bf16(blk.norm1.weight), bf16(blk.norm1.bias),
+            bf16(blk.norm2.weight), bf16(blk.norm2.bias)]
+
+
+def _cls_norm_bf16(model: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm of the CLS row in bf16, returned float32.  LayerNorm
+    is per row, so normalizing the CLS row alone gives what the JAX path
+    takes from its LayerNorm over the first l rows."""
+    cls = _layer_norm(x[:, 0], model.norm.weight.to(torch.bfloat16),
+                      model.norm.bias.to(torch.bfloat16),
+                      model.cfg.layernorm_eps)
+    return cls.float()
+
+
 def vit_forward_fused(model: VisionTransformer, images: torch.Tensor,
                       block=fused_vit_block) -> torch.Tensor:
     """bf16 fused path (JAX `_vit_forward_fused`): each block is one K1
@@ -203,30 +247,110 @@ def vit_forward_fused(model: VisionTransformer, images: torch.Tensor,
     runs the same path through the plain version, to hold the kernel
     against it end to end."""
     cfg = model.cfg
-    x = prepare_tokens(model, images.to(torch.bfloat16)).contiguous()
-    b, l, d = x.shape
-
-    def bf16(t, transpose=False):   # parameters in bf16, weights (in, out)
-        t = t.to(torch.bfloat16)
-        return t.t().contiguous() if transpose else t
-
+    x = prepare_tokens(model, images.to(torch.bfloat16),
+                       torch.bfloat16).contiguous()
+    l = x.shape[1]
     for blk in model.blocks:
-        attn, mlp = blk.attn, blk.mlp
-        qkv_b = (bf16(attn.qkv.bias) if attn.qkv.bias is not None
-                 else x.new_zeros(3 * d))
-        x = block(x, bf16(attn.qkv.weight, True), qkv_b,
-                  bf16(attn.proj.weight, True), bf16(attn.proj.bias),
-                  bf16(mlp.fc1.weight, True), bf16(mlp.fc1.bias),
-                  bf16(mlp.fc2.weight, True), bf16(mlp.fc2.bias),
-                  bf16(blk.norm1.weight), bf16(blk.norm1.bias),
-                  bf16(blk.norm2.weight), bf16(blk.norm2.bias),
-                  num_heads=cfg.num_heads, valid_len=l,
-                  eps=cfg.layernorm_eps)
-    # LayerNorm is per row, so normalizing the CLS row alone gives what the
-    # JAX path takes from its LayerNorm over the first l rows.
-    cls = _layer_norm(x[:, 0], bf16(model.norm.weight), bf16(model.norm.bias),
-                      cfg.layernorm_eps)
-    return cls.float()
+        x = block(x, *block_weights_bf16(blk), num_heads=cfg.num_heads,
+                  valid_len=l, eps=cfg.layernorm_eps)
+    return _cls_norm_bf16(model, x)
+
+
+def drop_path_scales(generator: torch.Generator, keep: float, b: int
+                     ) -> torch.Tensor:
+    """Per-image survivor scales in {0, 1/keep}: floor(keep + U[0, 1)) /
+    keep (vision_transformer.py:27-35), drawn in float32 on the
+    generator's device; callers cast the result to the compute dtype (a
+    bf16 draw would quantize the drop probability to multiples of
+    1/128)."""
+    u = torch.rand((b,), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return torch.floor(keep + u) / keep
+
+
+def _drop_path_draws(generator, rate: float, depth: int, b: int):
+    """Two independent draws a block (attention and MLP branch) at the
+    linspace(0, rate, depth) probabilities (vision_transformer.py:150)."""
+    out = []
+    for i in range(depth):
+        keep = 1.0 - rate * i / max(depth - 1, 1)
+        out.append((drop_path_scales(generator, keep, b),
+                    drop_path_scales(generator, keep, b)))
+    return out
+
+
+def vit_features_trainable_fused(model: VisionTransformer,
+                                 images: torch.Tensor,
+                                 drop_path_rate: float = 0.0,
+                                 generator: torch.Generator = None,
+                                 scales=None) -> torch.Tensor:
+    """Differentiable fused path for DINO training (JAX
+    `vit_features_trainable_fused`, backward='pallas'): bf16 copies of the
+    parameters, every block one `TrainableFusedBlock` (K4 forward, K5 and
+    K6 backward), CLS features (B, D) float32.
+
+    Stochastic depth stays on the fused path: with drop_path_rate > 0 and a
+    generator, each block draws two per-image scales in {0, 1/keep}, which
+    become the kernels' (B, L, 1) branch scales.  `scales` injects the
+    draws instead: a list, one (s1, s2) pair of (B,) tensors a block."""
+    cfg = model.cfg
+    x = prepare_tokens(model, images.to(torch.bfloat16),
+                       torch.bfloat16).contiguous()
+    b, l, _ = x.shape
+    if scales is None and drop_path_rate > 0.0 and generator is not None:
+        scales = _drop_path_draws(generator, drop_path_rate,
+                                  len(model.blocks), b)
+    for i, blk in enumerate(model.blocks):
+        s1 = s2 = None
+        if scales is not None:
+            s1, s2 = (s.to(x.device, torch.bfloat16).reshape(b, 1, 1)
+                      .expand(b, l, 1).contiguous() for s in scales[i])
+        x = trainable_fused_block(x, block_weights_bf16(blk), cfg.num_heads,
+                                  l, cfg.layernorm_eps, s1=s1, s2=s2)
+    return _cls_norm_bf16(model, x)
+
+
+def _linear_bf16(x, lin: nn.Linear):
+    """x @ W in x's dtype, then the bias added in that dtype (the JAX
+    package's `_linear`: the product is rounded before the bias)."""
+    y = torch.matmul(x, lin.weight.to(x.dtype).t())
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def vit_forward_train(model: VisionTransformer, images: torch.Tensor,
+                      drop_path_rate: float = 0.0,
+                      generator: torch.Generator = None) -> torch.Tensor:
+    """Plain bf16 training path (JAX `vit_forward` at compute dtype bf16,
+    the one DINOTrainer takes without fused blocks): float32 parameters
+    cast at each use, bf16 products and attention scores, f32 LayerNorm and
+    softmax, exact GELU, stochastic depth as a per-image mask on each
+    branch.  CLS features (B, D) float32, differentiable by autograd."""
+    cfg = model.cfg
+    eps, heads = cfg.layernorm_eps, cfg.num_heads
+    x = prepare_tokens(model, images.to(torch.bfloat16))
+    b, n, d = x.shape
+    dh = d // heads
+    draws = (_drop_path_draws(generator, drop_path_rate, len(model.blocks), b)
+             if drop_path_rate > 0.0 and generator is not None else None)
+
+    def branch(y, i, j):
+        if draws is None:
+            return y
+        return y * draws[i][j].to(y.dtype).reshape(b, 1, 1)
+
+    for i, blk in enumerate(model.blocks):
+        y = _layer_norm(x, blk.norm1.weight, blk.norm1.bias, eps)
+        q, k, v = _linear_bf16(y, blk.attn.qkv).reshape(
+            b, n, 3, heads, dh).unbind(2)
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * dh ** -0.5
+        w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        y = torch.einsum("bhnm,bmhd->bnhd", w, v).reshape(b, n, d)
+        x = x + branch(_linear_bf16(y, blk.attn.proj), i, 0)
+        y = _layer_norm(x, blk.norm2.weight, blk.norm2.bias, eps)
+        y = F.gelu(_linear_bf16(y, blk.mlp.fc1).float()).to(x.dtype)
+        x = x + branch(_linear_bf16(y, blk.mlp.fc2), i, 1)
+    x = _layer_norm(x, model.norm.weight, model.norm.bias, eps)
+    return x[:, 0].float()
 
 
 def vit_features(model: VisionTransformer, images: torch.Tensor

@@ -10,6 +10,11 @@
   surgical pre-training checkpoint) -> VisionTransformer state_dict.
 - `full_model_params_from_reference` / `prototypes_from_reference`: the
   reference's `params.zip` / `prototypes.zip` (prepare_model.py:521-564).
+- `dino_head_params_from_jax` / `dino_state_from_jax`: the JAX package's
+  DINO head pytree and `DINOTrainer.state()` (student and teacher
+  {"backbone", "head"} trees and the center) -> state_dicts of
+  `models.dino_head.DINOHead` and of the port trainer's student / teacher
+  `nn.ModuleDict`s.
 """
 
 from __future__ import annotations
@@ -71,6 +76,34 @@ def vit_params_from_jax(tree: Mapping[str, Any], in_channels: int = 3
 def _linear_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
     return {prefix + "weight": _t(np.asarray(p["w"]).T),
             prefix + "bias": _t(p["b"])}
+
+
+def dino_head_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
+    """`sais_tpu.models.dino_head` params -> DINOHead state_dict (last_v
+    keeps the JAX (bottleneck, out_dim) layout)."""
+    if any("bn" in layer for layer in tree["mlp"]):
+        raise NotImplementedError(
+            "a use_bn DINO head is not ported yet (next slice)")
+    sd: StateDict = {"last_v": _t(tree["last_v"]),
+                     "last_g": _t(tree["last_g"])}
+    for i, layer in enumerate(tree["mlp"]):
+        sd.update(_linear_from_jax(layer, f"mlp.{i}."))
+    return sd
+
+
+def dino_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX `DINOTrainer.state()` (leaves as numpy) -> {"student":
+    state_dict, "teacher": state_dict, "center": tensor} for the port's
+    DINOTrainer (`trainer.student.load_state_dict(...)`).  The optimizer
+    state is not carried over: both trainers start it fresh."""
+    out: Dict[str, Any] = {"center": _t(state["center"])}
+    for net in ("student", "teacher"):
+        sd = {"backbone." + k: v for k, v in
+              vit_params_from_jax(state[net]["backbone"]).items()}
+        sd.update({"head." + k: v for k, v in
+                   dino_head_params_from_jax(state[net]["head"]).items()})
+        out[net] = sd
+    return out
 
 
 def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:

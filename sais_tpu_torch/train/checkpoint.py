@@ -1,21 +1,25 @@
 """Training results and inference artifacts on disk (reference
 train.py:105-121).
 
-Counterpart of `save_training_result`, `load_training_result` and
-`save_inference_artifacts` in `sais_tpu/train/checkpoint.py` (its orbax
-checkpoint manager, DINO's restartable checkpoints, waits for the
-pre-training slice).  The files are pickles of numpy arrays, laid out as
-the JAX package writes them (params.pkl holds the JAX parameter pytree),
-so either package reads the other's: `sais decode --params-dir` decodes a
-fold the port trained, and the port's `decode` one the JAX package
-trained.
+Counterpart of `sais_tpu/train/checkpoint.py`:
+
+- `save_training_result`, `load_training_result` and
+  `save_inference_artifacts`: pickles of numpy arrays, laid out as the JAX
+  package writes them (params.pkl holds the JAX parameter pytree), so
+  either package reads the other's: `sais decode --params-dir` decodes a
+  fold the port trained, and the port's `decode` one the JAX package
+  trained;
+- `CheckpointManager`: DINO's epoch-numbered restartable checkpoints
+  (utils.py:152-185, main_dino.py:468-479), written with torch.save.  It
+  reads no orbax checkpoint of the JAX package.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +40,43 @@ def _host(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return np.asarray(obj)
+
+
+class CheckpointManager:
+    """Epoch-numbered restartable checkpoints: <directory>/<step>.pt, the
+    newest max_to_keep kept.  A save writes a temporary file and renames
+    it, so a crash never leaves a partial checkpoint under a step name."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def steps(self):
+        found = (re.fullmatch(r"(\d+)\.pt", f)
+                 for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{step}.pt")
+
+    def save(self, step: int, state: Any) -> None:
+        tmp = self._path(step) + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, self._path(step))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def restore_latest(self, template: Any) -> Tuple[Optional[int], Any]:
+        """(step, state) of the newest checkpoint (tensors on the CPU), or
+        (None, template) when nothing is saved yet (the reference's 'found
+        checkpoint at ...' path, utils.py:160-165).  Unpickles: restore
+        only checkpoints you trust."""
+        steps = self.steps()
+        if not steps:
+            return None, template
+        return steps[-1], torch.load(self._path(steps[-1]),
+                                     map_location="cpu", weights_only=False)
 
 
 def save_training_result(savepath: str, result: Dict[str, Any]) -> None:

@@ -1,0 +1,447 @@
+"""DINO self-distillation pre-training (dino-main/main_dino.py, utils.py).
+
+Counterpart of `sais_tpu/train/dino.py`, in eager PyTorch on one device
+(the card unless `device='cpu'`):
+
+- student / teacher pairs of (ViT backbone + DINOHead), the teacher an EMA
+  of the student with a cosine momentum schedule 0.996 -> 1
+  (main_dino.py:563-567, 452-456);
+- the DINO loss (main_dino.py:581-634) in its 3-pass form, teacher
+  centering with a warmed-up temperature, the center an EMA (0.9) of the
+  teacher's batch mean;
+- cosine lr / wd schedules with linear warmup (utils.py:187-199), base lr
+  scaled by batch / 256 (main_dino.py:440);
+- per-parameter gradient clipping at 3.0 (utils.clip_gradients) and the
+  last layer's gradient cancelled during the first freeze_last_layer epochs;
+- unit-lr optimizers (own copies of optax's `adamw(1.0, weight_decay=0)`,
+  `sgd(1.0, momentum=0.9)` and `lars(1.0)`), the scheduled lr and the
+  decoupled weight decay on tensors of rank > 1 applied outside them
+  (`p + lr u - lr wd p`, utils.py:202-212);
+- stochastic depth on the student (drop_path_rate 0.1), per-step draws
+  from a generator seeded with the step index.
+
+With `fused_blocks` (the default on the card at batch >= 32) the student
+backbone runs on K4 / K5 / K6 (`vit_features_trainable_fused`) and the
+teacher on K1 (`vit_forward_fused`); otherwise both run the plain bf16
+path (`vit_forward_train`).  The head and loss are plain PyTorch: the
+fused last-layer + loss kernel (K7, `fused_loss=True`), the use_bn head
+and data-parallel steps (`mesh`) come with the next slice.
+
+Crops are batched per resolution group, image-major ([img0 crop0, img0
+crop1, ...], `ops.augment.multi_crop_batch`'s layout), so the backbone runs
+twice a step (globals, locals).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, \
+    Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from sais_tpu_torch import DeviceLike, resolve_device
+from sais_tpu_torch.config import ViTConfig
+from sais_tpu_torch.models.dino_head import dino_head_forward, dino_head_init
+from sais_tpu_torch.models.vit import (vit_features_trainable_fused,
+                                       vit_forward_fused, vit_forward_train,
+                                       vit_init)
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DINOConfig:
+    """Defaults = reference argparse defaults (main_dino.py:47-142)."""
+
+    out_dim: int = 65536
+    n_global_crops: int = 2
+    n_local_crops: int = 8
+    global_size: int = 224
+    local_size: int = 96
+    student_temp: float = 0.1
+    warmup_teacher_temp: float = 0.04
+    teacher_temp: float = 0.04
+    warmup_teacher_temp_epochs: int = 0
+    center_momentum: float = 0.9
+    momentum_teacher: float = 0.996
+    lr: float = 0.0005            # scaled by batch/256
+    min_lr: float = 1e-6
+    warmup_epochs: int = 10
+    weight_decay: float = 0.04
+    weight_decay_end: float = 0.4
+    clip_grad: float = 3.0
+    freeze_last_layer_epochs: int = 1
+    epochs: int = 100
+    batch_size: int = 64
+    norm_last_layer: bool = True
+    drop_path_rate: float = 0.1   # student only (main_dino.py:111, 369)
+    use_bn_in_head: bool = False
+
+
+def cosine_scheduler(base: float, final: float, epochs: int,
+                     niter_per_ep: int, warmup_epochs: int = 0,
+                     start_warmup_value: float = 0.0) -> np.ndarray:
+    """utils.cosine_scheduler (dino-main/utils.py:187-199)."""
+    warmup_iters = warmup_epochs * niter_per_ep
+    if warmup_iters > epochs * niter_per_ep:
+        raise ValueError(
+            f"warmup_epochs={warmup_epochs} exceeds epochs={epochs}; "
+            "reduce warmup (the CLI clamps it to min(10, nepochs // 10))")
+    warmup = np.linspace(start_warmup_value, base, warmup_iters)
+    iters = np.arange(epochs * niter_per_ep - warmup_iters)
+    sched = final + 0.5 * (base - final) * (
+        1 + np.cos(np.pi * iters / max(len(iters), 1)))
+    return np.concatenate([warmup, sched])
+
+
+def teacher_temp_schedule(cfg: DINOConfig, epochs: int) -> np.ndarray:
+    """DINOLoss teacher temp: linear warmup then constant
+    (main_dino.py:594-599)."""
+    w = cfg.warmup_teacher_temp_epochs
+    return np.concatenate([
+        np.linspace(cfg.warmup_teacher_temp, cfg.teacher_temp, w),
+        np.full(max(epochs - w, 0), cfg.teacher_temp)])
+
+
+def dino_loss(student_out: Sequence[torch.Tensor],
+              teacher_out: Sequence[torch.Tensor], center: torch.Tensor,
+              teacher_temp: float, student_temp: float = 0.1
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DINOLoss.forward (main_dino.py:601-621): (loss, batch center mean).
+
+    student_out: list over crops of (B, K) logits; teacher_out: list over
+    global crops.  The reference's double loop sums -q_iq . logp_v over
+    every pair with v != iq; this is the same sum in 3 passes:
+    -(sum_iq q_iq) . (sum_v logp_v) + sum_iq q_iq . logp_iq."""
+    q = [torch.softmax((t.float() - center) / teacher_temp, -1).detach()
+         for t in teacher_out]
+    logp = [torch.log_softmax(s.float() / student_temp, -1)
+            for s in student_out]
+    s_sum = sum(logp[1:], logp[0])
+    q_sum = sum(q[1:], q[0])
+    per_elem = -q_sum * s_sum
+    for iq in range(len(q)):
+        per_elem = per_elem + q[iq] * logp[iq]
+    n_terms = len(q) * (len(student_out) - 1)
+    total = per_elem.sum(-1).mean() / n_terms
+    batch_center = torch.cat([t.detach().float() for t in teacher_out],
+                             0).mean(0)
+    return total, batch_center
+
+
+def update_center(center: torch.Tensor, batch_center: torch.Tensor,
+                  momentum: float = 0.9) -> torch.Tensor:
+    """EMA center update (main_dino.py:624-634)."""
+    return center * momentum + batch_center * (1 - momentum)
+
+
+@torch.no_grad()
+def ema_update(teacher: nn.Module, student: nn.Module,
+               momentum: float) -> None:
+    """EMA teacher update in place (main_dino.py:563-567)."""
+    for t, s in zip(teacher.parameters(), student.parameters()):
+        t.copy_(t * momentum + s * (1.0 - momentum))
+
+
+def clip_gradients_per_param(grads: Tensors, clip: float) -> Tensors:
+    """utils.clip_gradients (utils.py:132-142): each tensor scaled on its
+    own when its norm exceeds clip."""
+    out = {}
+    for name, g in grads.items():
+        coef = torch.clamp(clip / (torch.linalg.vector_norm(g) + 1e-6),
+                           max=1.0)
+        out[name] = g * coef
+    return out
+
+
+def cancel_last_layer_grads(grads: Tensors, cancel: bool) -> Tensors:
+    """utils.cancel_gradients_last_layer: zero the head's last layer while
+    `cancel` holds."""
+    keep = 0.0 if cancel else 1.0
+    out = dict(grads)
+    for name in ("head.last_v", "head.last_g"):
+        out[name] = grads[name] * keep
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Unit-lr optimizers: own copies of optax's update rules, with the state a
+# dict of tensors keyed by parameter name.  `update` returns the updates to
+# be scaled by the scheduled lr (optax's scale_by_learning_rate(1.0) sign
+# included).
+# ---------------------------------------------------------------------------
+
+class Optimizer(NamedTuple):
+    init: Callable[[Tensors], Dict[str, Any]]
+    update: Callable[[Tensors, Dict[str, Any], Tensors],
+                     Tuple[Tensors, Dict[str, Any]]]
+
+
+def _zeros(params: Tensors) -> Tensors:
+    return {n: torch.zeros_like(p) for n, p in params.items()}
+
+
+def adamw(b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8) -> Optimizer:
+    """optax.adamw(1.0, weight_decay=0): scale_by_adam, no decay, -1."""
+
+    def init(params):
+        return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        c1 = np.float32(1 - np.float32(b1) ** count)
+        c2 = np.float32(1 - np.float32(b2) ** count)
+        mu, nu, out = {}, {}, {}
+        for n, g in grads.items():
+            mu[n] = (1 - b1) * g + b1 * state["mu"][n]
+            nu[n] = (1 - b2) * g * g + b2 * state["nu"][n]
+            out[n] = -((mu[n] / float(c1))
+                       / (torch.sqrt(nu[n] / float(c2)) + eps))
+        return out, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def sgd(momentum: float = 0.9) -> Optimizer:
+    """optax.sgd(1.0, momentum): trace (t = g + momentum t), then -1."""
+
+    def init(params):
+        return {"trace": _zeros(params)}
+
+    def update(grads, state, params):
+        trace = {n: g + momentum * state["trace"][n]
+                 for n, g in grads.items()}
+        return {n: -t for n, t in trace.items()}, {"trace": trace}
+
+    return Optimizer(init, update)
+
+
+def lars(trust_coefficient: float = 0.001, momentum: float = 0.9
+         ) -> Optimizer:
+    """optax.lars(1.0): weight decay 0, trust ratio coef ||p|| / ||u||
+    (1 where either norm is 0) on every tensor, -1, then a momentum
+    trace."""
+
+    def init(params):
+        return {"trace": _zeros(params)}
+
+    def update(grads, state, params):
+        trace = {}
+        for n, g in grads.items():
+            pn = torch.linalg.vector_norm(params[n])
+            un = torch.linalg.vector_norm(g)
+            ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                                trust_coefficient * pn / un)
+            trace[n] = -(g * ratio) + momentum * state["trace"][n]
+        return dict(trace), {"trace": trace}
+
+    return Optimizer(init, update)
+
+
+OPTIMIZERS = {"adamw": adamw, "sgd": sgd, "lars": lars}
+
+
+def _to_device(obj, device):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    return obj
+
+
+class DINOTrainer:
+    """Student / teacher DINO training, one optimization step at a time."""
+
+    def __init__(self, vit_cfg: ViTConfig, cfg: DINOConfig,
+                 niter_per_ep: int, generator: torch.Generator,
+                 optimizer: str = "adamw", mesh: Any = None,
+                 fused_blocks: Optional[bool] = None,
+                 fused_loss: Optional[bool] = None,
+                 device: DeviceLike = None):
+        """generator: a CPU generator for the initial weights (backbone,
+        then head).  fused_blocks: the student backbone on K4 / K5 / K6 and
+        the teacher on K1; default on a CUDA device at batch >= 32, as the
+        JAX package does on a TPU."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel DINO pre-training (mesh) is not ported yet; "
+                "it comes with the next slice (K7's per-shard loss)")
+        if fused_loss:
+            raise NotImplementedError(
+                "fused_loss (the last-layer + DINO loss kernel K7) is not "
+                "ported yet; it comes with the next slice, so the head and "
+                "loss run in plain PyTorch (fused_loss=False)")
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(optimizer)
+        self.device = resolve_device(device)
+        if fused_blocks is None:
+            fused_blocks = (cfg.batch_size >= 32
+                            and self.device.type == "cuda")
+        self.fused_blocks = fused_blocks
+        self.fused_loss = False
+        self.cfg = cfg
+        self.vit_cfg = vit_cfg
+        student = nn.ModuleDict({
+            "backbone": vit_init(generator, vit_cfg),
+            "head": dino_head_init(generator, vit_cfg.embed_dim, cfg.out_dim,
+                                   use_bn=cfg.use_bn_in_head)})
+        self.student = student.to(self.device)
+        self.teacher = copy.deepcopy(self.student).requires_grad_(False)
+        self.center = torch.zeros((cfg.out_dim,), device=self.device)
+
+        scaled_lr = cfg.lr * cfg.batch_size / 256.0
+        self.lr_sched = cosine_scheduler(scaled_lr, cfg.min_lr, cfg.epochs,
+                                         niter_per_ep, cfg.warmup_epochs)
+        self.wd_sched = cosine_scheduler(cfg.weight_decay,
+                                         cfg.weight_decay_end, cfg.epochs,
+                                         niter_per_ep)
+        self.mom_sched = cosine_scheduler(cfg.momentum_teacher, 1.0,
+                                          cfg.epochs, niter_per_ep)
+        self.temp_sched = teacher_temp_schedule(cfg, cfg.epochs)
+        self.niter_per_ep = niter_per_ep
+        self.step_idx = 0
+        self.optimizer = OPTIMIZERS[optimizer]()
+        self.opt_state = self.optimizer.init(self._params())
+
+    def _params(self) -> Tensors:
+        return dict(self.student.named_parameters())
+
+    # -- forward -----------------------------------------------------------
+
+    def _backbone(self, net, crops, generator):
+        rate = self.cfg.drop_path_rate
+        if self.fused_blocks:
+            return vit_features_trainable_fused(net["backbone"], crops, rate,
+                                                generator)
+        return vit_forward_train(net["backbone"], crops, rate, generator)
+
+    def _backbone_infer(self, net, crops):
+        # the teacher gets no gradient, so it takes the inference kernel
+        # (K1, no x1 written) on the fused path
+        if self.fused_blocks:
+            return vit_forward_fused(net["backbone"], crops)
+        return vit_forward_train(net["backbone"], crops)
+
+    def forward(self, net, globals_, locals_, generator=None,
+                infer: bool = False) -> List[torch.Tensor]:
+        """Backbone over the two resolution groups, then the head over all
+        rows in one call (MultiCropWrapper, utils.py:595-631); returns the
+        logits per crop, (B, out_dim) each, globals first."""
+        if infer:
+            bb = lambda c: self._backbone_infer(net, c)   # noqa: E731
+        else:
+            bb = lambda c: self._backbone(net, c, generator)   # noqa: E731
+        feats = [bb(globals_)]
+        if locals_ is not None and self.cfg.n_local_crops:
+            feats.append(bb(locals_))
+        # the head sees bf16 features, as under the reference's autocast
+        out = dino_head_forward(net["head"],
+                                torch.cat(feats).to(torch.bfloat16),
+                                self.cfg.norm_last_layer)
+
+        def regroup(o, n):   # image-major rows -> one (B, K) per crop
+            return list(o.reshape(o.shape[0] // n, n, o.shape[-1])
+                        .transpose(0, 1))
+
+        n_gr = feats[0].shape[0]
+        outs = regroup(out[:n_gr], self.cfg.n_global_crops)
+        if len(feats) > 1:
+            outs += regroup(out[n_gr:], self.cfg.n_local_crops)
+        return outs
+
+    # -- checkpointable state (utils.restart_from_checkpoint) ---------------
+
+    def state(self) -> Dict[str, Any]:
+        return {"student": self.student.state_dict(),
+                "teacher": self.teacher.state_dict(),
+                "center": self.center, "opt_state": self.opt_state,
+                "step_idx": self.step_idx}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        self.student.load_state_dict(state["student"])
+        self.teacher.load_state_dict(state["teacher"])
+        self.center = state["center"].to(self.device)
+        self.opt_state = _to_device(state["opt_state"], self.device)
+        self.step_idx = int(state["step_idx"])
+
+    # -- steps -------------------------------------------------------------
+
+    def loss_and_grads(self, globals_: torch.Tensor,
+                       locals_: Optional[torch.Tensor], teacher_temp: float,
+                       generator: torch.Generator
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step's forward and backward without the update: (loss,
+        teacher batch center), the student's gradients left in .grad.
+        `generator` draws the student's stochastic depth."""
+        cfg = self.cfg
+        for p in self.student.parameters():
+            p.grad = None
+        s_out = self.forward(self.student, globals_, locals_, generator)
+        with torch.no_grad():
+            t_out = self.forward(self.teacher, globals_, None,
+                                 infer=True)[:cfg.n_global_crops]
+        loss, batch_center = dino_loss(s_out, t_out, self.center,
+                                       teacher_temp, cfg.student_temp)
+        loss.backward()
+        return loss, batch_center
+
+    def step_async(self, globals_: torch.Tensor,
+                   locals_: Optional[torch.Tensor]) -> torch.Tensor:
+        """One optimization step without fetching the loss: returns the
+        loss on the device, for the caller to fetch one step later
+        (`check_loss`) so the host prepares the next batch meanwhile.
+
+        globals_: (n_global*B, H, W, 3) normalized crops, image-major rows;
+        locals_: (n_local*B, h, w, 3) or None."""
+        cfg = self.cfg
+        i = min(self.step_idx, len(self.lr_sched) - 1)
+        epoch = i // self.niter_per_ep
+        lr, wd = float(self.lr_sched[i]), float(self.wd_sched[i])
+        momentum = float(self.mom_sched[i])
+        temp = float(self.temp_sched[min(epoch, len(self.temp_sched) - 1)])
+        globals_ = globals_.to(self.device)
+        locals_ = None if locals_ is None else locals_.to(self.device)
+        # per-step stochastic-depth draws
+        gen = torch.Generator(device=self.device).manual_seed(self.step_idx)
+
+        params = self._params()
+        loss, batch_center = self.loss_and_grads(globals_, locals_, temp,
+                                                 gen)
+        with torch.no_grad():
+            # parameters the loss does not reach (last_g under
+            # norm_last_layer) have a zero gradient, as in JAX
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in params.items()}
+            grads = clip_gradients_per_param(grads, cfg.clip_grad)
+            grads = cancel_last_layer_grads(
+                grads, epoch < cfg.freeze_last_layer_epochs)
+            updates, self.opt_state = self.optimizer.update(
+                grads, self.opt_state, params)
+            for n, p in params.items():
+                decay = lr * wd * float(p.dim() > 1)
+                p.copy_(p + lr * updates[n] - decay * p)
+                p.grad = None
+            ema_update(self.teacher, self.student, momentum)
+            self.center = update_center(self.center, batch_center,
+                                        cfg.center_momentum)
+        self.step_idx += 1
+        return loss.detach()
+
+    @staticmethod
+    def check_loss(loss) -> float:
+        """Fetch and validate a loss from step_async (the reference aborts
+        on a non-finite loss, main_dino.py:539-541)."""
+        loss = float(loss)
+        if not np.isfinite(loss):
+            raise FloatingPointError(f"DINO loss is {loss}, stopping training")
+        return loss
+
+    def step(self, globals_: torch.Tensor,
+             locals_: Optional[torch.Tensor]) -> float:
+        """One synchronous optimization step (dispatch + loss fetch)."""
+        return self.check_loss(self.step_async(globals_, locals_))

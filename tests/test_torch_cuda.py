@@ -309,3 +309,137 @@ def test_prototype_trainer_step_on_card_matches_cpu(cuda):
     for name, p in sd.items():
         torch.testing.assert_close(p, ref_sd[name], rtol=1e-4, atol=1e-6,
                                    msg=name)
+
+
+def _scales(b, l, seed, device="cuda"):
+    """Per-image branch scales in {0, 1/0.9} (image 0 drops its attention
+    branch, image 1 its MLP branch), broadcast to (B, L, 1) bf16."""
+    g = torch.Generator().manual_seed(seed)
+    keep = (torch.rand((2, b), generator=g) < 0.7).float()
+    keep[0, 0] = 0.0
+    keep[1, min(1, b - 1)] = 0.0
+    s = (keep / 0.9).to(torch.bfloat16)
+    return [si[:, None, None].expand(b, l, 1).contiguous().to(device)
+            for si in s]
+
+
+def _close(got, ref, name, rel=2e-2):
+    """Limit rel * max|ref|: kernel and plain version round at the same
+    points and differ in summation order, which moves a bf16 value by an
+    ulp or two (2**-8 relative) and an f32 sum over B*L rows by less."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    assert torch.isfinite(got).all(), name
+    assert err <= rel * scale + 1e-6, (name, err, scale)
+
+
+TRAIN_SHAPES = [(4, 197, 197), (6, 37, 37), (3, 50, 13), (2, 256, 256),
+                (3, 1, 1)]
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("b,l,valid", TRAIN_SHAPES)
+def test_train_kernels_match_plain_versions(cuda, b, l, valid, scaled):
+    """K4, K5 and K6 at ViT-S widths against their plain versions on the
+    same inputs, with and without branch scales (zeros included) and with
+    keys masked past valid_len."""
+    from sais_tpu_torch.kernels.fused_mha import (
+        block_bwd_attn_reference, block_bwd_mlp_reference,
+        fused_block_bwd_attn, fused_block_bwd_mlp, fused_block_fwd_train,
+        vit_block_train_reference)
+    x, ws = _inputs(l + 7, b, l)
+    s1, s2 = _scales(b, l, l) if scaled else (None, None)
+    kw = dict(num_heads=6, valid_len=valid)
+    counts = (fused_block_fwd_train.launches, fused_block_bwd_mlp.launches,
+              fused_block_bwd_attn.launches)
+    out, x1 = fused_block_fwd_train(x, *ws, s1=s1, s2=s2, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_x1 = vit_block_train_reference(x, *ws, s1=s1, s2=s2, **kw)
+    _close(x1[:, :valid], ref_x1[:, :valid], "x1")
+    _close(out[:, :valid], ref_out[:, :valid], "out")
+
+    g = torch.Generator().manual_seed(l)
+    dout = torch.randn(x.shape, generator=g).to(cuda, torch.bfloat16)
+    mlp_w = ws[4:8] + ws[10:12]
+    got = fused_block_bwd_mlp(ref_x1, dout, *mlp_w, s2=s2)
+    torch.cuda.synchronize()
+    ref = block_bwd_mlp_reference(ref_x1, dout, *mlp_w, s2=s2)
+    for name, a, r in zip(("dx1", "dfc1_w", "dfc1_b", "dfc2_w", "dfc2_b",
+                           "dln2_s", "dln2_b"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        _close(a, r, name)
+
+    dx1 = ref[0]
+    attn_w = ws[0:4] + ws[8:10]
+    got = fused_block_bwd_attn(x, dx1, *attn_w, s1=s1, **kw)
+    torch.cuda.synchronize()
+    ref = block_bwd_attn_reference(x, dx1, *attn_w, s1=s1, **kw)
+    for name, a, r in zip(("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b",
+                           "dln1_s", "dln1_b"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        _close(a, r, name)
+    assert (fused_block_fwd_train.launches, fused_block_bwd_mlp.launches,
+            fused_block_bwd_attn.launches) == tuple(c + 1 for c in counts)
+
+
+def test_trainable_block_runs_the_three_kernels(cuda):
+    """TrainableFusedBlock on the card: one K4 launch forward, one K5 and
+    one K6 launch backward, gradients (in the weights' bf16) equal to the
+    kernels' own outputs and within the plain versions' limits."""
+    from sais_tpu_torch.kernels.fused_mha import (
+        block_bwd_attn_reference, block_bwd_mlp_reference,
+        fused_block_bwd_attn, fused_block_bwd_mlp, fused_block_fwd_train,
+        trainable_fused_block, vit_block_train_reference)
+    b, l = 4, 197
+    x, ws = _inputs(3, b, l)
+    s1, s2 = _scales(b, l, 4)
+    x.requires_grad_(True)
+    for w in ws:
+        w.requires_grad_(True)
+    counts = (fused_block_fwd_train.launches, fused_block_bwd_mlp.launches,
+              fused_block_bwd_attn.launches)
+    out = trainable_fused_block(x, ws, 6, l, s1=s1, s2=s2)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)
+                       ).to(cuda, torch.bfloat16)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fused_block_fwd_train.launches, fused_block_bwd_mlp.launches,
+            fused_block_bwd_attn.launches) == tuple(c + 1 for c in counts)
+    with torch.no_grad():
+        xd, wd = x.detach(), [w.detach() for w in ws]
+        _, x1 = vit_block_train_reference(xd, *wd, num_heads=6, valid_len=l,
+                                          s1=s1, s2=s2)
+        mlp = block_bwd_mlp_reference(x1, dout, *wd[4:8], *wd[10:12], s2=s2)
+        attn = block_bwd_attn_reference(xd, mlp[0], *wd[0:4], *wd[8:10],
+                                        num_heads=6, valid_len=l, s1=s1)
+    _close(x.grad, attn[0], "dx")
+    ref = dict(zip(range(12), (*attn[1:5], *mlp[1:5], *attn[5:7],
+                               *mlp[5:7])))
+    for i, w in enumerate(ws):
+        assert w.grad.dtype == torch.bfloat16 and w.grad.shape == w.shape
+        _close(w.grad, ref[i], f"weight {i}")
+
+
+def test_train_kernels_reject_what_they_do_not_take(cuda):
+    from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                  fused_block_bwd_mlp,
+                                                  fused_block_fwd_train)
+    x, ws = _inputs(0, 2, 20)
+    s1, s2 = _scales(2, 20, 0)
+    with pytest.raises(ValueError, match="both"):
+        fused_block_fwd_train(x, *ws, num_heads=6, valid_len=20, s1=s1)
+    with pytest.raises(ValueError, match="scale shape"):
+        fused_block_fwd_train(x, *ws, num_heads=6, valid_len=20,
+                              s1=s1[:, :10], s2=s2[:, :10])
+    with pytest.raises(ValueError, match="bf16"):
+        fused_block_bwd_mlp(x.float(), x, *ws[4:8], *ws[10:12])
+    with pytest.raises(ValueError, match="shape"):
+        fused_block_bwd_mlp(x, x[:, :10], *ws[4:8], *ws[10:12])
+    with pytest.raises(ValueError, match="head dim"):
+        fused_block_bwd_attn(x, x, *ws[0:4], *ws[8:10], num_heads=4,
+                             valid_len=20)
+    long_x, long_ws = _inputs(1, 1, 257)
+    with pytest.raises(NotImplementedError, match="sequence length"):
+        fused_block_bwd_attn(long_x, long_x, *long_ws[0:4], *long_ws[8:10],
+                             num_heads=6, valid_len=257)

@@ -228,7 +228,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 
 def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     """Every module of the port, imported in a fresh interpreter, leaves
-    jax, the JAX package, the host libraries it loads lazily (cv2, h5py)
+    jax, the JAX package and its optimizer and checkpoint libraries
+    (optax, orbax), the host libraries the port loads lazily (cv2, h5py)
     and the ones it does without (pandas, sklearn) out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -237,8 +238,8 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
         " 'sais_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'sais_tpu', 'cv2', 'h5py', 'pandas',"
-        " 'sklearn'))\n"
+        " ('jax', 'jaxlib', 'sais_tpu', 'optax', 'orbax', 'cv2', 'h5py',"
+        " 'pandas', 'sklearn'))\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('sais_tpu_torch.')]), bad)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
