@@ -81,24 +81,45 @@ Phases, each of which fails the run:
    linear, SDPA, gelu; K5 and K6: the autograd backward of the MLP and
    attention halves, forward + backward minus forward); the least time the
    card could take.
-10. pretrain path at full width (`pretrain -bs 64` without the video
+10. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
+   against its plain version (loss and center 1e-4 relative; dhs, dvs,
+   dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
+   norm_last_layer; two runs bitwise equal) at the pretrain step's shape
+   (640 / 128 rows, bottleneck 256, out_dim 65536) with norm_last_layer
+   both ways, at the CLI's default batch 256 (2560 / 512 rows) and at a
+   ragged (25, 10) shape; CUDA-event times of the kernel, the plain
+   version and the unfused composition (`plain_head_loss`, forward and
+   autograd backward); the least time the card could take.
+11. pretrain path at full width (`pretrain -bs 64` without the video
    I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
-   local at 96, drop path 0.1, adamw, fused blocks) from fixed seeds, 64
-   synthetic 480x640 frames (numpy seed 0), border crop and
-   multi_crop_batch on the card; one warm-up step, then five steps (host
-   clock, loss fetched each step; img/s from the median).  K4, K5 and K6
-   must launch exactly 24 times a step (12 blocks x 2 crop groups) and K1
-   12 (the teacher); every loss finite; one step's loss and every
-   parameter gradient, with the same weights, crops and drop-path draws,
-   against the same step through the plain versions on the card (loss
-   1e-3 relative, each gradient 5e-2 of its largest value).
-11. prints the kernels line (JSON), then, last, the device line (JSON).
+   local at 96, drop path 0.1, adamw, fused blocks, fused loss) from
+   fixed seeds, 64 synthetic 480x640 frames (numpy seed 0), border crop
+   and multi_crop_batch on the card; one warm-up step, then five steps
+   (host clock, loss fetched each step; img/s from the median).  K4, K5
+   and K6 must launch exactly 24 times a step (12 blocks x 2 crop groups),
+   K1 12 (the teacher) and K7 once; every loss finite; one step's loss and
+   every parameter gradient, with the same weights, crops and drop-path
+   draws, against the same step through the plain versions on the card
+   (loss 1e-3 relative, each gradient 5e-2 of its largest value); the
+   loss with fused_loss=False printed beside it.
+12. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
+   CUDA kernel against its plain version (2e-2 of its largest value) and
+   against K1 on the same inputs (cosine > 0.9999, max relative < 0.02,
+   JAX's limits; the reading at the K1 phase's weights printed beside
+   it); CUDA-event times of the kernel, the plain version and a
+   torch._int_mm composition; the least time the card could take.
+13. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
+   and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
+   and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
+   frames/s beside the bf16 path's (median of three after a warm-up).
+14. prints the kernels line (JSON), then, last, the device line (JSON).
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
-K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls and
-one pretrain step (with K4's, K5's, K6's and K1's shares, read from
-profiler ranges: K1 and K4 share their kernels' names).
+K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls,
+K7 calls, one pretrain step (with K4's, K5's, K6's, K1's and K7's shares,
+read from profiler ranges: K1 and K4 share their kernels' names) and K8
+calls.
 """
 
 from __future__ import annotations
@@ -439,9 +460,13 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=()):
         print(f"{name}: {label} {got[label]:.0f} us, "
               f"{100 * got[label] / busy_us:.1f}% of device busy time",
               flush=True)
-    averages = {e.key: e for e in prof.key_averages()}
+    averages = prof.key_averages()
     for label in ranges:
-        e = averages.get(label)
+        # a range can appear twice (its CPU event and its annotation on the
+        # device timeline); the entry that carries the kernels' time counts
+        entries = [e for e in averages if e.key == label] or [None]
+        e = max(entries, key=lambda e: 0.0 if e is None else getattr(
+            e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
         us = 0.0 if e is None else getattr(
             e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
         got[label] = us
@@ -458,8 +483,7 @@ def phase_main_path(nframes: int):
     from sais_tpu_torch.infer.pipeline import FeatureExtractor, GestureDecoder
     from sais_tpu_torch.infer.postprocess import write_rows_csv
     from sais_tpu_torch.kernels.flash_attention import flash_attention
-    from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
-                                                  vit_block_reference)
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block
     from sais_tpu_torch.models.full_model import (full_model_init,
                                                   prototypes_init)
     from sais_tpu_torch.models.vit import vit_forward_fused, vit_init
@@ -527,8 +551,8 @@ def phase_main_path(nframes: int):
             x = preprocess_batch(
                 torch.from_numpy(frames[i:i + fx.batch_size]).cuda(),
                 cfg.preprocess, torch.bfloat16)
-            plain.append(vit_forward_fused(fx.model, x,
-                                           block=vit_block_reference))
+            with _Annotated(plain=True):
+                plain.append(vit_forward_fused(fx.model, x))
     plain = torch.cat(plain).cpu().numpy()
     ferr, fscale = np.abs(feats - plain).max(), np.abs(plain).max()
     perr = np.abs(probs - dec.window_probs("smoke", plain)).max()
@@ -1212,19 +1236,17 @@ class _Ranged:
 
 
 class _Annotated:
-    """Within the block, K1, K4, K5 and K6 run under profiler ranges named
-    after them (their kernels share names), and `plain=True` routes the
-    same path through the plain versions instead; restored on exit."""
+    """Within the block, K1, K4, K5, K6 and K7 run under profiler ranges
+    named after them (K1's and K4's kernels share names), and `plain=True`
+    routes the same path through the plain versions instead; restored on
+    exit."""
 
     def __init__(self, plain=False):
         self.plain = plain
 
     def __enter__(self):
-        import functools
-
-        from sais_tpu_torch.kernels import fused_mha
+        from sais_tpu_torch.kernels import dino_head_loss, fused_mha
         from sais_tpu_torch.models import vit
-        from sais_tpu_torch.train import dino
         fns = {"fused_block_fwd_train": ("K4",
                                          fused_mha.vit_block_train_reference),
                "fused_block_bwd_mlp": ("K5",
@@ -1232,16 +1254,19 @@ class _Annotated:
                "fused_block_bwd_attn": ("K6",
                                         fused_mha.block_bwd_attn_reference)}
         self.saved = [(fused_mha, n, getattr(fused_mha, n)) for n in fns]
-        self.saved.append((dino, "vit_forward_fused", dino.vit_forward_fused))
+        self.saved.append((vit, "fused_vit_block", vit.fused_vit_block))
         for name, (label, plain) in fns.items():
             kernel = getattr(fused_mha, name)
             setattr(fused_mha, name, _Ranged(
                 label, plain if self.plain else kernel, kernel))
-        k1 = fused_mha.fused_vit_block
-        dino.vit_forward_fused = functools.partial(
-            vit.vit_forward_fused, block=_Ranged(
-                "K1", fused_mha.vit_block_reference if self.plain else k1,
-                k1))
+        k7 = dino_head_loss.fused_loss_and_grads
+        self.saved.append((dino_head_loss, "fused_loss_and_grads", k7))
+        dino_head_loss.fused_loss_and_grads = _Ranged(
+            "K7", dino_head_loss.fused_loss_and_grads_reference if self.plain
+            else k7, k7)
+        k1 = vit.fused_vit_block
+        vit.fused_vit_block = _Ranged(
+            "K1", fused_mha.vit_block_reference if self.plain else k1, k1)
         return self
 
     def __exit__(self, *exc):
@@ -1249,13 +1274,146 @@ class _Annotated:
             setattr(mod, name, fn)
 
 
+# ---------------------------------------------------------------------------
+# K7: the fused DINO last layer + loss
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8, at 700 W (data sheet)
+
+
+def k7_inputs(batch, n_global, n_local, db, k, seed, device="cuda"):
+    """Unit-row bf16 hs / ht, f32 v, g and center, and the pair structure
+    of a DINO step, on `device` (also the CUDA tests' inputs)."""
+    import torch
+    from sais_tpu_torch.kernels.dino_head_loss import build_pair_structure
+    g = torch.Generator().manual_seed(seed)
+    rs, rt = (n_global + n_local) * batch, n_global * batch
+
+    def unit(n):
+        h = torch.randn((n, db), generator=g)
+        return (h / h.norm(dim=-1, keepdim=True)).bfloat16()
+
+    sel, c = build_pair_structure(batch, n_global, n_local)
+    out = [unit(rs), unit(rt), torch.randn((db, k), generator=g),
+           torch.randn((db, k), generator=g),
+           1.0 + 0.1 * torch.randn((k,), generator=g),
+           1.0 + 0.1 * torch.randn((k,), generator=g),
+           0.01 * torch.randn((k,), generator=g), torch.from_numpy(sel),
+           torch.from_numpy(c)]
+    return [t.to(device) for t in out]
+
+
+def k7_bound_ms(rs, rt, db, k, input_bytes, output_bytes):
+    """Least time for K7: the bf16 products the function needs, s = hs ws
+    (rs rows), tl = ht wt (rt rows), dh_s = dl ws^T and dw = hs^T dl, 2 db
+    k (3 rs + rt) flops (the pair sums are one or two additions a row,
+    gathered; the kernel's recomputation of s and tl is its own overhead),
+    against its inputs read once and its outputs written once."""
+    flops = 2 * db * k * (3 * rs + rt)
+    nbytes = input_bytes + output_bytes
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+# (batch, n_global, n_local, db, out_dim, norm_last_layer): the pretrain
+# step's shape both ways, the CLI's default batch (256: 512 teacher rows),
+# and a small ragged one
+K7_SHAPES = ((64, 2, 8, 256, 65536, True), (64, 2, 8, 256, 65536, False),
+             (256, 2, 8, 256, 65536, True), (5, 2, 3, 256, 1024, True))
+
+
+def phase_k7():
+    import torch
+    from sais_tpu_torch.kernels.dino_head_loss import (
+        fused_loss_and_grads, fused_loss_and_grads_reference)
+    from sais_tpu_torch.train.dino import plain_head_loss
+    worst, result = 0.0, {}
+    for batch, ng, nl, db, k, norm_last in K7_SHAPES:
+        hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(batch, ng, nl, db,
+                                                           k, seed=k + ng)
+        rs, rt = hs.shape[0], ht.shape[0]
+        kw = dict(student_temp=0.1, inv_norm=1.0 / (batch * ng * (ng + nl - 1)),
+                  use_g=not norm_last)
+        args = (hs, ht, vs, vt, gs, gt, center, 0.04, sel, c)
+        got = fused_loss_and_grads(*args, **kw)
+        again = fused_loss_and_grads(*args, **kw)
+        torch.cuda.synchronize()
+        ref = fused_loss_and_grads_reference(*args, **kw)
+        line = []
+        for name, a, r in zip(("loss", "center", "dhs", "dvs", "dgs"), got,
+                              ref):
+            err = (a - r).abs().max().item()
+            scale = r.abs().max().item()
+            line.append(f"{name} {err:.3g}/{scale:.3g}")
+            # Limits: loss and center 1e-4 relative (f32 sums in another
+            # order); dhs, dvs, dgs 1e-2 of the plain version's largest
+            # value (a bf16 rounding of dl may land on the other side of a
+            # tie: one ulp of one element of dl).
+            rel = 1e-4 if name in ("loss", "center") else 1e-2
+            check(math.isfinite(err) and err <= rel * scale,
+                  f"K7 {name} disagrees with its plain version at (rs, rt, "
+                  f"db, k) = ({rs}, {rt}, {db}, {k}), norm_last "
+                  f"{norm_last}: {err} > {rel} * {scale}")
+            worst = max(worst, err)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        zero_dg = (not norm_last) or torch.count_nonzero(got[4]).item() == 0
+        print(f"K7 (rs, rt, db, k) = ({rs}, {rt}, {db}, {k}) norm_last "
+              f"{norm_last}: max|kernel-plain| / max|plain|: "
+              f"{', '.join(line)}; two runs bitwise equal {same}", flush=True)
+        check(same, "K7 is not deterministic: two runs differ")
+        check(zero_dg, "K7 dg is not 0 under norm_last_layer")
+        del got, again, ref
+        if result or k != 65536:
+            del hs, ht, vs, vt, gs, gt, center, sel, c
+            continue
+        ms = cuda_time_ms(lambda: fused_loss_and_grads(*args, **kw))
+        plain_ms = cuda_time_ms(
+            lambda: fused_loss_and_grads_reference(*args, **kw), iters=3,
+            warmup=1)
+        leaves = [t.detach().float().clone().requires_grad_()
+                  for t in (hs, vs)]
+
+        def lib_fwd():
+            return plain_head_loss(leaves[0], leaves[1], gs, ht, vt, gt,
+                                   center, 0.04, n_global=ng, n_local=nl,
+                                   student_temp=0.1,
+                                   norm_last_layer=norm_last)[0]
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), leaves)
+
+        library_ms = cuda_time_ms(lib_fwd_bwd, iters=10)
+        in_bytes = sum(t.numel() * t.element_size()
+                       for t in (hs, ht, vs, vt, gs, gt, center, sel, c))
+        out_bytes = 4 * (1 + k + rs * db + db * k + k)
+        bound_ms, bound_by, flops, nbytes = k7_bound_ms(rs, rt, db, k,
+                                                        in_bytes, out_bytes)
+        print(f"K7 (rs, rt, db, k) = ({rs}, {rt}, {db}, {k}): kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library (plain_head_loss: cuBLAS last "
+              f"layer + regroup + dino_loss, forward and autograd backward) "
+              f"{library_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} "
+              f"GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+        result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+        _profile(lambda: fused_loss_and_grads(*args, **kw), "k7_profile", 3)
+        del hs, ht, vs, vt, gs, gt, center, sel, c, leaves
+        torch.cuda.empty_cache()
+    result["max_abs_err"] = worst
+    return result
+
+
 def phase_pretrain(batch: int = 64):
     """`pretrain` at full width: ViT-S/16, DINO head out_dim 65536, 2 global
     crops at 224 + 8 local at 96, batch 64, adamw, drop path 0.1, the
-    student on K4-K6 and the teacher on K1."""
+    student on K4-K6, the teacher on K1, the last layer and loss on K7."""
     import numpy as np
     import torch
     from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
     from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
                                                   fused_block_bwd_mlp,
                                                   fused_block_fwd_train,
@@ -1267,11 +1425,13 @@ def phase_pretrain(batch: int = 64):
     cfg = DINOConfig(out_dim=65536, batch_size=batch, n_global_crops=2,
                      n_local_crops=8, drop_path_rate=0.1)
     counters = (fused_block_fwd_train, fused_block_bwd_mlp,
-                fused_block_bwd_attn, fused_vit_block)
+                fused_block_bwd_attn, fused_vit_block, fused_loss_and_grads)
     t0 = time.perf_counter()
     trainer = DINOTrainer(ViTConfig(), cfg, niter_per_ep=1000,
                           generator=torch.Generator().manual_seed(0),
                           optimizer="adamw", fused_blocks=True)
+    check(trainer.fused_loss, "DINOTrainer on the card did not default to "
+          "the fused loss (K7)")
     frames = np.random.default_rng(0).integers(
         0, 256, (batch, 480, 640, 3), dtype=np.uint8)
     images = torch.from_numpy(np.ascontiguousarray(
@@ -1305,11 +1465,12 @@ def phase_pretrain(batch: int = 64):
     print(f"pretrain: 5 steps {', '.join(f'{1e3 * t:.2f}' for t in times)}"
           f" ms (median {1e3 * step_s:.2f} ms, {batch / step_s:.1f} img/s); "
           f"losses {[round(x, 5) for x in losses]}; launches a step "
-          f"(K4, K5, K6, K1) {per_step[0]}, over the 5 steps {launches}",
+          f"(K4, K5, K6, K1, K7) {per_step[0]}, over the 5 steps {launches}",
           flush=True)
     check(all(math.isfinite(x) for x in losses), "non-finite pretrain loss")
-    check(all(p == [24, 24, 24, 12] for p in per_step),
-          f"launches a step {per_step}, expected K4, K5, K6 24 and K1 12")
+    check(all(p == [24, 24, 24, 12, 1] for p in per_step),
+          f"launches a step {per_step}, expected K4, K5, K6 24, K1 12 and "
+          "K7 1")
 
     # one step's loss and gradients, kernels against plain versions, from
     # the same weights, crops and drop-path draws (no update in between)
@@ -1343,16 +1504,209 @@ def phase_pretrain(batch: int = 64):
           "which parameters get a gradient")
     check(worst[-1][1] <= 5e-2, f"gradient {worst[-1][0]} differs from the "
           f"plain path: {worst[-1][1]}")
+    # the same step with the plain head and loss (fused_loss=False), printed
+    # beside it; JAX's own fused-vs-XLA limit is 5e-3 relative
+    # (tests/test_dino_fused_loss.py)
+    trainer.fused_loss = False
+    loss_u, _ = grads(False)
+    trainer.fused_loss = True
+    print(f"pretrain step, K7 vs fused_loss=False on the card: loss "
+          f"{loss_k:.6f} vs {loss_u:.6f} (rel "
+          f"{abs(loss_k - loss_u) / abs(loss_u):.3g}; JAX's limit 5e-3)",
+          flush=True)
     for p in trainer.student.parameters():
         p.grad = None
 
     with _Annotated():
         _profile(lambda: trainer.step(g, l), "pretrain_step_profile", 1,
-                 ranges=("K4", "K5", "K6", "K1"))
+                 ranges=("K4", "K5", "K6", "K1", "K7"))
     del trainer
     torch.cuda.empty_cache()
     return launches, step_s
 
+
+# ---------------------------------------------------------------------------
+# K8: the W8A8 ViT block
+# ---------------------------------------------------------------------------
+
+def library_block_int8(x, ws, heads, valid_len, eps):
+    """The W8A8 block as PyTorch library calls (the yardstick, never called
+    by the port): per-call weight and per-token activation quantization,
+    torch._int_mm for the four products, layer_norm, SDPA, gelu."""
+    import torch
+    import torch.nn.functional as F
+    from sais_tpu_torch.kernels.fused_mha import quant_rows, quantize_weight
+    (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b, ln1_s, ln1_b,
+     ln2_s, ln2_b) = ws
+    b, l, d = x.shape
+
+    def mm(y32, w, bias):
+        q, s = quant_rows(y32)
+        wq, wsc = quantize_weight(w)
+        return torch._int_mm(q, wq).float() * s * wsc + bias.float()
+
+    y = F.layer_norm(x.float(), (d,), ln1_s.float(), ln1_b.float(), eps)
+    qkv = mm(y.reshape(-1, d), qkv_w, qkv_b).bfloat16()
+    q, k, v = qkv.view(b, l, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    mask = None
+    if valid_len < l:
+        mask = (torch.arange(l, device=x.device) < valid_len)[None, :]
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    ctx = ctx.transpose(1, 2).reshape(-1, d).float()
+    x1 = x + mm(ctx, proj_w, proj_b).bfloat16().view(b, l, d)
+    y = F.layer_norm(x1.float(), (d,), ln2_s.float(), ln2_b.float(), eps)
+    h = F.gelu(mm(y.reshape(-1, d), fc1_w, fc1_b), approximate="tanh")
+    return x1 + mm(h, fc2_w, fc2_b).bfloat16().view(b, l, d)
+
+
+def k8_bound_ms(b, l, d, mlp, weight_bytes):
+    """Least time for K8: the four int8 products (2 B L (4 D^2 + 2 D MLP)
+    integer operations at the int8 peak) plus the bf16 attention (4 B L^2 D
+    at the bf16 peak), against x read and out written once in bf16 and the
+    bf16 weights read once."""
+    int_ops = 2 * b * l * (4 * d * d + 2 * d * mlp)
+    att_flops = 4 * b * l * l * d
+    nbytes = 2 * (2 * b * l * d) + weight_bytes
+    t_ops = int_ops / PEAK_INT8_OPS + att_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", int_ops,
+            att_flops, nbytes)
+
+
+def phase_k8():
+    import torch
+    from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
+                                                  fused_vit_block_int8,
+                                                  vit_block_int8_reference)
+    from sais_tpu_torch.models.vit import block_weights_bf16, vit_init
+    b, l, d, heads, mlp, valid = 256, 197, 384, 6, 1536, 197
+    # a ViT-S/16 block as the reference initializes it and unit-normal
+    # tokens, as JAX's own int8 test takes them (tests/test_int8_block.py)
+    model = vit_init(torch.Generator().manual_seed(0), ViTConfig())
+    ws = [w.detach().cuda() for w in block_weights_bf16(model.blocks[0])]
+    x = torch.randn((b, l, d), generator=torch.Generator().manual_seed(1)).to(
+        "cuda", torch.bfloat16)
+    kw = dict(num_heads=heads, valid_len=valid, eps=1e-6)
+    out = fused_vit_block_int8(x, *ws, **kw)
+    torch.cuda.synchronize()
+    ref = vit_block_int8_reference(x, *ws, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    bf = fused_vit_block(x, *ws, **kw).float()
+    got = out.float()
+    cos = (torch.dot(got.ravel(), bf.ravel())
+           / (got.norm() * bf.norm())).item()
+    rel = ((got - bf).abs().max() / bf.abs().max()).item()
+    lib_err = (library_block_int8(x, ws, heads, valid, 1e-6).float()
+               - ref.float()).abs().max().item()
+    # the same reading at the K1 phase's weights (std 0.05, further from a
+    # trained block's than the reference init), printed only
+    x_k1, ws_k1 = k1_inputs(b, l, d, heads, mlp, seed=l)
+    got_k1 = fused_vit_block_int8(x_k1, *ws_k1, **kw).float()
+    bf_k1 = fused_vit_block(x_k1, *ws_k1, **kw).float()
+    cos_k1 = (torch.dot(got_k1.ravel(), bf_k1.ravel())
+              / (got_k1.norm() * bf_k1.norm())).item()
+    rel_k1 = ((got_k1 - bf_k1).abs().max() / bf_k1.abs().max()).item()
+    del x_k1, ws_k1, got_k1, bf_k1
+    print(f"K8 (B, L, D) = ({b}, {l}, {d}): max|kernel-plain| {err:.4g} "
+          f"(max|plain| {scale:.4g}); against K1 on the same inputs: cosine "
+          f"{cos:.7f}, max relative {rel:.4g} (checked; at the K1 phase's "
+          f"weights, not checked: cosine {cos_k1:.7f}, max relative "
+          f"{rel_k1:.4g}); max|library-plain| {lib_err:.4g}", flush=True)
+    # Limits: 2e-2 of the plain version's largest value (a LayerNorm or
+    # softmax summed in another order may move a value across a
+    # quantizer's tie: one int8 step); against K1 JAX's own limits
+    # (tests/test_int8_block.py): cosine > 0.9999, max relative < 0.02.
+    check(math.isfinite(err) and err <= 2e-2 * scale,
+          f"K8 disagrees with its plain version: {err} > 2e-2 * {scale}")
+    check(cos > 0.9999 and rel < 0.02,
+          f"K8 too far from K1: cosine {cos}, max relative {rel}")
+    ms = cuda_time_ms(lambda: fused_vit_block_int8(x, *ws, **kw))
+    plain_ms = cuda_time_ms(lambda: vit_block_int8_reference(x, *ws, **kw),
+                            iters=3, warmup=1)
+    library_ms = cuda_time_ms(
+        lambda: library_block_int8(x, ws, heads, valid, 1e-6))
+    weight_bytes = sum(w.numel() * w.element_size() for w in ws)
+    bound_ms, bound_by, int_ops, att_flops, nbytes = k8_bound_ms(
+        b, l, d, mlp, weight_bytes)
+    print(f"K8 B={b} L={l} D={d}: kernel {ms:.4f} ms "
+          f"({int_ops / ms / 1e9:.1f} TOP/s int8), plain {plain_ms:.4f} ms, "
+          f"library (torch._int_mm, layer_norm, SDPA, gelu) {library_ms:.4f}"
+          f" ms; bound {bound_ms:.4f} ms by {bound_by} ({int_ops / 1e9:.1f} "
+          f"G int8 ops + {att_flops / 1e9:.1f} GFLOP bf16, "
+          f"{nbytes / 1e6:.1f} MB), kernel at {100 * bound_ms / ms:.1f}% of "
+          f"the bound", flush=True)
+    _profile(lambda: fused_vit_block_int8(x, *ws, **kw), "k8_profile", 5)
+    del x, ws, out, ref, bf, got
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_int8_encoder(nframes: int = 256):
+    """The W8A8 encoder at full width: 256 synthetic 480x640 frames (numpy
+    seed 0) on the card -> preprocess_batch -> vit_features(bf16 ViT-S/16,
+    quant="int8"); frames/s beside the bf16 path's."""
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import PipelineConfig
+    from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
+                                                  fused_vit_block_int8)
+    from sais_tpu_torch.models.vit import vit_features, vit_init
+    from sais_tpu_torch.ops.preprocess import preprocess_batch
+
+    cfg = PipelineConfig()
+    model = vit_init(torch.Generator().manual_seed(0), cfg.vit).to(
+        "cuda", torch.bfloat16).requires_grad_(False)
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (nframes, 480, 640, 3), dtype=np.uint8)).cuda()
+
+    def encode(quant):
+        with torch.inference_mode():
+            x = preprocess_batch(frames, cfg.preprocess, torch.bfloat16)
+            return vit_features(model, x, quant=quant)
+
+    encode("int8")    # warm-up at the same shapes
+    torch.cuda.synchronize()
+    fused_vit_block.launches = fused_vit_block_int8.launches = 0
+    feats = encode("int8")
+    torch.cuda.synchronize()
+    k8, k1 = fused_vit_block_int8.launches, fused_vit_block.launches
+    ref = encode(None)
+    cos = torch.nn.functional.cosine_similarity(feats, ref, dim=-1)
+
+    def rate(quant):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            encode(quant)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return nframes / sorted(times)[1], times
+
+    fps8, t8 = rate("int8")
+    fps16, t16 = rate(None)
+    print(f"W8A8 encoder: {nframes} frames of 480x640 on the card: K8 "
+          f"launches {k8}, K1 launches {k1}; CLS {tuple(feats.shape)}, mean "
+          f"cosine against the K1 path {cos.mean().item():.6f} (min "
+          f"{cos.min().item():.6f}); {fps8:.1f} frames/s int8 (median of "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in t8)} ms) vs {fps16:.1f} "
+          f"bf16 (median of {', '.join(f'{1e3 * t:.2f}' for t in t16)} ms)",
+          flush=True)
+    check(k8 == 12 and k1 == 0,
+          f"W8A8 encoder launched K8 {k8} and K1 {k1} times, expected 12, 0")
+    check(tuple(feats.shape) == (nframes, 384)
+          and bool(torch.isfinite(feats).all()),
+          f"W8A8 features {tuple(feats.shape)} not finite / wrong shape")
+    # Limit: mean CLS cosine >= 0.999 against the bf16 K1 path (JAX reports
+    # 0.9997 against f32, tests/test_int8_block.py:5).
+    check(cos.mean().item() >= 0.999,
+          f"W8A8 CLS features too far from the K1 path: {cos.mean().item()}")
+    del model, frames
+    torch.cuda.empty_cache()
+    return k8
 
 
 def main():
@@ -1376,7 +1730,10 @@ def main():
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
     train_k = phase_train_kernels()
+    k7 = phase_k7()
     pretrain_launches, _ = phase_pretrain()
+    k8 = phase_k8()
+    k8_launches = phase_int8_encoder()
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
@@ -1415,6 +1772,19 @@ def main():
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
+    for name, source, replaces, k, launches in (
+            ("dino_head_loss", "dino_head_loss.cu",
+             "sais_tpu/kernels/dino_head_loss.py:95, :131", k7,
+             pretrain_launches[4]),
+            ("fused_vit_block_int8", "fused_vit_block_int8.cu",
+             "sais_tpu/kernels/fused_mha.py:186", k8, k8_launches)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sais_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -302,22 +302,23 @@ def cmd_train(args):
 
 
 def _check_pretrain_ported(args):
-    """`pretrain` runs the video source with a plain head and the fused
-    student backbone; the rest comes with the next slice (ROADMAP.md)."""
+    """`pretrain` runs the video source with the fused student backbone and,
+    on the card, the fused last layer + loss (K7); what it refuses is
+    listed in ROADMAP.md with the slice that brings it."""
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel: data-parallel pre-training is not ported yet; "
-            "it comes with the next slice (the fused DINO loss K7 and its "
-            "per-shard variant)")
+            "it comes with torch.distributed DDP and K7's per-shard wrapper "
+            "(ROADMAP item 12)")
     if args.use_bn_in_head:
         raise NotImplementedError(
             "--use-bn-in-head: the BatchNorm DINO head is not ported yet; "
-            "it comes with the next slice (beside the fused DINO loss K7)")
+            "it comes with its own slice (ROADMAP Queue 1, item 10)")
     if args.source != "videos":
         raise NotImplementedError(
             f"--source {args.source}: pre-training on rendered optical "
-            "flow is not ported yet; it comes with the next slice, with "
-            "the flow stream (RAFT)")
+            "flow is not ported yet; it comes with the flow stream (RAFT, "
+            "ROADMAP Queue 1, item 10)")
 
 
 def cmd_pretrain(args):

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SOURCES = ("fused_vit_block", "flash_attention", "flash_attention_bwd",
-           "fused_block_bwd_mlp", "fused_block_bwd_attn")
+           "fused_block_bwd_mlp", "fused_block_bwd_attn", "dino_head_loss",
+           "fused_vit_block_int8")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -51,186 +51,6 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Masked softmax attention for head dim 64.  A block of 4 warps takes every
-// query of one (image, head), whose K and V are loaded once into shared
-// memory.  A warp holds the scores of 16 queries against all 16*KT keys in
-// registers.
-// ---------------------------------------------------------------------------
-constexpr int ATT_THREADS = 128;
-constexpr int ATT_LD = DH + 8;   // padded smem rows: ldmatrix without conflicts
-
-template <int KT>
-constexpr size_t attention_smem() {
-  return 2 * (size_t)(16 * KT) * ATT_LD * sizeof(bf16);
-}
-
-// qkv: (B*L, 3D) rows laid out [q heads | k heads | v heads]; ctx: (B*L, D).
-template <int KT>
-__global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
-                     int L, int D, int valid_len) {
-  constexpr int LK = 16 * KT;     // keys, padded to the mma k tile
-  constexpr int NT = 2 * KT;      // n8 score tiles per query row block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // (LK, ATT_LD) row-major
-  bf16* Vs = Ks + LK * ATT_LD;                    // (LK, ATT_LD) row-major
-
-  const int b = blockIdx.y, h = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment row group / column pair
-  const size_t row_stride = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * L * row_stride;
-
-  // K and V of this (image, head) into shared memory; rows past L are
-  // zero-filled (p = 0 there, and 0 * 0 stays 0).
-  for (int i = tid; i < LK * (DH / 8); i += ATT_THREADS) {
-    const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    const bf16* src = base + (size_t)(j < L ? j : 0) * row_stride + h * DH + c;
-    cp_async16(Ks + j * ATT_LD + c, src + D, j < L);
-    cp_async16(Vs + j * ATT_LD + c, src + 2 * D, j < L);
-  }
-  cp_async_commit();
-
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Warp w takes the 16-row query tiles w, w + 4, ...
-  for (int qt = warp; qt < (L + 15) / 16; qt += ATT_THREADS / 32) {
-    const int q0 = qt * 16;
-    const int r0 = q0 + g, r1 = q0 + g + 8;
-    const bf16* qr0 = base + (size_t)r0 * row_stride + h * DH;
-    const bf16* qr1 = base + (size_t)r1 * row_stride + h * DH;
-
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int kq = 0; kq < DH / 16; ++kq) {
-      const int c = kq * 16 + 2 * t;
-      qa[kq][0] = r0 < L ? ld_u32(qr0 + c) : 0u;
-      qa[kq][1] = r1 < L ? ld_u32(qr1 + c) : 0u;
-      qa[kq][2] = r0 < L ? ld_u32(qr0 + c + 8) : 0u;
-      qa[kq][3] = r1 < L ? ld_u32(qr1 + c + 8) : 0u;
-    }
-
-    // S = Q K^T.  s[j][0..1]: row g, keys 8j+2t, 8j+2t+1; s[j][2..3]: row g+8.
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-#pragma unroll
-      for (int kq = 0; kq < DH / 16; ++kq) {
-        uint32_t kb[4];
-        load_b_frags_nk(kb, Ks + j * 8 * ATT_LD + kq * 16, ATT_LD, lane);
-        mma_bf16_16816(s[j], qa[kq], kb[0], kb[1]);
-        mma_bf16_16816(s[j + 1], qa[kq], kb[2], kb[3]);
-      }
-    }
-
-    // scale (a power of two: the same as scaling q first), mask, f32 softmax
-    const float scale = 0.125f;   // DH ** -0.5
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const float add = col >= valid_len ? kNegInf : 0.f;
-        float v0 = s[j][e] * scale + add;
-        float v1 = s[j][2 + e] * scale + add;
-        if (col >= L) v0 = v1 = -INFINITY;   // tile padding: no key at all
-        s[j][e] = v0;
-        s[j][2 + e] = v1;
-        mx0 = fmaxf(mx0, v0);
-        mx1 = fmaxf(mx1, v1);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = expf(s[j][e] - mx0);
-        s[j][2 + e] = expf(s[j][2 + e] - mx1);
-        sum0 += s[j][e];
-        sum1 += s[j][2 + e];
-      }
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-
-    // ctx = bf16(P) @ V: the score accumulators of key tile kt are exactly the
-    // A fragment of the next mma once normalized and packed to bf16.
-    float o[DH / 8][4];
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kt][0] / sum0, s[2 * kt][1] / sum0);
-      pa[1] = pack_bf16(s[2 * kt][2] / sum1, s[2 * kt][3] / sum1);
-      pa[2] = pack_bf16(s[2 * kt + 1][0] / sum0, s[2 * kt + 1][1] / sum0);
-      pa[3] = pack_bf16(s[2 * kt + 1][2] / sum1, s[2 * kt + 1][3] / sum1);
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; nd += 2) {
-        uint32_t vb[4];
-        load_b_frags_kn(vb, Vs + kt * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-        mma_bf16_16816(o[nd], pa, vb[0], vb[1]);
-        mma_bf16_16816(o[nd + 1], pa, vb[2], vb[3]);
-      }
-    }
-
-    bf16* out0 = ctx + ((size_t)b * L + r0) * D + h * DH;
-    bf16* out1 = ctx + ((size_t)b * L + r1) * D + h * DH;
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      const int col = nd * 8 + 2 * t;
-      if (r0 < L)
-        *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
-            __floats2bfloat162_rn(o[nd][0], o[nd][1]);
-      if (r1 < L)
-        *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
-            __floats2bfloat162_rn(o[nd][2], o[nd][3]);
-    }
-  }
-}
-
-template <int KT>
-cudaError_t launch_attention(const bf16* qkv, bf16* ctx, int B, int L, int D,
-                             int heads, int valid_len, cudaStream_t stream) {
-  constexpr size_t smem = attention_smem<KT>();
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid(heads, B);
-  attention_kernel<KT><<<grid, ATT_THREADS, smem, stream>>>(qkv, ctx, L, D,
-                                                            valid_len);
-  return cudaGetLastError();
-}
-
-cudaError_t attention(const bf16* qkv, bf16* ctx, int B, int L, int D,
-                      int heads, int valid_len, cudaStream_t stream) {
-  switch ((L + 15) / 16) {
-#define SAIS_ATT_CASE(kt) \
-  case kt:                \
-    return launch_attention<kt>(qkv, ctx, B, L, D, heads, valid_len, stream);
-    SAIS_ATT_CASE(1) SAIS_ATT_CASE(2) SAIS_ATT_CASE(3) SAIS_ATT_CASE(4)
-    SAIS_ATT_CASE(5) SAIS_ATT_CASE(6) SAIS_ATT_CASE(7) SAIS_ATT_CASE(8)
-    SAIS_ATT_CASE(9) SAIS_ATT_CASE(10) SAIS_ATT_CASE(11) SAIS_ATT_CASE(12)
-    SAIS_ATT_CASE(13) SAIS_ATT_CASE(14) SAIS_ATT_CASE(15) SAIS_ATT_CASE(16)
-#undef SAIS_ATT_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 cudaError_t block_forward(const void* x, const void* qkv_w,
                           const void* qkv_b, const void* proj_w,
                           const void* proj_b, const void* fc1_w,

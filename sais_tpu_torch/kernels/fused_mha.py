@@ -13,12 +13,18 @@ residual -> LN -> tanh-GELU MLP + residual) on hand-written CUDA kernels:
   (`_fused_block_bwd_attn`, bodies `_attn_bwd_kernel` and
   `_attn_bwd_tail`);
 - `TrainableFusedBlock`, the autograd Function of K4 with K5 and K6 as its
-  backward (`make_pallas_trainable_fused_block`).
+  backward (`make_pallas_trainable_fused_block`);
+- K8 `fused_vit_block_int8`, the opt-in W8A8 inference block: int8 x int8
+  -> int32 products with per-token activation and per-channel weight
+  scales, attention in bf16 (`fused_vit_block_int8`, body
+  `_block_kernel_int8`), with own copies of `quantize_weight` and
+  `quant_rows`.
 
 Each wrapper launches its kernel (`csrc/fused_vit_block.cu`,
-`csrc/fused_block_bwd_mlp.cu`, `csrc/fused_block_bwd_attn.cu`) for a CUDA
-tensor, counted in its `.launches`, and runs its plain PyTorch version for a
-CPU tensor; it never falls back from one to the other.
+`csrc/fused_block_bwd_mlp.cu`, `csrc/fused_block_bwd_attn.cu`,
+`csrc/fused_vit_block_int8.cu`) for a CUDA tensor, counted in its
+`.launches`, and runs its plain PyTorch version for a CPU tensor; it never
+falls back from one to the other.
 
 Interface as in the JAX package: x (B, L, D), weights (in, out), the key
 mask from `valid_len`, branch scales s1 and s2 (B, L, 1) in x's dtype.  The
@@ -32,10 +38,12 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 _NEG_INF = -1e30
+_INV127 = float(np.float32(1.0 / 127.0))   # the f32 constant JAX multiplies by
 
 
 def layer_norm_f32(x, scale, bias, eps):
@@ -51,6 +59,23 @@ def _mm(a, w, dtype):
     return torch.matmul(a.float(), w.float()).to(dtype)
 
 
+def _attention_ctx(qkv, num_heads, valid_len):
+    """Masked softmax attention of (B, L, 3D) qkv in its dtype: f32 scores
+    and softmax, keys >= valid_len masked with -1e30, p rounded to the
+    dtype, ctx (B, L, D) rounded to it."""
+    b, l, d3 = qkv.shape
+    dh = d3 // 3 // num_heads
+    dtype = qkv.dtype
+    key_mask = torch.where(torch.arange(l, device=qkv.device) >= valid_len,
+                           _NEG_INF, 0.0)
+    q, k, v = qkv.reshape(b, l, 3, num_heads, dh).unbind(2)
+    s = torch.einsum("blhd,bmhd->bhlm", q.float() * dh ** -0.5, k.float())
+    p = torch.softmax(s + key_mask, dim=-1)
+    ctx = torch.einsum("bhlm,bmhd->blhd", p.to(dtype).float(),
+                       v.float()).to(dtype)
+    return ctx.reshape(b, l, d3 // 3)
+
+
 def _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
                    fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads, valid_len,
                    eps, s1=None, s2=None):
@@ -58,20 +83,10 @@ def _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
     `_xla_block_tanh`): f32 LN and softmax, f32-accumulated products
     rounded to x's dtype, biases, branch scales and residuals applied in
     that dtype, tanh GELU in f32, keys >= valid_len masked with -1e30."""
-    b, l, d = x.shape
-    dh = d // num_heads
     dtype = x.dtype
-    key_mask = torch.where(torch.arange(l, device=x.device) >= valid_len,
-                           _NEG_INF, 0.0)
-
     y = layer_norm_f32(x, ln1_s, ln1_b, eps).to(dtype)
-    qkv = (_mm(y, qkv_w, dtype) + qkv_b).reshape(b, l, 3, num_heads, dh)
-    q, k, v = qkv.unbind(2)
-    s = torch.einsum("blhd,bmhd->bhlm", q.float() * dh ** -0.5, k.float())
-    p = torch.softmax(s + key_mask, dim=-1)
-    ctx = torch.einsum("bhlm,bmhd->blhd", p.to(dtype).float(),
-                       v.float()).to(dtype)
-    o = _mm(ctx.reshape(b, l, d), proj_w, dtype) + proj_b
+    ctx = _attention_ctx(_mm(y, qkv_w, dtype) + qkv_b, num_heads, valid_len)
+    o = _mm(ctx, proj_w, dtype) + proj_b
     if s1 is not None:
         o = o * s1.to(dtype)
     x1 = x + o
@@ -103,6 +118,54 @@ def vit_block_train_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
     return _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
                           fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads,
                           valid_len, eps, s1, s2)
+
+
+def quantize_weight(w):
+    """Per-output-channel symmetric int8 of a (K, N) weight: (int8 (K, N),
+    f32 scales (1, N)), scale = max(amax, 1e-8) * (1/127), rint (half to
+    even), clipped to +-127 (JAX `quantize_weight`)."""
+    w32 = w.float()
+    ws = torch.clamp(w32.abs().amax(0, keepdim=True), min=1e-8) * _INV127
+    return torch.clamp(torch.round(w32 / ws), -127, 127).to(torch.int8), ws
+
+
+def quant_rows(y32):
+    """Per-row (per-token) symmetric int8 of f32 (rows, d): (int8, f32
+    scales (rows, 1)) (JAX `_quant_rows`)."""
+    scale = torch.clamp(y32.abs().amax(-1, keepdim=True), min=1e-8) * _INV127
+    return (torch.clamp(torch.round(y32 / scale), -127, 127).to(torch.int8),
+            scale)
+
+
+def _int8_mm(q, row_scale, wq, ws, b):
+    """f32(q @ wq) * row_scale * ws + f32(b) (JAX `_int8_mm`).  The integer
+    sums are exact in float64 (|acc| <= 127**2 K < 2**53), so the product
+    equals the kernel's int32 one."""
+    acc = torch.matmul(q.double(), wq.double()).float()
+    return acc * row_scale * ws + b.float()
+
+
+def vit_block_int8_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                             fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
+                             num_heads: int, valid_len: int,
+                             eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of K8 (`_block_kernel_int8`'s rounding points):
+    the weights quantized per call; LN in f32 quantized without a bf16
+    round; qkv = bf16(mm); ctx (bf16) quantized from f32; x1 = x +
+    bf16(mm); h = gelu_tanh(mm) in f32, quantized; out = x1 + bf16(mm)."""
+    b, l, d = x.shape
+    dtype = x.dtype
+    wqkv, wproj, wfc1, wfc2 = (quantize_weight(w) for w in
+                               (qkv_w, proj_w, fc1_w, fc2_w))
+    yq, ys = quant_rows(layer_norm_f32(x, ln1_s, ln1_b, eps).reshape(-1, d))
+    qkv = _int8_mm(yq, ys, *wqkv, qkv_b).to(dtype).reshape(b, l, 3 * d)
+    ctx = _attention_ctx(qkv, num_heads, valid_len)
+    cq, cs = quant_rows(ctx.float().reshape(-1, d))
+    x1 = x + _int8_mm(cq, cs, *wproj, proj_b).to(dtype).reshape(b, l, d)
+    yq, ys = quant_rows(layer_norm_f32(x1, ln2_s, ln2_b, eps).reshape(-1, d))
+    h = F.gelu(_int8_mm(yq, ys, *wfc1, fc1_b), approximate="tanh")
+    hq, hs = quant_rows(h)
+    return x1 + _int8_mm(hq, hs, *wfc2, fc2_b).to(dtype).reshape(b, l, d)
 
 
 def _ln_stats(x, eps):
@@ -292,6 +355,12 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_block_bwd_attn.argtypes = (
             [ptr] * 25 + [i32] * 5 + [ctypes.c_float, ptr])
         lib.fused_block_bwd_attn.restype = i32
+    elif name == "fused_vit_block_int8":
+        lib.fused_vit_block_int8_workspace.argtypes = [i32] * 3
+        lib.fused_vit_block_int8_workspace.restype = ctypes.c_size_t
+        lib.fused_vit_block_int8.argtypes = (
+            [ptr] * 15 + [i32] * 6 + [ctypes.c_float, ptr])
+        lib.fused_vit_block_int8.restype = i32
     lib.sais_cuda_error_string.argtypes = [i32]
     lib.sais_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -348,6 +417,37 @@ def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
 
 
 fused_vit_block.launches = 0
+
+
+def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
+                         fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
+                         num_heads: int, valid_len: int,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """K8, one pre-norm ViT block with W8A8 products (the weights quantized
+    at every call).  CUDA tensor: the hand-written kernel (bf16 only,
+    counted in `fused_vit_block_int8.launches`).  CPU tensor: the plain
+    version `vit_block_int8_reference`."""
+    weights = (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b,
+               ln1_s, ln1_b, ln2_s, ln2_b)
+    if not _on_cuda(x, "fused_vit_block_int8"):
+        return vit_block_int8_reference(x, *weights, num_heads=num_heads,
+                                        valid_len=valid_len, eps=eps)
+    _check_cuda_args(x, weights, num_heads, valid_len)
+    b, l, d = x.shape
+    mlp = fc1_w.shape[1]
+    lib = _lib("fused_vit_block_int8")
+    out = torch.empty_like(x)
+    workspace = torch.empty(
+        (lib.fused_vit_block_int8_workspace(b * l, d, mlp),),
+        dtype=torch.uint8, device=x.device)
+    _launch(lib, lib.fused_vit_block_int8, "fused_vit_block_int8", x.device,
+            *(_ptr(t) for t in (x, *weights, out, workspace)),
+            b, l, d, num_heads, mlp, valid_len, eps)
+    fused_vit_block_int8.launches += 1
+    return out
+
+
+fused_vit_block_int8.launches = 0
 
 
 def fused_block_fwd_train(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,

@@ -11,9 +11,11 @@ backbone: `mlp` is three `nn.Linear` (weights (out, in)), `last_v` is
 (bottleneck, out_dim), one column per prototype as in the JAX package,
 `last_g` is (out_dim,).
 
-The head is plain PyTorch (large products go to torch.matmul).  The fused
-last-layer + loss kernel (K7, `fused_loss=True`) and the `use_bn_in_head`
-variant come with the next slice of the port.
+The head is plain PyTorch (large products go to torch.matmul).  On the
+fused-loss path (`DINOTrainer(fused_loss=True)`) the trainer calls
+`dino_head_bottleneck` only, and the weight-normed last layer runs inside
+K7 (`kernels.dino_head_loss`) with the loss.  The `use_bn_in_head` variant
+is not ported (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from sais_tpu_torch.kernels.dino_head_loss import normed_w
 
 
 class DINOHead(nn.Module):
@@ -38,8 +42,7 @@ def _refuse_bn(use_bn: bool) -> None:
     if use_bn:
         raise NotImplementedError(
             "the use_bn_in_head DINO head (--use-bn-in-head) is not ported "
-            "yet; it comes with the next slice, beside the fused DINO loss "
-            "(K7)")
+            "yet; it comes with its own slice (ROADMAP Queue 1)")
 
 
 def dino_head_init(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -78,20 +81,26 @@ def dino_head_bottleneck(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
     return h / torch.clamp(norm, min=1e-12)
 
 
-def dino_head_forward(head: DINOHead, x: torch.Tensor,
-                      norm_last_layer: bool = True) -> torch.Tensor:
-    """x: (B, in_dim) -> (B, out_dim) prototype logits, float32.
-
-    The weight normalization runs in float32.  With bf16 input the whole
-    head runs at that precision, as under the reference's autocast: bf16
-    MLP products, then the last layer on bf16 operands with float32
-    accumulation (bf16 values multiply exactly in float32)."""
-    h = dino_head_bottleneck(head, x)
-    v = head.last_v
-    w = v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
-    if not norm_last_layer:
-        w = w * head.last_g[None, :]
-    if x.dtype == torch.bfloat16:
+def dino_last_layer(h: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    norm_last_layer: bool = True, bf16: bool = True
+                    ) -> torch.Tensor:
+    """The weight-normed last layer: h (rows, bottleneck) -> (rows,
+    out_dim) logits float32, w = v / ||v||_col [* g] in float32 with K7's
+    column norm (`kernels.dino_head_loss.normed_w`).  With `bf16` the
+    product takes bf16 operands with float32 accumulation (bf16 values
+    multiply exactly in float32), as under the reference's autocast."""
+    w = normed_w(v, g, not norm_last_layer)[0]
+    if bf16:
         return torch.matmul(h.to(torch.bfloat16).float(),
                             w.to(torch.bfloat16).float())
     return torch.matmul(h.float(), w)
+
+
+def dino_head_forward(head: DINOHead, x: torch.Tensor,
+                      norm_last_layer: bool = True) -> torch.Tensor:
+    """x: (B, in_dim) -> (B, out_dim) prototype logits, float32.  With bf16
+    input the whole head runs at that precision: bf16 MLP products, then
+    `dino_last_layer` on bf16 operands."""
+    return dino_last_layer(dino_head_bottleneck(head, x), head.last_v,
+                           head.last_g, norm_last_layer,
+                           x.dtype == torch.bfloat16)

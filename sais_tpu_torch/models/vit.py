@@ -14,7 +14,9 @@ Two inference paths, picked by the parameters' dtype:
   (`kernels.fused_mha.fused_vit_block`): the CUDA kernel on the card, its
   plain PyTorch version on the CPU.  It follows the JAX package's fused
   path on a TPU, including the tanh GELU of the Pallas kernel (JAX off a
-  TPU runs bf16 through XLA with exact GELU instead).
+  TPU runs bf16 through XLA with exact GELU instead).  With quant="int8"
+  every block is one call of K8 (`fused_vit_block_int8`, W8A8 products,
+  the weights quantized at every call), the opt-in throughput mode.
 
 Two training paths (DINO pre-training), both bf16 over float32 master
 parameters, with stochastic depth:
@@ -31,6 +33,8 @@ times the reshaped conv kernel, a plain matmul.
 from __future__ import annotations
 
 import math
+import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 from sais_tpu_torch.config import ViTConfig
 from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
+                                              fused_vit_block_int8,
                                               layer_norm_f32,
                                               trainable_fused_block)
 
@@ -241,11 +246,13 @@ def _cls_norm_bf16(model: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def vit_forward_fused(model: VisionTransformer, images: torch.Tensor,
-                      block=fused_vit_block) -> torch.Tensor:
-    """bf16 fused path (JAX `_vit_forward_fused`): each block is one K1
-    call on (B, L, D).  `block` is K1's wrapper; `vit_block_reference`
-    runs the same path through the plain version, to hold the kernel
-    against it end to end."""
+                      quant: Optional[str] = None) -> torch.Tensor:
+    """bf16 fused path (JAX `_vit_forward_fused`): each block is one call
+    on (B, L, D) of K1 (`fused_vit_block`), or of K8
+    (`fused_vit_block_int8`) with quant="int8"."""
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant={quant!r}: only None and 'int8' exist")
+    block = fused_vit_block_int8 if quant == "int8" else fused_vit_block
     cfg = model.cfg
     x = prepare_tokens(model, images.to(torch.bfloat16),
                        torch.bfloat16).contiguous()
@@ -353,12 +360,18 @@ def vit_forward_train(model: VisionTransformer, images: torch.Tensor,
     return x[:, 0].float()
 
 
-def vit_features(model: VisionTransformer, images: torch.Tensor
-                 ) -> torch.Tensor:
+def vit_features(model: VisionTransformer, images: torch.Tensor,
+                 quant: Optional[str] = None) -> torch.Tensor:
     """CLS features (B, D) float32 of normalized images (B, H, W, C): the
-    fused path when the model is bf16, the float32 path otherwise."""
+    fused path when the model is bf16 (W8A8 blocks with quant="int8"), the
+    float32 path otherwise, where quant is ignored with a warning (W8A8
+    exists only in the fused blocks, JAX vit.py:393-400)."""
     if model.cls_token.dtype == torch.bfloat16:
-        return vit_forward_fused(model, images)
+        return vit_forward_fused(model, images, quant=quant)
+    if quant is not None:
+        warnings.warn(
+            f"quant={quant!r} ignored: the fused path is not taken (it "
+            "needs a bf16 model)", stacklevel=2)
     return vit_forward(model, images)
 
 

@@ -23,9 +23,13 @@ Counterpart of `sais_tpu/train/dino.py`, in eager PyTorch on one device
 With `fused_blocks` (the default on the card at batch >= 32) the student
 backbone runs on K4 / K5 / K6 (`vit_features_trainable_fused`) and the
 teacher on K1 (`vit_forward_fused`); otherwise both run the plain bf16
-path (`vit_forward_train`).  The head and loss are plain PyTorch: the
-fused last-layer + loss kernel (K7, `fused_loss=True`), the use_bn head
-and data-parallel steps (`mesh`) come with the next slice.
+path (`vit_forward_train`).  With `fused_loss` (the default on the card,
+JAX's auto rule) the head's bottleneck runs per resolution group and the
+weight-normed last layer and the loss run as K7
+(`kernels.dino_head_loss.FusedDinoLoss`), which keeps the (rows, out_dim)
+logits out of device memory; otherwise the head and loss are plain
+PyTorch.  The use_bn head and data-parallel steps (`mesh`) are not ported
+(ROADMAP Queue 1 and item 12).
 
 Crops are batched per resolution group, image-major ([img0 crop0, img0
 crop1, ...], `ops.augment.multi_crop_batch`'s layout), so the backbone runs
@@ -45,7 +49,11 @@ import torch.nn as nn
 
 from sais_tpu_torch import DeviceLike, resolve_device
 from sais_tpu_torch.config import ViTConfig
-from sais_tpu_torch.models.dino_head import dino_head_forward, dino_head_init
+from sais_tpu_torch.kernels.dino_head_loss import (build_pair_structure,
+                                                   make_fused_dino_loss)
+from sais_tpu_torch.models.dino_head import (dino_head_bottleneck,
+                                             dino_head_init,
+                                             dino_last_layer)
 from sais_tpu_torch.models.vit import (vit_features_trainable_fused,
                                        vit_forward_fused, vit_forward_train,
                                        vit_init)
@@ -131,6 +139,30 @@ def dino_loss(student_out: Sequence[torch.Tensor],
     batch_center = torch.cat([t.detach().float() for t in teacher_out],
                              0).mean(0)
     return total, batch_center
+
+
+def plain_head_loss(hs, vs, gs, ht, vt, gt, center, teacher_temp, *,
+                    n_global: int, n_local: int, student_temp: float,
+                    norm_last_layer: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unfused counterpart of K7, with its arguments (hs, vs, gs, ht,
+    vt, gt, center, temp_t): the bf16 last layers of student and teacher
+    on the bottleneck outputs (rows image-major, globals first; ht holds
+    the global crops), the regroup into one (B, out_dim) logit block per
+    crop, `dino_loss`.  The (rows, out_dim) logits are materialised."""
+
+    def regroup(o, n):   # image-major rows -> one (B, K) per crop
+        return list(o.reshape(o.shape[0] // n, n, o.shape[-1])
+                    .transpose(0, 1))
+
+    s_out = dino_last_layer(hs, vs, gs, norm_last_layer)
+    t_out = dino_last_layer(ht, vt, gt, norm_last_layer)
+    n_gr = ht.shape[0]
+    souts = regroup(s_out[:n_gr], n_global)
+    if s_out.shape[0] > n_gr:
+        souts += regroup(s_out[n_gr:], n_local)
+    return dino_loss(souts, regroup(t_out, n_global), center, teacher_temp,
+                     student_temp)
 
 
 def update_center(center: torch.Tensor, batch_center: torch.Tensor,
@@ -254,6 +286,14 @@ def _to_device(obj, device):
     return obj
 
 
+def fused_loss_auto(cfg: DINOConfig, device: torch.device) -> bool:
+    """JAX's auto rule for the fused last layer + loss (K7), with the card
+    in place of the TPU: on a CUDA device, without the BatchNorm head, at
+    out_dim a multiple of 128 (one shard: the port has no mesh)."""
+    return (device.type == "cuda" and not cfg.use_bn_in_head
+            and cfg.out_dim % 128 == 0)
+
+
 class DINOTrainer:
     """Student / teacher DINO training, one optimization step at a time."""
 
@@ -266,16 +306,19 @@ class DINOTrainer:
         """generator: a CPU generator for the initial weights (backbone,
         then head).  fused_blocks: the student backbone on K4 / K5 / K6 and
         the teacher on K1; default on a CUDA device at batch >= 32, as the
-        JAX package does on a TPU."""
+        JAX package does on a TPU.  fused_loss: the last layer and loss on
+        K7 (its plain version on the CPU); default `fused_loss_auto`."""
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel DINO pre-training (mesh) is not ported yet; "
-                "it comes with the next slice (K7's per-shard loss)")
-        if fused_loss:
-            raise NotImplementedError(
-                "fused_loss (the last-layer + DINO loss kernel K7) is not "
-                "ported yet; it comes with the next slice, so the head and "
-                "loss run in plain PyTorch (fused_loss=False)")
+                "it comes with torch.distributed DDP and K7's per-shard "
+                "wrapper (ROADMAP item 12)")
+        if fused_loss and cfg.use_bn_in_head:
+            raise ValueError(
+                "fused_loss is incompatible with use_bn_in_head: the "
+                "fused path bottlenecks the resolution groups separately, "
+                "but BN batch stats must span every student row jointly "
+                "(the reference's single head(torch.cat(...)) call)")
         if optimizer not in OPTIMIZERS:
             raise ValueError(optimizer)
         self.device = resolve_device(device)
@@ -283,7 +326,9 @@ class DINOTrainer:
             fused_blocks = (cfg.batch_size >= 32
                             and self.device.type == "cuda")
         self.fused_blocks = fused_blocks
-        self.fused_loss = False
+        if fused_loss is None:
+            fused_loss = fused_loss_auto(cfg, self.device)
+        self.fused_loss = bool(fused_loss)
         self.cfg = cfg
         self.vit_cfg = vit_cfg
         student = nn.ModuleDict({
@@ -307,6 +352,16 @@ class DINOTrainer:
         self.step_idx = 0
         self.optimizer = OPTIMIZERS[optimizer]()
         self.opt_state = self.optimizer.init(self._params())
+        if self.fused_loss:
+            sel, cnt = build_pair_structure(cfg.batch_size,
+                                            cfg.n_global_crops,
+                                            cfg.n_local_crops)
+            self._pairs = (torch.from_numpy(sel).to(self.device),
+                           torch.from_numpy(cnt).to(self.device))
+            self._fused_op = make_fused_dino_loss(
+                cfg.student_temp, cfg.batch_size, cfg.n_global_crops,
+                cfg.n_global_crops + cfg.n_local_crops,
+                norm_last_layer=cfg.norm_last_layer)
 
     def _params(self) -> Tensors:
         return dict(self.student.named_parameters())
@@ -327,32 +382,46 @@ class DINOTrainer:
             return vit_forward_fused(net["backbone"], crops)
         return vit_forward_train(net["backbone"], crops)
 
-    def forward(self, net, globals_, locals_, generator=None,
-                infer: bool = False) -> List[torch.Tensor]:
-        """Backbone over the two resolution groups, then the head over all
-        rows in one call (MultiCropWrapper, utils.py:595-631); returns the
-        logits per crop, (B, out_dim) each, globals first."""
-        if infer:
-            bb = lambda c: self._backbone_infer(net, c)   # noqa: E731
-        else:
-            bb = lambda c: self._backbone(net, c, generator)   # noqa: E731
-        feats = [bb(globals_)]
-        if locals_ is not None and self.cfg.n_local_crops:
-            feats.append(bb(locals_))
-        # the head sees bf16 features, as under the reference's autocast
-        out = dino_head_forward(net["head"],
-                                torch.cat(feats).to(torch.bfloat16),
-                                self.cfg.norm_last_layer)
+    def bottlenecks(self, globals_, locals_, generator=None):
+        """(hs, ht): the student's bottleneck outputs of every crop and the
+        teacher's of the global crops (under no_grad), rows image-major,
+        globals first.  The backbones run per resolution group, the
+        head's MLP once on all their bf16 features, as under the
+        reference's autocast (MultiCropWrapper, utils.py:595-631)."""
+        cfg = self.cfg
+        feats = [self._backbone(self.student, globals_, generator)]
+        if locals_ is not None and cfg.n_local_crops:
+            feats.append(self._backbone(self.student, locals_, generator))
+        hs = dino_head_bottleneck(self.student["head"],
+                                  torch.cat(feats).to(torch.bfloat16))
+        with torch.no_grad():
+            ht = dino_head_bottleneck(
+                self.teacher["head"],
+                self._backbone_infer(self.teacher, globals_).to(
+                    torch.bfloat16))
+        return hs, ht
 
-        def regroup(o, n):   # image-major rows -> one (B, K) per crop
-            return list(o.reshape(o.shape[0] // n, n, o.shape[-1])
-                        .transpose(0, 1))
-
-        n_gr = feats[0].shape[0]
-        outs = regroup(out[:n_gr], self.cfg.n_global_crops)
-        if len(feats) > 1:
-            outs += regroup(out[n_gr:], self.cfg.n_local_crops)
-        return outs
+    def head_loss(self, hs, ht, teacher_temp):
+        """(loss, batch center) from the bottleneck outputs: the last
+        layers and the loss in one `FusedDinoLoss` call (K7, JAX
+        `fused_loss_fn`) with `fused_loss`, else `plain_head_loss`."""
+        cfg = self.cfg
+        head, t_head = self.student["head"], self.teacher["head"]
+        args = (hs, head.last_v, head.last_g, ht, t_head.last_v,
+                t_head.last_g, self.center, teacher_temp)
+        if not self.fused_loss:
+            return plain_head_loss(
+                *args, n_global=cfg.n_global_crops,
+                n_local=cfg.n_local_crops, student_temp=cfg.student_temp,
+                norm_last_layer=cfg.norm_last_layer)
+        exp_rows = (cfg.n_global_crops + cfg.n_local_crops) * cfg.batch_size
+        if hs.shape[0] != exp_rows:
+            raise ValueError(
+                f"fused DINO loss built for batch {cfg.batch_size} "
+                f"({exp_rows} student rows) but the step got {hs.shape[0]} "
+                "rows; pass crops of the configured batch size or construct "
+                "with fused_loss=False")
+        return self._fused_op(*args, *self._pairs)
 
     # -- checkpointable state (utils.restart_from_checkpoint) ---------------
 
@@ -378,15 +447,10 @@ class DINOTrainer:
         """The step's forward and backward without the update: (loss,
         teacher batch center), the student's gradients left in .grad.
         `generator` draws the student's stochastic depth."""
-        cfg = self.cfg
         for p in self.student.parameters():
             p.grad = None
-        s_out = self.forward(self.student, globals_, locals_, generator)
-        with torch.no_grad():
-            t_out = self.forward(self.teacher, globals_, None,
-                                 infer=True)[:cfg.n_global_crops]
-        loss, batch_center = dino_loss(s_out, t_out, self.center,
-                                       teacher_temp, cfg.student_temp)
+        loss, batch_center = self.head_loss(
+            *self.bottlenecks(globals_, locals_, generator), teacher_temp)
         loss.backward()
         return loss, batch_center
 

@@ -8,10 +8,12 @@ machine that has only PyTorch:
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
 
+from chip_smoke import k7_inputs
 from sais_tpu_torch.config import (ModelConfig, TemporalConfig, TrainConfig,
                                    ViTConfig)
 from sais_tpu_torch.kernels.flash_attention import (
@@ -81,9 +83,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_vit_block(long_x, *long_ws, num_heads=6, valid_len=257)
 
 
-def test_vit_fused_path_on_kernel_matches_plain(cuda):
+def test_vit_fused_path_on_kernel_matches_plain(cuda, monkeypatch):
     """A full-width ViT-S/16 (depth cut to 4) through K1 and through its
     plain version: CLS features within 5e-2 of the largest value."""
+    from sais_tpu_torch.models import vit
     cfg = ViTConfig(depth=4)
     model = vit_init(torch.Generator().manual_seed(0), cfg).to(
         cuda, torch.bfloat16)
@@ -92,7 +95,8 @@ def test_vit_fused_path_on_kernel_matches_plain(cuda):
     before = fused_vit_block.launches
     with torch.inference_mode():
         got = vit_forward_fused(model, images)
-        ref = vit_forward_fused(model, images, block=vit_block_reference)
+        monkeypatch.setattr(vit, "fused_vit_block", vit_block_reference)
+        ref = vit_forward_fused(model, images)
     assert fused_vit_block.launches == before + cfg.depth
     assert got.shape == (16, 384) and torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
@@ -443,3 +447,202 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError, match="sequence length"):
         fused_block_bwd_attn(long_x, long_x, *long_ws[0:4], *long_ws[8:10],
                              num_heads=6, valid_len=257)
+
+
+# ---------------------------------------------------------------------------
+# K7: the fused DINO last layer + loss
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("norm_last", [True, False])
+@pytest.mark.parametrize("batch,n_local,db,k", [(5, 3, 256, 1024),
+                                                (4, 3, 128, 512),
+                                                (8, 8, 256, 2048),
+                                                (256, 8, 256, 512)])
+def test_k7_matches_plain_version(cuda, norm_last, batch, n_local, db, k):
+    """K7 against its plain version on the same inputs: loss and center
+    within 1e-4 relative (f32 sums in another order), dhs, dvs and dgs
+    within 1e-2 of the plain version's largest value (a bf16 rounding of
+    dl may fall on the other side of a tie), dgs exactly 0 under
+    norm_last_layer; one launch; two runs bitwise equal (every cross-tile
+    sum is reduced in a fixed order)."""
+    from sais_tpu_torch.kernels.dino_head_loss import (
+        fused_loss_and_grads, fused_loss_and_grads_reference)
+    hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(
+        batch, 2, n_local, db, k, seed=k)
+    kw = dict(student_temp=0.1, inv_norm=1.0 / (batch * 2 * (1 + n_local)),
+              use_g=not norm_last)
+    args = (hs, ht, vs, vt, gs, gt, center, 0.07, sel, c)
+    before = fused_loss_and_grads.launches
+    got = fused_loss_and_grads(*args, **kw)
+    again = fused_loss_and_grads(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_loss_and_grads.launches == before + 2
+    ref = fused_loss_and_grads_reference(*args, **kw)
+    for name, a, r in zip(("loss", "center"), got[:2], ref[:2]):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item(), name
+    for name, a, r in zip(("dhs", "dvs", "dgs"), got[2:], ref[2:]):
+        assert a.shape == r.shape and a.dtype == torch.float32, name
+        _close(a, r, name, rel=1e-2)
+    if norm_last:
+        assert torch.count_nonzero(got[4]) == 0
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_k7_takes_any_pair_structure(cuda):
+    """K7 with 600 teacher rows (three windows of teacher probabilities in
+    shared memory) and a random 0/1 selection, about six teacher rows a
+    student row spread over all windows, the first 64 student rows pairing
+    with none, against its plain version within the limits above; two runs
+    bitwise equal."""
+    from sais_tpu_torch.kernels.dino_head_loss import (
+        fused_loss_and_grads, fused_loss_and_grads_reference)
+    rs, rt, db, k = 150, 600, 128, 256
+    g = torch.Generator().manual_seed(7)
+
+    def unit(n):
+        h = torch.randn((n, db), generator=g)
+        return (h / h.norm(dim=-1, keepdim=True)).bfloat16().to(cuda)
+
+    hs, ht = unit(rs), unit(rt)
+    vs, vt = (torch.randn((db, k), generator=g).to(cuda) for _ in range(2))
+    gs, gt = (1.0 + 0.1 * torch.randn((k,), generator=g).to(cuda)
+              for _ in range(2))
+    center = 0.01 * torch.randn((k,), generator=g).to(cuda)
+    sel = (torch.rand((rs, rt), generator=g) < 0.01).float()
+    sel[:64] = 0.0
+    c = sel.sum(1, keepdim=True)
+    sel, c = sel.to(cuda), c.to(cuda)
+    kw = dict(student_temp=0.1, inv_norm=1.0 / c.sum().item(), use_g=True)
+    args = (hs, ht, vs, vt, gs, gt, center, 0.05, sel, c)
+    got = fused_loss_and_grads(*args, **kw)
+    again = fused_loss_and_grads(*args, **kw)
+    ref = fused_loss_and_grads_reference(*args, **kw)
+    for name, a, r in zip(("loss", "center"), got[:2], ref[:2]):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item(), name
+    for name, a, r in zip(("dhs", "dvs", "dgs"), got[2:], ref[2:]):
+        _close(a, r, name, rel=1e-2)
+    assert torch.count_nonzero(got[2][:64]) == 0
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_k7_trainer_step_at_cli_batch(cuda):
+    """DINOTrainer on the card at the CLI's default batch, 256 (2 + 2
+    crops: 512 teacher rows): fused_loss defaults to K7, which launches
+    once a step; the step's loss within JAX's own fused-vs-unfused limit,
+    5e-3 relative (tests/test_dino_fused_loss.py), of the same step with
+    fused_loss=False."""
+    from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
+    from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
+    vit_cfg = ViTConfig(image_size=32, patch_size=16, embed_dim=64, depth=2,
+                        num_heads=2)
+    cfg = DINOConfig(out_dim=256, batch_size=256, n_local_crops=2,
+                     global_size=32, local_size=16, drop_path_rate=0.0)
+    tr = DINOTrainer(vit_cfg, cfg, 2, torch.Generator().manual_seed(0),
+                     fused_blocks=False)
+    assert tr.fused_loss
+    g = torch.Generator().manual_seed(1)
+    glob = torch.randn((512, 32, 32, 3), generator=g).to(cuda)
+    loc = torch.randn((512, 16, 16, 3), generator=g).to(cuda)
+    before = fused_loss_and_grads.launches
+    loss = tr.step(glob, loc)
+    assert fused_loss_and_grads.launches == before + 1
+    fused, _ = tr.loss_and_grads(glob, loc, 0.04, None)
+    tr.fused_loss = False
+    plain, _ = tr.loss_and_grads(glob, loc, 0.04, None)
+    assert fused_loss_and_grads.launches == before + 2
+    assert math.isfinite(loss)
+    assert abs(fused.item() - plain.item()) <= 5e-3 * abs(plain.item())
+
+
+def test_k7_function_gradients_on_card(cuda):
+    """make_fused_dino_loss on the card: one launch, gradients reach hs, vs
+    and gs only, equal to the kernel's own dhs, dvs, dgs times the
+    cotangent."""
+    from sais_tpu_torch.kernels.dino_head_loss import (fused_loss_and_grads,
+                                                       make_fused_dino_loss)
+    hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(4, 2, 2, 256, 512, seed=3)
+    leaves = [t.float().requires_grad_() for t in (hs, vs, gs, ht, vt, gt)]
+    op = make_fused_dino_loss(0.1, 4, 2, 4, norm_last_layer=False)
+    before = fused_loss_and_grads.launches
+    loss, bc = op(*leaves, center, torch.full((1,), 0.04, device=cuda), sel,
+                  c)
+    (2.0 * loss).backward()
+    assert fused_loss_and_grads.launches == before + 1
+    direct = fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, 0.04, sel,
+                                  c, student_temp=0.1, inv_norm=1 / 24,
+                                  use_g=True)
+    for leaf, d in zip(leaves[:3], direct[2:]):
+        torch.testing.assert_close(leaf.grad, 2.0 * d, rtol=0, atol=0)
+    assert all(leaf.grad is None for leaf in leaves[3:])
+
+
+def test_k7_rejects_what_it_does_not_take(cuda):
+    from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
+    hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(2, 2, 2, 256, 256, seed=0)
+    kw = dict(student_temp=0.1, inv_norm=0.1, use_g=False)
+    with pytest.raises(ValueError, match="floating-point"):
+        fused_loss_and_grads(hs, ht, vs.int(), vt, gs, gt, center, 0.04, sel,
+                             c, **kw)
+    with pytest.raises(ValueError, match="on the card"):
+        fused_loss_and_grads(hs, ht, vs.cpu(), vt, gs, gt, center, 0.04, sel,
+                             c, **kw)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_loss_and_grads(hs, ht, vs[:, :200], vt[:, :200], gs[:200],
+                             gt[:200], center[:200], 0.04, sel, c, **kw)
+    with pytest.raises(ValueError, match="bottleneck"):
+        fused_loss_and_grads(hs[:, :64], ht[:, :64], vs[:64], vt[:64], gs,
+                             gt, center, 0.04, sel, c, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K8: the W8A8 ViT block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,l,valid", [(8, 197, 197), (3, 50, 13),
+                                       (2, 256, 256), (5, 1, 1)])
+def test_k8_matches_plain_version(cuda, b, l, valid):
+    """K8 at ViT-S widths against its plain version: within 2e-2 of the
+    largest plain value (a LayerNorm or softmax summed in another order
+    may move a value across a quantizer's tie, one int8 step); one
+    launch."""
+    from sais_tpu_torch.kernels.fused_mha import (fused_vit_block_int8,
+                                                  vit_block_int8_reference)
+    x, ws = _inputs(l + 11, b, l)
+    kw = dict(num_heads=6, valid_len=valid)
+    before = fused_vit_block_int8.launches
+    out = fused_vit_block_int8(x, *ws, **kw).float()
+    torch.cuda.synchronize()
+    assert fused_vit_block_int8.launches == before + 1
+    ref = vit_block_int8_reference(x, *ws, **kw).float()
+    _close(out[:, :valid], ref[:, :valid], "out")
+
+
+def test_k8_rejects_what_it_does_not_take(cuda):
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block_int8
+    x, ws = _inputs(0, 2, 20)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_vit_block_int8(x.float(), *ws, num_heads=6, valid_len=20)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_vit_block_int8(x, *ws, num_heads=4, valid_len=20)
+
+
+def test_vit_int8_path_runs_k8_only(cuda):
+    """vit_features(quant="int8") on a bf16 ViT-S/16 (depth cut to 3): K8
+    once a block, K1 never; CLS cosine against the K1 path > 0.999."""
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block_int8
+    from sais_tpu_torch.models.vit import vit_features
+    cfg = ViTConfig(depth=3)
+    model = vit_init(torch.Generator().manual_seed(0), cfg).to(
+        cuda, torch.bfloat16)
+    images = torch.randn((8, 224, 224, 3),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    k1, k8 = fused_vit_block.launches, fused_vit_block_int8.launches
+    with torch.inference_mode():
+        got = vit_features(model, images, quant="int8")
+        assert fused_vit_block.launches == k1
+        assert fused_vit_block_int8.launches == k8 + cfg.depth
+        ref = vit_features(model, images)
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    assert cos.mean().item() > 0.999, cos

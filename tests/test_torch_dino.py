@@ -443,8 +443,16 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
 def test_trainer_refusals_and_defaults():
     _, tcfg = _dino_cfgs()
     kw = dict(generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="K7"):
-        tdino.DINOTrainer(ViTConfig(**TINY), tcfg, 2, fused_loss=True, **kw)
+    # K7 is ported: fused_loss=True runs its plain version on the CPU, and
+    # the BatchNorm head is refused with it as in the JAX package
+    fused = tdino.DINOTrainer(ViTConfig(**TINY), tcfg, 2, fused_loss=True,
+                              **kw)
+    assert fused.fused_loss
+    assert np.isfinite(fused.step(*map(_t, _crops(0))))
+    with pytest.raises(ValueError, match="use_bn_in_head"):
+        tdino.DINOTrainer(ViTConfig(**TINY),
+                          tdino.DINOConfig(use_bn_in_head=True), 2,
+                          fused_loss=True, **kw)
     with pytest.raises(NotImplementedError, match="data-parallel"):
         tdino.DINOTrainer(ViTConfig(**TINY), tcfg, 2, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="use_bn"):
