@@ -13,7 +13,9 @@ Phases, each of which fails the run:
    kernel against its plain PyTorch version at L = 197 and at L = 208 with
    keys >= 197 masked; CUDA-event times of the kernel, the plain version
    and one composition of PyTorch library calls (layer_norm, linear,
-   scaled_dot_product_attention, gelu); the least time the card could take.
+   scaled_dot_product_attention, gelu); the least time the card could take;
+   each of K1's seven launches' device time and its four GEMMs' TFLOP/s
+   (torch.profiler), which must all run on the wgmma + TMA GEMM.
 4. K2 (flash_attention), f32, H = 4, Dh = 96: the CUDA kernel against its
    plain version (out and lse) at (B*S, L) = (8, 2001), the reference's
    2000-frame cap plus CLS, and (132, 301), full-length 10 s windows at
@@ -80,7 +82,7 @@ Phases, each of which fails the run:
    plain version and the PyTorch library composition (K4: layer_norm,
    linear, SDPA, gelu; K5 and K6: the autograd backward of the MLP and
    attention halves, forward + backward minus forward); the least time the
-   card could take.
+   card could take; K4's seven launches as for K1.
 10. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
@@ -187,9 +189,14 @@ def phase_build():
     print(f"build: {len(logs)} source(s) compiled in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        spills = [line.strip() for line in log.splitlines()
+                  if "spill stores" in line
+                  and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         for line in log.splitlines():
             if "entry function" in line or "registers" in line:
                 print(f"  {name}: {line.strip()}")
+        print(f"  {name}: {len(spills)} kernel(s) with spills"
+              + "".join(f"; {line}" for line in spills))
 
 
 def k1_inputs(b, l, d, heads, mlp, seed):
@@ -232,6 +239,37 @@ def k1_bound_ms(b, l, d, mlp, weight_bytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+BLOCK_LAUNCHES = ("LN1", "qkv", "attention", "proj", "LN2", "fc1", "fc2")
+
+
+def block_launch_split(fn, name, b, l, d, mlp):
+    """Profiles five calls of fn, one K1 or K4 call at (b, l), and prints
+    the device time of each of its seven launches with the four GEMMs'
+    TFLOP/s.  Fails unless every product ran on the wgmma + TMA kernel
+    (`gemm_sm90_kernel`) and nothing on the mma.sync template
+    (`gemm_kernel`)."""
+    _, _, got = _profile(fn, name, 5, per_launch=len(BLOCK_LAUNCHES))
+    m = b * l
+    flops = {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
+             "fc1": 2 * m * d * mlp, "fc2": 2 * m * mlp * d}
+    split, parts = {}, []
+    for label, (kernel, us) in zip(BLOCK_LAUNCHES, got["per_launch"]):
+        check("gemm_kernel" not in kernel,
+              f"{name}: {label} ran the mma.sync template ({kernel})")
+        split[label] = us / 1e3
+        if label in flops:
+            check("gemm_sm90_kernel" in kernel,
+                  f"{name}: {label} ran {kernel}, not the wgmma GEMM")
+            parts.append(f"{label} {us / 1e3:.4f} ms "
+                         f"({flops[label] / us / 1e6:.1f} TFLOP/s)")
+        else:
+            parts.append(f"{label} {us / 1e3:.4f} ms")
+    gemm_ms = sum(split[k] for k in flops)
+    print(f"{name} (B, L) = ({b}, {l}) per launch: {', '.join(parts)}; "
+          f"GEMMs {gemm_ms:.4f} ms ({sum(flops.values()) / gemm_ms / 1e9:.1f}"
+          f" TFLOP/s), all seven {sum(split.values()):.4f} ms", flush=True)
 
 
 def phase_k1():
@@ -281,7 +319,8 @@ def phase_k1():
               f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
         result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       bound_ms=bound_ms, bound_by=bound_by)
-        _profile(lambda: fused_vit_block(x, *ws, **kw), "k1_profile", 5)
+        block_launch_split(lambda: fused_vit_block(x, *ws, **kw),
+                           "k1_profile", b, l, d, mlp)
         del x, ws, out, ref, diff
     result["max_abs_err"] = worst
     return result
@@ -420,13 +459,17 @@ def phase_k2():
     return result
 
 
-def _profile(fn, name: str, steps: int, shares=None, ranges=()):
+def _profile(fn, name: str, steps: int, shares=None, ranges=(),
+             per_launch: int = 0):
     """torch.profiler over `steps` calls of fn: prints the per-kernel table
     and the device's busy time (the union of its kernel and copy
     intervals) against the host's wall time.  `shares`: label -> kernel
     name fragment, whose summed device time is printed as a share of the
     busy time; `ranges`: names of record_function ranges whose device time
-    is printed the same way.  Returns (busy us, wall us, {label: us})."""
+    is printed the same way.  `per_launch`: the number of device launches
+    one call of fn makes, in a fixed order; their names and mean device
+    times go to got["per_launch"] (the run fails if the calls differ).
+    Returns (busy us, wall us, {label: us})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -460,6 +503,24 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=()):
         print(f"{name}: {label} {got[label]:.0f} us, "
               f"{100 * got[label] / busy_us:.1f}% of device busy time",
               flush=True)
+    if per_launch:
+        events = sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        # the profiler can miss the first launches of its window: read the
+        # whole calls at its end
+        calls = len(events) // per_launch
+        check(calls >= steps - 1 and len(events) <= per_launch * steps,
+              f"{name}: {len(events)} device launches in {steps} calls, "
+              f"expected {per_launch} a call")
+        events = events[len(events) - calls * per_launch:]
+        got["per_launch"] = []
+        for i in range(per_launch):
+            names = {e[2] for e in events[i::per_launch]}
+            check(len(names) == 1, f"{name}: launch {i} of a call ran "
+                  f"different kernels: {sorted(names)}")
+            got["per_launch"].append((names.pop(), sum(
+                e[1] - e[0] for e in events[i::per_launch]) / calls))
     averages = prof.key_averages()
     for label in ranges:
         # a range can appear twice (its CPU event and its annotation on the
@@ -1203,6 +1264,7 @@ def phase_train_kernels():
                 result[name] = dict(ms=ms, plain_ms=plain_ms,
                                     library_ms=library[name],
                                     bound_ms=bound_ms, bound_by=bound_by)
+        block_launch_split(runs["K4"][0], "k4_profile", b, l, d, mlp)
         if (b, l) == (128, 197):
             _profile(lambda: [fn() for fn, _ in runs.values()],
                      "k4_k5_k6_profile", 3)

@@ -138,6 +138,11 @@ def _check_ported(args):
             f"--seq-parallel {args.seq_parallel}: sequence-parallel ring "
             "attention is not ported yet; one card runs full-length "
             "windows on K2 (--flash on)")
+    if args.data_parallel:
+        raise NotImplementedError(
+            "--data-parallel: data-parallel extraction and training are not "
+            "ported yet; they come with torch.distributed DDP (ROADMAP.md "
+            "Queue 1, item 5); one card runs without it")
 
 
 def cmd_extract(args):
@@ -526,7 +531,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="not ported yet (the BatchNorm DINO head)")
         sp.add_argument("--data-parallel", type=int, nargs="?", const=-1,
                         default=0, metavar="M",
-                        help="not ported yet (data-parallel pre-training)")
+                        help="not ported yet (refused)")
     return p
 
 

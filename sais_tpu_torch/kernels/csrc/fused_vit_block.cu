@@ -19,34 +19,36 @@
 //
 // What bounds it on an H100: at ViT-S/16 (L = 197, D = 384, MLP 1536) a
 // block is 0.757 GFLOP per image against ~0.3 MB of activations, far above
-// the card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations
-// (0.196 ms for 256 images at 989 TFLOP/s bf16).  A TPU-style single
-// program per image does not fit: the qkv of one image alone is 454 KB and
-// a block has at most 227 KB of shared memory.  So this first design is one
-// C entry point that enqueues a short sequence of kernels on the caller's
-// stream, every product on the tensor cores with f32 accumulation:
+// the card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations:
+// for 256 images 178.5 GFLOP of products and 15.3 of attention, 0.1959 ms
+// at 989 TFLOP/s bf16.  A TPU-style single program per image does not
+// fit: the qkv of one image alone is 454 KB and a block has at most 227 KB
+// of shared memory.  So this design is one C entry point that enqueues
+// seven kernels on the caller's stream:
 //
-//   (1) layer_norm_kernel           LN1 -> y
-//   (2) gemm_kernel<EPI_BIAS>        y @ Wqkv + b -> qkv
-//   (3) attention_kernel<KT>        per (head, image): K and V loaded once
-//                                   into shared memory; a warp keeps a query
-//                                   tile's whole key row of scores in
-//                                   registers, two-pass f32 softmax, P
-//                                   re-used as the A operand
-//   (4) gemm_kernel<EPI_RESIDUAL>    [s1 *] (ctx @ Wproj + b) + x -> x1
-//   (5) layer_norm_kernel           LN2 -> y
-//   (6) gemm_kernel<EPI_GELU>        y @ W1 + b1, tanh-GELU -> h
-//   (7) gemm_kernel<EPI_RESIDUAL>    [s2 *] (h @ W2 + b2) + x1 -> out
+//   (1) layer_norm_kernel              LN1 -> y
+//   (2) gemm_sm90_kernel<EPI_BIAS>     y @ Wqkv + b -> qkv
+//   (3) attention_kernel<KT>           per (head, image): K and V loaded
+//                                      once into shared memory; a warp keeps
+//                                      a query tile's whole key row of
+//                                      scores in registers, two-pass f32
+//                                      softmax, P re-used as the A operand
+//   (4) gemm_sm90_kernel<EPI_RESIDUAL> [s1 *] (ctx @ Wproj + b) + x -> x1
+//   (5) layer_norm_kernel              LN2 -> y
+//   (6) gemm_sm90_kernel<EPI_GELU>     y @ W1 + b1, tanh-GELU -> h
+//   (7) gemm_sm90_kernel<EPI_RESIDUAL> [s2 *] (h @ W2 + b2) + x1 -> out
 //
-// Every product is mma.sync m16n8k16 with ldmatrix fragments
-// (vit_block_common.cuh); the GEMMs' epilogues work on the accumulators in
-// registers.  The intermediates (y, qkv / h, x1) round-trip through device
-// memory, about 4x the bytes of the TPU kernel; still far below the compute
-// bound.  Later work: wgmma + TMA GEMMs (mma.sync reaches about two thirds
-// of the card's bf16 peak at best), LN fused into the GEMM prologue.
+// The four products, 92% of the flops, run on gemm_sm90.cuh: TMA loads
+// into a 4-stage shared-memory ring, wgmma.mma_async on two consumer
+// warpgroups, the epilogues on the accumulators, a TMA store.  The
+// attention stays on mma.sync (vit_block_common.cuh; K8 runs it too).  The
+// intermediates (y, qkv / h, x1) round-trip through device memory, about
+// 4x the bytes of the TPU kernel.  Later work: LayerNorm in the GEMM
+// prologue, the MLP fused (h kept on chip), a persistent GEMM scheduler.
 //
 // The kernels allocate nothing: the caller passes the scratch buffers.
 
+#include "gemm_sm90.cuh"
 #include "vit_block_common.cuh"
 
 namespace {
@@ -76,19 +78,17 @@ cudaError_t block_forward(const void* x, const void* qkv_w,
   cudaError_t e;
   if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, nullptr, nullptr, M, dim,
                       eps, stream))) return e;
-  if ((e = gemm<EPI_BIAS, false, false>(y, w(qkv_w), w(qkv_b), big, M,
-                                        3 * dim, dim, stream))) return e;
+  if ((e = gemm_sm90<EPI_BIAS>(y, w(qkv_w), w(qkv_b), big, M, 3 * dim, dim,
+                               stream))) return e;
   if ((e = attention(big, y, batch, seq, dim, heads, valid_len, stream))) return e;
-  if ((e = gemm<EPI_RESIDUAL, false, false>(y, w(proj_w), w(proj_b), x1, M,
-                                            dim, dim, stream, xb, w(s1))))
-    return e;
+  if ((e = gemm_sm90<EPI_RESIDUAL>(y, w(proj_w), w(proj_b), x1, M, dim, dim,
+                                   stream, xb, w(s1)))) return e;
   if ((e = layer_norm(x1, w(ln2_s), w(ln2_b), y, nullptr, nullptr, M, dim,
                       eps, stream))) return e;
-  if ((e = gemm<EPI_GELU, false, false>(y, w(fc1_w), w(fc1_b), big, M, mlp,
-                                        dim, stream))) return e;
-  if ((e = gemm<EPI_RESIDUAL, false, false>(big, w(fc2_w), w(fc2_b), o, M,
-                                            dim, mlp, stream, x1, w(s2))))
-    return e;
+  if ((e = gemm_sm90<EPI_GELU>(y, w(fc1_w), w(fc1_b), big, M, mlp, dim,
+                               stream))) return e;
+  if ((e = gemm_sm90<EPI_RESIDUAL>(big, w(fc2_w), w(fc2_b), o, M, dim, mlp,
+                                   stream, x1, w(s2)))) return e;
   return cudaSuccess;
 }
 
@@ -133,6 +133,30 @@ int fused_block_fwd_train(const void* x, const void* qkv_w,
                             fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, s1, s2,
                             out, buf_y, buf_big, x1, batch, seq, dim, heads,
                             mlp, valid_len, eps, stream_ptr);
+}
+
+// The block's GEMM alone (the card tests hold it against torch): C (M, N)
+// = epilogue(A (M, K) @ B (K, N)) with epilogue 0 bias, 1 tanh-GELU, 2
+// residual [* row_scale]; residual and row_scale may be null otherwise.
+int vit_block_gemm(const void* a, const void* b, const void* bias,
+                   const void* residual, const void* row_scale, void* c,
+                   int M, int N, int K, int epilogue, void* stream_ptr) {
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* out = static_cast<bf16*>(c);
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  switch (epilogue) {
+    case EPI_BIAS:
+      return (int)gemm_sm90<EPI_BIAS>(w(a), w(b), w(bias), out, M, N, K,
+                                      stream);
+    case EPI_GELU:
+      return (int)gemm_sm90<EPI_GELU>(w(a), w(b), w(bias), out, M, N, K,
+                                      stream);
+    case EPI_RESIDUAL:
+      return (int)gemm_sm90<EPI_RESIDUAL>(w(a), w(b), w(bias), out, M, N, K,
+                                          stream, w(residual), w(row_scale));
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* sais_cuda_error_string(int code) {

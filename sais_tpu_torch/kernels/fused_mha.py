@@ -76,6 +76,29 @@ def _attention_ctx(qkv, num_heads, valid_len):
     return ctx.reshape(b, l, d3 // 3)
 
 
+GEMM_EPILOGUES = ("bias", "gelu", "residual")   # the C entry's 0, 1, 2
+
+
+def block_gemm_reference(a, w, bias, epilogue: str, residual=None,
+                         row_scale=None):
+    """Plain version of the block forward's GEMM: v = a @ w (f32
+    accumulation) rounded to a's dtype, + bias in that dtype; then
+    "bias": v; "gelu": tanh GELU of v in f32, rounded; "residual":
+    residual + [row_scale *] v, the scale (one a row, shaped (..., 1))
+    applied in the dtype."""
+    dtype = a.dtype
+    v = _mm(a, w, dtype) + bias
+    if epilogue == "gelu":
+        return F.gelu(v.float(), approximate="tanh").to(dtype)
+    if epilogue == "residual":
+        if row_scale is not None:
+            v = v * row_scale.to(dtype)
+        return residual + v
+    if epilogue != "bias":
+        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
+    return v
+
+
 def _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
                    fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads, valid_len,
                    eps, s1=None, s2=None):
@@ -85,19 +108,12 @@ def _block_forward(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
     that dtype, tanh GELU in f32, keys >= valid_len masked with -1e30."""
     dtype = x.dtype
     y = layer_norm_f32(x, ln1_s, ln1_b, eps).to(dtype)
-    ctx = _attention_ctx(_mm(y, qkv_w, dtype) + qkv_b, num_heads, valid_len)
-    o = _mm(ctx, proj_w, dtype) + proj_b
-    if s1 is not None:
-        o = o * s1.to(dtype)
-    x1 = x + o
-
+    ctx = _attention_ctx(block_gemm_reference(y, qkv_w, qkv_b, "bias"),
+                         num_heads, valid_len)
+    x1 = block_gemm_reference(ctx, proj_w, proj_b, "residual", x, s1)
     y = layer_norm_f32(x1, ln2_s, ln2_b, eps).to(dtype)
-    hdn = _mm(y, fc1_w, dtype) + fc1_b
-    hdn = F.gelu(hdn.float(), approximate="tanh").to(dtype)
-    o = _mm(hdn, fc2_w, dtype) + fc2_b
-    if s2 is not None:
-        o = o * s2.to(dtype)
-    return x1 + o, x1
+    hdn = block_gemm_reference(y, fc1_w, fc1_b, "gelu")
+    return block_gemm_reference(hdn, fc2_w, fc2_b, "residual", x1, s2), x1
 
 
 def vit_block_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
@@ -343,6 +359,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_block_fwd_train.argtypes = (
             [ptr] * 19 + [i32] * 6 + [ctypes.c_float, ptr])
         lib.fused_block_fwd_train.restype = i32
+        lib.vit_block_gemm.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.vit_block_gemm.restype = i32
     elif name == "fused_block_bwd_mlp":
         lib.fused_block_bwd_mlp_workspace.argtypes = [i32] * 3
         lib.fused_block_bwd_mlp_workspace.restype = ctypes.c_size_t
@@ -417,6 +435,51 @@ def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
 
 
 fused_vit_block.launches = 0
+
+
+def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None):
+    """The GEMM of K1's and K4's four products, alone: (M, K) @ (K, N) with
+    the "bias", "gelu" or "residual" epilogue (row_scale: one scale a row,
+    (M,) or (M, 1)).  CUDA tensor: the wgmma + TMA kernel of
+    `csrc/gemm_sm90.cuh` (bf16; counted in `block_gemm.launches`), which
+    the card tests hold against torch; CPU tensor: the plain version
+    `block_gemm_reference`."""
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
+    if (residual is None) != (epilogue != "residual") or (
+            row_scale is not None and epilogue != "residual"):
+        raise ValueError("the residual epilogue takes a residual (and an "
+                         "optional row scale); the others take neither")
+    if not _on_cuda(a, "block_gemm"):
+        if row_scale is not None:
+            row_scale = row_scale.reshape(-1, 1)
+        return block_gemm_reference(a, w, bias, epilogue, residual,
+                                    row_scale)
+    if a.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"block_gemm takes (M, K) @ (K, N); got "
+                         f"{tuple(a.shape)} @ {tuple(w.shape)}")
+    (m, k), n = a.shape, w.shape[1]
+    if n % K_TILE or k % K_TILE:
+        raise ValueError(f"N={n} and K={k} must be multiples of {K_TILE}")
+    if row_scale is not None:
+        if row_scale.numel() != m:
+            raise ValueError(f"row_scale has {row_scale.numel()} elements, "
+                             f"expected {m}")
+        row_scale = row_scale.reshape(m).to(torch.bfloat16).contiguous()
+    operands = [(a, None), (w, (k, n)), (bias, (n,)), (residual, (m, n)),
+                (row_scale, (m,))]
+    _check_operands("block_gemm", *zip(*((t, s) for t, s in operands
+                                          if t is not None)))
+    lib = _lib("fused_vit_block")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _launch(lib, lib.vit_block_gemm, "block_gemm", a.device,
+            *(_ptr(t) for t in (a, w, bias, residual, row_scale, out)),
+            m, n, k, GEMM_EPILOGUES.index(epilogue))
+    block_gemm.launches += 1
+    return out
+
+
+block_gemm.launches = 0
 
 
 def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,

@@ -51,7 +51,8 @@ def _inputs(seed, b, l, d=384, mlp=1536, device="cuda"):
 
 @pytest.mark.parametrize("b,l,valid", [(8, 197, 197), (8, 208, 197),
                                        (3, 50, 13), (2, 256, 256),
-                                       (5, 1, 1)])
+                                       (5, 1, 1), (3, 197, 197),
+                                       (5, 37, 37)])
 def test_kernel_matches_plain_version(cuda, b, l, valid):
     """ViT-S widths (D=384, 6 heads, MLP 1536), bf16.  Limit: 2e-2 of the
     largest reference value, a few bf16 ulps (summation order differs)."""
@@ -81,6 +82,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     long_x, long_ws = _inputs(1, 1, 257)
     with pytest.raises(NotImplementedError, match="sequence length"):
         fused_vit_block(long_x, *long_ws, num_heads=6, valid_len=257)
+
+
+# (N, K) of the block's four products at ViT-S widths (qkv, proj, fc1,
+# fc2) and one N that leaves a partial column tile; M: the K1 main path's
+# 256 x 197 rows, ragged counts, K4's (512, 37) group.
+GEMM_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536), (320, 384)]
+GEMM_M = [50432, 591, 18944, 7]
+
+
+@pytest.mark.parametrize("epilogue,scaled", [("bias", False),
+                                             ("gelu", False),
+                                             ("residual", False),
+                                             ("residual", True)])
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("n,k", GEMM_NK)
+def test_block_gemm_matches_torch(cuda, n, k, m, epilogue, scaled):
+    """The wgmma + TMA GEMM of K1 and K4 alone against torch on the same
+    bf16 inputs (f32 product, the same epilogue; the row scale holds zeros
+    and 1/keep).  Limit: 2e-2 of the largest reference value, as for K1:
+    both round at the same points and sum in another order."""
+    from sais_tpu_torch.kernels.fused_mha import (block_gemm,
+                                                  block_gemm_reference)
+    g = torch.Generator().manual_seed(m + n + k)
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    a = torch.randn((m, k), generator=g).to(**bf)
+    w = (0.05 * torch.randn((k, n), generator=g)).to(**bf)
+    bias = (0.05 * torch.randn((n,), generator=g)).to(**bf)
+    residual = row_scale = None
+    if epilogue == "residual":
+        residual = torch.randn((m, n), generator=g).to(**bf)
+    if scaled:
+        keep = (torch.rand((m,), generator=g) < 0.75).float()
+        keep[0] = 0.0
+        row_scale = (keep / 0.9).to(**bf)
+    before = block_gemm.launches
+    out = block_gemm(a, w, bias, epilogue, residual, row_scale)
+    torch.cuda.synchronize()
+    assert block_gemm.launches == before + 1
+    ref = block_gemm_reference(
+        a, w, bias, epilogue, residual,
+        None if row_scale is None else row_scale[:, None])
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    _close(out, ref, f"{epilogue} M={m} N={n} K={k}")
+
+
+def test_block_gemm_rejects_what_it_does_not_take(cuda):
+    from sais_tpu_torch.kernels.fused_mha import block_gemm
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    a, w, b = (torch.zeros(s, **bf) for s in ((7, 64), (64, 128), (128,)))
+    with pytest.raises(ValueError, match="multiples"):
+        block_gemm(a, torch.zeros((64, 96), **bf), b[:96], "bias")
+    with pytest.raises(ValueError, match="bf16"):
+        block_gemm(a.float(), w, b, "bias")
+    with pytest.raises(ValueError, match="aligned"):
+        block_gemm(torch.zeros(7 * 64 + 1, **bf)[1:].view(7, 64), w, b,
+                   "bias")
 
 
 def test_vit_fused_path_on_kernel_matches_plain(cuda, monkeypatch):
@@ -339,7 +396,7 @@ def _close(got, ref, name, rel=2e-2):
 
 
 TRAIN_SHAPES = [(4, 197, 197), (6, 37, 37), (3, 50, 13), (2, 256, 256),
-                (3, 1, 1)]
+                (3, 1, 1), (3, 197, 197), (5, 37, 37)]
 
 
 @pytest.mark.parametrize("scaled", [False, True])

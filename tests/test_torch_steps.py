@@ -274,6 +274,22 @@ def test_cli_steps(tmp_path, monkeypatch, capsys):
             cli.main([a for a in argv if a not in ("--device", "cpu")])
 
 
+@pytest.mark.parametrize("cmd", ["extract", "decode", "pipeline", "steps",
+                                 "train"])
+def test_cli_refuses_data_parallel(cmd, tmp_path):
+    """`--data-parallel` is refused, not ignored, by every command that runs
+    on one card, before any file is read: the root does not exist."""
+    from sais_tpu_torch.cli import main as cli
+    root = tmp_path / "absent"
+    argv = [cmd, "-p", str(root), "--random-init", "--device", "cpu",
+            "--data-parallel", "2"]
+    argv += (["--segments", str(root / "segs.csv")] if cmd == "train"
+             else ["-f", "vid"])
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        cli.main(argv)
+    assert not root.exists()
+
+
 @pytest.mark.parametrize("flash", ["auto", "on"])
 def test_cli_decode_save_artifacts(flash, tmp_path, monkeypatch, capsys):
     """`decode --save-artifacts` writes reps_and_labels and attention
