@@ -8,7 +8,10 @@ Phases, each of which fails the run:
 1. device: a CUDA device must be present; prints its name and power limit
    (nvidia-smi) and the torch / CUDA versions.
 2. build: compiles every kernel of kernels/csrc with nvcc for sm_90a, one
-   nvcc process per source, all started together.
+   nvcc process per source, all started together; prints ptxas registers
+   and spills per source.  The flash libraries (K2, K3) must not spill, and
+   cuobjdump -sass must show a TF32 HMMA in each of their kernels (K2's
+   forward, K3's dq and dk / dv), their products' 3xTF32 route.
 3. K1 (fused_vit_block) at ViT-S/16 widths, batch 256, bf16: the CUDA
    kernel against its plain PyTorch version at L = 197 and at L = 208 with
    keys >= 197 masked; CUDA-event times of the kernel, the plain version
@@ -23,7 +26,9 @@ Phases, each of which fails the run:
    every key masked (its output must be exactly 0); CUDA-event times of
    the kernel, the plain version and scaled_dot_product_attention with the
    additive mask, at the steps path's shape and at (8, 2001); the least
-   time the card could take.  Then prototypes_forward at (8, 1, 2000, 384)
+   time the card could take (3xTF32, with the f32 FFMA bound beside it);
+   out and lse of the kernel and of the plain version against a float64
+   evaluation.  Then prototypes_forward at (8, 1, 2000, 384)
    in auto mode must take K2 (one launch per layer) and agree with the
    dense path.
 5. gesture path at full width: random ViT-S/16 and one fold of the 4-layer
@@ -53,7 +58,8 @@ Phases, each of which fails the run:
    printed against a float64 evaluation of the same formulas.  CUDA-event
    times of the kernel, the plain version and the backward of
    scaled_dot_product_attention (f32, additive mask; forward + backward
-   minus forward); the least time the card could take.
+   minus forward); the least time the card could take (3xTF32, with the
+   f32 FFMA bound beside it).
 8. training path at full width (`train --segments ... -bc -e 2 -bs 32
    -lr 0.1 --flash on` without the CSV and H5 I/O): a synthetic in-memory
    feature store (16 videos x 3,000 frames x 384, numpy seed 0) and
@@ -71,7 +77,10 @@ Phases, each of which fails the run:
    whose rows are single-token gradients that a ReLU flip at rounding
    level moves, in the norm; the dense path against itself under 1e-7
    input noise is printed beside it); median step time of five after a
-   warm-up, for both paths.
+   warm-up, for both paths.  Then `flash_crossover`: prototypes_forward
+   (batch 2, inference mode) on K2 against the dense path at 301, 512,
+   1024, 2001 and 8193 tokens, median of five CUDA-event runs each, and
+   the length from which flash is faster.
 9. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
    (fused_block_bwd_attn), bf16, D = 384, 6 heads of 64, MLP 1536: each
    CUDA kernel against its plain version (out and x1; dx1 and the f32 MLP
@@ -136,6 +145,7 @@ import time
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16, at 700 W (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 (K2 and K3's route)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 
 
@@ -182,12 +192,47 @@ def phase_device():
     return card
 
 
+# The flash kernels' products must run on the tensor cores in TF32: each
+# function of these libraries whose name holds the fragment needs a TF32
+# HMMA in its SASS, and the libraries must not spill.
+FLASH_KERNELS = {"flash_attention": ("flash_fwd_kernel",),
+                 "flash_attention_bwd": ("flash_bwd_dq_kernel",
+                                         "flash_bwd_dkv_kernel")}
+
+
+def check_tf32_sass(name, fragments):
+    """cuobjdump -sass of one built library: prints the TF32 HMMA and FFMA
+    count of every kernel named by `fragments` and fails unless each has a
+    TF32 HMMA."""
+    from sais_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed on {name}: {out.stderr}")
+    funcs, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+            funcs[current] = [0, 0]
+        elif current is not None:
+            funcs[current][0] += "HMMA" in line and "TF32" in line
+            funcs[current][1] += "FFMA" in line
+    for frag in fragments:
+        found = {f: c for f, c in funcs.items() if frag in f}
+        check(bool(found), f"{name}: no kernel named {frag} in the SASS")
+        for func, (hmma, ffma) in sorted(found.items()):
+            print(f"  {name}: {func}: {hmma} TF32 HMMA, {ffma} FFMA",
+                  flush=True)
+            check(hmma > 0, f"{func} has no TF32 HMMA instruction")
+
+
 def phase_build():
     from sais_tpu_torch.kernels import _build
     t0 = time.time()
     logs = _build.build()
     print(f"build: {len(logs)} source(s) compiled in "
           f"{time.time() - t0:.1f} s", flush=True)
+    spilled = []
     for name, log in logs.items():
         spills = [line.strip() for line in log.splitlines()
                   if "spill stores" in line
@@ -196,7 +241,12 @@ def phase_build():
             if "entry function" in line or "registers" in line:
                 print(f"  {name}: {line.strip()}")
         print(f"  {name}: {len(spills)} kernel(s) with spills"
-              + "".join(f"; {line}" for line in spills))
+              + "".join(f"; {line}" for line in spills), flush=True)
+        if name in FLASH_KERNELS and spills:
+            spilled.append(name)
+    for name, fragments in FLASH_KERNELS.items():
+        check_tf32_sass(name, fragments)
+    check(not spilled, f"{', '.join(spilled)} spill registers")
 
 
 def k1_inputs(b, l, d, heads, mlp, seed):
@@ -341,15 +391,38 @@ def k2_inputs(b, l, seed, masked):
     return q, k, v, mask, valid
 
 
+def flash_bound_ms(flops, nbytes):
+    """(bound ms, bound by, f32 FFMA bound ms) of an f32 flash kernel whose
+    products run in 3xTF32: three TF32 products per f32 product at the
+    TF32 peak, against the bytes at the memory rate; beside it the bound
+    of the same work on f32 FFMA (the route before the tensor cores)."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(flops / PEAK_F32_FLOPS, t_bytes))
+
+
 def k2_bound_ms(b, h, l, dh, valid):
     """Least time for K2 on this data: 4 Dh flops for each (query, valid
     key) pair, against q, k, v, the bias read once and out, lse written
-    once."""
+    once.  -> (bound ms, bound by, flops, bytes, f32 FFMA bound ms)."""
     flops = 4 * h * l * dh * sum(valid)
     nbytes = 4 * (4 * b * h * l * dh + b * l + b * h * l)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    bound, by, ffma = flash_bound_ms(flops, nbytes)
+    return bound, by, flops, nbytes, ffma
+
+
+def _fwd_f64(q, k, v, bias):
+    """K2's formulas evaluated in float64 on the card (elements with a
+    valid key): the yardstick of accuracy for the kernel and its plain
+    version."""
+    import torch
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.einsum("bhld,bhmd->bhlm", q * q.shape[-1] ** -0.5, k)
+    s = s + bias.double()[:, None, None, :]
+    lse = torch.logsumexp(s, -1)
+    return torch.einsum("bhlm,bhmd->bhld", torch.exp(s - lse[..., None]),
+                        v), lse
 
 
 def phase_k2():
@@ -379,6 +452,13 @@ def phase_k2():
         lerr = (lse[:-1] - ref_lse[:-1]).abs().max().item()
         lscale = max(1.0, ref_lse[:-1].abs().max().item())
         zero = torch.count_nonzero(out[-1]).item()
+        x_out, x_lse = _fwd_f64(q[:-1], k[:-1], v[:-1], bias[:-1])
+        f64 = (f"out kernel-f64 {(out[:-1].double() - x_out).abs().max():.3g}"
+               f", plain-f64 {(ref[:-1].double() - x_out).abs().max():.3g}; "
+               f"lse kernel-f64 {(lse[:-1].double() - x_lse).abs().max():.3g}"
+               f", plain-f64 "
+               f"{(ref_lse[:-1].double() - x_lse).abs().max():.3g}")
+        del x_out, x_lse
         # Limits: both compute in f32 and differ only in summation order
         # and the online rescaling, a few f32 ulps: 1e-4 of the largest
         # value.  The all-masked element is exactly 0 and its lse -1e30.
@@ -386,7 +466,7 @@ def phase_k2():
               f"{valid[-2:]}: max|out-plain| {err:.4g} (max|plain| "
               f"{scale:.4g}), max|lse-plain| {lerr:.4g} (max|lse| "
               f"{lscale:.4g}), nonzero outputs of the all-masked element "
-              f"{zero}", flush=True)
+              f"{zero}; {f64}", flush=True)
         check(math.isfinite(err) and err <= 1e-4 * scale,
               f"K2 out disagrees at L={l}: {err} > 1e-4 * {scale}")
         check(math.isfinite(lerr) and lerr <= 1e-4 * lscale,
@@ -413,14 +493,16 @@ def phase_k2():
         lib_err = (F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask)[:b - 1]
             - flash_attention(q, k, v, mask)[:b - 1]).abs().max().item()
-        bound_ms, bound_by, flops, nbytes = k2_bound_ms(b, 4, l, 96, valid)
+        bound_ms, bound_by, flops, nbytes, ffma_ms = k2_bound_ms(
+            b, 4, l, 96, valid)
         print(f"K2 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''}: "
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, library (SDPA, f32 additive mask) "
               f"{library_ms:.4f} ms (max|lib-kernel| {lib_err:.3g}); bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB), kernel at "
-              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+              f"{bound_ms:.4f} ms by {bound_by} in 3xTF32 ({flops / 1e9:.2f}"
+              f" GFLOP, {nbytes / 1e6:.1f} MB; f32 FFMA bound "
+              f"{ffma_ms:.4f} ms), kernel at {100 * bound_ms / ms:.1f}% of "
+              f"the bound", flush=True)
         if not result:
             result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
@@ -724,12 +806,12 @@ def phase_steps(nframes: int):
 def k3_bound_ms(b, h, l, dh, valid):
     """Least time for K3 on this data: five products of 2 Dh flops for
     each (query, valid key) pair, against q, k, v, out, dO, lse and the
-    bias read once and dq, dk, dv written once."""
+    bias read once and dq, dk, dv written once.  -> (bound ms, bound by,
+    flops, bytes, f32 FFMA bound ms)."""
     flops = 10 * h * l * dh * sum(valid)
     nbytes = 4 * (8 * b * h * l * dh + b * l + b * h * l)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    bound, by, ffma = flash_bound_ms(flops, nbytes)
+    return bound, by, flops, nbytes, ffma
 
 
 # (B*S, L, masked): the steps shape, the reference's 2000-frame cap + CLS,
@@ -816,14 +898,16 @@ def phase_k3():
         with torch.no_grad():
             lib_fwd_ms = cuda_time_ms(lib_fwd, iters=10)
         library_ms = cuda_time_ms(lib_fwd_bwd, iters=10) - lib_fwd_ms
-        bound_ms, bound_by, flops, nbytes = k3_bound_ms(b, 4, l, 96, valid)
+        bound_ms, bound_by, flops, nbytes, ffma_ms = k3_bound_ms(
+            b, 4, l, 96, valid)
         print(f"K3 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''}: "
               f"{', '.join(errs)}; kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
               f" TFLOP/s of the 10 Dh-a-pair work), plain {plain_ms:.4f} ms, "
               f"library (SDPA backward, f32, additive mask) {library_ms:.4f}"
               f" ms (forward {lib_fwd_ms:.4f} ms); bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} "
-              f"MB), kernel at {100 * bound_ms / ms:.1f}% of the bound",
+              f"by {bound_by} in 3xTF32 ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB; f32 FFMA bound {ffma_ms:.4f} ms), "
+              f"kernel at {100 * bound_ms / ms:.1f}% of the bound",
               flush=True)
         if not result:
             result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1077,9 +1161,62 @@ def phase_train():
           flush=True)
     del dense_tr
     torch.cuda.empty_cache()
+    flash_crossover()
     _profile(lambda: flash_tr.train_step(batch), "train_step_profile", 2,
              shares={"K2": "flash_fwd_kernel", "K3": "flash_bwd_"})
     return train_k2, train_k3
+
+
+CROSSOVER_LENGTHS = (301, 512, 1024, 2001, 8193)
+
+
+def flash_crossover():
+    """prototypes_forward (batch 2, inference mode, max_positions 8192) on
+    the flash path (K2) against the dense path at each length of
+    CROSSOVER_LENGTHS, median of five CUDA-event runs after a warm-up each;
+    prints one `flash_crossover` JSON line whose `crossing` is the first
+    length from which flash is faster at every longer length measured."""
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import ModelConfig, TemporalConfig
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_forward)
+
+    def config(use_flash):
+        return ModelConfig(modalities="RGB", temporal=TemporalConfig(
+            use_flash=use_flash, max_positions=CROSSOVER_LENGTHS[-1] - 1))
+
+    model = full_model_init(torch.Generator().manual_seed(5),
+                            config(True)).cuda()
+    rng = np.random.default_rng(6)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flash_ms, dense_ms = [], []
+    for l in CROSSOVER_LENGTHS:
+        rgb = torch.from_numpy(rng.standard_normal(
+            (2, 1, l - 1, 384)).astype(np.float32)).cuda()
+        mask = torch.zeros((2, 1, l), dtype=torch.bool, device="cuda")
+        for use_flash, times in ((True, flash_ms), (False, dense_ms)):
+            cfg = config(use_flash)
+            runs = []
+            with torch.inference_mode():
+                prototypes_forward(model, cfg, rgb, mask)
+                for _ in range(5):
+                    start.record()
+                    prototypes_forward(model, cfg, rgb, mask)
+                    end.record()
+                    torch.cuda.synchronize()
+                    runs.append(start.elapsed_time(end))
+            times.append(sorted(runs)[2])
+        del rgb, mask
+    torch.cuda.empty_cache()
+    faster = [f < d for f, d in zip(flash_ms, dense_ms)]
+    crossing = next((l for i, l in enumerate(CROSSOVER_LENGTHS)
+                     if all(faster[i:])), None)
+    print("flash_crossover " + json.dumps({
+        "lengths": list(CROSSOVER_LENGTHS), "batch": 2,
+        "flash_ms": flash_ms, "dense_ms": dense_ms, "crossing": crossing}),
+        flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// K2: masked flash-attention forward in f32, for Hopper (sm_90a).
+// K2: masked flash-attention forward in f32, for Hopper (sm_90a), its
+// products on the tensor cores in 3xTF32.
 //
 // Replaces sais_tpu/kernels/flash_attention.py::_flash_fwd_kernel (reached
 // through flash_attention -> _run_fwd), the Pallas kernel that streams key
@@ -15,40 +16,56 @@
 // and, when asked (flash_attention with a key mask), writes zeros for every
 // row of a batch element whose keys are all masked (flash_attention.py:496).
 //
-// What bounds it on an H100: two chained products of 2 Dh flops per
-// (query, key) pair, against reading q, k, v and writing out once.  At the
-// steps path's (B*S = 132, H = 4, L = 301, Dh = 96) that is 18.4 GFLOP
-// against 244 MB: 0.274 ms at the card's 67 TFLOP/s of f32 FFMA against
-// 0.073 ms at 3.35 TB/s, so it is bound by operations (75 flops a byte,
-// where the card balances at 20).  At (8, 4, 2001, 96) it is 49.2 GFLOP
-// against 98 MB: 0.734 ms against 0.029 ms.  The products stay in f32
-// FFMA: the JAX kernel rounds nowhere below f32, and TF32 tensor cores
-// would move its rounding points.
+// Products: the JAX kernel rounds nowhere below f32, and a single TF32
+// pass keeps about three decimal digits, so each f32 product runs as three
+// TF32 products of a big / small split (flash_tf32.cuh): f32 FFMA's
+// accuracy on the tensor cores.  q' is split after the scaling; the bias is
+// added after the product and never split, so a masked score is exactly
+// -1e30 and an all-masked element's lse exactly -1e30, as before.
 //
-// Design (a first version that is right before it is fast):
+// What bounds it on an H100 (SXM data-sheet peaks at 700 W): two chained
+// products of 2 Dh flops per (query, valid key) pair, three TF32 products
+// each, at 494.7 TFLOP/s dense TF32, against reading q, k, v and the bias
+// and writing out and lse once at 3.35 TB/s.  At the steps path's (B*S =
+// 132, H = 4, L = 301, Dh = 96) that is 18.4 GFLOP (55.1 of TF32) against
+// 245 MB: 0.111 ms against 0.073 ms, bound by operations (the same work
+// on f32 FFMA, 67 TFLOP/s, would take 0.274 ms).  At (8, 4, 2001, 96)
+// masked, 40.7 GFLOP against 99 MB: 0.247 ms.
 //
-// - One block of 256 threads per (batch*head, tile of 64 queries), the
-//   grid flattened to one dimension.  The block walks the keys in tiles of
-//   64, copied with cp.async into dynamic shared memory (Q 64 x Dh, K 64 x
-//   Dh, V 64 x Dh, P 64 x 64 and the tile's bias: 93 KB at Dh = 96, so two
-//   blocks fit an SM).  The TPU's padding of L to its blocks and of Dh to
-//   128 lanes is not needed: the last key tile is zero-filled and its
-//   missing keys get a bias of -inf, which gives them p = 0 exactly, as
-//   the TPU's -1e30 pad keys get on every row that has a valid key.
-// - Thread (ty, tx) of the 16 x 16 layout holds rows 4ty..4ty+3 and keys
-//   tx + 16j of the score tile in registers, its rows' m and l (the same in
-//   all 16 threads of a half warp, which reduce a row with shuffles), and
-//   the output columns tx + 16j of its rows.  P goes through shared memory
-//   into the P V product.
-// - Products with f32 FFMA, the Q and K operands read as float4 from rows
-//   padded by 4 floats (no bank conflicts).
+// Design:
+//
+// - One block of 4 warps per (batch*head, tile of 64 queries), the grid
+//   flattened to one dimension; each warp owns 16 query rows.  The q' tile
+//   is split once, into big and small planes resident in shared memory,
+//   from which a warp reads its A fragments as they are (held in
+//   registers beside the rest, q' made ptxas spill).
+// - Keys in tiles of 32, double-buffered: K, V and the bias of tile i + 1
+//   are requested with cp.async before tile i's products.  Tiles of 32
+//   keep the block at 102,656 bytes at Dh 96 (the two q' planes, two
+//   stages of K and V), so two blocks share an SM.  Rows are padded to
+//   Dh + 4 floats; q' and K are read by row (s = q' K^T), V by column in
+//   the permuted order (P V), all free of bank conflicts.
+// - s = q' K^T, 16 x 32 a warp, lands in the m16n8 C fragments: each row's
+//   32 scores lie in the 4 threads of a quad, which reduce the row max and
+//   sum with two shuffles.  P = exp(s - m) stays in those registers and is
+//   the A operand of P V as it lies (the permuted k order of
+//   flash_tf32.cuh): no trip through shared memory.
+// - The tile's P V goes into a zeroed temporary and then acc = acc * alpha
+//   + tile in f32 (accumulate_product): the tensor core truncates as it
+//   accumulates, and summed straight into acc over 8193 keys that error
+//   grew several times past f32 FFMA's.  At Dh 128 the temporary covers
+//   half the columns at a time, to stay in registers.
+// - The last key tile is zero-filled and its missing keys get a bias of
+//   -inf, so their p is exactly 0 (the TPU's -1e30 pad keys give 0 on every
+//   row that has a valid key).  Rows past Lq are zero and never stored.
 // - No length ceiling: K and V stream from device memory tile by tile.
 //
 // Operands take strides (in elements) for batch, head and row; the last
 // axis must be contiguous and every row 16-byte aligned.  So the temporal
 // encoder hands q, k and v as views of its (B, L, 3 D) projection, and the
 // output lands in a (B, L, H, Dh) buffer, with no transposing copy either
-// way.  bias is (B, Lk) and lse (B, H, Lq), both contiguous.
+// way.  bias is (B, Lk) and lse (B, H, Lq), both contiguous.  The order of
+// every sum is fixed by the tiles, not by the strides.
 //
 // The kernel allocates nothing and launches on the caller's stream.
 
@@ -56,61 +73,46 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tf32.cuh"
+
 namespace {
+
+using namespace tf32x3;
 
 constexpr float kNegInf = -1e30f;   // the JAX kernel's masked bias and m0
 constexpr int BQ = 64;              // query rows per block
-constexpr int BKEY = 64;            // keys per tile
-constexpr int THREADS = 256;        // 16 x 16
-constexpr int TR = BQ / 16;         // query rows per thread
-constexpr int TC = BKEY / 16;       // keys per thread
-constexpr int LDP = BKEY + 4;
+constexpr int BKEY = 32;            // keys per tile
+constexpr int THREADS = 128;        // 4 warps of 16 query rows
+constexpr int NKT = BKEY / 8;       // key n-tiles of a score tile
 
 template <int DH>
 struct Layout {
-  static constexpr int LDQK = DH + 4;   // float4 reads, 4-bank row offset
-  static constexpr int LDV = DH;
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LDQK;
-  static constexpr int V = K + BKEY * LDQK;
-  static constexpr int P = V + BKEY * LDV;
-  static constexpr int BIAS = P + BQ * LDP;
-  static constexpr size_t bytes = (size_t)(BIAS + BKEY) * sizeof(float);
+  static constexpr int LD = DH + 4;           // = 4 (mod 32) banks
+  static constexpr int TILE = BKEY * LD;      // one K or V tile
+  static constexpr int QBIG = 0;              // q' split: BQ rows each
+  static constexpr int QSMALL = BQ * LD;
+  // stage s: K at KV + 2 s TILE, V at KV + (2 s + 1) TILE
+  static constexpr int KV = 2 * BQ * LD;
+  static constexpr int BIAS = KV + 4 * TILE;  // 2 stages x BKEY
+  static constexpr size_t bytes = (size_t)(BIAS + 2 * BKEY) * sizeof(float);
 };
 
 struct Strides {
   long long b, h, l;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;   // 0 source bytes: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+// max / sum over the 4 threads of a quad (one row's scores of a tile)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// max / sum over the 16 threads of a half warp (one row's key columns)
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias, float* __restrict__ o,
@@ -118,163 +120,157 @@ __global__ void __launch_bounds__(THREADS)
                      Strides sq, Strides sk, Strides sv, Strides so,
                      float scale, int zero_masked_rows) {
   using LY = Layout<DH>;
-  constexpr int NDT = DH / 16;   // output columns per thread
-  constexpr int CH = DH / 4;     // float4 chunks per row
+  constexpr int LD = LY::LD;
+  constexpr int KS = DH / 8;     // k-steps of q' K^T; n-tiles of P V
+  constexpr int CH = DH / 4;     // 16-byte chunks per row
+  constexpr int CG = DH > 96 ? KS / 2 : KS;   // output n-tiles a P V pass
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + LY::Q;
-  float* Ks = smem + LY::K;
-  float* Vs = smem + LY::V;
-  float* Ps = smem + LY::P;
   float* Bs = smem + LY::BIAS;
 
   const int nqt = (lq + BQ - 1) / BQ;
   const int bh = blockIdx.x / nqt, qt = blockIdx.x % nqt;
   const int b = bh / heads, h = bh % heads;
   const int q0 = qt * BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;   // the thread's rows
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + (size_t)b * lk : nullptr;
 
-  // Q tile, pre-scaled in f32 (rows past lq are zero and never stored)
+  int valid = 0;   // a key of this element with bias > -1e30
+  auto load_tile = [&](int stage, int k0) {
+    float* Ks = smem + LY::KV + 2 * stage * LY::TILE;
+    float* Vs = Ks + LY::TILE;
+    for (int i = tid; i < BKEY * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = k0 + r < lk;
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(Ks + r * LD + c, kb + row * sk.l + c, ok);
+      cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
+    }
+    cp_async_commit();
+    if (tid < BKEY) {
+      float bv = -INFINITY;   // no key at all: p = 0 exactly
+      if (k0 + tid < lk) bv = biasb ? biasb[k0 + tid] : 0.f;
+      Bs[stage * BKEY + tid] = bv;
+      valid |= bv > kNegInf;
+    }
+  };
+  load_tile(0, 0);
+
+  // the q' tile, split (rows past lq are zero and never stored)
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < lq)
       x = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
-    x.x *= scale;
-    x.y *= scale;
-    x.z *= scale;
-    x.w *= scale;
-    *reinterpret_cast<float4*>(Qs + r * LY::LDQK + c) = x;
+    x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    const float4 big = make_float4(rna_tf32(x.x), rna_tf32(x.y),
+                                   rna_tf32(x.z), rna_tf32(x.w));
+    *reinterpret_cast<float4*>(smem + LY::QBIG + r * LD + c) = big;
+    *reinterpret_cast<float4*>(smem + LY::QSMALL + r * LD + c) =
+        make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
   }
+  const int qa = (16 * warp + g) * LD + t;   // the warp's A fragments
 
-  float m[TR], l[TR], acc[TR][NDT];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[KS][4];
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) acc[i][j] = 0.f;
-  }
-  int any_valid = 0;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int k0 = 0; k0 < lk; k0 += BKEY) {
-    // K and V tiles; keys past lk are zero-filled
-    for (int i = tid; i < BKEY * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 4;
-      const bool ok = k0 + r < lk;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(Ks + r * LY::LDQK + c, kb + row * sk.l + c, ok);
-      cp_async16(Vs + r * LY::LDV + c, vb + row * sv.l + c, ok);
+  const int nkt = (lk + BKEY - 1) / BKEY;
+  for (int it = 0; it < nkt; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < nkt) {
+      load_tile(cur ^ 1, (it + 1) * BKEY);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    cp_async_commit();
-    int valid = 0;
-    if (tid < BKEY) {
-      float bv = -INFINITY;   // no key at all: p = 0 exactly
-      if (k0 + tid < lk) bv = biasb ? biasb[k0 + tid] : 0.f;
-      Bs[tid] = bv;
-      valid = bv > kNegInf;
-    }
-    cp_async_wait_all();
-    any_valid |= __syncthreads_or(valid);
+    __syncthreads();   // tile it (and, the first time, q') complete
+    const float* Ks = smem + LY::KV + 2 * cur * LY::TILE;
+    const float* Vs = Ks + LY::TILE;
+    const float* Bc = Bs + cur * BKEY;
 
-    // S = Q' K^T + bias
-    float s[TR][TC];
+    // s = q' K^T: 16 x 32 a warp, rows g / g + 8, keys 8 n + 2t (+1)
+    float s[NKT][4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int n = 0; n < NKT; ++n)
 #pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[TR], kv[TC];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(
-            Qs + (ty * TR + i) * LY::LDQK + d);
+    for (int kk = 0; kk < KS; ++kk) {
+      FragA a;
 #pragma unroll
-      for (int j = 0; j < TC; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(
-            Ks + (tx + 16 * j) * LY::LDQK + d);
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
-        }
-    }
-
-    // online softmax: m, l and the rescale of acc, per row
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        s[i][j] += Bs[tx + 16 * j];
-        mt = fmaxf(mt, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int at = qa + 8 * kk + (e & 1) * 8 * LD + (e >> 1) * 4;
+        a.big[e] = __float_as_uint(smem[LY::QBIG + at]);
+        a.small[e] = __float_as_uint(smem[LY::QSMALL + at]);
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mt));
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) {
+        const float* kr = Ks + (8 * n + g) * LD + 8 * kk + t;
+        mma3(s[n], a, kr[0], kr[4]);
+      }
+    }
+
+    // online softmax: + bias, row max and sum over the quad, rescale acc
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NKT; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(Bc + 8 * n + 2 * t);
+      s[n][0] += bb.x;
+      s[n][1] += bb.y;
+      s[n][2] += bb.x;
+      s[n][3] += bb.y;
+      mt[0] = fmaxf(mt[0], fmaxf(s[n][0], s[n][1]));
+      mt[1] = fmaxf(mt[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2];   // the rescale of rows g and g + 8
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mt[i]));
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * TR + i) * LDP + tx + 16 * j] = p;
-        ps += p;
+      for (int n = 0; n < NKT; ++n) {
+        s[n][2 * i] = expf(s[n][2 * i] - m_new);
+        s[n][2 * i + 1] = expf(s[n][2 * i + 1] - m_new);
+        ps += s[n][2 * i];
+        ps += s[n][2 * i + 1];
       }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + half_warp_sum(ps);
+      alpha[i] = expf(m[i] - m_new);
+      l[i] = l[i] * alpha[i] + quad_sum(ps);
       m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NDT; ++j) acc[i][j] *= alpha;
     }
-    __syncthreads();   // P complete
 
-    // acc += P V
-#pragma unroll 2
-    for (int kk = 0; kk < BKEY; kk += 4) {
-      float4 pv[TR];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty * TR + i) * LDP + kk);
-#pragma unroll
-      for (int j = 0; j < NDT; ++j) {
-        const int c = tx + 16 * j;
-        const float v0 = Vs[(kk + 0) * LY::LDV + c];
-        const float v1 = Vs[(kk + 1) * LY::LDV + c];
-        const float v2 = Vs[(kk + 2) * LY::LDV + c];
-        const float v3 = Vs[(kk + 3) * LY::LDV + c];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          float t = acc[i][j];
-          t = fmaf(pv[i].x, v0, t);
-          t = fmaf(pv[i].y, v1, t);
-          t = fmaf(pv[i].z, v2, t);
-          t = fmaf(pv[i].w, v3, t);
-          acc[i][j] = t;
-        }
-      }
-    }
-    __syncthreads();   // K, V, P and the bias tile free for the next tile
+    // acc = acc * alpha + P V: P from the score registers, V read by
+    // column, the tile's part summed apart (accumulate_product)
+    accumulate_product<NKT, KS, CG, LD>(
+        acc, s, Vs + 2 * t * LD + g,
+        [&](float x, float y, int e) { return x * alpha[e >> 1] + y; });
+    __syncthreads();   // stage cur free for tile it + 2
   }
 
+  const int any_valid = __syncthreads_or(valid);
   const bool zero = zero_masked_rows && !any_valid;
   float* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = q0 + ty * TR + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = i ? r1 : r0;
     if (r >= lq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NDT; ++j)
-      ob[r * so.l + tx + 16 * j] = zero ? 0.f : acc[i][j] / l_safe;
-    if (tx == 0) lse[(size_t)bh * lq + r] = m[i] + logf(l_safe);
+    for (int j = 0; j < KS; ++j) {
+      float2 y = make_float2(acc[j][2 * i] / l_safe, acc[j][2 * i + 1] / l_safe);
+      if (zero) y = make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(ob + r * so.l + 8 * j + 2 * t) = y;
+    }
+    if (t == 0) lse[(size_t)bh * lq + r] = m[i] + logf(l_safe);
   }
 }
 

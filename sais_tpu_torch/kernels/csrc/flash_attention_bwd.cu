@@ -1,4 +1,5 @@
-// K3: masked flash-attention backward in f32, for Hopper (sm_90a).
+// K3: masked flash-attention backward in f32, for Hopper (sm_90a), its
+// products on the tensor cores in 3xTF32.
 //
 // Replaces sais_tpu/kernels/flash_attention.py::_run_bwd, which launches
 // two Pallas kernels: _flash_bwd_dq_kernel (dq over query blocks) and
@@ -18,43 +19,76 @@
 // Lq and Lk may differ (the sequence-parallel ring feeds key chunks against
 // the full query).  The bias gets no gradient.
 //
+// Products: the JAX kernels round nowhere below f32, so each f32 product
+// runs as three TF32 products of a big / small split into one f32
+// accumulator (flash_tf32.cuh): f32 FFMA's accuracy on the tensor cores,
+// where one TF32 pass would keep three decimal digits.  q' is split after
+// the scaling; P and dS are formed in f32 and split before they feed the
+// next product; the bias is added after the product and never split.
+//
 // What bounds it on an H100 (SXM data-sheet peaks at 700 W): the least
 // work is five products of 2 Dh flops per (query, valid key) pair (s, dp,
-// dv, dk, dq), 10 Dh flops.  At
-// the steps path's (B*H = 528, L = 301, Dh = 96) that is 47.8 M pairs and
-// 45.9 GFLOP against 488 MB of q, k, v, out, dO, dq, dk and dv: 0.686 ms
-// at the card's 67 TFLOP/s of f32 FFMA against 0.146 ms at 3.35 TB/s, so
-// it is bound by operations.  The two-kernel split, like JAX's, computes
-// s and dp in both kernels, 14 Dh flops a pair (0.960 ms at that shape).
-// The products stay in f32 FFMA: the JAX kernels round nowhere below f32,
-// and TF32 tensor cores would move their rounding points.
+// dv, dk, dq), 10 Dh flops, each run as three TF32 products at 494.7
+// TFLOP/s dense TF32, against q, k, v, out, dO, lse and the bias read once
+// and dq, dk, dv written once at 3.35 TB/s.  At the steps path's (B*H =
+// 528, L = 301, Dh = 96) that is 45.9 GFLOP (137.8 of TF32) against 489
+// MB: 0.278 ms against 0.146 ms, bound by operations (the same work on
+// f32 FFMA, 67 TFLOP/s, would take 0.685 ms).
+// At (8, 4, 2001, 96) masked 0.616 ms, at (2, 4, 8193, 96) 3.126 ms.  The
+// two-kernel split, like JAX's, computes s and dp in both kernels, 14 Dh
+// flops a pair.
 //
-// Design (a first version that is right before it is fast):
+// Design:
 //
 // - Two kernels, as in JAX, so that each output tile has exactly one
 //   owner: no atomics, and the result does not depend on block order.
-//   dq: one block of 256 threads per (batch*head, tile of 64 queries),
-//   looping over key tiles of 64.  dk / dv: one block per (batch*head,
+//   dq: one block of 8 warps per (batch*head, tile of 64 queries), looping
+//   over key tiles of 64.  dk / dv: one block of 8 warps per (batch*head,
 //   tile of 64 keys), looping over query tiles of 64.
-// - Thread (ty, tx) of the 16 x 16 layout owns 4 rows (ty*4 .. ty*4+3) and
-//   columns tx + 16 j of each 64 x 64 score tile, and output columns
-//   tx + 16 j of its rows.  The dk / dv kernel computes the TRANSPOSED
-//   tiles s^T and dp^T directly (its rows are keys), so p^T and ds^T land
-//   in shared memory row-major by key, and the products p^T dO and ds^T q'
-//   read them as float4 rows and dO / q' by column: no transposed
-//   shared-memory reads, no bank conflicts.  The score products read two
-//   padded rows (Dh + 4 floats) as float4, as K2 does.
+// - Warp w owns 16 rows (16 (w mod 4)) of the block's tile and one half
+//   (w / 4) of the 64 columns of every tile it meets: 16 x 32 score tiles,
+//   so that 8 warps share the loads, and each output row's sum is split
+//   over two warps in a fixed way.  At the end the second half's partial
+//   goes through shared memory and the first half adds it: dq = (its keys
+//   32 i + 0..31 summed tile by tile) + (keys 32 i + 32..63), the same
+//   order every run, whatever the strides.
+// - The dk / dv kernel computes the TRANSPOSED tiles s^T = K q'^T and
+//   dp^T = V dO^T (its rows are keys), so p^T and ds^T are the A operands
+//   of p^T dO and ds^T q' where they lie, in the m16n8 C fragments (the
+//   permuted k order of flash_tf32.cuh); likewise ds for ds K in the dq
+//   kernel.  Nothing is transposed and nothing goes through shared memory
+//   between products.
+// - Each tile's part of dq, dk and dv is summed into a zeroed temporary
+//   and then added to the running sum in f32 (accumulate_product): the
+//   tensor core truncates as it accumulates, and summed straight into the
+//   running sums that error moved the long training step's gradients
+//   several times further from the dense path than f32 FFMA did.  The dk /
+//   dv kernel does it 4 n-tiles at a time, the dq kernel all at once (half
+//   at Dh 128), to stay in registers.  At Dh 128 the running sums of dk
+//   and dv do not fit one thread's registers beside the rest: dv and dk
+//   are then two launches of the kernel, each recomputing p^T (one product
+//   in four more; the temporal model's heads are 96 wide).
+// - Tiles in shared memory are f32 with rows of Dh + 4 floats, read by row
+//   (K in q' K^T, V in dO V^T, q' and dO in the dk / dv kernel's score
+//   products) and by column (K in ds K, dO in p^T dO, q' in ds^T q'), both
+//   free of bank conflicts.  The resident operands (q' and dO in the dq
+//   kernel, K and V in the dk / dv kernel) are A operands: a warp splits
+//   their 4 values a k-step again at each use, against the 8 values of the
+//   streaming B fragments it meets there, so a hi / lo copy of them would
+//   cost shared memory and save little.
+// - The streaming tiles are double-buffered with cp.async: the next key
+//   tile (K, V, bias) in the dq kernel, the next query tile (q, dO, lse,
+//   delta) in the dk / dv kernel, requested before the current tile's
+//   products.  The dk / dv kernel scales its q tile in place: each thread
+//   scales the chunks it copied once its own copies have landed.
+//   Shared memory at Dh 96: 6 tiles of 64 x 100 floats, 154,112 bytes
+//   (dq) and 154,624 (dk / dv); one block of 8 warps an SM; 203 KB at Dh
+//   128.
 // - Exact shapes: rows past Lq or Lk are zero-filled in shared memory;
 //   missing keys get a bias of -inf and missing queries an lse of +inf, so
 //   their p is exactly 0 and they contribute nothing.  Masked keys keep
 //   the -1e30 bias, so p is what the TPU computes, also for the rows of an
 //   all-masked element (there the caller zeroes dO, and ds = 0 exactly).
-// - Shared memory, f32 at Dh = 96: dq kernel Q', dO, K, V tiles (64 x 100
-//   each), ds (64 x 68) and the bias tile, 120,064 bytes; dk / dv kernel
-//   K, V, Q', dO tiles, p^T and ds^T (64 x 68 each), lse and delta,
-//   137,728 bytes.  Dynamic shared memory after cudaFuncSetAttribute; one
-//   block (8 warps) an SM at Dh 96 and 128; at Dh 64 shared memory would
-//   allow two.
 //
 // Operands take element strides for batch, head and row; the last axis
 // must be contiguous and every row 16-byte aligned.  So q, k, v, dO and the
@@ -68,129 +102,86 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tf32.cuh"
+
 namespace {
+
+using namespace tf32x3;
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 256;    // 16 x 16
-constexpr int TR = 4;           // rows a thread owns in a 64 x 64 tile
-constexpr int TC = 4;           // columns a thread owns in a 64 x 64 tile
-constexpr int LDS = 64 + 4;     // row stride of the ds / p tiles
+constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
+constexpr int HALF = 32;        // the columns a warp takes of a tile
+constexpr int NH = HALF / 8;    // its n-tiles
 
 template <int DH>
 struct DqLayout {
-  static constexpr int LD = DH + 4;   // float4 reads, 4-bank row offset
+  static constexpr int LD = DH + 4;     // = 4 (mod 32) banks
+  static constexpr int TILE = 64 * LD;
   static constexpr int Q = 0;
-  static constexpr int DO = Q + BQ * LD;
-  static constexpr int K = DO + BQ * LD;
-  static constexpr int V = K + BK * LD;
-  static constexpr int DS = V + BK * LD;
-  static constexpr int BIAS = DS + BQ * LDS;
-  static constexpr size_t bytes = (size_t)(BIAS + BK) * sizeof(float);
+  static constexpr int DO = TILE;
+  static constexpr int KV = 2 * TILE;   // stage s: K at KV + 2 s TILE, V next
+  static constexpr int BIAS = 6 * TILE;   // 2 stages x BK
+  static constexpr size_t bytes = (size_t)(BIAS + 2 * BK) * sizeof(float);
 };
 
 template <int DH>
 struct DkvLayout {
   static constexpr int LD = DH + 4;
+  static constexpr int TILE = 64 * LD;
   static constexpr int K = 0;
-  static constexpr int V = K + BK * LD;
-  static constexpr int Q = V + BK * LD;
-  static constexpr int DO = Q + BQ * LD;
-  static constexpr int PT = DO + BQ * LD;
-  static constexpr int DST = PT + BK * LDS;
-  static constexpr int LSE = DST + BK * LDS;
-  static constexpr int DELTA = LSE + BQ;
-  static constexpr size_t bytes = (size_t)(DELTA + BQ) * sizeof(float);
+  static constexpr int V = TILE;
+  static constexpr int QDO = 2 * TILE;   // stage s: Q at QDO + 2 s TILE, dO next
+  static constexpr int LSE = 6 * TILE;   // 2 stages x BQ
+  static constexpr int DELTA = LSE + 2 * BQ;
+  static constexpr size_t bytes = (size_t)(DELTA + 2 * BQ) * sizeof(float);
 };
 
 struct Strides {
   long long b, h, l;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;   // 0 source bytes: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ float4 scaled(float4 x, float s) {
-  return make_float4(x.x * s, x.y * s, x.z * s, x.w * s);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float t) {
-  t = fmaf(a.x, b.x, t);
-  t = fmaf(a.y, b.y, t);
-  t = fmaf(a.z, b.z, t);
-  return fmaf(a.w, b.w, t);
-}
-
-// acc[i][j] += A[row_i] . B[col_j] over DH for the thread's TR rows of A
-// (ra = first row, shared by the half warp) and TC rows of B (tx + 16 j),
-// both tiles row-major with stride LD.
-template <int DH, int LD>
-__device__ __forceinline__ void tile_dot(float (&acc)[TR][TC],
-                                         const float* A, const float* B,
-                                         int ra, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 av[TR], bv[TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-      av[i] = *reinterpret_cast<const float4*>(A + (ra + i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < TC; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = dot4(av[i], bv[j], acc[i][j]);
+// accumulate_product's fold for a plain running sum
+struct Add {
+  __device__ __forceinline__ float operator()(float x, float y, int) const {
+    return x + y;
   }
+};
+
+// The A fragment of rows g, g + 8 at k-step columns c, c + 4 of a
+// row-major tile (p points at row g, column c).
+template <int LD>
+__device__ __forceinline__ FragA load_a(const float* p) {
+  return split_a(p[0], p[8 * LD], p[4], p[8 * LD + 4]);
 }
 
-// acc[i][c] += sum_t W[ra + i][t] * X[t][tx + 16 c] over the 64 columns of
-// W (row-major, stride LDS) and the 64 rows of X (row-major, stride LD).
-template <int DH, int LD>
-__device__ __forceinline__ void tile_matmul(float (&acc)[TR][DH / 16],
-                                            const float* W, const float* X,
-                                            int ra, int tx) {
-#pragma unroll 2
-  for (int t = 0; t < 64; t += 4) {
-    float4 wv[TR];
+// The second column half's partial sums, in their C fragments, go through
+// shared memory (`red`, 4 x NT x 128 floats) to the first half, which
+// adds them: acc = first + second, the same order every run.  Returns
+// true in the warps that now hold the sums.
+template <int NT>
+__device__ __forceinline__ bool reduce_halves(float (&acc)[NT][4], float* red,
+                                              int warp, int lane) {
+  float* mine = red + (warp & 3) * NT * 128 + lane;
+  if (warp >= 4) {
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
-      wv[i] = *reinterpret_cast<const float4*>(W + (ra + i) * LDS + t);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int c = 0; c < DH / 16; ++c) {
-      const int col = tx + 16 * c;
-      const float x0 = X[(t + 0) * LD + col];
-      const float x1 = X[(t + 1) * LD + col];
-      const float x2 = X[(t + 2) * LD + col];
-      const float x3 = X[(t + 3) * LD + col];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        float a = acc[i][c];
-        a = fmaf(wv[i].x, x0, a);
-        a = fmaf(wv[i].y, x1, a);
-        a = fmaf(wv[i].z, x2, a);
-        a = fmaf(wv[i].w, x3, a);
-        acc[i][c] = a;
-      }
-    }
+      for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = acc[j][e];
   }
+  __syncthreads();
+  if (warp >= 4) return false;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] + mine[(4 * j + e) * 32];
+  return true;
 }
 
 // ---------------------------------------------------------------- dq --
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -203,22 +194,22 @@ __global__ void __launch_bounds__(THREADS)
                         Strides sdq, float scale) {
   using LY = DqLayout<DH>;
   constexpr int LD = LY::LD;
-  constexpr int NDT = DH / 16;   // output columns per thread
-  constexpr int CH = DH / 4;     // float4 chunks per row
+  constexpr int KS = DH / 8;   // k-steps of the score products; dq n-tiles
+  constexpr int CH = DH / 4;   // 16-byte chunks per row
+  constexpr int CG = DH > 96 ? KS / 2 : KS;   // dq n-tiles a ds K pass
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + LY::Q;
   float* DOs = smem + LY::DO;
-  float* Ks = smem + LY::K;
-  float* Vs = smem + LY::V;
-  float* DSs = smem + LY::DS;
   float* Bs = smem + LY::BIAS;
 
   const int nqt = (lq + BQ - 1) / BQ;
   const int bh = blockIdx.x / nqt, qt = blockIdx.x % nqt;
   const int b = bh / heads, h = bh % heads;
   const int q0 = qt * BQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int ra = ty * TR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (warp & 3);      // the warp's query rows in the tile
+  const int c0 = HALF * (warp >> 2);   // its keys in each key tile
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -226,32 +217,9 @@ __global__ void __launch_bounds__(THREADS)
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* biasb = bias ? bias + (size_t)b * lk : nullptr;
 
-  // Q' and dO tiles (rows past lq are zero and never stored)
-  for (int i = tid; i < BQ * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 4;
-    float4 xq = make_float4(0.f, 0.f, 0.f, 0.f), xd = xq;
-    if (q0 + r < lq) {
-      xq = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
-      xd = *reinterpret_cast<const float4*>(dob + (q0 + r) * sdo.l + c);
-    }
-    *reinterpret_cast<float4*>(Qs + r * LD + c) = scaled(xq, scale);
-    *reinterpret_cast<float4*>(DOs + r * LD + c) = xd;
-  }
-  float lse_r[TR], delta_r[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = q0 + ra + i;
-    lse_r[i] = r < lq ? lse[(size_t)bh * lq + r] : INFINITY;   // p = 0
-    delta_r[i] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
-  }
-  float acc[TR][NDT];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < lk; k0 += BK) {
-    // K and V tiles; keys past lk are zero-filled with a bias of -inf
+  auto load_tile = [&](int stage, int k0) {
+    float* Ks = smem + LY::KV + 2 * stage * LY::TILE;
+    float* Vs = Ks + LY::TILE;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
       const bool ok = k0 + r < lk;
@@ -260,46 +228,111 @@ __global__ void __launch_bounds__(THREADS)
       cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
     }
     cp_async_commit();
-    if (tid < BK)
-      Bs[tid] = k0 + tid < lk ? (biasb ? biasb[k0 + tid] : 0.f) : -INFINITY;
-    cp_async_wait_all();
-    __syncthreads();
+    if (tid < BK)   // keys past lk: bias -inf, p = 0 exactly
+      Bs[stage * BK + tid] =
+          k0 + tid < lk ? (biasb ? biasb[k0 + tid] : 0.f) : -INFINITY;
+  };
+  load_tile(0, 0);
 
-    float s[TR][TC], dp[TR][TC];
+  // q' and dO tiles, resident (rows past lq are zero and never stored)
+  for (int i = tid; i < BQ * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 4;
+    float4 xq = make_float4(0.f, 0.f, 0.f, 0.f), xd = xq;
+    if (q0 + r < lq) {
+      xq = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
+      xd = *reinterpret_cast<const float4*>(dob + (q0 + r) * sdo.l + c);
+    }
+    xq = make_float4(xq.x * scale, xq.y * scale, xq.z * scale, xq.w * scale);
+    *reinterpret_cast<float4*>(Qs + r * LD + c) = xq;
+    *reinterpret_cast<float4*>(DOs + r * LD + c) = xd;
+  }
+  float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + rw + g + 8 * i;
+    lse_r[i] = r < lq ? lse[(size_t)bh * lq + r] : INFINITY;   // p = 0
+    delta_r[i] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+  }
+  float acc[KS][4];
 #pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<DH, LD>(s, Qs, Ks, ra, tx);
-    tile_dot<DH, LD>(dp, DOs, Vs, ra, tx);
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const float* qa = Qs + (rw + g) * LD + t;
+  const float* da = DOs + (rw + g) * LD + t;
+  const int nkt = (lk + BK - 1) / BK;
+  for (int it = 0; it < nkt; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < nkt) {
+      load_tile(cur ^ 1, (it + 1) * BK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it (and, the first time, q' and dO) complete
+    const float* Ks = smem + LY::KV + 2 * cur * LY::TILE;
+    const float* Vs = Ks + LY::TILE;
+    const float* Bc = Bs + cur * BK;
+
+    // s = q' K^T and dp = dO V^T over the warp's 32 keys
+    float s[NH][4], dp[NH][4];
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float p = expf((s[i][j] + Bs[tx + 16 * j]) - lse_r[i]);
-        DSs[(ra + i) * LDS + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA aq = load_a<LD>(qa + 8 * kk);
+      const FragA ad = load_a<LD>(da + 8 * kk);
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(s[n], aq, Ks[row], Ks[row + 4]);
+        mma3(dp[n], ad, Vs[row], Vs[row + 4]);
       }
-    __syncthreads();   // ds complete
-
-    tile_matmul<DH, LD>(acc, DSs, Ks, ra, tx);   // acc += ds K
-    __syncthreads();   // K, V, ds and the bias tile free for the next tile
+    }
+    // ds = p (dp - delta), p = exp((s + bias) - lse), in s
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const float2 bb =
+          *reinterpret_cast<const float2*>(Bc + c0 + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = expf((s[n][e] + ((e & 1) ? bb.y : bb.x)) - lse_r[i]);
+        s[n][e] = p * (dp[n][e] - delta_r[i]);
+      }
+    }
+    // acc += ds K: K read by column in the permuted order, the tile's
+    // part summed apart (accumulate_product)
+    accumulate_product<NH, KS, CG, LD>(acc, s, Ks + (c0 + 2 * t) * LD + g,
+                                       Add());
+    __syncthreads();   // stage cur free for tile it + 2
   }
 
+  if (!reduce_halves<KS>(acc, smem + LY::KV, warp, lane)) return;
   float* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = q0 + ra + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + rw + g + 8 * i;
     if (r >= lq) continue;
 #pragma unroll
-    for (int j = 0; j < NDT; ++j)
-      dqb[r * sdq.l + tx + 16 * j] = acc[i][j] * scale;
+    for (int j = 0; j < KS; ++j)
+      *reinterpret_cast<float2*>(dqb + r * sdq.l + 8 * j + 2 * t) =
+          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
 // ------------------------------------------------------------- dk, dv --
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
+// What a dk / dv launch writes: both, or at Dh 128 one of them, where dk's
+// and dv's running sums together (128 floats a thread) leave too few
+// registers for the rest and ptxas spills.
+constexpr int kDk = 1, kDv = 2;
+
+template <int DH, int OUT>
+__global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkv_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -313,24 +346,22 @@ __global__ void __launch_bounds__(THREADS)
                          float scale) {
   using LY = DkvLayout<DH>;
   constexpr int LD = LY::LD;
-  constexpr int NDT = DH / 16;
+  constexpr int KS = DH / 8;
   constexpr int CH = DH / 4;
+  constexpr int CG = 4;   // dk / dv n-tiles a pass
+  constexpr bool DK = OUT & kDk, DV = OUT & kDv;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem + LY::K;
   float* Vs = smem + LY::V;
-  float* Qs = smem + LY::Q;
-  float* DOs = smem + LY::DO;
-  float* PTs = smem + LY::PT;
-  float* DSTs = smem + LY::DST;
-  float* LSEs = smem + LY::LSE;
-  float* DELTAs = smem + LY::DELTA;
 
   const int nkt = (lk + BK - 1) / BK;
   const int bh = blockIdx.x / nkt, kt = blockIdx.x % nkt;
   const int b = bh / heads, h = bh % heads;
   const int k0 = kt * BK;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int ra = ty * TR;   // the thread's first key row in the tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (warp & 3);      // the warp's key rows in the tile
+  const int c0 = HALF * (warp >> 2);   // its queries in each query tile
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -346,75 +377,158 @@ __global__ void __launch_bounds__(THREADS)
     cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
   }
   cp_async_commit();
-  float bias_r[TR];
+
+  auto load_tile = [&](int stage, int q0) {
+    float* Qs = smem + LY::QDO + 2 * stage * LY::TILE;
+    float* DOs = Qs + LY::TILE;
+    for (int i = tid; i < BQ * CH; i += THREADS) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = q0 + r < lq;
+      const long long row = ok ? q0 + r : 0;
+      cp_async16(Qs + r * LD + c, qb + row * sq.l + c, ok);
+      cp_async16(DOs + r * LD + c, dob + row * sdo.l + c, ok);
+    }
+    cp_async_commit();
+    if (tid < BQ) {   // queries past lq: lse +inf, p = 0 exactly
+      const int r = q0 + tid;
+      smem[LY::LSE + stage * BQ + tid] =
+          r < lq ? lse[(size_t)bh * lq + r] : INFINITY;
+      smem[LY::DELTA + stage * BQ + tid] =
+          r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+    }
+  };
+  load_tile(0, 0);
+
+  float bias_r[2];
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int key = k0 + ra + i;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + rw + g + 8 * i;
     bias_r[i] = key < lk ? (bias ? bias[(size_t)b * lk + key] : 0.f)
                          : -INFINITY;   // no key at all: p = 0
   }
-  float dk_acc[TR][NDT], dv_acc[TR][NDT];
+  float dk_acc[DK ? KS : 1][4], dv_acc[DV ? KS : 1][4];
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
+  for (int j = 0; j < KS; ++j)
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DK) dk_acc[j][e] = 0.f;
+      if constexpr (DV) dv_acc[j][e] = 0.f;
+    }
 
-  for (int q0 = 0; q0 < lq; q0 += BQ) {
-    // Q' and dO tiles; queries past lq are zero with lse = +inf (p = 0)
+  const float* ka = Ks + (rw + g) * LD + t;
+  const float* va = Vs + (rw + g) * LD + t;
+  const int nqt = (lq + BQ - 1) / BQ;
+  for (int it = 0; it < nqt; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < nqt) {
+      load_tile(cur ^ 1, (it + 1) * BQ);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    float* Qs = smem + LY::QDO + 2 * cur * LY::TILE;
+    const float* DOs = Qs + LY::TILE;
+    // q' = f32(q * scale) in place: the chunks this thread copied
     for (int i = tid; i < BQ * CH; i += THREADS) {
-      const int r = i / CH, c = (i % CH) * 4;
-      float4 xq = make_float4(0.f, 0.f, 0.f, 0.f), xd = xq;
-      if (q0 + r < lq) {
-        xq = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
-        xd = *reinterpret_cast<const float4*>(dob + (q0 + r) * sdo.l + c);
-      }
-      *reinterpret_cast<float4*>(Qs + r * LD + c) = scaled(xq, scale);
-      *reinterpret_cast<float4*>(DOs + r * LD + c) = xd;
+      float4* x = reinterpret_cast<float4*>(Qs + (i / CH) * LD + (i % CH) * 4);
+      const float4 y = *x;
+      *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
     }
-    if (tid < BQ) {
-      const int r = q0 + tid;
-      LSEs[tid] = r < lq ? lse[(size_t)bh * lq + r] : INFINITY;
-      DELTAs[tid] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
-    }
-    cp_async_wait_all();   // the K / V tiles (first pass only)
-    __syncthreads();
+    __syncthreads();   // q', dO, lse, delta of tile it (and K, V) complete
+    const float* LSEs = smem + LY::LSE + cur * BQ;
+    const float* DELTAs = smem + LY::DELTA + cur * BQ;
 
-    // s^T and dp^T: rows are the thread's keys, columns queries tx + 16 j
-    float st[TR][TC], dpt[TR][TC];
+    // s^T = K q'^T, then dp^T = V dO^T: rows the warp's keys, columns its
+    // 32 queries (one product at a time, to stay in registers)
+    float st[NH][4], dpt[NH][4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int n = 0; n < NH; ++n)
 #pragma unroll
-      for (int j = 0; j < TC; ++j) st[i][j] = dpt[i][j] = 0.f;
-    tile_dot<DH, LD>(st, Ks, Qs, ra, tx);
-    tile_dot<DH, LD>(dpt, Vs, DOs, ra, tx);
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA a = load_a<LD>(ka + 8 * kk);
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int col = tx + 16 * j;
-        const float p = expf((st[i][j] + bias_r[i]) - LSEs[col]);
-        PTs[(ra + i) * LDS + col] = p;
-        DSTs[(ra + i) * LDS + col] = p * (dpt[i][j] - DELTAs[col]);
+      for (int n = 0; n < NH; ++n) {
+        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(st[n], a, Qs[row], Qs[row + 4]);
       }
-    __syncthreads();   // p^T and ds^T complete
-
-    tile_matmul<DH, LD>(dv_acc, PTs, DOs, ra, tx);   // dv += p^T dO
-    tile_matmul<DH, LD>(dk_acc, DSTs, Qs, ra, tx);   // dk += ds^T q'
-    __syncthreads();   // Q', dO, p^T, ds^T, lse and delta free
+    }
+#pragma unroll
+    for (int kk = 0; kk < (DK ? KS : 0); ++kk) {
+      const FragA a = load_a<LD>(va + 8 * kk);
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(dpt[n], a, DOs[row], DOs[row + 4]);
+      }
+    }
+    // p^T = exp((s^T + bias) - lse), ds^T = p^T (dp^T - delta)
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const int col = c0 + 8 * n + 2 * t;
+      const float2 ls = *reinterpret_cast<const float2*>(LSEs + col);
+      const float2 dl = *reinterpret_cast<const float2*>(DELTAs + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf((st[n][e] + bias_r[e >> 1]) -
+                             ((e & 1) ? ls.y : ls.x));
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+    // dv += p^T dO, then dk += ds^T q': dO and q' read by column, each
+    // tile's part summed apart in groups of CG n-tiles (accumulate_product)
+    const int row = (c0 + 2 * t) * LD + g;
+    if constexpr (DV)
+      accumulate_product<NH, KS, CG, LD>(dv_acc, st, DOs + row, Add());
+    if constexpr (DK)
+      accumulate_product<NH, KS, CG, LD>(dk_acc, dpt, Qs + row, Add());
+    __syncthreads();   // stage cur free for tile it + 2
   }
 
+  bool first = true;
+  if constexpr (DK)
+    first = reduce_halves<KS>(dk_acc, smem + LY::QDO, warp, lane);
+  if constexpr (DV)
+    first = reduce_halves<KS>(dv_acc, smem + LY::QDO + LY::TILE, warp, lane);
+  if (!first) return;
   float* dkb = dk + b * sdk.b + h * sdk.h;
   float* dvb = dv + b * sdv.b + h * sdv.h;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int key = k0 + ra + i;
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + rw + g + 8 * i;
     if (key >= lk) continue;
 #pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      dkb[key * sdk.l + tx + 16 * j] = dk_acc[i][j];
-      dvb[key * sdv.l + tx + 16 * j] = dv_acc[i][j];
+    for (int j = 0; j < KS; ++j) {
+      const int c = 8 * j + 2 * t;
+      if constexpr (DK)
+        *reinterpret_cast<float2*>(dkb + key * sdk.l + c) =
+            make_float2(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+      if constexpr (DV)
+        *reinterpret_cast<float2*>(dvb + key * sdv.l + c) =
+            make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
     }
   }
+}
+
+template <int DH, int OUT>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v,
+                       const float* bias, const float* dout,
+                       const float* lse, const float* delta, float* dk,
+                       float* dv, unsigned blocks, int heads, int lq, int lk,
+                       Strides sq, Strides sk, Strides sv, Strides sdo,
+                       Strides sdk, Strides sdv, float scale,
+                       cudaStream_t stream) {
+  constexpr size_t smem = DkvLayout<DH>::bytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<DH, OUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_kernel<DH, OUT><<<blocks, THREADS, smem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dk, dv, heads, lq, lk, sq, sk, sv,
+      sdo, sdk, sdv, scale);
+  return cudaGetLastError();
 }
 
 template <int DH>
@@ -426,14 +540,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    Strides sdk, Strides sdv, float scale,
                    cudaStream_t stream) {
   constexpr size_t dq_smem = DqLayout<DH>::bytes;
-  constexpr size_t dkv_smem = DkvLayout<DH>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)dkv_smem);
   if (e != cudaSuccess) return e;
   const long long bh = (long long)batch * heads;
   const long long dq_blocks = bh * ((lq + BQ - 1) / BQ);
@@ -445,11 +554,20 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       sdq, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<DH>
-      <<<(unsigned)dkv_blocks, THREADS, dkv_smem, stream>>>(
-          q, k, v, bias, dout, lse, delta, dk, dv, heads, lq, lk, sq, sk, sv,
-          sdo, sdk, sdv, scale);
-  return cudaGetLastError();
+  const unsigned nb = (unsigned)dkv_blocks;
+  if constexpr (DH > 96) {   // dv, then dk, each recomputing p
+    e = launch_dkv<DH, kDv>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
+                            heads, lq, lk, sq, sk, sv, sdo, sdk, sdv, scale,
+                            stream);
+    if (e != cudaSuccess) return e;
+    return launch_dkv<DH, kDk>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
+                               heads, lq, lk, sq, sk, sv, sdo, sdk, sdv,
+                               scale, stream);
+  } else {
+    return launch_dkv<DH, kDk | kDv>(q, k, v, bias, dout, lse, delta, dk, dv,
+                                     nb, heads, lq, lk, sq, sk, sv, sdo, sdk,
+                                     sdv, scale, stream);
+  }
 }
 
 }  // namespace

@@ -17,8 +17,9 @@ from chip_smoke import k7_inputs
 from sais_tpu_torch.config import (ModelConfig, TemporalConfig, TrainConfig,
                                    ViTConfig)
 from sais_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_reference, key_bias)
+    FlashAttention, PackedFlashAttention, flash_attention,
+    flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference, key_bias, split_heads)
 from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                               vit_block_reference)
 from sais_tpu_torch.models.full_model import (full_model_init,
@@ -180,7 +181,9 @@ def _ragged_mask(b, l, device="cuda"):
                                           (4, 2, 37, 37, 64),
                                           (2, 4, 130, 130, 128),
                                           (3, 1, 70, 200, 96),
-                                          (2, 3, 1, 65, 64)])
+                                          (2, 3, 1, 65, 64),
+                                          (2, 2, 65, 129, 128),
+                                          (2, 4, 2001, 2001, 96)])
 def test_flash_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
     """K2 against its plain version: out within 1e-4 of the largest plain
     value, lse within 1e-4 of max(1, |lse|) on elements with a valid key
@@ -266,7 +269,10 @@ def test_auto_rule_takes_k2_at_2001_tokens(cuda):
                                           (4, 2, 37, 37, 64),
                                           (2, 4, 130, 130, 128),
                                           (3, 1, 70, 200, 96),
-                                          (2, 3, 129, 65, 64)])
+                                          (2, 3, 129, 65, 64),
+                                          (2, 2, 65, 129, 128),
+                                          (2, 4, 2001, 2001, 96),
+                                          (2, 3, 1, 129, 96)])
 def test_flash_bwd_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
     """K3 against its plain version on out and lse from K2, with masked
     tails that differ per element and one all-masked element: dq, dk and
@@ -286,6 +292,41 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
         assert g.shape == r.shape
         err = (g - r).abs().max().item()
         assert err <= 1e-4 * r.abs().max().item(), err
+
+
+def test_flash_bwd_kernel_is_bitwise_repeatable(cuda):
+    """Two K3 runs on the same inputs give the same bits: every output tile
+    has one owner and its sums run in a fixed order (no atomics)."""
+    q, k, v = _qkv(5, 3, 4, 301, 301, 96)
+    bias = key_bias(_ragged_mask(3, 301))
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)
+                     ).to(cuda)
+    first = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    second = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    for a, b in zip(first, second):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_flash_bwd_kernel_takes_projection_views(cuda):
+    """K3 through `PackedFlashAttention`: q, k, v as views of one (B, L,
+    3 D) projection and dq, dk, dv written into one gradient buffer give
+    the same bits as `FlashAttention` on contiguous copies, with masked
+    tails and one all-masked element."""
+    b, l, heads, dh = 3, 301, 4, 96
+    qkv = torch.randn((b, l, 3 * heads * dh), device="cuda",
+                      requires_grad=True)
+    bias = key_bias(_ragged_mask(b, l))
+    g = torch.randn((b, heads, l, dh), device="cuda")
+    before = flash_attention_bwd.launches
+    PackedFlashAttention.apply(qkv, heads, bias, True).backward(g)
+    assert flash_attention_bwd.launches == before + 1
+    leaves = [t.detach().contiguous().requires_grad_()
+              for t in split_heads(qkv, heads)]
+    FlashAttention.apply(*leaves, bias, True).backward(g)
+    for got, ref in zip(split_heads(qkv.grad, heads), leaves):
+        torch.testing.assert_close(got, ref.grad, rtol=0, atol=0)
+        assert torch.count_nonzero(got[-1]) == 0
 
 
 def test_flash_attention_gradient_runs_k3(cuda):
