@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sais_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 Phases, each of which fails the run:
 
@@ -91,7 +91,15 @@ Phases, each of which fails the run:
    plain version and the PyTorch library composition (K4: layer_norm,
    linear, SDPA, gelu; K5 and K6: the autograd backward of the MLP and
    attention halves, forward + backward minus forward); the least time the
-   card could take; K4's seven launches as for K1.
+   card could take; K4's seven launches as for K1.  K5 and K6 also run
+   twice on the same inputs at every shape and must agree to the bit;
+   `k5_profile` and `k6_profile` print each launch of one call (device
+   time, kernel name), the products' TFLOP/s and the attention backward's
+   share of K6 at (128, 197) and (512, 37), and fail unless every product
+   ran the wgmma + TMA GEMM (none the mma.sync template) and a call makes
+   at most 11 (K5) and 12 (K6) launches.  With `--parent-csrc DIR` (an
+   earlier tree's kernels/csrc), its K5 and K6 are built and timed beside
+   this tree's at the two pretrain shapes, in turns.
 10. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
@@ -291,35 +299,80 @@ def k1_bound_ms(b, l, d, mlp, weight_bytes):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def launch_split(fn, name, labels, flops, limit, extra=()):
+    """Profiles five calls of fn (one K1, K4, K5 or K6 call) and prints the
+    device time of each of its launches, labelled in order by `labels`,
+    with the TFLOP/s of those in `flops` (label -> flops) and of those in
+    `extra` (other labelled work, e.g. K6's attention backward).  Fails
+    unless a call makes exactly len(labels) launches, no more than
+    `limit`, every product in `flops` ran on the wgmma + TMA kernel
+    (`gemm_sm90_kernel`) and nothing on the mma.sync template
+    (`gemm_kernel`).  Returns {label: ms}."""
+    check(len(labels) <= limit, f"{name}: {len(labels)} launches a call, "
+          f"target <= {limit}")
+    _, _, got = _profile(fn, name, 5, per_launch=len(labels))
+    split, parts = {}, []
+    for label, (kernel, us) in zip(labels, got["per_launch"]):
+        check("gemm_kernel" not in kernel,
+              f"{name}: {label} ran the mma.sync template ({kernel})")
+        split[label] = us / 1e3
+        short = kernel.replace("(anonymous namespace)::", "").replace(
+            "void ", "").replace("sm90::", "").split("(")[0]
+        part = f"{label} [{short}] {us / 1e3:.4f} ms"
+        if label in flops:
+            check("gemm_sm90_kernel" in kernel,
+                  f"{name}: {label} ran {kernel}, not the wgmma GEMM")
+        work = dict(flops, **dict(extra)).get(label)
+        if work is not None:
+            part += f" ({work / us / 1e6:.1f} TFLOP/s)"
+        parts.append(part)
+    gemm_ms = sum(split[k] for k in flops)
+    total = sum(split.values())
+    print(f"{name} per launch ({len(labels)} a call, target <= {limit}): "
+          f"{', '.join(parts)}; GEMMs {gemm_ms:.4f} ms "
+          f"({sum(flops.values()) / gemm_ms / 1e9:.1f} TFLOP/s), all "
+          f"{total:.4f} ms", flush=True)
+    return split
+
+
 BLOCK_LAUNCHES = ("LN1", "qkv", "attention", "proj", "LN2", "fc1", "fc2")
 
 
 def block_launch_split(fn, name, b, l, d, mlp):
-    """Profiles five calls of fn, one K1 or K4 call at (b, l), and prints
-    the device time of each of its seven launches with the four GEMMs'
-    TFLOP/s.  Fails unless every product ran on the wgmma + TMA kernel
-    (`gemm_sm90_kernel`) and nothing on the mma.sync template
-    (`gemm_kernel`)."""
-    _, _, got = _profile(fn, name, 5, per_launch=len(BLOCK_LAUNCHES))
+    """K1's or K4's seven launches at (b, l) (`launch_split`)."""
     m = b * l
-    flops = {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
-             "fc1": 2 * m * d * mlp, "fc2": 2 * m * mlp * d}
-    split, parts = {}, []
-    for label, (kernel, us) in zip(BLOCK_LAUNCHES, got["per_launch"]):
-        check("gemm_kernel" not in kernel,
-              f"{name}: {label} ran the mma.sync template ({kernel})")
-        split[label] = us / 1e3
-        if label in flops:
-            check("gemm_sm90_kernel" in kernel,
-                  f"{name}: {label} ran {kernel}, not the wgmma GEMM")
-            parts.append(f"{label} {us / 1e3:.4f} ms "
-                         f"({flops[label] / us / 1e6:.1f} TFLOP/s)")
-        else:
-            parts.append(f"{label} {us / 1e3:.4f} ms")
-    gemm_ms = sum(split[k] for k in flops)
-    print(f"{name} (B, L) = ({b}, {l}) per launch: {', '.join(parts)}; "
-          f"GEMMs {gemm_ms:.4f} ms ({sum(flops.values()) / gemm_ms / 1e9:.1f}"
-          f" TFLOP/s), all seven {sum(split.values()):.4f} ms", flush=True)
+    launch_split(fn, f"{name} (B, L) = ({b}, {l})", BLOCK_LAUNCHES,
+                 {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
+                  "fc1": 2 * m * d * mlp, "fc2": 2 * m * mlp * d},
+                 len(BLOCK_LAUNCHES))
+
+
+# K5's and K6's launches a call, in order, and the targets they are held to
+K5_LAUNCHES = ("prep", "fc1", "dh", "dy", "ln_bwd", "dW2", "dW1", "sum")
+K6_LAUNCHES = ("prep", "qkv", "dctx", "attention_bwd", "dWproj", "dWqkv",
+               "dy", "ln_bwd", "sum")
+K5_MAX_LAUNCHES, K6_MAX_LAUNCHES = 11, 12
+
+
+def bwd_launch_split(k5, k6, b, l, d, mlp):
+    """`k5_profile` and `k6_profile`: the launches of one K5 and one K6 call
+    at (b, l), the products' TFLOP/s and the attention backward's share of
+    K6 (its 12 L^2 D flops an image, the ones the function needs)."""
+    m = b * l
+    prod = 2 * m * d * mlp
+    launch_split(k5, f"k5_profile (B, L) = ({b}, {l})", K5_LAUNCHES,
+                 dict.fromkeys(("fc1", "dh", "dy", "dW2", "dW1"), prod),
+                 K5_MAX_LAUNCHES)
+    split = launch_split(
+        k6, f"k6_profile (B, L) = ({b}, {l})", K6_LAUNCHES,
+        {"qkv": 6 * m * d * d, "dctx": 2 * m * d * d,
+         "dWproj": 2 * m * d * d, "dWqkv": 6 * m * d * d,
+         "dy": 6 * m * d * d}, K6_MAX_LAUNCHES,
+        extra={"attention_bwd": 12 * b * l * l * d})
+    print(f"k6_profile (B, L) = ({b}, {l}): attention_bwd "
+          f"{split['attention_bwd']:.4f} ms, "
+          f"{100 * split['attention_bwd'] / sum(split.values()):.1f}% of "
+          f"the call", flush=True)
 
 
 def phase_k1():
@@ -1306,7 +1359,9 @@ def library_bwd_ms(fn, inputs, cot):
     return cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
 
 
-def phase_train_kernels():
+def phase_train_kernels(parent=None):
+    """Phase 9; `parent`: a ParentBackward to time beside K5 and K6 at
+    the pretrain shapes."""
     import torch
     from sais_tpu_torch.kernels.fused_mha import (
         block_bwd_attn_reference, block_bwd_mlp_reference,
@@ -1330,18 +1385,26 @@ def phase_train_kernels():
             checks = [("K4", n, a[:, :valid], r[:, :valid]) for n, a, r in
                       zip(("out", "x1"), got, ref)]
             got = fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps, s2=s2)
+            again = fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps, s2=s2)
             torch.cuda.synchronize()
+            # fixed-order sums, no atomics: two runs agree to the bit
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  f"K5 differs between two runs at ({b}, {l}, {valid})")
             ref = block_bwd_mlp_reference(x1, dout, *mlp_w, eps=eps, s2=s2)
             dx1 = ref[0]
             checks += [("K5", n, a, r) for n, a, r in zip(
                 ("dx1", "dfc1_w", "dfc1_b", "dfc2_w", "dfc2_b", "dln2_s",
                  "dln2_b"), got, ref)]
             got = fused_block_bwd_attn(x, dx1, *attn_w, s1=s1, **kw)
+            again = fused_block_bwd_attn(x, dx1, *attn_w, s1=s1, **kw)
             torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  f"K6 differs between two runs at ({b}, {l}, {valid})")
             ref = block_bwd_attn_reference(x, dx1, *attn_w, s1=s1, **kw)
             checks += [("K6", n, a, r) for n, a, r in zip(
                 ("dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dln1_s",
                  "dln1_b"), got, ref)]
+            del again
             line = []
             for kernel, name, a, r in checks:
                 err = (a.float() - r.float()).abs().max().item()
@@ -1357,7 +1420,8 @@ def phase_train_kernels():
                 worst[kernel] = max(worst[kernel], err)
             print(f"K4-K6 (B, L, valid) = ({b}, {l}, {valid})"
                   f"{' scaled' if scaled else ''}: max|kernel-plain| / "
-                  f"max|plain|: {', '.join(line)}", flush=True)
+                  f"max|plain|: {', '.join(line)}; K5 and K6 bitwise equal "
+                  "in two runs", flush=True)
         del got, ref, checks
         if valid != l:
             del x, ws, x1, dx1, dout
@@ -1402,6 +1466,9 @@ def phase_train_kernels():
                                     library_ms=library[name],
                                     bound_ms=bound_ms, bound_by=bound_by)
         block_launch_split(runs["K4"][0], "k4_profile", b, l, d, mlp)
+        bwd_launch_split(runs["K5"][0], runs["K6"][0], b, l, d, mlp)
+        if parent is not None:
+            parent.compare(x, x1, dout, dx1, ws, s1, s2, heads, eps)
         if (b, l) == (128, 197):
             _profile(lambda: [fn() for fn, _ in runs.values()],
                      "k4_k5_k6_profile", 3)
@@ -1410,6 +1477,120 @@ def phase_train_kernels():
     for name in result:
         result[name]["max_abs_err"] = worst[name]
     return result
+
+
+class ParentBackward:
+    """K5 and K6 as an earlier tree built them (`--parent-csrc DIR`: that
+    tree's kernels/csrc, C ABI as of the mma.sync GEMM template:
+    fused_block_bwd_mlp_workspace(rows, dim, mlp),
+    fused_block_bwd_attn_workspace(rows, dim)), built here into a
+    temporary directory and timed beside this tree's kernels on the same
+    card, in turns (earlier, this, this, earlier)."""
+
+    def __init__(self, csrc):
+        import ctypes
+        from sais_tpu_torch.kernels import _build
+        self.tmp = tempfile.mkdtemp(prefix="parent_kernels_")
+        procs = {}
+        for name in ("fused_block_bwd_mlp", "fused_block_bwd_attn"):
+            out = os.path.join(self.tmp, f"{name}.so")
+            procs[name] = (out, subprocess.Popen(
+                [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                 "-shared", "-Xcompiler", "-fPIC", "-o", out,
+                 os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        self.libs = {}
+        for name, (out, proc) in procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n{log}")
+            self.libs[name] = ctypes.CDLL(out)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        mlp, attn = (self.libs[n] for n in ("fused_block_bwd_mlp",
+                                            "fused_block_bwd_attn"))
+        mlp.fused_block_bwd_mlp_workspace.argtypes = [i32] * 3
+        mlp.fused_block_bwd_mlp_workspace.restype = ctypes.c_size_t
+        mlp.fused_block_bwd_mlp.argtypes = [ptr] * 23 + [i32] * 3 + [
+            ctypes.c_float, ptr]
+        attn.fused_block_bwd_attn_workspace.argtypes = [i32] * 2
+        attn.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
+        attn.fused_block_bwd_attn.argtypes = [ptr] * 25 + [i32] * 5 + [
+            ctypes.c_float, ptr]
+        print(f"parent K5 and K6 built from {csrc}", flush=True)
+
+    def k5(self, x1, dout, mlp_w, eps, s2):
+        import torch
+        lib = self.libs["fused_block_bwd_mlp"]
+        b, l, d = x1.shape
+        rows, mlp = b * l, mlp_w[0].shape[1]
+        e = lambda *shape, dt=torch.bfloat16: torch.empty(  # noqa: E731
+            shape, dtype=dt, device=x1.device)
+        dx1 = torch.empty_like(x1)
+        grads = [e(*w.shape, dt=torch.float32) for w in mlp_w]
+        bufs = [e(rows, d), e(rows, d), e(rows, mlp), e(rows, mlp),
+                e(rows, d, dt=torch.float32), e(2 * rows, dt=torch.float32),
+                e(lib.fused_block_bwd_mlp_workspace(rows, d, mlp),
+                  dt=torch.float32)]
+        rc = lib.fused_block_bwd_mlp(
+            *(None if t is None else t.data_ptr() for t in (
+                x1, dout, s2, *mlp_w, dx1, *grads, *bufs)),
+            rows, d, mlp, eps, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K5 launch failed ({rc})")
+        return (dx1, *grads)
+
+    def k6(self, x, dx1, attn_w, heads, valid, eps, s1):
+        import torch
+        lib = self.libs["fused_block_bwd_attn"]
+        b, l, d = x.shape
+        rows = b * l
+        e = lambda *shape, dt=torch.bfloat16: torch.empty(  # noqa: E731
+            shape, dtype=dt, device=x.device)
+        dx = torch.empty_like(x)
+        grads = [e(*w.shape, dt=torch.float32) for w in attn_w]
+        bufs = [e(rows, d), e(rows, d), e(rows, d), e(rows, d),
+                e(rows, 3 * d), e(rows, 3 * d), e(rows, d, dt=torch.float32),
+                e(2 * rows, dt=torch.float32),
+                e(lib.fused_block_bwd_attn_workspace(rows, d),
+                  dt=torch.float32)]
+        rc = lib.fused_block_bwd_attn(
+            *(None if t is None else t.data_ptr() for t in (
+                x, dx1, s1, *attn_w, dx, *grads, *bufs)),
+            b, l, d, heads, valid, eps,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K6 launch failed ({rc})")
+        return (dx, *grads)
+
+    def compare(self, x, x1, dout, dx1, ws, s1, s2, heads, eps):
+        """At one pretrain shape with branch scales: the earlier kernels
+        agree with this tree's (2e-2 x max, the plain versions' limit) and
+        their times, in turns."""
+        import torch
+        from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                      fused_block_bwd_mlp)
+        b, l, _ = x.shape
+        mlp_w, attn_w = ws[4:8] + ws[10:12], ws[0:4] + ws[8:10]
+        runs = {
+            "K5": (lambda: self.k5(x1, dout, mlp_w, eps, s2),
+                   lambda: fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps,
+                                               s2=s2)),
+            "K6": (lambda: self.k6(x, dx1, attn_w, heads, l, eps, s1),
+                   lambda: fused_block_bwd_attn(x, dx1, *attn_w,
+                                                num_heads=heads, valid_len=l,
+                                                eps=eps, s1=s1))}
+        for name, (old, new) in runs.items():
+            for u, v in zip(old(), new()):
+                err = (u.float() - v.float()).abs().max().item()
+                scale = v.float().abs().max().item()
+                check(err <= 2e-2 * scale, f"parent {name} disagrees with "
+                      f"this tree's at ({b}, {l}): {err} > 2e-2 * {scale}")
+            t = [cuda_time_ms(fn) for fn in (old, new, new, old)]
+            _profile(old, f"parent_profile {name} (B, L) = ({b}, {l})", 5,
+                     shares={"attention_bwd": "attention_bwd_kernel",
+                             "mma.sync GEMM": "gemm_kernel"})
+            print(f"parent_compare {name} (B, L) = ({b}, {l}) scaled: "
+                  f"earlier {t[0]:.4f} / {t[3]:.4f} ms, this tree "
+                  f"{t[1]:.4f} / {t[2]:.4f} ms (in turns: earlier, this, "
+                  f"this, earlier), {(t[0] + t[3]) / (t[1] + t[2]):.2f}x",
+                  flush=True)
 
 
 class _Ranged:
@@ -1919,6 +2100,12 @@ def main():
         import sais_tpu_torch  # noqa: F401
     except ImportError:
         fail("the sais_tpu_torch package is not beside this script")
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent-csrc", metavar="DIR",
+                        help="an earlier tree's kernels/csrc: time its K5 "
+                        "and K6 beside this tree's in phase 9")
+    args = parser.parse_args()
     t_start = time.time()
     card = phase_device()
     phase_build()
@@ -1928,7 +2115,8 @@ def main():
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
-    train_k = phase_train_kernels()
+    train_k = phase_train_kernels(
+        ParentBackward(args.parent_csrc) if args.parent_csrc else None)
     k7 = phase_k7()
     pretrain_launches, _ = phase_pretrain()
     k8 = phase_k8()

@@ -24,50 +24,121 @@
 // What bounds it on an H100: 22 L D^2 + 12 L^2 D flops an image against
 // ~0.6 MB of activations, so tensor-core operations (2.0 TFLOP a DINO step
 // at batch 64).  As in K5, the weight gradients are products with K = B*L
-// rows split into f32 partials summed in split order, and the bias and
-// LayerNorm gradients fixed-order column sums: no atomics.
+// rows split into f32 partials, and the bias and LayerNorm gradients
+// per-chunk partial column sums, all summed in a fixed order by the last
+// launch: no atomics.
+//
+// One C entry point enqueues nine launches on the caller's stream; the five
+// products run on the wgmma + TMA GEMM of gemm_sm90.cuh (Wproj and Wqkv
+// read as their transposes, ctx and y transposed for the weight
+// gradients):
+//
+//   (1) bwd_prep_kernel          LN1(x) -> y, mean, 1/std; dbr; dbproj parts
+//   (2) gemm_sm90 EPI_BIAS       y @ Wqkv + bqkv -> qkv
+//   (3) gemm_sm90 EPI_NONE       dbr @ Wproj^T -> dctx
+//   (4) attention_bwd_kernel     ctx, dqkv; dbqkv parts (per 16-row tile)
+//   (5) gemm_sm90 A_MN, split K  ctx^T dbr -> dWproj parts
+//   (6) gemm_sm90 A_MN, split K  y^T dqkv -> dWqkv parts
+//   (7) gemm_sm90 EPI_F32        dqkv @ Wqkv^T -> dy (f32)
+//   (8) ln_bwd_kernel            dx; dln1_b, dln1_s parts
+//   (9) sum_parts_kernel         every gradient, parts in fixed order
 //
 // The attention backward (attention_bwd_kernel) takes one (image, head) a
 // block: Q, K, V and dctx of the head (L <= 256 rows of 64) live in shared
-// memory (at most 147 KB).  p of a whole head is 256 x 256 f32 = 256 KB, so
-// it is never stored: phase A gives each warp 16-query tiles and walks the
+// memory (at most 131 KB; swizzled, not padded, so that up to 208 rows two
+// blocks share an SM).  p of a whole head is 256 x 256 f32 = 256 KB, so it
+// is never stored: phase A gives each warp 16-query tiles and walks the
 // keys in 16-key chunks twice, first for each row's max, sum and
 // rowsum(dp p) (per lane, online, merged over the quad), then for p, ds,
 // ctx and dq in registers; phase B gives each warp 16-key tiles and walks
 // the queries, computing s^T and dp^T directly from the saved row
 // statistics, for dk and dv.  Every product is mma.sync m16n8k16; the score
 // accumulators are re-packed to bf16 A fragments in registers.  Keys at or
-// past valid_len score -1e30 (p exactly 0), tile padding -inf.
+// past valid_len score -1e30 (p exactly 0), tile padding -inf.  Each
+// 16-row tile's bf16 dq, dk and dv are also summed over its rows (a shuffle
+// tree over the fragment's row lanes) into one partial row of dbqkv.
 
-#include "vit_block_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 constexpr int ATTB_WARPS = 8;
 constexpr int ATTB_THREADS = 32 * ATTB_WARPS;
-constexpr int ATTB_LD = DH + 8;   // padded smem rows: ldmatrix without conflicts
 
 template <int KT>
 constexpr size_t attention_bwd_smem() {
-  return 4 * (size_t)(16 * KT) * ATTB_LD * sizeof(bf16) +
+  return 4 * (size_t)(16 * KT) * DH * sizeof(bf16) +
          3 * (size_t)(16 * KT) * sizeof(float);
 }
 
+// Q, K, V and dctx of the head in shared memory: unpadded rows of DH = 64
+// bf16 (128 bytes), the 16-byte chunk c of row r stored at chunk c ^ (r %
+// 8), so that the 8 row addresses of an ldmatrix hit 8 different bank
+// groups.  Without the padding, up to 208 rows (KT 13: 109 KB) leave room
+// for two blocks an SM.
+__device__ __forceinline__ bf16* swz(bf16* t, int row, int chunk) {
+  return t + row * DH + ((chunk ^ (row & 7)) << 3);
+}
+
+// The fragments of load_a_frag, load_b_frags_nk and load_b_frags_kn
+// (vit_block_common.cuh) from a swizzled tile, at (row0, col0) with col0 a
+// multiple of 8.
+__device__ __forceinline__ void lda_sw(uint32_t* a, bf16* t, int row0,
+                                       int col0, int lane) {
+  ldmatrix_x4(a, swz(t, row0 + (lane & 15), (col0 >> 3) + (lane >> 4)));
+}
+__device__ __forceinline__ void ldb_nk_sw(uint32_t* b, bf16* t, int row0,
+                                          int col0, int lane) {
+  ldmatrix_x4(b, swz(t, row0 + (lane & 7) + ((lane >> 4) << 3),
+                     (col0 >> 3) + ((lane >> 3) & 1)));
+}
+__device__ __forceinline__ void ldb_kn_sw(uint32_t* b, bf16* t, int row0,
+                                          int col0, int lane) {
+  ldmatrix_x4_trans(b, swz(t, row0 + (lane & 15), (col0 >> 3) + (lane >> 4)));
+}
+
+// Column sums of one 16-row tile's bf16 output fragment (rows g and g + 8
+// of each n8 tile, where `ok0` / `ok1`) into part[0 .. DH): a shuffle tree
+// over the row lanes, in a fixed order.
+__device__ __forceinline__ void tile_colsum(float (*o)[4], float mul,
+                                            bool ok0, bool ok1,
+                                            float* part, int lane) {
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    float c[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      c[e] = (ok0 ? bf16_round(o[nd][e] * mul) : 0.f) +
+             (ok1 ? bf16_round(o[nd][2 + e] * mul) : 0.f);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 4);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 8);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 16);
+    }
+    if (lane < 4)
+      *reinterpret_cast<float2*>(part + nd * 8 + 2 * lane) =
+          make_float2(c[0], c[1]);
+  }
+}
+
 // qkv: (B*L, 3D) [q heads | k heads | v heads]; dctx, ctx: (B*L, D);
-// dqkv: (B*L, 3D) in qkv's layout.
+// dqkv: (B*L, 3D) in qkv's layout; dqkv_part: (B * ceil(L / 16), 3D), the
+// column sums of each image's 16-row tiles of dqkv.
+// Up to 208 rows (KT <= 13, at most 109 KB of shared memory) two blocks
+// share an SM, which caps a thread at 128 registers.
 template <int KT>
-__global__ void __launch_bounds__(ATTB_THREADS)
+__global__ void __launch_bounds__(ATTB_THREADS, KT <= 13 ? 2 : 1)
     attention_bwd_kernel(const bf16* __restrict__ qkv,
                          const bf16* __restrict__ dctx,
                          bf16* __restrict__ ctx, bf16* __restrict__ dqkv,
-                         int L, int D, int valid_len) {
+                         float* __restrict__ dqkv_part, int L, int D,
+                         int valid_len) {
   constexpr int LK = 16 * KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (LK, ATTB_LD) each
-  bf16* Ks = Qs + LK * ATTB_LD;
-  bf16* Vs = Ks + LK * ATTB_LD;
-  bf16* Cs = Vs + LK * ATTB_LD;                    // dctx of the head
-  float* row_m = reinterpret_cast<float*>(Cs + LK * ATTB_LD);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (LK, DH) each, swizzled
+  bf16* Ks = Qs + LK * DH;
+  bf16* Vs = Ks + LK * DH;
+  bf16* Cs = Vs + LK * DH;                         // dctx of the head
+  float* row_m = reinterpret_cast<float*>(Cs + LK * DH);
   float* row_l = row_m + LK;
   float* row_d = row_l + LK;
 
@@ -84,11 +155,10 @@ __global__ void __launch_bounds__(ATTB_THREADS)
     const int j = i / (DH / 8), c = (i % (DH / 8)) * 8;
     const bool ok = j < L;
     const bf16* src = base + (size_t)(ok ? j : 0) * qkv_stride + c;
-    cp_async16(Qs + j * ATTB_LD + c, src, ok);
-    cp_async16(Ks + j * ATTB_LD + c, src + D, ok);
-    cp_async16(Vs + j * ATTB_LD + c, src + 2 * D, ok);
-    cp_async16(Cs + j * ATTB_LD + c, dbase + (size_t)(ok ? j : 0) * D + c,
-               ok);
+    cp_async16(swz(Qs, j, c / 8), src, ok);
+    cp_async16(swz(Ks, j, c / 8), src + D, ok);
+    cp_async16(swz(Vs, j, c / 8), src + 2 * D, ok);
+    cp_async16(swz(Cs, j, c / 8), dbase + (size_t)(ok ? j : 0) * D + c, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -100,8 +170,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
     uint32_t qa[DH / 16][4], da[DH / 16][4];
 #pragma unroll
     for (int kq = 0; kq < DH / 16; ++kq) {
-      load_a_frag(qa[kq], Qs + q0 * ATTB_LD + kq * 16, ATTB_LD, lane);
-      load_a_frag(da[kq], Cs + q0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+      lda_sw(qa[kq], Qs, q0, kq * 16, lane);
+      lda_sw(da[kq], Cs, q0, kq * 16, lane);
     }
     // s and dp of key chunk kt (16 keys): [n8 tile][4] accumulators, rows
     // g (elements 0, 1) and g + 8 (2, 3), keys 16 kt + 8 j + 2 t + e.
@@ -113,8 +183,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
 #pragma unroll
       for (int kq = 0; kq < DH / 16; ++kq) {
         uint32_t kb[4], vb[4];
-        load_b_frags_nk(kb, Ks + kt * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
-        load_b_frags_nk(vb, Vs + kt * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        ldb_nk_sw(kb, Ks, kt * 16, kq * 16, lane);
+        ldb_nk_sw(vb, Vs, kt * 16, kq * 16, lane);
         mma_bf16_16816(s[0], qa[kq], kb[0], kb[1]);
         mma_bf16_16816(s[1], qa[kq], kb[2], kb[3]);
         mma_bf16_16816(dp[0], da[kq], vb[0], vb[1]);
@@ -213,8 +283,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
 #pragma unroll
       for (int nd = 0; nd < DH / 8; nd += 2) {
         uint32_t vb[4], kb[4];
-        load_b_frags_kn(vb, Vs + kt * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
-        load_b_frags_kn(kb, Ks + kt * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        ldb_kn_sw(vb, Vs, kt * 16, nd * 8, lane);
+        ldb_kn_sw(kb, Ks, kt * 16, nd * 8, lane);
         mma_bf16_16816(oc[nd], pa, vb[0], vb[1]);
         mma_bf16_16816(oc[nd + 1], pa, vb[2], vb[3]);
         mma_bf16_16816(oq[nd], sa, kb[0], kb[1]);
@@ -242,6 +312,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
             __floats2bfloat162_rn(oq[nd][2] * scale, oq[nd][3] * scale);
       }
     }
+    tile_colsum(oq, scale, r0 < L, r1 < L,
+                dqkv_part + ((size_t)b * KT + qt) * 3 * D + h * DH, lane);
   }
   __syncthreads();   // every query row's m, l and rowsum(dp p) are saved
 
@@ -251,8 +323,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
     uint32_t ka[DH / 16][4], va[DH / 16][4];
 #pragma unroll
     for (int kq = 0; kq < DH / 16; ++kq) {
-      load_a_frag(ka[kq], Ks + k0 * ATTB_LD + kq * 16, ATTB_LD, lane);
-      load_a_frag(va[kq], Vs + k0 * ATTB_LD + kq * 16, ATTB_LD, lane);
+      lda_sw(ka[kq], Ks, k0, kq * 16, lane);
+      lda_sw(va[kq], Vs, k0, kq * 16, lane);
     }
     // rows of this lane: keys k0 + g and k0 + g + 8
     const float add0 = k0 + g >= valid_len ? kNegInf : 0.f;
@@ -273,8 +345,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
 #pragma unroll
       for (int kq = 0; kq < DH / 16; ++kq) {
         uint32_t qb[4], cb[4];
-        load_b_frags_nk(qb, Qs + qc * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
-        load_b_frags_nk(cb, Cs + qc * 16 * ATTB_LD + kq * 16, ATTB_LD, lane);
+        ldb_nk_sw(qb, Qs, qc * 16, kq * 16, lane);
+        ldb_nk_sw(cb, Cs, qc * 16, kq * 16, lane);
         mma_bf16_16816(st[0], ka[kq], qb[0], qb[1]);
         mma_bf16_16816(st[1], ka[kq], qb[2], qb[3]);
         mma_bf16_16816(dpt[0], va[kq], cb[0], cb[1]);
@@ -308,8 +380,8 @@ __global__ void __launch_bounds__(ATTB_THREADS)
 #pragma unroll
       for (int nd = 0; nd < DH / 8; nd += 2) {
         uint32_t cb[4], qb[4];
-        load_b_frags_kn(cb, Cs + qc * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
-        load_b_frags_kn(qb, Qs + qc * 16 * ATTB_LD + nd * 8, ATTB_LD, lane);
+        ldb_kn_sw(cb, Cs, qc * 16, nd * 8, lane);
+        ldb_kn_sw(qb, Qs, qc * 16, nd * 8, lane);
         mma_bf16_16816(ov[nd], pa, cb[0], cb[1]);
         mma_bf16_16816(ov[nd + 1], pa, cb[2], cb[3]);
         mma_bf16_16816(ok_[nd], sa, qb[0], qb[1]);
@@ -334,32 +406,41 @@ __global__ void __launch_bounds__(ATTB_THREADS)
             __floats2bfloat162_rn(ov[nd][2], ov[nd][3]);
       }
     }
+    float* part = dqkv_part + ((size_t)b * KT + kt) * 3 * D + h * DH;
+    tile_colsum(ok_, scale, key0, key1, part + D, lane);
+    tile_colsum(ov, 1.f, key0, key1, part + 2 * D, lane);
   }
 }
 
 template <int KT>
 cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
-                                 bf16* dqkv, int B, int L, int D, int heads,
-                                 int valid_len, cudaStream_t stream) {
+                                 bf16* dqkv, float* dqkv_part, int B, int L,
+                                 int D, int heads, int valid_len,
+                                 cudaStream_t stream) {
   constexpr size_t smem = attention_bwd_smem<KT>();
   cudaError_t e = cudaFuncSetAttribute(
       attention_bwd_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  // all of the SM's unified memory as shared memory: room for two blocks
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_bwd_kernel<KT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   dim3 grid(heads, B);
   attention_bwd_kernel<KT><<<grid, ATTB_THREADS, smem, stream>>>(
-      qkv, dctx, ctx, dqkv, L, D, valid_len);
+      qkv, dctx, ctx, dqkv, dqkv_part, L, D, valid_len);
   return cudaGetLastError();
 }
 
 cudaError_t attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
-                          bf16* dqkv, int B, int L, int D, int heads,
-                          int valid_len, cudaStream_t stream) {
+                          bf16* dqkv, float* dqkv_part, int B, int L, int D,
+                          int heads, int valid_len, cudaStream_t stream) {
   switch ((L + 15) / 16) {
 #define SAIS_ATTB_CASE(kt)                                                   \
   case kt:                                                                   \
-    return launch_attention_bwd<kt>(qkv, dctx, ctx, dqkv, B, L, D, heads,    \
-                                    valid_len, stream);
+    return launch_attention_bwd<kt>(qkv, dctx, ctx, dqkv, dqkv_part, B, L,  \
+                                    D, heads, valid_len, stream);
     SAIS_ATTB_CASE(1) SAIS_ATTB_CASE(2) SAIS_ATTB_CASE(3) SAIS_ATTB_CASE(4)
     SAIS_ATTB_CASE(5) SAIS_ATTB_CASE(6) SAIS_ATTB_CASE(7) SAIS_ATTB_CASE(8)
     SAIS_ATTB_CASE(9) SAIS_ATTB_CASE(10) SAIS_ATTB_CASE(11) SAIS_ATTB_CASE(12)
@@ -370,26 +451,39 @@ cudaError_t attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
   }
 }
 
+// The workspace: each gradient's partials, in floats, in the order the
+// final sum reads them.
+struct AttnParts {
+  size_t dbqkv, dbproj, dln_b, dln_s, dwproj, dwqkv, total;
+  AttnParts(int batch, int seq, int dim) {
+    const int rows = batch * seq;
+    const size_t chunks = row_chunks(rows);
+    dbqkv = 0;
+    dbproj = dbqkv + (size_t)batch * ((seq + 15) / 16) * 3 * dim;
+    dln_b = dbproj + chunks * dim;
+    dln_s = dln_b + chunks * dim;
+    dwproj = dln_s + chunks * dim;
+    dwqkv = dwproj + wgrad_partials(dim, dim, rows);
+    total = dwqkv + wgrad_partials(dim, 3 * dim, rows);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // f32 elements of the workspace fused_block_bwd_attn needs.
-size_t fused_block_bwd_attn_workspace(int rows, int dim) {
-  size_t n = wgrad_workspace(dim, dim, rows);
-  const size_t wq = wgrad_workspace(dim, 3 * dim, rows);
-  if (wq > n) n = wq;
-  const size_t cs = (size_t)colsum_splits(rows) * 3 * dim;
-  return cs > n ? cs : n;
+size_t fused_block_bwd_attn_workspace(int batch, int seq, int dim) {
+  return AttnParts(batch, seq, dim).total;
 }
 
 // x, dx1: (B*L, dim) bf16; s1: (B*L,) bf16 or null; weights bf16 in the
 // JAX layout (qkv_w (dim, 3 dim), proj_w (dim, dim)).  Outputs: dx (B*L,
 // dim) bf16; dqkv_w (dim, 3 dim), dqkv_b (3 dim), dproj_w (dim, dim),
 // dproj_b, dln1_s, dln1_b (dim) f32.  Scratch: buf_y, buf_dbr, buf_dctx,
-// buf_ctx (B*L, dim) bf16 (buf_dbr only read when s1 is given), buf_qkv,
-// buf_dqkv (B*L, 3 dim) bf16, buf_dy (B*L, dim) f32, buf_stats (2 B*L)
-// f32, workspace (fused_block_bwd_attn_workspace) f32.
+// buf_ctx (B*L, dim) bf16 (buf_dbr only written when s1 is given),
+// buf_qkv, buf_dqkv (B*L, 3 dim) bf16, buf_dy (B*L, dim) f32, buf_stats
+// (2 B*L) f32, workspace (fused_block_bwd_attn_workspace) f32.
 int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
                          const void* qkv_w, const void* qkv_b,
                          const void* proj_w, const void* proj_b,
@@ -401,11 +495,12 @@ int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
                          void* buf_dy, void* buf_stats, void* workspace,
                          int batch, int seq, int dim, int heads, int valid_len,
                          float eps, void* stream_ptr) {
-  if (heads <= 0 || dim != heads * DH || dim % BK != 0 || seq < 1 ||
+  if (heads <= 0 || dim != heads * DH || dim > MAX_BWD_DIM || seq < 1 ||
       seq > 16 * 16 || valid_len < 1 || valid_len > seq || batch < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
   const int rows = batch * seq;
   const bf16* xb = w(x);
   bf16* y = static_cast<bf16*>(buf_y);
@@ -413,48 +508,48 @@ int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
   bf16* ctx = static_cast<bf16*>(buf_ctx);
   bf16* qkv = static_cast<bf16*>(buf_qkv);
   bf16* dqkv = static_cast<bf16*>(buf_dqkv);
-  float* dy = static_cast<float*>(buf_dy);
-  float* mean = static_cast<float*>(buf_stats);
+  float* dy = f(buf_dy);
+  float* mean = f(buf_stats);
   float* rstd = mean + rows;
-  float* ws = static_cast<float*>(workspace);
-  const bf16* dbr = w(dx1);
+  float* ws = f(workspace);
+  const AttnParts parts(batch, seq, dim);
+  const bf16* dbr = s1 != nullptr ? w(buf_dbr) : w(dx1);
   cudaError_t e;
-  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, mean, rstd, rows, dim, eps,
-                      stream))) return (int)e;
-  if ((e = gemm<EPI_BIAS, false, false>(y, w(qkv_w), w(qkv_b), qkv, rows,
-                                        3 * dim, dim, stream))) return (int)e;
-  if (s1 != nullptr) {
-    if ((e = scale_rows(w(dx1), w(s1), static_cast<bf16*>(buf_dbr), rows,
-                        dim, stream))) return (int)e;
-    dbr = w(buf_dbr);
-  }
+  if ((e = bwd_prep(xb, w(ln1_s), w(ln1_b), w(dx1), w(s1), y, mean, rstd,
+                    static_cast<bf16*>(buf_dbr), ws + parts.dbproj, rows,
+                    dim, eps, stream))) return (int)e;
+  if ((e = gemm_sm90<EPI_BIAS>(y, w(qkv_w), w(qkv_b), qkv, rows, 3 * dim,
+                               dim, stream))) return (int)e;
   // dctx = bf16(dbr @ Wproj^T)
-  if ((e = gemm<EPI_NONE, false, true>(dbr, w(proj_w), nullptr, dctx, rows,
-                                       dim, dim, stream))) return (int)e;
-  if ((e = attention_bwd(qkv, dctx, ctx, dqkv, batch, seq, dim, heads,
-                         valid_len, stream))) return (int)e;
-  if ((e = wgrad(ctx, dbr, static_cast<float*>(dproj_w), ws, dim, dim, rows,
-                 stream))) return (int)e;
-  if ((e = wgrad(y, dqkv, static_cast<float*>(dqkv_w), ws, dim, 3 * dim,
-                 rows, stream))) return (int)e;
+  if ((e = gemm_sm90<EPI_NONE, false, true>(dbr, w(proj_w), nullptr, dctx,
+                                            rows, dim, dim, stream)))
+    return (int)e;
+  if ((e = attention_bwd(qkv, dctx, ctx, dqkv, ws + parts.dbqkv, batch, seq,
+                         dim, heads, valid_len, stream))) return (int)e;
+  if ((e = wgrad_sm90(ctx, dbr, ws + parts.dwproj, dim, dim, rows, stream)))
+    return (int)e;
+  if ((e = wgrad_sm90(y, dqkv, ws + parts.dwqkv, dim, 3 * dim, rows,
+                      stream))) return (int)e;
   // dy = dqkv @ Wqkv^T in f32
-  if ((e = gemm<EPI_F32, false, true>(dqkv, w(qkv_w), nullptr, dy, rows, dim,
-                                      3 * dim, stream))) return (int)e;
+  if ((e = gemm_sm90<EPI_F32, false, true>(dqkv, w(qkv_w), nullptr, dy, rows,
+                                           dim, 3 * dim, stream)))
+    return (int)e;
   if ((e = ln_bwd(dy, xb, mean, rstd, w(ln1_s), w(dx1),
-                  static_cast<bf16*>(dx), rows, dim, stream))) return (int)e;
-  if ((e = colsum<COLSUM_BF16>(dbr, nullptr, nullptr, nullptr, ws,
-                               static_cast<float*>(dproj_b), rows, dim,
-                               stream))) return (int)e;
-  if ((e = colsum<COLSUM_BF16>(dqkv, nullptr, nullptr, nullptr, ws,
-                               static_cast<float*>(dqkv_b), rows, 3 * dim,
-                               stream))) return (int)e;
-  if ((e = colsum<COLSUM_F32>(dy, nullptr, nullptr, nullptr, ws,
-                              static_cast<float*>(dln1_b), rows, dim,
-                              stream))) return (int)e;
-  if ((e = colsum<COLSUM_F32_XHAT>(dy, xb, mean, rstd, ws,
-                                   static_cast<float*>(dln1_s), rows, dim,
-                                   stream))) return (int)e;
-  return 0;
+                  static_cast<bf16*>(dx), ws + parts.dln_b, ws + parts.dln_s,
+                  rows, dim, stream))) return (int)e;
+  int kt;
+  const int chunks = row_chunks(rows);
+  PartSums sums{{{ws + parts.dbqkv, f(dqkv_b), 3 * dim,
+                  batch * ((seq + 15) / 16)},
+                 {ws + parts.dbproj, f(dproj_b), dim, chunks},
+                 {ws + parts.dln_b, f(dln1_b), dim, chunks},
+                 {ws + parts.dln_s, f(dln1_s), dim, chunks},
+                 {ws + parts.dwproj, f(dproj_w), dim * dim,
+                  wgrad_splits(dim, dim, rows, &kt)},
+                 {ws + parts.dwqkv, f(dqkv_w), dim * 3 * dim,
+                  wgrad_splits(dim, 3 * dim, rows, &kt)}},
+                6};
+  return (int)sum_parts(sums, stream);
 }
 
 const char* sais_cuda_error_string(int code) {

@@ -25,35 +25,64 @@
 // The TPU kernel adds each grid step's weight gradients into f32 VMEM
 // outputs, which is safe only because a TPU grid runs one step at a time.
 // Here blocks run concurrently, so every weight gradient is a product with
-// K = B*L rows, split over K into per-block f32 partials that one more
-// kernel sums in split order, and every bias and LayerNorm gradient is a
-// column sum over fixed row chunks, summed the same way: no atomics, no
+// K = B*L rows, split over K into per-block f32 partials, and every bias
+// and LayerNorm gradient is a set of per-chunk partial column sums; one
+// launch at the end sums them all in a fixed order: no atomics, no
 // read-modify-write across blocks, results independent of block order.
 //
-// One C entry point enqueues the sequence on the caller's stream; every
-// product runs on the tensor cores (the GEMM of vit_block_common.cuh with
-// transposed operands where the backward needs them), intermediates (y, h
-// then dh, g, do2, dy) round-trip through device memory.
+// One C entry point enqueues eight launches on the caller's stream; every
+// product runs on the wgmma + TMA GEMM of gemm_sm90.cuh, its operands read
+// in place (W2 and W1 as their transposes, g and y transposed for the
+// weight gradients):
+//
+//   (1) bwd_prep_kernel          LN2(x1) -> y, mean, 1/std; do2; db2 parts
+//   (2) gemm_sm90 EPI_GELU_SAVE  y @ W1 + b1 -> h, g
+//   (3) gemm_sm90 EPI_DGELU      do2 @ W2^T, * gelu'(h) -> dh over h;
+//                                db1 parts (per 64-row half)
+//   (4) gemm_sm90 EPI_F32        dh @ W1^T -> dy (f32)
+//   (5) ln_bwd_kernel            dx1; dln2_b, dln2_s parts
+//   (6) gemm_sm90 A_MN, split K  g^T do2 -> dW2 parts
+//   (7) gemm_sm90 A_MN, split K  y^T dh -> dW1 parts
+//   (8) sum_parts_kernel         every gradient, parts in fixed order
+//
+// Intermediates (y, h then dh, g, do2, dy) round-trip through device
+// memory.
 
-#include "vit_block_common.cuh"
+#include "gemm_sm90.cuh"
+
+namespace {
+
+// The workspace: each gradient's partials, in floats, in the order the
+// final sum reads them.
+struct MlpParts {
+  size_t db2, db1, dln_b, dln_s, dw2, dw1, total;
+  MlpParts(int rows, int dim, int mlp) {
+    const size_t chunks = row_chunks(rows), halves = (rows + 63) / 64;
+    db2 = 0;
+    db1 = db2 + chunks * dim;
+    dln_b = db1 + halves * mlp;
+    dln_s = dln_b + chunks * dim;
+    dw2 = dln_s + chunks * dim;
+    dw1 = dw2 + wgrad_partials(mlp, dim, rows);
+    total = dw1 + wgrad_partials(dim, mlp, rows);
+  }
+};
+
+}  // namespace
 
 extern "C" {
 
 // f32 elements of the workspace fused_block_bwd_mlp needs (the caller
 // allocates it).
 size_t fused_block_bwd_mlp_workspace(int rows, int dim, int mlp) {
-  size_t n = wgrad_workspace(mlp, dim, rows);
-  const size_t w1 = wgrad_workspace(dim, mlp, rows);
-  if (w1 > n) n = w1;
-  const size_t cs = (size_t)colsum_splits(rows) * mlp;
-  return cs > n ? cs : n;
+  return MlpParts(rows, dim, mlp).total;
 }
 
 // x1, dout: (rows, dim) bf16; s2: (rows,) bf16 or null; weights bf16 as
 // the JAX package lays them out (fc1_w (dim, mlp), fc2_w (mlp, dim)).
 // Outputs: dx1 (rows, dim) bf16; dfc1_w (dim, mlp), dfc1_b (mlp), dfc2_w
 // (mlp, dim), dfc2_b, dln2_s, dln2_b (dim) f32.  Scratch: buf_y, buf_do2
-// (rows, dim) bf16 (buf_do2 only read when s2 is given), buf_h, buf_g
+// (rows, dim) bf16 (buf_do2 only written when s2 is given), buf_h, buf_g
 // (rows, mlp) bf16, buf_dy (rows, dim) f32, buf_stats (2 rows) f32,
 // workspace (fused_block_bwd_mlp_workspace) f32.
 int fused_block_bwd_mlp(const void* x1, const void* dout, const void* s2,
@@ -65,57 +94,56 @@ int fused_block_bwd_mlp(const void* x1, const void* dout, const void* s2,
                         void* buf_do2, void* buf_h, void* buf_g, void* buf_dy,
                         void* buf_stats, void* workspace, int rows, int dim,
                         int mlp, float eps, void* stream_ptr) {
-  if (rows < 1 || dim % BK != 0 || mlp % BK != 0 || dim < BK)
+  if (rows < 1 || dim % sm90::BK != 0 || mlp % sm90::BK != 0 ||
+      dim < sm90::BK || dim > MAX_BWD_DIM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto f = [](void* p) { return static_cast<float*>(p); };
   const bf16* x1b = w(x1);
   bf16* y = static_cast<bf16*>(buf_y);
   bf16* h = static_cast<bf16*>(buf_h);   // h, then dh in place
   bf16* g = static_cast<bf16*>(buf_g);
-  float* dy = static_cast<float*>(buf_dy);
-  float* mean = static_cast<float*>(buf_stats);
+  float* dy = f(buf_dy);
+  float* mean = f(buf_stats);
   float* rstd = mean + rows;
-  float* ws = static_cast<float*>(workspace);
-  const bf16* do2 = w(dout);
+  float* ws = f(workspace);
+  const MlpParts parts(rows, dim, mlp);
+  const bf16* do2 = s2 != nullptr ? w(buf_do2) : w(dout);
   cudaError_t e;
-  if ((e = layer_norm(x1b, w(ln2_s), w(ln2_b), y, mean, rstd, rows, dim, eps,
-                      stream))) return (int)e;
-  if ((e = gemm<EPI_GELU_SAVE, false, false>(y, w(fc1_w), w(fc1_b), h, rows,
-                                             mlp, dim, stream, nullptr,
-                                             nullptr, nullptr, g)))
+  if ((e = bwd_prep(x1b, w(ln2_s), w(ln2_b), w(dout), w(s2), y, mean, rstd,
+                    static_cast<bf16*>(buf_do2), ws + parts.db2, rows, dim,
+                    eps, stream))) return (int)e;
+  if ((e = gemm_sm90<EPI_GELU_SAVE>(y, w(fc1_w), w(fc1_b), h, rows, mlp, dim,
+                                    stream, nullptr, nullptr, g)))
     return (int)e;
-  if (s2 != nullptr) {
-    if ((e = scale_rows(w(dout), w(s2), static_cast<bf16*>(buf_do2), rows,
-                        dim, stream))) return (int)e;
-    do2 = w(buf_do2);
-  }
   // dh = bf16((do2 @ W2^T) * gelu'(h)), written over h
-  if ((e = gemm<EPI_DGELU, false, true>(do2, w(fc2_w), nullptr, h, rows, mlp,
-                                        dim, stream, nullptr, nullptr, h)))
+  if ((e = gemm_sm90<EPI_DGELU, false, true>(do2, w(fc2_w), nullptr, h, rows,
+                                             mlp, dim, stream, h, nullptr,
+                                             nullptr, ws + parts.db1)))
     return (int)e;
   // dy = dh @ W1^T in f32
-  if ((e = gemm<EPI_F32, false, true>(h, w(fc1_w), nullptr, dy, rows, dim,
-                                      mlp, stream))) return (int)e;
+  if ((e = gemm_sm90<EPI_F32, false, true>(h, w(fc1_w), nullptr, dy, rows,
+                                           dim, mlp, stream))) return (int)e;
   if ((e = ln_bwd(dy, x1b, mean, rstd, w(ln2_s), w(dout),
-                  static_cast<bf16*>(dx1), rows, dim, stream))) return (int)e;
-  if ((e = wgrad(g, do2, static_cast<float*>(dfc2_w), ws, mlp, dim, rows,
-                 stream))) return (int)e;
-  if ((e = wgrad(y, h, static_cast<float*>(dfc1_w), ws, dim, mlp, rows,
-                 stream))) return (int)e;
-  if ((e = colsum<COLSUM_BF16>(do2, nullptr, nullptr, nullptr, ws,
-                               static_cast<float*>(dfc2_b), rows, dim,
-                               stream))) return (int)e;
-  if ((e = colsum<COLSUM_BF16>(h, nullptr, nullptr, nullptr, ws,
-                               static_cast<float*>(dfc1_b), rows, mlp,
-                               stream))) return (int)e;
-  if ((e = colsum<COLSUM_F32>(dy, nullptr, nullptr, nullptr, ws,
-                              static_cast<float*>(dln2_b), rows, dim,
-                              stream))) return (int)e;
-  if ((e = colsum<COLSUM_F32_XHAT>(dy, x1b, mean, rstd, ws,
-                                   static_cast<float*>(dln2_s), rows, dim,
-                                   stream))) return (int)e;
-  return 0;
+                  static_cast<bf16*>(dx1), ws + parts.dln_b,
+                  ws + parts.dln_s, rows, dim, stream))) return (int)e;
+  if ((e = wgrad_sm90(g, do2, ws + parts.dw2, mlp, dim, rows, stream)))
+    return (int)e;
+  if ((e = wgrad_sm90(y, h, ws + parts.dw1, dim, mlp, rows, stream)))
+    return (int)e;
+  int kt;
+  const int chunks = row_chunks(rows), halves = (rows + 63) / 64;
+  PartSums sums{{{ws + parts.db1, f(dfc1_b), mlp, halves},
+                 {ws + parts.db2, f(dfc2_b), dim, chunks},
+                 {ws + parts.dln_b, f(dln2_b), dim, chunks},
+                 {ws + parts.dln_s, f(dln2_s), dim, chunks},
+                 {ws + parts.dw2, f(dfc2_w), mlp * dim,
+                  wgrad_splits(mlp, dim, rows, &kt)},
+                 {ws + parts.dw1, f(dfc1_w), dim * mlp,
+                  wgrad_splits(dim, mlp, rows, &kt)}},
+                6};
+  return (int)sum_parts(sums, stream);
 }
 
 const char* sais_cuda_error_string(int code) {

@@ -63,9 +63,9 @@ cudaError_t block_forward(const void* x, const void* qkv_w,
                           void* out, void* buf_y, void* buf_big, void* buf_x1,
                           int batch, int seq, int dim, int heads, int mlp,
                           int valid_len, float eps, void* stream_ptr) {
-  if (heads <= 0 || dim != heads * DH || dim % BK != 0 || mlp % BK != 0 ||
-      seq < 1 || seq > 16 * 16 || valid_len < 1 || valid_len > seq ||
-      batch < 1)
+  if (heads <= 0 || dim != heads * DH || dim % sm90::BK != 0 ||
+      mlp % sm90::BK != 0 || seq < 1 || seq > 16 * 16 || valid_len < 1 ||
+      valid_len > seq || batch < 1)
     return cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;
@@ -76,15 +76,15 @@ cudaError_t block_forward(const void* x, const void* qkv_w,
   bf16* o = static_cast<bf16*>(out);
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
   cudaError_t e;
-  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, nullptr, nullptr, M, dim,
-                      eps, stream))) return e;
+  if ((e = layer_norm(xb, w(ln1_s), w(ln1_b), y, M, dim, eps, stream)))
+    return e;
   if ((e = gemm_sm90<EPI_BIAS>(y, w(qkv_w), w(qkv_b), big, M, 3 * dim, dim,
                                stream))) return e;
   if ((e = attention(big, y, batch, seq, dim, heads, valid_len, stream))) return e;
   if ((e = gemm_sm90<EPI_RESIDUAL>(y, w(proj_w), w(proj_b), x1, M, dim, dim,
                                    stream, xb, w(s1)))) return e;
-  if ((e = layer_norm(x1, w(ln2_s), w(ln2_b), y, nullptr, nullptr, M, dim,
-                      eps, stream))) return e;
+  if ((e = layer_norm(x1, w(ln2_s), w(ln2_b), y, M, dim, eps, stream)))
+    return e;
   if ((e = gemm_sm90<EPI_GELU>(y, w(fc1_w), w(fc1_b), big, M, mlp, dim,
                                stream))) return e;
   if ((e = gemm_sm90<EPI_RESIDUAL>(big, w(fc2_w), w(fc2_b), o, M, dim, mlp,
@@ -135,25 +135,61 @@ int fused_block_fwd_train(const void* x, const void* qkv_w,
                             mlp, valid_len, eps, stream_ptr);
 }
 
-// The block's GEMM alone (the card tests hold it against torch): C (M, N)
-// = epilogue(A (M, K) @ B (K, N)) with epilogue 0 bias, 1 tanh-GELU, 2
-// residual [* row_scale]; residual and row_scale may be null otherwise.
+// The blocks' GEMM alone (the card tests hold it against torch), epilogue
+// codes as fused_mha.GEMM_EPILOGUES:
+//   0 bias, 1 gelu, 2 residual [* row_scale]: C (M, N) = epilogue(A (M, K)
+//     @ B (K, N)), aux the residual;
+//   3 none: C = bf16(A @ B^T), B stored (N, K);
+//   4 gelu_save: C = h, C2 = gelu(h), h = bf16(A @ B) + bias, B (K, N);
+//   5 dgelu: C = bf16((A @ B^T) * gelu'(aux)), B (N, K);
+//   6 f32: C (f32) = A @ B^T, B (N, K);
+//   7 wgrad: C (f32, M x N) = A^T B, A stored (K, M), B (K, N): split over
+//     K into workspace (vit_block_gemm_workspace f32), then summed.
+// Pointers a mode does not read may be null.
+constexpr int GEMM_WGRAD = 7;
+
+size_t vit_block_gemm_workspace(int M, int N, int K) {
+  return wgrad_partials(M, N, K);
+}
+
 int vit_block_gemm(const void* a, const void* b, const void* bias,
-                   const void* residual, const void* row_scale, void* c,
-                   int M, int N, int K, int epilogue, void* stream_ptr) {
+                   const void* aux, const void* row_scale, void* c, void* c2,
+                   void* workspace, int M, int N, int K, int epilogue,
+                   void* stream_ptr) {
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
-  bf16* out = static_cast<bf16*>(c);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   switch (epilogue) {
     case EPI_BIAS:
-      return (int)gemm_sm90<EPI_BIAS>(w(a), w(b), w(bias), out, M, N, K,
+      return (int)gemm_sm90<EPI_BIAS>(w(a), w(b), w(bias), c, M, N, K,
                                       stream);
     case EPI_GELU:
-      return (int)gemm_sm90<EPI_GELU>(w(a), w(b), w(bias), out, M, N, K,
+      return (int)gemm_sm90<EPI_GELU>(w(a), w(b), w(bias), c, M, N, K,
                                       stream);
     case EPI_RESIDUAL:
-      return (int)gemm_sm90<EPI_RESIDUAL>(w(a), w(b), w(bias), out, M, N, K,
-                                          stream, w(residual), w(row_scale));
+      return (int)gemm_sm90<EPI_RESIDUAL>(w(a), w(b), w(bias), c, M, N, K,
+                                          stream, w(aux), w(row_scale));
+    case EPI_NONE:
+      return (int)gemm_sm90<EPI_NONE, false, true>(w(a), w(b), nullptr, c, M,
+                                                   N, K, stream);
+    case EPI_GELU_SAVE:
+      return (int)gemm_sm90<EPI_GELU_SAVE>(w(a), w(b), w(bias), c, M, N, K,
+                                           stream, nullptr, nullptr,
+                                           static_cast<bf16*>(c2));
+    case EPI_DGELU:
+      return (int)gemm_sm90<EPI_DGELU, false, true>(w(a), w(b), nullptr, c, M,
+                                                    N, K, stream, w(aux));
+    case EPI_F32:
+      return (int)gemm_sm90<EPI_F32, false, true>(w(a), w(b), nullptr, c, M,
+                                                  N, K, stream);
+    case GEMM_WGRAD: {
+      float* ws = static_cast<float*>(workspace);
+      int kt;
+      const int splits = wgrad_splits(M, N, K, &kt);
+      cudaError_t e = wgrad_sm90(w(a), w(b), ws, M, N, K, stream);
+      if (e != cudaSuccess) return (int)e;
+      PartSums sums{{{ws, static_cast<float*>(c), M * N, splits}}, 1};
+      return (int)sum_parts(sums, stream);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,20 +3,20 @@
 // fused_block_bwd_attn.cu, K8 in fused_vit_block_int8.cu) and K7
 // (dino_head_loss.cu), for Hopper (sm_90a).
 //
-// - LayerNorm forward in f32 rounded to bf16 (optionally saving each row's
-//   mean and 1/std) and its backward;
-// - one tensor-core GEMM template: mma.sync m16n8k16 (bf16 in, f32
-//   accumulate) with ldmatrix fragments, 128 x 128 x 64 block tiles in a
-//   3-stage cp.async ring, either operand read transposed, optional split
-//   of K over blockIdx.z (each split writes its own f32 partial), and
-//   epilogues on the accumulators that keep the JAX kernels' rounding
-//   points;
+// - LayerNorm forward in f32 rounded to bf16 (K1, K4);
+// - the row passes of the training backward (K5, K6): a prologue that
+//   recomputes the LayerNorm, saving each row's mean and 1/std, and scales
+//   the branch cotangent, and the LayerNorm backward; both also write
+//   fixed-order partial column sums;
+// - mma.sync m16n8k16 building blocks (ldmatrix fragments, cp.async) for
+//   the attention kernels, K7 and K8 (the blocks' products run on the wgmma
+//   + TMA GEMM of gemm_sm90.cuh);
 // - K1's masked softmax attention per (image, head), bf16 in and out, each
 //   query's score row in registers (K1, K4 and K8 run it);
-// - fixed-order column sums and split reductions: every weight, bias and
-//   LayerNorm gradient is reduced over the B*L rows without atomics and
-//   without read-modify-write across blocks, so results do not depend on
-//   the order blocks run in.
+// - fixed-order sums of partials: every weight, bias and LayerNorm gradient
+//   is reduced over the B*L rows without atomics and without
+//   read-modify-write across blocks, so results do not depend on the order
+//   blocks run in.
 //
 // Nothing here allocates: the callers pass every buffer.
 
@@ -44,16 +44,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm in f32, rounded to bf16.  One warp per row.  With `mean` and
-// `rstd` given, each row's statistics are saved for the backward.
+// LayerNorm in f32, rounded to bf16.  One warp per row.
 // ---------------------------------------------------------------------------
 __global__ void layer_norm_kernel(const bf16* __restrict__ x,
                                   const bf16* __restrict__ scale,
                                   const bf16* __restrict__ bias,
-                                  bf16* __restrict__ y,
-                                  float* __restrict__ mean_out,
-                                  float* __restrict__ rstd_out, int rows,
-                                  int d, float eps) {
+                                  bf16* __restrict__ y, int rows, int d,
+                                  float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -67,10 +64,6 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ x,
     sq += t * t;
   }
   const float rstd = rsqrtf(warp_sum(sq) / d + eps);
-  if (mean_out != nullptr && lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
   bf16* yr = y + (size_t)row * d;
   for (int c = lane; c < d; c += 32) {
     const float v = (__bfloat162float(xr[c]) - mean) * rstd *
@@ -81,109 +74,205 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ x,
 }
 
 cudaError_t layer_norm(const bf16* x, const bf16* s, const bf16* b, bf16* y,
-                       float* mean, float* rstd, int rows, int d, float eps,
-                       cudaStream_t stream) {
+                       int rows, int d, float eps, cudaStream_t stream) {
   const int threads = 256, rows_per_block = threads / 32;
   layer_norm_kernel<<<(rows + rows_per_block - 1) / rows_per_block, threads,
-                      0, stream>>>(x, s, b, y, mean, rstd, rows, d, eps);
+                      0, stream>>>(x, s, b, y, rows, d, eps);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Row passes of the training backward (K5, K6).  A block of ROW_WARPS warps
+// takes a chunk of ROW_CHUNK rows, each warp ROW_CHUNK / ROW_WARPS of them
+// in turn; lane l owns columns l + 32 i, i < CPL = D / 32, and loads all of
+// a row's values at once into registers.  Column sums over the chunk stay
+// in each lane's registers, then are summed over the warps in warp order
+// into one partial row a chunk, which sum_parts adds up in chunk order: no
+// atomics, results independent of block order.
+// ---------------------------------------------------------------------------
+constexpr int ROW_WARPS = 8, ROW_CHUNK = 32;
+constexpr int MAX_BWD_DIM = 768;   // ViT-B; a lane keeps D / 32 values a row
+
+inline int row_chunks(int rows) { return (rows + ROW_CHUNK - 1) / ROW_CHUNK; }
+
+// partial[c] = sum over the block's warps, in warp order, of their acc.
+template <int CPL>
+__device__ __forceinline__ void chunk_sum(const float (&acc)[CPL], float* red,
+                                          float* partial) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();   // red is free
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) red[warp * 32 * CPL + lane + 32 * i] = acc[i];
+  __syncthreads();
+  for (int c = threadIdx.x; c < 32 * CPL; c += 32 * ROW_WARPS) {
+    float s = 0.f;
+    for (int w = 0; w < ROW_WARPS; ++w) s += red[w * 32 * CPL + c];
+    partial[c] = s;
+  }
+}
+
+// The backward's row prologue, one pass over x and the branch cotangent g:
+// y = bf16(LN(x)) with each row's mean and 1/std saved (LN in f32, as
+// layer_norm_kernel computes it); gs = bf16(g * s[row]) when s is given
+// (JAX `dout * s2_ref`, a bf16 product; otherwise the branch sees g itself
+// and gs is not written); partial[chunk] = the chunk's column sums of the
+// branch cotangent (db2 in K5, dbproj in K6).
+template <int CPL>
+__global__ void __launch_bounds__(32 * ROW_WARPS)
+    bwd_prep_kernel(const bf16* __restrict__ x,
+                    const bf16* __restrict__ ln_s,
+                    const bf16* __restrict__ ln_b,
+                    const bf16* __restrict__ g, const bf16* __restrict__ s,
+                    bf16* __restrict__ y, float* __restrict__ mean_out,
+                    float* __restrict__ rstd_out, bf16* __restrict__ gs,
+                    float* __restrict__ partial, int rows, float eps) {
+  constexpr int D = 32 * CPL;
+  __shared__ float red[ROW_WARPS * D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sc[CPL], bi[CPL], acc[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    sc[i] = __bfloat162float(ln_s[lane + 32 * i]);
+    bi[i] = __bfloat162float(ln_b[lane + 32 * i]);
+    acc[i] = 0.f;
+  }
+  const int r0 = blockIdx.x * ROW_CHUNK + warp * (ROW_CHUNK / ROW_WARPS);
+  for (int row = r0; row < min(rows, r0 + ROW_CHUNK / ROW_WARPS); ++row) {
+    const size_t base = (size_t)row * D + lane;
+    float xv[CPL];
+    bf16 gv[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      xv[i] = __bfloat162float(x[base + 32 * i]);
+      gv[i] = g[base + 32 * i];
+    }
+    const float rs = s != nullptr ? __bfloat162float(s[row]) : 1.f;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) sum += xv[i];
+    const float mean = warp_sum(sum) / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) sq += (xv[i] - mean) * (xv[i] - mean);
+    const float rstd = rsqrtf(warp_sum(sq) / D + eps);
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      y[base + 32 * i] =
+          __float2bfloat16((xv[i] - mean) * rstd * sc[i] + bi[i]);
+      bf16 v = gv[i];
+      if (s != nullptr) {
+        v = __float2bfloat16(__bfloat162float(v) * rs);
+        gs[base + 32 * i] = v;
+      }
+      acc[i] += __bfloat162float(v);
+    }
+  }
+  chunk_sum<CPL>(acc, red, partial + (size_t)blockIdx.x * D);
 }
 
 // LayerNorm backward of y = xhat * scale + bias for upstream dy (f32), plus
 // a residual cotangent: dx = bf16(rstd (dxh - mean(dxh) - xhat
-// mean(dxh xhat)) + f32(resid)) with dxh = dy * scale (JAX `_ln_bwd`).
-// One warp per row.
-__global__ void ln_bwd_kernel(const float* __restrict__ dy,
-                              const bf16* __restrict__ x,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd,
-                              const bf16* __restrict__ scale,
-                              const bf16* __restrict__ resid,
-                              bf16* __restrict__ dx, int rows, int d) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t base = (size_t)row * d;
-  const float mu = mean[row], rs = rstd[row];
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float xhat = (__bfloat162float(x[base + c]) - mu) * rs;
-    const float dxh = dy[base + c] * __bfloat162float(scale[c]);
-    s1 += dxh;
-    s2 += dxh * xhat;
+// mean(dxh xhat)) + f32(resid)) with dxh = dy * scale (JAX `_ln_bwd`);
+// partial_b, partial_s[chunk] = the chunk's column sums of dy and of
+// dy * xhat (the LayerNorm's bias and scale gradients).
+template <int CPL>
+__global__ void __launch_bounds__(32 * ROW_WARPS)
+    ln_bwd_kernel(const float* __restrict__ dy, const bf16* __restrict__ x,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd,
+                  const bf16* __restrict__ scale,
+                  const bf16* __restrict__ resid, bf16* __restrict__ dx,
+                  float* __restrict__ partial_b,
+                  float* __restrict__ partial_s, int rows) {
+  constexpr int D = 32 * CPL;
+  __shared__ float red[ROW_WARPS * D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sc[CPL], acc_b[CPL], acc_s[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    sc[i] = __bfloat162float(scale[lane + 32 * i]);
+    acc_b[i] = acc_s[i] = 0.f;
   }
-  const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
-  for (int c = lane; c < d; c += 32) {
-    const float xhat = (__bfloat162float(x[base + c]) - mu) * rs;
-    const float dxh = dy[base + c] * __bfloat162float(scale[c]);
-    dx[base + c] = __float2bfloat16(rs * (dxh - m1 - xhat * m2) +
-                                    __bfloat162float(resid[base + c]));
+  const int r0 = blockIdx.x * ROW_CHUNK + warp * (ROW_CHUNK / ROW_WARPS);
+  for (int row = r0; row < min(rows, r0 + ROW_CHUNK / ROW_WARPS); ++row) {
+    const size_t base = (size_t)row * D + lane;
+    float gv[CPL], xh[CPL];
+    bf16 rv[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      gv[i] = dy[base + 32 * i];
+      xh[i] = __bfloat162float(x[base + 32 * i]);
+      rv[i] = resid[base + 32 * i];
+    }
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      xh[i] = (xh[i] - mu) * rs;
+      const float dxh = gv[i] * sc[i];
+      s1 += dxh;
+      s2 += dxh * xh[i];
+      acc_b[i] += gv[i];
+      acc_s[i] += gv[i] * xh[i];
+    }
+    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      dx[base + 32 * i] = __float2bfloat16(
+          rs * (gv[i] * sc[i] - m1 - xh[i] * m2) + __bfloat162float(rv[i]));
+  }
+  chunk_sum<CPL>(acc_b, red, partial_b + (size_t)blockIdx.x * D);
+  chunk_sum<CPL>(acc_s, red, partial_s + (size_t)blockIdx.x * D);
+}
+
+// The row passes for D = 32 CPL, D a multiple of 64 up to MAX_BWD_DIM.
+#define SAIS_ROW_CASES(X)                                                  \
+  X(2) X(4) X(6) X(8) X(10) X(12) X(14) X(16) X(18) X(20) X(22) X(24)
+static_assert(MAX_BWD_DIM == 24 * 32, "SAIS_ROW_CASES covers MAX_BWD_DIM");
+
+cudaError_t bwd_prep(const bf16* x, const bf16* ln_s, const bf16* ln_b,
+                     const bf16* g, const bf16* s, bf16* y, float* mean,
+                     float* rstd, bf16* gs, float* partial, int rows, int d,
+                     float eps, cudaStream_t stream) {
+  if (d % 64 != 0) return cudaErrorInvalidValue;
+  switch (d / 32) {
+#define SAIS_PREP_CASE(cpl)                                                \
+  case cpl:                                                                \
+    bwd_prep_kernel<cpl><<<row_chunks(rows), 32 * ROW_WARPS, 0, stream>>>( \
+        x, ln_s, ln_b, g, s, y, mean, rstd, gs, partial, rows, eps);       \
+    return cudaGetLastError();
+    SAIS_ROW_CASES(SAIS_PREP_CASE)
+#undef SAIS_PREP_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t ln_bwd(const float* dy, const bf16* x, const float* mean,
                    const float* rstd, const bf16* scale, const bf16* resid,
-                   bf16* dx, int rows, int d, cudaStream_t stream) {
-  const int threads = 256, rows_per_block = threads / 32;
-  ln_bwd_kernel<<<(rows + rows_per_block - 1) / rows_per_block, threads, 0,
-                  stream>>>(dy, x, mean, rstd, scale, resid, dx, rows, d);
-  return cudaGetLastError();
-}
-
-// y = bf16(x * s[row]): a branch cotangent times the stochastic-depth scale
-// of its row (JAX `dout * s2_ref`, a bf16 product).
-__global__ void scale_rows_kernel(const bf16* __restrict__ x,
-                                  const bf16* __restrict__ s,
-                                  bf16* __restrict__ y, int rows, int d) {
-  const size_t n = (size_t)rows * d;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    y[i] = __float2bfloat16(__bfloat162float(x[i]) *
-                            __bfloat162float(s[i / d]));
-}
-
-cudaError_t scale_rows(const bf16* x, const bf16* s, bf16* y, int rows,
-                       int d, cudaStream_t stream) {
-  const size_t n = (size_t)rows * d;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  scale_rows_kernel<<<blocks, 256, 0, stream>>>(x, s, y, rows, d);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Fixed-order reductions over rows.
-// ---------------------------------------------------------------------------
-enum ColSum { COLSUM_BF16 = 0, COLSUM_F32 = 1, COLSUM_F32_XHAT = 2 };
-constexpr int COLSUM_ROWS = 128;   // rows per split of a column sum
-
-// partial[split][col] = sum over the split's rows of src[row][col]
-// (COLSUM_F32_XHAT: of src * xhat, xhat recomputed from x, mean, rstd).
-template <int MODE>
-__global__ void colsum_partial_kernel(const void* __restrict__ src,
-                                      const bf16* __restrict__ x,
-                                      const float* __restrict__ mean,
-                                      const float* __restrict__ rstd,
-                                      float* __restrict__ partial, int rows,
-                                      int cols) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= cols) return;
-  const int r0 = blockIdx.y * COLSUM_ROWS;
-  const int r1 = min(rows, r0 + COLSUM_ROWS);
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t i = (size_t)r * cols + col;
-    float v;
-    if (MODE == COLSUM_BF16) {
-      v = __bfloat162float(static_cast<const bf16*>(src)[i]);
-    } else {
-      v = static_cast<const float*>(src)[i];
-      if (MODE == COLSUM_F32_XHAT)
-        v *= (__bfloat162float(x[i]) - mean[r]) * rstd[r];
-    }
-    acc += v;
+                   bf16* dx, float* partial_b, float* partial_s, int rows,
+                   int d, cudaStream_t stream) {
+  if (d % 64 != 0) return cudaErrorInvalidValue;
+  switch (d / 32) {
+#define SAIS_LN_BWD_CASE(cpl)                                              \
+  case cpl:                                                                \
+    ln_bwd_kernel<cpl><<<row_chunks(rows), 32 * ROW_WARPS, 0, stream>>>(   \
+        dy, x, mean, rstd, scale, resid, dx, partial_b, partial_s, rows);  \
+    return cudaGetLastError();
+    SAIS_ROW_CASES(SAIS_LN_BWD_CASE)
+#undef SAIS_LN_BWD_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
-  partial[(size_t)blockIdx.y * cols + col] = acc;
 }
+
+// ---------------------------------------------------------------------------
+// Fixed-order sums of partials.
+// ---------------------------------------------------------------------------
 
 // out[i] = sum_s partial[s][i], in split order.
 __global__ void reduce_splits_kernel(const float* __restrict__ partial,
@@ -204,21 +293,62 @@ cudaError_t reduce_splits(const float* partial, float* out, size_t n,
   return cudaGetLastError();
 }
 
-inline int colsum_splits(int rows) {
-  return (rows + COLSUM_ROWS - 1) / COLSUM_ROWS;
+// Up to six sums of partials in one launch (every weight, bias and
+// LayerNorm gradient of one K5 or K6 call): out[i] = sum_p part[p][i] for
+// each segment, in a fixed order.  A block of 256 threads takes 256 / G
+// consecutive outputs of one segment; G groups of threads each sum a
+// contiguous run of the parts in order, then one thread a column sums the
+// groups in order.  G = 1 for a split weight gradient (a few parts, many
+// outputs); G = 32 for a column sum (hundreds of parts, few outputs), so
+// that its long sums run in parallel.
+struct PartSum {
+  const float* part;   // (parts, n)
+  float* out;          // (n,)
+  int n, parts;
+  int groups, block0;  // set by sum_parts
+};
+constexpr int MAX_PART_SUMS = 6, SUM_THREADS = 256;
+struct PartSums {
+  PartSum s[MAX_PART_SUMS];
+  int count;
+};
+
+__global__ void __launch_bounds__(SUM_THREADS) sum_parts_kernel(PartSums a) {
+  __shared__ float red[SUM_THREADS];
+  int k = 0;
+  while (k + 1 < a.count && (int)blockIdx.x >= a.s[k + 1].block0) ++k;
+  const PartSum& s = a.s[k];
+  const int cols = SUM_THREADS / s.groups;
+  const int col = ((int)blockIdx.x - s.block0) * cols + threadIdx.x % cols;
+  const int grp = threadIdx.x / cols;
+  const int per = (s.parts + s.groups - 1) / s.groups;
+  float acc = 0.f;
+  if (col < s.n)
+    for (int p = grp * per; p < min(s.parts, (grp + 1) * per); ++p)
+      acc += s.part[(size_t)p * s.n + col];
+  if (s.groups == 1) {
+    if (col < s.n) s.out[col] = acc;
+    return;
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  if (grp == 0 && col < s.n) {
+    float t = 0.f;
+    for (int g = 0; g < s.groups; ++g) t += red[g * cols + threadIdx.x];
+    s.out[col] = t;
+  }
 }
 
-template <int MODE>
-cudaError_t colsum(const void* src, const bf16* x, const float* mean,
-                   const float* rstd, float* partial, float* out, int rows,
-                   int cols, cudaStream_t stream) {
-  const int splits = colsum_splits(rows);
-  dim3 grid((cols + 127) / 128, splits);
-  colsum_partial_kernel<MODE><<<grid, 128, 0, stream>>>(src, x, mean, rstd,
-                                                        partial, rows, cols);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return reduce_splits(partial, out, (size_t)cols, splits, stream);
+cudaError_t sum_parts(PartSums a, cudaStream_t stream) {
+  int blocks = 0;
+  for (int k = 0; k < a.count; ++k) {
+    a.s[k].groups = a.s[k].parts >= 64 ? 32 : 1;
+    a.s[k].block0 = blocks;
+    const int cols = SUM_THREADS / a.s[k].groups;
+    blocks += (a.s[k].n + cols - 1) / cols;
+  }
+  sum_parts_kernel<<<blocks, SUM_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -315,291 +445,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float h) {
   const float t = tanhf(c * (h + a * (h * h * h)));
   return 0.5f * (1.f + t) +
          0.5f * h * (1.f - t * t) * c * (1.f + 3.f * a * (h * h));
-}
-
-// ---------------------------------------------------------------------------
-// C = epilogue(A @ B), A (M, K), B (K, N), bf16, f32 accumulation.
-//   AT: A is stored transposed, (K, M) row-major;
-//   BT: B is stored transposed, (N, K) row-major (a torch-style (out, in)
-//       weight, or a weight read as its transpose).
-// Epilogues (per element, on the accumulator):
-//   EPI_BIAS      C = bf16(bf16(acc) + bias)
-//   EPI_GELU      C = bf16(gelu(bf16(bf16(acc) + bias)))
-//   EPI_RESIDUAL  v = bf16(bf16(acc) + bias) [v = bf16(v * row_scale[row])];
-//                 C = bf16(residual + v)
-//   EPI_NONE      C = bf16(acc)
-//   EPI_GELU_SAVE h = bf16(bf16(acc) + bias); C = h; C2 = bf16(gelu(h))
-//   EPI_DGELU     C = bf16(acc * gelu'(aux))   (aux: the saved h; C may be aux)
-//   EPI_F32       C (f32) = acc, at offset blockIdx.z * M * N (split-K)
-// K is split over blockIdx.z in chunks of k_split (a multiple of BK).
-// ---------------------------------------------------------------------------
-enum Epilogue {
-  EPI_BIAS = 0,
-  EPI_GELU = 1,
-  EPI_RESIDUAL = 2,
-  EPI_NONE = 3,
-  EPI_GELU_SAVE = 4,
-  EPI_DGELU = 5,
-  EPI_F32 = 6
-};
-
-struct GemmParams {
-  const bf16* A;
-  const bf16* B;
-  const bf16* bias;
-  const bf16* residual;
-  const bf16* row_scale;
-  const bf16* aux;
-  void* C;
-  bf16* C2;
-  int M, N, K;
-  int k_split;
-};
-
-// 128 x 128 x 64 block tiles in a 3-stage cp.async ring; 8 warps (2 x 4),
-// each a 64 x 32 tile of m16n8k16 accumulators.  Two blocks fit an SM
-// (at most 110,592 bytes of shared memory each); taller or wider tiles,
-// 64 x 64 warp tiles and a 4th stage all measured slower in K1.
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int WTM = 64, WTN = 32;   // one warp's output tile
-constexpr int BM = WARPS_M * WTM, BN = WARPS_N * WTN;
-constexpr int BK = 64, STAGES = 3;
-constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
-
-// Shared-memory tile shapes, padded by 8 elements a row so that ldmatrix
-// reads are free of bank conflicts.
-template <bool AT>
-struct ATile {
-  static constexpr int LD = AT ? BM + 8 : BK + 8;
-  static constexpr int ELEMS = AT ? BK * (BM + 8) : BM * (BK + 8);
-};
-template <bool BT>
-struct BTile {
-  static constexpr int LD = BT ? BK + 8 : BN + 8;
-  static constexpr int ELEMS = BT ? BN * (BK + 8) : BK * (BN + 8);
-};
-
-template <bool AT, bool BT>
-constexpr size_t gemm_smem() {
-  return (size_t)STAGES * (ATile<AT>::ELEMS + BTile<BT>::ELEMS) * sizeof(bf16);
-}
-
-template <int EPI, bool AT, bool BT>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmParams p) {
-  constexpr int MT = WTM / 16, NT = WTN / 8;   // m16 and n8 tiles per warp
-  constexpr int LDA = ATile<AT>::LD, LDB = BTile<BT>::LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + STAGES * ATile<AT>::ELEMS;
-
-  const int M = p.M, N = p.N, K = p.K;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * p.k_split;
-  const int kend = min(K, kbeg + p.k_split);
-
-  auto load_stage = [&](int slot, int k0) {
-    bf16* as = As + slot * ATile<AT>::ELEMS;
-    bf16* bs = Bs + slot * BTile<BT>::ELEMS;
-    if (AT) {   // rows k, 16-byte chunks along m
-      for (int i = tid; i < BK * (BM / 8); i += GEMM_THREADS) {
-        const int r = i / (BM / 8), c = (i % (BM / 8)) * 8;
-        const bool ok = k0 + r < kend && m0 + c < M;
-        cp_async16(as + r * LDA + c,
-                   p.A + (ok ? (size_t)(k0 + r) * M + m0 + c : 0), ok);
-      }
-    } else {    // rows m, chunks along k
-      for (int i = tid; i < BM * (BK / 8); i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const bool ok = m0 + r < M && k0 + c < kend;
-        cp_async16(as + r * LDA + c,
-                   p.A + (ok ? (size_t)(m0 + r) * K + k0 + c : 0), ok);
-      }
-    }
-    if (BT) {   // rows n, chunks along k
-      for (int i = tid; i < BN * (BK / 8); i += GEMM_THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const bool ok = n0 + r < N && k0 + c < kend;
-        cp_async16(bs + r * LDB + c,
-                   p.B + (ok ? (size_t)(n0 + r) * K + k0 + c : 0), ok);
-      }
-    } else {    // rows k, chunks along n
-      for (int i = tid; i < BK * (BN / 8); i += GEMM_THREADS) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const bool ok = k0 + r < kend && n0 + c < N;
-        cp_async16(bs + r * LDB + c,
-                   p.B + (ok ? (size_t)(k0 + r) * N + n0 + c : 0), ok);
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int ktiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, kbeg + s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... and every warp is done with kt - 1
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_stage(nk % STAGES, kbeg + nk * BK);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % STAGES) * ATile<AT>::ELEMS;
-    const bf16* bs = Bs + (kt % STAGES) * BTile<BT>::ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int mrow = warp_m * WTM + i * 16;
-        if (AT)
-          load_a_frag_km(a[i], as + kk * LDA + mrow, LDA, lane);
-        else
-          load_a_frag(a[i], as + mrow * LDA + kk, LDA, lane);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        const int ncol = warp_n * WTN + j * 8;
-        if (BT)
-          load_b_frags_nk(&b[j][0], bs + ncol * LDB + kk, LDB, lane);
-        else
-          load_b_frags_kn(&b[j][0], bs + kk * LDB + ncol, LDB, lane);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue from the accumulators: lane (g, t) holds columns 2t, 2t+1 of
-  // rows g and g + 8 of each m16 x n8 tile.
-  constexpr bool HAS_BIAS = EPI == EPI_BIAS || EPI == EPI_GELU ||
-                            EPI == EPI_RESIDUAL || EPI == EPI_GELU_SAVE;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = n0 + warp_n * WTN + j * 8 + 2 * t;
-    if (col >= N) continue;   // N is a multiple of 8: col + 1 < N as well
-    float bb[2] = {0.f, 0.f};
-    if (HAS_BIAS) {
-      const __nv_bfloat162 bv =
-          *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
-      bb[0] = __low2float(bv);
-      bb[1] = __high2float(bv);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + warp_m * WTM + i * 16 + g + 8 * half;
-        if (row >= M) continue;
-        const size_t idx = (size_t)row * N + col;
-        float v[2] = {acc[i][j][2 * half], acc[i][j][2 * half + 1]};
-        if (EPI == EPI_F32) {
-          float* C = static_cast<float*>(p.C) + (size_t)blockIdx.z * M * N;
-          *reinterpret_cast<float2*>(C + idx) = make_float2(v[0], v[1]);
-          continue;
-        }
-        bf16* C = static_cast<bf16*>(p.C);
-        if (EPI == EPI_DGELU) {
-          const __nv_bfloat162 hv =
-              *reinterpret_cast<const __nv_bfloat162*>(p.aux + idx);
-          v[0] *= gelu_tanh_grad(__low2float(hv));
-          v[1] *= gelu_tanh_grad(__high2float(hv));
-        } else if (EPI != EPI_NONE) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            v[e] = bf16_round(bf16_round(v[e]) + bb[e]);   // bf16(acc) + bias in bf16
-        }
-        if (EPI == EPI_GELU) {
-          v[0] = gelu_tanh(v[0]);   // f32 GELU, rounded at the store
-          v[1] = gelu_tanh(v[1]);
-        } else if (EPI == EPI_GELU_SAVE) {
-          *reinterpret_cast<__nv_bfloat162*>(p.C2 + idx) =
-              __floats2bfloat162_rn(gelu_tanh(v[0]), gelu_tanh(v[1]));
-        } else if (EPI == EPI_RESIDUAL) {
-          if (p.row_scale != nullptr) {
-            const float s = __bfloat162float(p.row_scale[row]);
-            v[0] = bf16_round(v[0] * s);
-            v[1] = bf16_round(v[1] * s);
-          }
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(p.residual + idx);
-          v[0] += __low2float(rv);
-          v[1] += __high2float(rv);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(C + idx) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
-    }
-  }
-}
-
-template <int EPI, bool AT, bool BT>
-cudaError_t gemm(const GemmParams& p, int splits, cudaStream_t stream) {
-  constexpr size_t smem = gemm_smem<AT, BT>();
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<EPI, AT, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splits);
-  gemm_kernel<EPI, AT, BT><<<grid, GEMM_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// One product without a K split.
-template <int EPI, bool AT, bool BT>
-cudaError_t gemm(const bf16* A, const bf16* B, const bf16* bias, void* C,
-                 int M, int N, int K, cudaStream_t stream,
-                 const bf16* residual = nullptr,
-                 const bf16* row_scale = nullptr, const bf16* aux = nullptr,
-                 bf16* C2 = nullptr) {
-  GemmParams p{A, B, bias, residual, row_scale, aux, C, C2, M, N, K, K};
-  return gemm<EPI, AT, BT>(p, 1, stream);
-}
-
-// Number of K splits of a weight-gradient product with an (M, N) output and
-// K = rows: enough blocks to cover the card twice, each split a whole
-// number of BK tiles.
-inline void wgrad_split(int M, int N, int K, int* splits, int* k_split) {
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int ktiles = (K + BK - 1) / BK;
-  int want = (2 * 132 + tiles - 1) / tiles;
-  if (want > ktiles) want = ktiles;
-  if (want < 1) want = 1;
-  const int per = (ktiles + want - 1) / want;
-  *k_split = per * BK;
-  *splits = (ktiles + per - 1) / per;
-}
-
-inline size_t wgrad_workspace(int M, int N, int K) {
-  int splits, k_split;
-  wgrad_split(M, N, K, &splits, &k_split);
-  return (size_t)splits * M * N;
-}
-
-// dW (M, N) f32 = A^T B over K = rows: A stored (rows, M), B (rows, N),
-// split over K into f32 partials, then summed in split order.
-cudaError_t wgrad(const bf16* A, const bf16* B, float* out, float* workspace,
-                  int M, int N, int rows, cudaStream_t stream) {
-  int splits, k_split;
-  wgrad_split(M, N, rows, &splits, &k_split);
-  GemmParams p{A, B, nullptr, nullptr, nullptr, nullptr, workspace, nullptr,
-               M, N, rows, k_split};
-  cudaError_t e = gemm<EPI_F32, true, false>(p, splits, stream);
-  if (e != cudaSuccess) return e;
-  return reduce_splits(workspace, out, (size_t)M * N, splits, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -76,26 +76,44 @@ def _attention_ctx(qkv, num_heads, valid_len):
     return ctx.reshape(b, l, d3 // 3)
 
 
-GEMM_EPILOGUES = ("bias", "gelu", "residual")   # the C entry's 0, 1, 2
+# The C entry's epilogue codes 0..7: the forward's three, then the
+# backward's (K5, K6).
+GEMM_EPILOGUES = ("bias", "gelu", "residual", "none", "gelu_save", "dgelu",
+                  "f32", "wgrad")
+_BIAS_EPILOGUES = ("bias", "gelu", "residual", "gelu_save")
 
 
 def block_gemm_reference(a, w, bias, epilogue: str, residual=None,
-                         row_scale=None):
-    """Plain version of the block forward's GEMM: v = a @ w (f32
-    accumulation) rounded to a's dtype, + bias in that dtype; then
-    "bias": v; "gelu": tanh GELU of v in f32, rounded; "residual":
-    residual + [row_scale *] v, the scale (one a row, shaped (..., 1))
-    applied in the dtype."""
+                         row_scale=None, aux=None):
+    """Plain version of the blocks' GEMM, f32 accumulation.  Forward
+    epilogues, w (K, N): v = a @ w rounded to a's dtype, + bias in that
+    dtype; then "bias": v; "gelu": tanh GELU of v in f32, rounded;
+    "residual": residual + [row_scale *] v, the scale (one a row, shaped
+    (..., 1)) applied in the dtype; "gelu_save": (v, gelu(v)), K5's fc1
+    recompute.  Backward products with the weight read as its transpose,
+    w (N, K): "none": a @ w^T rounded; "dgelu": (a @ w^T) * gelu'(aux) in
+    f32, rounded (K5's dh, aux the saved h); "f32": a @ w^T in float32.
+    "wgrad": a (R, M), w (R, N): a^T @ w in float32, a weight gradient."""
     dtype = a.dtype
+    if epilogue == "none":
+        return _mm(a, w.t(), dtype)
+    if epilogue == "dgelu":
+        return ((a.float() @ w.float().t())
+                * gelu_tanh_and_grad(aux.float())[1]).to(dtype)
+    if epilogue == "f32":
+        return a.float() @ w.float().t()
+    if epilogue == "wgrad":
+        return a.float().t() @ w.float()
+    if epilogue not in _BIAS_EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
     v = _mm(a, w, dtype) + bias
-    if epilogue == "gelu":
-        return F.gelu(v.float(), approximate="tanh").to(dtype)
+    if epilogue in ("gelu", "gelu_save"):
+        g = F.gelu(v.float(), approximate="tanh").to(dtype)
+        return (v, g) if epilogue == "gelu_save" else g
     if epilogue == "residual":
         if row_scale is not None:
             v = v * row_scale.to(dtype)
         return residual + v
-    if epilogue != "bias":
-        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
     return v
 
 
@@ -286,6 +304,7 @@ def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
 HEAD_DIM = 64
 MAX_LEN = 256
 K_TILE = 64
+MAX_BWD_DIM = 768   # K5 and K6: a lane keeps D / 32 column sums
 
 
 def _check_operands(name, tensors, shapes):
@@ -359,7 +378,9 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_block_fwd_train.argtypes = (
             [ptr] * 19 + [i32] * 6 + [ctypes.c_float, ptr])
         lib.fused_block_fwd_train.restype = i32
-        lib.vit_block_gemm.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.vit_block_gemm_workspace.argtypes = [i32] * 3
+        lib.vit_block_gemm_workspace.restype = ctypes.c_size_t
+        lib.vit_block_gemm.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.vit_block_gemm.restype = i32
     elif name == "fused_block_bwd_mlp":
         lib.fused_block_bwd_mlp_workspace.argtypes = [i32] * 3
@@ -368,7 +389,7 @@ def _lib(name: str) -> ctypes.CDLL:
             [ptr] * 23 + [i32] * 3 + [ctypes.c_float, ptr])
         lib.fused_block_bwd_mlp.restype = i32
     elif name == "fused_block_bwd_attn":
-        lib.fused_block_bwd_attn_workspace.argtypes = [i32] * 2
+        lib.fused_block_bwd_attn_workspace.argtypes = [i32] * 3
         lib.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
         lib.fused_block_bwd_attn.argtypes = (
             [ptr] * 25 + [i32] * 5 + [ctypes.c_float, ptr])
@@ -437,46 +458,71 @@ def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
 fused_vit_block.launches = 0
 
 
-def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None):
-    """The GEMM of K1's and K4's four products, alone: (M, K) @ (K, N) with
-    the "bias", "gelu" or "residual" epilogue (row_scale: one scale a row,
-    (M,) or (M, 1)).  CUDA tensor: the wgmma + TMA kernel of
-    `csrc/gemm_sm90.cuh` (bf16; counted in `block_gemm.launches`), which
-    the card tests hold against torch; CPU tensor: the plain version
-    `block_gemm_reference`."""
+def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None,
+               aux=None):
+    """The blocks' GEMM alone, in the modes of `block_gemm_reference`
+    (K1's and K4's four products, K5's and K6's ten): bias with "bias",
+    "gelu", "residual" and "gelu_save" only; residual (and an optional row
+    scale, (M,) or (M, 1)) with "residual" only; aux with "dgelu" only.
+    "gelu_save" returns (h, g).  CUDA tensor: the wgmma + TMA kernel of
+    `csrc/gemm_sm90.cuh` (bf16; "wgrad" split over the rows and summed in
+    a second launch; counted once a call in `block_gemm.launches`), which
+    the card tests hold against torch; CPU tensor: the plain version."""
     if epilogue not in GEMM_EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {GEMM_EPILOGUES}")
     if (residual is None) != (epilogue != "residual") or (
             row_scale is not None and epilogue != "residual"):
         raise ValueError("the residual epilogue takes a residual (and an "
                          "optional row scale); the others take neither")
+    if (aux is None) != (epilogue != "dgelu"):
+        raise ValueError("the dgelu epilogue takes aux (the saved h); the "
+                         "others do not")
+    if (bias is None) != (epilogue not in _BIAS_EPILOGUES):
+        raise ValueError(f"a bias goes with {_BIAS_EPILOGUES} only")
     if not _on_cuda(a, "block_gemm"):
         if row_scale is not None:
             row_scale = row_scale.reshape(-1, 1)
         return block_gemm_reference(a, w, bias, epilogue, residual,
-                                    row_scale)
+                                    row_scale, aux)
     if a.dim() != 2 or w.dim() != 2:
-        raise ValueError(f"block_gemm takes (M, K) @ (K, N); got "
-                         f"{tuple(a.shape)} @ {tuple(w.shape)}")
-    (m, k), n = a.shape, w.shape[1]
-    if n % K_TILE or k % K_TILE:
-        raise ValueError(f"N={n} and K={k} must be multiples of {K_TILE}")
+        raise ValueError(f"block_gemm takes 2-D operands; got "
+                         f"{tuple(a.shape)} and {tuple(w.shape)}")
+    if epilogue == "wgrad":
+        (k, m), n = a.shape, w.shape[1]
+        w_shape = (k, n)
+    elif epilogue in ("none", "dgelu", "f32"):
+        (m, k), n = a.shape, w.shape[0]
+        w_shape = (n, k)
+    else:
+        (m, k), n = a.shape, w.shape[1]
+        w_shape = (k, n)
+    if n % K_TILE or (k if epilogue != "wgrad" else m) % K_TILE:
+        raise ValueError(f"N={n} and the contiguous dimension of a "
+                         f"({tuple(a.shape)}) must be multiples of {K_TILE}")
     if row_scale is not None:
         if row_scale.numel() != m:
             raise ValueError(f"row_scale has {row_scale.numel()} elements, "
                              f"expected {m}")
         row_scale = row_scale.reshape(m).to(torch.bfloat16).contiguous()
-    operands = [(a, None), (w, (k, n)), (bias, (n,)), (residual, (m, n)),
-                (row_scale, (m,))]
+    operands = [(a, None), (w, w_shape), (bias, (n,)), (residual, (m, n)),
+                (row_scale, (m,)), (aux, (m, n))]
     _check_operands("block_gemm", *zip(*((t, s) for t, s in operands
                                           if t is not None)))
     lib = _lib("fused_vit_block")
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    f32 = epilogue in ("f32", "wgrad")
+    out = torch.empty((m, n), dtype=torch.float32 if f32 else a.dtype,
+                      device=a.device)
+    out2 = torch.empty_like(out) if epilogue == "gelu_save" else None
+    workspace = None
+    if epilogue == "wgrad":
+        workspace = torch.empty((lib.vit_block_gemm_workspace(m, n, k),),
+                                dtype=torch.float32, device=a.device)
     _launch(lib, lib.vit_block_gemm, "block_gemm", a.device,
-            *(_ptr(t) for t in (a, w, bias, residual, row_scale, out)),
+            *(_ptr(t) for t in (a, w, bias, residual if aux is None else aux,
+                                row_scale, out, out2, workspace)),
             m, n, k, GEMM_EPILOGUES.index(epilogue))
     block_gemm.launches += 1
-    return out
+    return (out, out2) if epilogue == "gelu_save" else out
 
 
 block_gemm.launches = 0
@@ -554,6 +600,13 @@ def _f32_like(w, device):
     return torch.empty(w.shape, dtype=torch.float32, device=device)
 
 
+def _check_bwd_width(d):
+    if d > MAX_BWD_DIM:
+        raise NotImplementedError(
+            f"D={d} above the backward kernels' {MAX_BWD_DIM} (each lane of "
+            "their row passes keeps D / 32 column sums in registers)")
+
+
 def fused_block_bwd_mlp(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b,
                         eps: float = 1e-6, s2=None):
     """K5, the backward of the MLP half: (dx1, dfc1_w, dfc1_b, dfc2_w,
@@ -566,6 +619,7 @@ def fused_block_bwd_mlp(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b,
     mlp = fc1_w.shape[1]
     _check_geometry(x1, x1.shape[2] // HEAD_DIM, 1, mlp)
     b, l, d = x1.shape
+    _check_bwd_width(d)
     _check_operands("K5", [x1, dout, *weights],
                     [x1.shape, x1.shape, (d, mlp), (mlp,), (mlp, d), (d,),
                      (d,), (d,)])
@@ -611,6 +665,7 @@ def fused_block_bwd_attn(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                                         valid_len=valid_len, eps=eps, s1=s1)
     _check_geometry(x, num_heads, valid_len)
     b, l, d = x.shape
+    _check_bwd_width(d)
     _check_operands("K6", [x, dx1, *weights],
                     [x.shape, x.shape, (d, 3 * d), (3 * d,), (d, d), (d,),
                      (d,), (d,)])
@@ -628,7 +683,7 @@ def fused_block_bwd_attn(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
     buf_dy = torch.empty((rows, d), **f32)
     buf_stats = torch.empty((2 * rows,), **f32)
     workspace = torch.empty(
-        (lib.fused_block_bwd_attn_workspace(rows, d),), **f32)
+        (lib.fused_block_bwd_attn_workspace(b, l, d),), **f32)
     _launch(lib, lib.fused_block_bwd_attn, "fused_block_bwd_attn", dev,
             *(_ptr(t) for t in (x, dx1, s1, *weights, dx, *grads, buf_y,
                                 buf_dbr, buf_dctx, buf_ctx, buf_qkv,

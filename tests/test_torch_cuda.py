@@ -85,47 +85,68 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_vit_block(long_x, *long_ws, num_heads=6, valid_len=257)
 
 
-# (N, K) of the block's four products at ViT-S widths (qkv, proj, fc1,
-# fc2) and one N that leaves a partial column tile; M: the K1 main path's
-# 256 x 197 rows, ragged counts, K4's (512, 37) group.
-GEMM_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536), (320, 384)]
-GEMM_M = [50432, 591, 18944, 7]
+# (N, K) of the blocks' products at ViT-S widths: the forward's qkv, proj,
+# fc1, fc2, one N that leaves a partial column tile, and K6's dy (N 384,
+# K 1152).  Modes that read the weight transposed ("none", "dgelu", "f32")
+# take it (N, K): K5's dh (1536, 384), dy (384, 1536), K6's dctx (384,
+# 384), dy (384, 1152).  "wgrad" takes a (M, K) and w (M, N) and returns
+# (K, N) over the M rows: dWqkv (384 x 1152), dWproj (384 x 384), dW1
+# (384 x 1536), dW2 (1536 x 384), a partial tile (384 x 320).  M: the K1
+# main path's 256 x 197 rows, ragged counts, the pretrain step's (512, 37)
+# and (128, 197) groups.
+GEMM_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536), (320, 384),
+           (384, 1152)]
+GEMM_M = [50432, 591, 18944, 7, 25216]
 
 
 @pytest.mark.parametrize("epilogue,scaled", [("bias", False),
                                              ("gelu", False),
                                              ("residual", False),
-                                             ("residual", True)])
+                                             ("residual", True),
+                                             ("none", False),
+                                             ("gelu_save", False),
+                                             ("dgelu", False),
+                                             ("f32", False),
+                                             ("wgrad", False)])
 @pytest.mark.parametrize("m", GEMM_M)
 @pytest.mark.parametrize("n,k", GEMM_NK)
 def test_block_gemm_matches_torch(cuda, n, k, m, epilogue, scaled):
-    """The wgmma + TMA GEMM of K1 and K4 alone against torch on the same
-    bf16 inputs (f32 product, the same epilogue; the row scale holds zeros
-    and 1/keep).  Limit: 2e-2 of the largest reference value, as for K1:
-    both round at the same points and sum in another order."""
+    """The wgmma + TMA GEMM of K1, K4, K5 and K6 alone against torch on
+    the same bf16 inputs (f32 product, the same epilogue; the row scale
+    holds zeros and 1/keep).  Limit: 2e-2 of the largest reference value,
+    as for K1: both round at the same points and sum in another order."""
     from sais_tpu_torch.kernels.fused_mha import (block_gemm,
                                                   block_gemm_reference)
     g = torch.Generator().manual_seed(m + n + k)
     bf = dict(device=cuda, dtype=torch.bfloat16)
     a = torch.randn((m, k), generator=g).to(**bf)
-    w = (0.05 * torch.randn((k, n), generator=g)).to(**bf)
-    bias = (0.05 * torch.randn((n,), generator=g)).to(**bf)
-    residual = row_scale = None
+    w_shape = {"none": (n, k), "dgelu": (n, k), "f32": (n, k),
+               "wgrad": (m, n)}.get(epilogue, (k, n))
+    w = (0.05 * torch.randn(w_shape, generator=g)).to(**bf)
+    bias = residual = row_scale = aux = None
+    if epilogue in ("bias", "gelu", "residual", "gelu_save"):
+        bias = (0.05 * torch.randn((n,), generator=g)).to(**bf)
     if epilogue == "residual":
         residual = torch.randn((m, n), generator=g).to(**bf)
+    if epilogue == "dgelu":
+        aux = torch.randn((m, n), generator=g).to(**bf)
     if scaled:
         keep = (torch.rand((m,), generator=g) < 0.75).float()
         keep[0] = 0.0
         row_scale = (keep / 0.9).to(**bf)
     before = block_gemm.launches
-    out = block_gemm(a, w, bias, epilogue, residual, row_scale)
+    out = block_gemm(a, w, bias, epilogue, residual, row_scale, aux)
     torch.cuda.synchronize()
     assert block_gemm.launches == before + 1
     ref = block_gemm_reference(
         a, w, bias, epilogue, residual,
-        None if row_scale is None else row_scale[:, None])
-    assert out.shape == (m, n) and out.dtype == torch.bfloat16
-    _close(out, ref, f"{epilogue} M={m} N={n} K={k}")
+        None if row_scale is None else row_scale[:, None], aux)
+    pairs = zip(out, ref) if epilogue == "gelu_save" else [(out, ref)]
+    f32 = epilogue in ("f32", "wgrad")
+    for got, want in pairs:
+        assert got.shape == ((k, n) if epilogue == "wgrad" else (m, n))
+        assert got.dtype == (torch.float32 if f32 else torch.bfloat16)
+        _close(got, want, f"{epilogue} M={m} N={n} K={k}")
 
 
 def test_block_gemm_rejects_what_it_does_not_take(cuda):
@@ -139,6 +160,11 @@ def test_block_gemm_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         block_gemm(torch.zeros(7 * 64 + 1, **bf)[1:].view(7, 64), w, b,
                    "bias")
+    with pytest.raises(ValueError, match="shape"):
+        block_gemm(a, w, None, "f32")   # "f32" reads w as (N, K)
+    with pytest.raises(ValueError, match="multiples"):
+        block_gemm(torch.zeros((7, 96), **bf), torch.zeros((7, 128), **bf),
+                   None, "wgrad")
 
 
 def test_vit_fused_path_on_kernel_matches_plain(cuda, monkeypatch):
@@ -545,6 +571,34 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError, match="sequence length"):
         fused_block_bwd_attn(long_x, long_x, *long_ws[0:4], *long_ws[8:10],
                              num_heads=6, valid_len=257)
+    wide_x, wide_ws = _inputs(2, 1, 4, d=832, mlp=4 * 832)
+    with pytest.raises(NotImplementedError, match="768"):
+        fused_block_bwd_mlp(wide_x, wide_x, *wide_ws[4:8], *wide_ws[10:12])
+    with pytest.raises(NotImplementedError, match="768"):
+        fused_block_bwd_attn(wide_x, wide_x, *wide_ws[0:4], *wide_ws[8:10],
+                             num_heads=13, valid_len=4)
+
+
+def test_train_backward_kernels_are_bitwise_repeatable(cuda):
+    """K5 and K6 reduce every gradient in a fixed order without atomics, so
+    two runs on the same inputs agree to the bit (the pretrain step's
+    local-crop width at 208 rows with keys >= 197 masked, branch
+    scales)."""
+    from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                  fused_block_bwd_mlp)
+    b, l, valid = 64, 208, 197
+    x, ws = _inputs(11, b, l)
+    s1, s2 = _scales(b, l, 12)
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(13)
+                       ).to(cuda, torch.bfloat16)
+    runs = [(fused_block_bwd_mlp(x, dout, *ws[4:8], *ws[10:12], s2=s2),
+             fused_block_bwd_attn(x, dout, *ws[0:4], *ws[8:10], num_heads=6,
+                                  valid_len=valid, s1=s1))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        for i, (u, v) in enumerate(zip(first, second)):
+            assert torch.equal(u, v), i
 
 
 # ---------------------------------------------------------------------------
