@@ -97,18 +97,23 @@ Phases, each of which fails the run:
    time, kernel name), the products' TFLOP/s and the attention backward's
    share of K6 at (128, 197) and (512, 37), and fail unless every product
    ran the wgmma + TMA GEMM (none the mma.sync template) and a call makes
-   at most 11 (K5) and 12 (K6) launches.  With `--parent-csrc DIR` (an
-   earlier tree's kernels/csrc), its K5 and K6 are built and timed beside
-   this tree's at the two pretrain shapes, in turns.
+   at most 11 (K5) and 12 (K6) launches.
 10. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
    norm_last_layer; two runs bitwise equal) at the pretrain step's shape
    (640 / 128 rows, bottleneck 256, out_dim 65536) with norm_last_layer
    both ways, at the CLI's default batch 256 (2560 / 512 rows) and at a
-   ragged (25, 10) shape; CUDA-event times of the kernel, the plain
-   version and the unfused composition (`plain_head_loss`, forward and
-   autograd backward); the least time the card could take.
+   ragged (25, 10) shape; at batch 64 and 256, CUDA-event times of the
+   kernel, the plain version and the unfused composition
+   (`plain_head_loss`, forward and autograd backward), the least time the
+   card could take, and `k7_profile`: each of a call's 11 launches with
+   its device time and the products' TFLOP/s, failing unless every
+   product ran `gemm_sm90_kernel`, none the kernels it replaced
+   (grad_h_kernel, grad_v_kernel, stats_kernel), and a call makes at most
+   14 launches.  With `--parent-csrc DIR` (an earlier tree's
+   kernels/csrc), its K7 and K8 are built and timed beside this tree's,
+   in turns, at both batches and at K8's shape.
 11. pretrain path at full width (`pretrain -bs 64` without the video
    I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
    local at 96, drop path 0.1, adamw, fused blocks, fused loss) from
@@ -122,11 +127,16 @@ Phases, each of which fails the run:
    (loss 1e-3 relative, each gradient 5e-2 of its largest value); the
    loss with fused_loss=False printed beside it.
 12. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
-   CUDA kernel against its plain version (2e-2 of its largest value) and
-   against K1 on the same inputs (cosine > 0.9999, max relative < 0.02,
-   JAX's limits; the reading at the K1 phase's weights printed beside
-   it); CUDA-event times of the kernel, the plain version and a
-   torch._int_mm composition; the least time the card could take.
+   CUDA kernel against its plain version (2e-2 of its largest value), two
+   runs bitwise equal, and against K1 on the same inputs (cosine >
+   0.9999, max relative < 0.02, JAX's limits; the reading at the K1
+   phase's weights printed beside it); CUDA-event times of the kernel, of
+   K1 in the same call, the plain version and a torch._int_mm
+   composition; the least time the card could take; `k8_profile`: each
+   of a call's 8 launches with its device time and the products' TOP/s,
+   failing unless every product ran `gemm_sm90_kernel` (its int8 mode),
+   no launch the mma.sync gemm_i8_kernel or quant_rows_kernel<float>, and
+   a call makes at most 10 launches.
 13. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
    and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
    and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
@@ -136,9 +146,9 @@ Phases, each of which fails the run:
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
 K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls,
-K7 calls, one pretrain step (with K4's, K5's, K6's, K1's and K7's shares,
-read from profiler ranges: K1 and K4 share their kernels' names) and K8
-calls.
+K7 and K8 calls (per launch), one pretrain step (with K4's, K5's, K6's,
+K1's and K7's shares, read from profiler ranges: K1 and K4 share their
+kernels' names).
 """
 
 from __future__ import annotations
@@ -155,6 +165,8 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16, at 700 W (data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 (K2 and K3's route)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+# the kernel torch.cuda._sleep launches: _profile's marker between calls
+MARKER = "spin_kernel"
 
 
 def fail(msg: str) -> None:
@@ -299,22 +311,26 @@ def k1_bound_ms(b, l, d, mlp, weight_bytes):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def launch_split(fn, name, labels, flops, limit, extra=()):
-    """Profiles five calls of fn (one K1, K4, K5 or K6 call) and prints the
-    device time of each of its launches, labelled in order by `labels`,
-    with the TFLOP/s of those in `flops` (label -> flops) and of those in
-    `extra` (other labelled work, e.g. K6's attention backward).  Fails
-    unless a call makes exactly len(labels) launches, no more than
-    `limit`, every product in `flops` ran on the wgmma + TMA kernel
-    (`gemm_sm90_kernel`) and nothing on the mma.sync template
-    (`gemm_kernel`).  Returns {label: ms}."""
+def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
+                 forbid=("gemm_kernel",)):
+    """Profiles five calls of fn (one call of a kernel's wrapper) and prints
+    the device time of each of its launches, labelled in order by
+    `labels`, with the rate (`unit`, 1e12 a second) of those in `flops`
+    (label -> flops or integer operations) and of those in `extra` (other
+    labelled work, e.g. K6's attention backward).  Fails unless a call
+    makes exactly len(labels) launches, no more than `limit`, every
+    product in `flops` ran on the wgmma + TMA kernel (`gemm_sm90_kernel`)
+    and no launch ran a kernel named by `forbid` (the mma.sync template
+    `gemm_kernel`, or a kernel the redesign removed).  Returns {label:
+    ms}."""
     check(len(labels) <= limit, f"{name}: {len(labels)} launches a call, "
           f"target <= {limit}")
     _, _, got = _profile(fn, name, 5, per_launch=len(labels))
     split, parts = {}, []
     for label, (kernel, us) in zip(labels, got["per_launch"]):
-        check("gemm_kernel" not in kernel,
-              f"{name}: {label} ran the mma.sync template ({kernel})")
+        for frag in forbid:
+            check(frag not in kernel, f"{name}: {label} ran {kernel}, which "
+                  f"this design no longer has ({frag})")
         split[label] = us / 1e3
         short = kernel.replace("(anonymous namespace)::", "").replace(
             "void ", "").replace("sm90::", "").split("(")[0]
@@ -324,13 +340,13 @@ def launch_split(fn, name, labels, flops, limit, extra=()):
                   f"{name}: {label} ran {kernel}, not the wgmma GEMM")
         work = dict(flops, **dict(extra)).get(label)
         if work is not None:
-            part += f" ({work / us / 1e6:.1f} TFLOP/s)"
+            part += f" ({work / us / 1e6:.1f} {unit})"
         parts.append(part)
     gemm_ms = sum(split[k] for k in flops)
     total = sum(split.values())
     print(f"{name} per launch ({len(labels)} a call, target <= {limit}): "
           f"{', '.join(parts)}; GEMMs {gemm_ms:.4f} ms "
-          f"({sum(flops.values()) / gemm_ms / 1e9:.1f} TFLOP/s), all "
+          f"({sum(flops.values()) / gemm_ms / 1e9:.1f} {unit}), all "
           f"{total:.4f} ms", flush=True)
     return split
 
@@ -614,11 +630,18 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
+            if per_launch:
+                # a marker launch before every call (and after the last)
+                # brackets each call's launches on the device timeline
+                torch.cuda._sleep(1)
             fn()
+        if per_launch:
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not (per_launch and MARKER in e.name))
     busy_us, end = 0.0, -math.inf
     for lo, hi in spans:
         if hi > end:
@@ -642,20 +665,33 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
         events = sorted((e.time_range.start, e.time_range.end, e.name)
                         for e in prof.events()
                         if e.device_type == DeviceType.CUDA)
-        # the profiler can miss the first launches of its window: read the
-        # whole calls at its end
-        calls = len(events) // per_launch
-        check(calls >= steps - 1 and len(events) <= per_launch * steps,
-              f"{name}: {len(events)} device launches in {steps} calls, "
-              f"expected {per_launch} a call")
-        events = events[len(events) - calls * per_launch:]
+        # The profiler can lose launches of its window, at its start and
+        # elsewhere; counted from the window's end, a loss shifted which
+        # launch each label read.  The markers cut the timeline into calls:
+        # a call is read only when it lies between two markers and holds
+        # exactly per_launch launches, so a lost launch drops its call and
+        # cannot shift a label, while a wrapper that makes more or fewer
+        # launches leaves no call to read.
+        calls, seg = [], None
+        for e in events:
+            if MARKER in e[2]:
+                if seg is not None:
+                    calls.append(seg)
+                seg = []
+            elif seg is not None:
+                seg.append(e)
+        whole = [c for c in calls if len(c) == per_launch]
+        check(len(whole) >= steps - 2,
+              f"{name}: {len(whole)} of {steps} calls read whole, expected "
+              f"{per_launch} launches a call; launches between markers: "
+              f"{[len(c) for c in calls]}")
         got["per_launch"] = []
         for i in range(per_launch):
-            names = {e[2] for e in events[i::per_launch]}
+            names = {c[i][2] for c in whole}
             check(len(names) == 1, f"{name}: launch {i} of a call ran "
                   f"different kernels: {sorted(names)}")
             got["per_launch"].append((names.pop(), sum(
-                e[1] - e[0] for e in events[i::per_launch]) / calls))
+                c[i][1] - c[i][0] for c in whole) / len(whole)))
     averages = prof.key_averages()
     for label in ranges:
         # a range can appear twice (its CPU event and its annotation on the
@@ -1359,9 +1395,8 @@ def library_bwd_ms(fn, inputs, cot):
     return cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
 
 
-def phase_train_kernels(parent=None):
-    """Phase 9; `parent`: a ParentBackward to time beside K5 and K6 at
-    the pretrain shapes."""
+def phase_train_kernels():
+    """Phase 9: K4, K5 and K6 at the pretrain shapes."""
     import torch
     from sais_tpu_torch.kernels.fused_mha import (
         block_bwd_attn_reference, block_bwd_mlp_reference,
@@ -1467,8 +1502,6 @@ def phase_train_kernels(parent=None):
                                     bound_ms=bound_ms, bound_by=bound_by)
         block_launch_split(runs["K4"][0], "k4_profile", b, l, d, mlp)
         bwd_launch_split(runs["K5"][0], runs["K6"][0], b, l, d, mlp)
-        if parent is not None:
-            parent.compare(x, x1, dout, dx1, ws, s1, s2, heads, eps)
         if (b, l) == (128, 197):
             _profile(lambda: [fn() for fn, _ in runs.values()],
                      "k4_k5_k6_profile", 3)
@@ -1479,20 +1512,20 @@ def phase_train_kernels(parent=None):
     return result
 
 
-class ParentBackward:
-    """K5 and K6 as an earlier tree built them (`--parent-csrc DIR`: that
-    tree's kernels/csrc, C ABI as of the mma.sync GEMM template:
-    fused_block_bwd_mlp_workspace(rows, dim, mlp),
-    fused_block_bwd_attn_workspace(rows, dim)), built here into a
-    temporary directory and timed beside this tree's kernels on the same
-    card, in turns (earlier, this, this, earlier)."""
+class ParentKernels:
+    """K7 and K8 as an earlier tree built them (`--parent-csrc DIR`: that
+    tree's kernels/csrc, with this tree's C ABI for them:
+    dino_head_loss(_workspace) and fused_vit_block_int8(_workspace), as
+    of PR 9's tree), built here into a temporary directory and timed
+    beside this tree's kernels on the same card, in turns (earlier, this,
+    this, earlier)."""
 
     def __init__(self, csrc):
         import ctypes
         from sais_tpu_torch.kernels import _build
         self.tmp = tempfile.mkdtemp(prefix="parent_kernels_")
         procs = {}
-        for name in ("fused_block_bwd_mlp", "fused_block_bwd_attn"):
+        for name in ("dino_head_loss", "fused_vit_block_int8"):
             out = os.path.join(self.tmp, f"{name}.so")
             procs[name] = (out, subprocess.Popen(
                 [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
@@ -1500,97 +1533,74 @@ class ParentBackward:
                  os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
         self.libs = {}
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, (out, proc) in procs.items():
             log, _ = proc.communicate()
             check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n{log}")
             self.libs[name] = ctypes.CDLL(out)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        mlp, attn = (self.libs[n] for n in ("fused_block_bwd_mlp",
-                                            "fused_block_bwd_attn"))
-        mlp.fused_block_bwd_mlp_workspace.argtypes = [i32] * 3
-        mlp.fused_block_bwd_mlp_workspace.restype = ctypes.c_size_t
-        mlp.fused_block_bwd_mlp.argtypes = [ptr] * 23 + [i32] * 3 + [
-            ctypes.c_float, ptr]
-        attn.fused_block_bwd_attn_workspace.argtypes = [i32] * 2
-        attn.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
-        attn.fused_block_bwd_attn.argtypes = [ptr] * 25 + [i32] * 5 + [
-            ctypes.c_float, ptr]
-        print(f"parent K5 and K6 built from {csrc}", flush=True)
+        k7, k8 = self.libs["dino_head_loss"], self.libs["fused_vit_block_int8"]
+        k7.dino_head_loss_workspace.argtypes = [i32] * 4
+        k7.dino_head_loss_workspace.restype = ctypes.c_size_t
+        k7.dino_head_loss.argtypes = [ptr] * 16 + [i32] * 5 + [f32] * 3 + [
+            ptr]
+        k8.fused_vit_block_int8_workspace.argtypes = [i32] * 3
+        k8.fused_vit_block_int8_workspace.restype = ctypes.c_size_t
+        k8.fused_vit_block_int8.argtypes = [ptr] * 15 + [i32] * 6 + [f32, ptr]
+        print(f"parent K7 and K8 built from {csrc}", flush=True)
 
-    def k5(self, x1, dout, mlp_w, eps, s2):
+    def k7(self, hs, ht, vs, vt, gs, gt, center, tt, sel, c, *, student_temp,
+           inv_norm, use_g):
         import torch
-        lib = self.libs["fused_block_bwd_mlp"]
-        b, l, d = x1.shape
-        rows, mlp = b * l, mlp_w[0].shape[1]
-        e = lambda *shape, dt=torch.bfloat16: torch.empty(  # noqa: E731
-            shape, dtype=dt, device=x1.device)
-        dx1 = torch.empty_like(x1)
-        grads = [e(*w.shape, dt=torch.float32) for w in mlp_w]
-        bufs = [e(rows, d), e(rows, d), e(rows, mlp), e(rows, mlp),
-                e(rows, d, dt=torch.float32), e(2 * rows, dt=torch.float32),
-                e(lib.fused_block_bwd_mlp_workspace(rows, d, mlp),
-                  dt=torch.float32)]
-        rc = lib.fused_block_bwd_mlp(
-            *(None if t is None else t.data_ptr() for t in (
-                x1, dout, s2, *mlp_w, dx1, *grads, *bufs)),
-            rows, d, mlp, eps, torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"parent K5 launch failed ({rc})")
-        return (dx1, *grads)
-
-    def k6(self, x, dx1, attn_w, heads, valid, eps, s1):
-        import torch
-        lib = self.libs["fused_block_bwd_attn"]
-        b, l, d = x.shape
-        rows = b * l
-        e = lambda *shape, dt=torch.bfloat16: torch.empty(  # noqa: E731
-            shape, dtype=dt, device=x.device)
-        dx = torch.empty_like(x)
-        grads = [e(*w.shape, dt=torch.float32) for w in attn_w]
-        bufs = [e(rows, d), e(rows, d), e(rows, d), e(rows, d),
-                e(rows, 3 * d), e(rows, 3 * d), e(rows, d, dt=torch.float32),
-                e(2 * rows, dt=torch.float32),
-                e(lib.fused_block_bwd_attn_workspace(rows, d),
-                  dt=torch.float32)]
-        rc = lib.fused_block_bwd_attn(
-            *(None if t is None else t.data_ptr() for t in (
-                x, dx1, s1, *attn_w, dx, *grads, *bufs)),
-            b, l, d, heads, valid, eps,
+        lib = self.libs["dino_head_loss"]
+        (rs, db), rt, k = hs.shape, ht.shape[0], vs.shape[1]
+        e = lambda *shape: torch.empty(  # noqa: E731
+            shape, dtype=torch.float32, device=hs.device)
+        out = [e(), e(k), e(rs, db), e(db, k), e(k)]
+        ws = e(lib.dino_head_loss_workspace(rs, rt, db, k))
+        inv_ts = 1.0 / student_temp
+        rc = lib.dino_head_loss(
+            *(t.data_ptr() for t in (hs, ht, vs, vt, gs, gt, center, tt, sel,
+                                     c, *out, ws)),
+            rs, rt, db, k, int(use_g), inv_ts, inv_ts * inv_norm, inv_norm,
             torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"parent K6 launch failed ({rc})")
-        return (dx, *grads)
+        check(rc == 0, f"parent K7 launch failed ({rc})")
+        return out
 
-    def compare(self, x, x1, dout, dx1, ws, s1, s2, heads, eps):
-        """At one pretrain shape with branch scales: the earlier kernels
-        agree with this tree's (2e-2 x max, the plain versions' limit) and
-        their times, in turns."""
+    def k8(self, x, ws, num_heads, valid_len, eps):
         import torch
-        from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
-                                                      fused_block_bwd_mlp)
-        b, l, _ = x.shape
-        mlp_w, attn_w = ws[4:8] + ws[10:12], ws[0:4] + ws[8:10]
-        runs = {
-            "K5": (lambda: self.k5(x1, dout, mlp_w, eps, s2),
-                   lambda: fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps,
-                                               s2=s2)),
-            "K6": (lambda: self.k6(x, dx1, attn_w, heads, l, eps, s1),
-                   lambda: fused_block_bwd_attn(x, dx1, *attn_w,
-                                                num_heads=heads, valid_len=l,
-                                                eps=eps, s1=s1))}
-        for name, (old, new) in runs.items():
-            for u, v in zip(old(), new()):
-                err = (u.float() - v.float()).abs().max().item()
-                scale = v.float().abs().max().item()
-                check(err <= 2e-2 * scale, f"parent {name} disagrees with "
-                      f"this tree's at ({b}, {l}): {err} > 2e-2 * {scale}")
-            t = [cuda_time_ms(fn) for fn in (old, new, new, old)]
-            _profile(old, f"parent_profile {name} (B, L) = ({b}, {l})", 5,
-                     shares={"attention_bwd": "attention_bwd_kernel",
-                             "mma.sync GEMM": "gemm_kernel"})
-            print(f"parent_compare {name} (B, L) = ({b}, {l}) scaled: "
-                  f"earlier {t[0]:.4f} / {t[3]:.4f} ms, this tree "
-                  f"{t[1]:.4f} / {t[2]:.4f} ms (in turns: earlier, this, "
-                  f"this, earlier), {(t[0] + t[3]) / (t[1] + t[2]):.2f}x",
-                  flush=True)
+        lib = self.libs["fused_vit_block_int8"]
+        b, l, d = x.shape
+        mlp = ws[4].shape[1]
+        out = torch.empty_like(x)
+        work = torch.empty(
+            (lib.fused_vit_block_int8_workspace(b * l, d, mlp),),
+            dtype=torch.uint8, device=x.device)
+        rc = lib.fused_vit_block_int8(
+            *(t.data_ptr() for t in (x, *ws, out, work)), b, l, d, num_heads,
+            mlp, valid_len, eps, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K8 launch failed ({rc})")
+        return out
+
+    @staticmethod
+    def compare(name, shape, old, new, limits):
+        """The earlier kernel's outputs within `limits` (output index ->
+        fraction of this tree's largest value) of this tree's, then both
+        timed in turns; returns (earlier ms, this ms), the means."""
+        import torch
+        outs = [(u,) if isinstance(u, torch.Tensor) else u
+                for u in (old(), new())]
+        for i, (u, v) in enumerate(zip(*outs)):
+            err = (u.float() - v.float()).abs().max().item()
+            scale = v.float().abs().max().item()
+            check(err <= limits[i] * scale, f"parent {name} disagrees with "
+                  f"this tree's at {shape}: output {i} {err} > "
+                  f"{limits[i]} * {scale}")
+        t = [cuda_time_ms(fn) for fn in (old, new, new, old)]
+        print(f"parent_compare {name} {shape}: earlier {t[0]:.4f} / "
+              f"{t[3]:.4f} ms, this tree {t[1]:.4f} / {t[2]:.4f} ms (in "
+              f"turns: earlier, this, this, earlier), "
+              f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x", flush=True)
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
 class _Ranged:
@@ -1703,7 +1713,28 @@ K7_SHAPES = ((64, 2, 8, 256, 65536, True), (64, 2, 8, 256, 65536, False),
              (256, 2, 8, 256, 65536, True), (5, 2, 3, 256, 1024, True))
 
 
-def phase_k7():
+# K7's launches a call, in order, and the target they are held to
+K7_LAUNCHES = ("pair_index", "normalize", "stats_teacher", "stats_student",
+               "merge", "dl", "dw", "dv", "dh", "sum", "loss")
+K7_MAX_LAUNCHES = 14
+
+
+def k7_launch_split(fn, rs, rt, db, k):
+    """`k7_profile`: the launches of one K7 call, the products' TFLOP/s
+    (2 db k flops a row of each: s twice, tl, dw, dh_s); fails unless every
+    product ran `gemm_sm90_kernel` and no launch ran the kernels it
+    replaced (grad_h_kernel, grad_v_kernel, stats_kernel)."""
+    row = 2 * db * k
+    launch_split(fn, f"k7_profile (rs, rt) = ({rs}, {rt})", K7_LAUNCHES,
+                 {"stats_teacher": row * rt, "stats_student": row * rs,
+                  "dl": row * rs, "dw": row * rs, "dh": row * rs},
+                 K7_MAX_LAUNCHES,
+                 forbid=("grad_h_kernel", "grad_v_kernel", "stats_kernel"))
+
+
+def phase_k7(parent=None):
+    """Phase 10; `parent`: a ParentKernels to time beside K7 at the
+    pretrain step's batch 64 and at the CLI's default 256."""
     import torch
     from sais_tpu_torch.kernels.dino_head_loss import (
         fused_loss_and_grads, fused_loss_and_grads_reference)
@@ -1744,7 +1775,7 @@ def phase_k7():
         check(same, "K7 is not deterministic: two runs differ")
         check(zero_dg, "K7 dg is not 0 under norm_last_layer")
         del got, again, ref
-        if result or k != 65536:
+        if not norm_last or k != 65536:   # timed: batch 64 and 256
             del hs, ht, vs, vt, gs, gt, center, sel, c
             continue
         ms = cuda_time_ms(lambda: fused_loss_and_grads(*args, **kw))
@@ -1777,9 +1808,20 @@ def phase_k7():
               f"ms; bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} "
               f"GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
               f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
-        result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
-        _profile(lambda: fused_loss_and_grads(*args, **kw), "k7_profile", 3)
+        if not result:   # the pretrain step's batch goes into the kernels line
+            result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        # temp_t on the card already: a call makes only K7's launches
+        tt = torch.full((1,), 0.04, device="cuda")
+        targs = args[:7] + (tt,) + args[8:]
+        k7_launch_split(lambda: fused_loss_and_grads(*targs, **kw), rs, rt,
+                        db, k)
+        if parent is not None:
+            parent.compare(
+                "K7", (rs, rt, db, k),
+                lambda: parent.k7(*targs, **kw),
+                lambda: fused_loss_and_grads(*targs, **kw),
+                (1e-4, 1e-4, 1e-2, 1e-2, 1e-2))
         del hs, ht, vs, vt, gs, gt, center, sel, c, leaves
         torch.cuda.empty_cache()
     result["max_abs_err"] = worst
@@ -1954,7 +1996,27 @@ def k8_bound_ms(b, l, d, mlp, weight_bytes):
             att_flops, nbytes)
 
 
-def phase_k8():
+# K8's launches a call, in order, and the target they are held to
+K8_LAUNCHES = ("weight_max_LN1", "weights", "qkv", "attention",
+               "ctx_quant", "proj", "LN2", "mlp")
+K8_MAX_LAUNCHES = 10
+
+
+def k8_launch_split(fn, b, l, d, mlp):
+    """`k8_profile`: the launches of one K8 call, the products' TOP/s (the
+    MLP's 4 B L D MLP operations the function needs; its launch executes 6,
+    fc1 twice); fails unless every product ran `gemm_sm90_kernel` (its
+    int8 mode) and no launch ran the mma.sync int8 GEMM or the f32 row
+    quantizer this design removed."""
+    m = b * l
+    launch_split(fn, f"k8_profile (B, L) = ({b}, {l})", K8_LAUNCHES,
+                 {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
+                  "mlp": 4 * m * d * mlp}, K8_MAX_LAUNCHES, unit="TOP/s",
+                 forbid=("gemm_i8_kernel", "quant_rows_kernel<float>"))
+
+
+def phase_k8(parent=None):
+    """Phase 12; `parent`: a ParentKernels to time beside K8."""
     import torch
     from sais_tpu_torch.config import ViTConfig
     from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
@@ -1970,7 +2032,11 @@ def phase_k8():
         "cuda", torch.bfloat16)
     kw = dict(num_heads=heads, valid_len=valid, eps=1e-6)
     out = fused_vit_block_int8(x, *ws, **kw)
+    again = fused_vit_block_int8(x, *ws, **kw)
     torch.cuda.synchronize()
+    # int32 sums, exact maxima, per-row LayerNorm in a fixed order
+    check(torch.equal(out, again), "K8 is not deterministic: two runs differ")
+    del again
     ref = vit_block_int8_reference(x, *ws, **kw)
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -1991,7 +2057,8 @@ def phase_k8():
     rel_k1 = ((got_k1 - bf_k1).abs().max() / bf_k1.abs().max()).item()
     del x_k1, ws_k1, got_k1, bf_k1
     print(f"K8 (B, L, D) = ({b}, {l}, {d}): max|kernel-plain| {err:.4g} "
-          f"(max|plain| {scale:.4g}); against K1 on the same inputs: cosine "
+          f"(max|plain| {scale:.4g}), two runs bitwise equal; against K1 on "
+          f"the same inputs: cosine "
           f"{cos:.7f}, max relative {rel:.4g} (checked; at the K1 phase's "
           f"weights, not checked: cosine {cos_k1:.7f}, max relative "
           f"{rel_k1:.4g}); max|library-plain| {lib_err:.4g}", flush=True)
@@ -2018,7 +2085,13 @@ def phase_k8():
           f"G int8 ops + {att_flops / 1e9:.1f} GFLOP bf16, "
           f"{nbytes / 1e6:.1f} MB), kernel at {100 * bound_ms / ms:.1f}% of "
           f"the bound", flush=True)
-    _profile(lambda: fused_vit_block_int8(x, *ws, **kw), "k8_profile", 5)
+    k1_ms = cuda_time_ms(lambda: fused_vit_block(x, *ws, **kw))
+    print(f"K8 against K1 in the same call, (B, L) = ({b}, {l}): K8 "
+          f"{ms:.4f} ms, K1 {k1_ms:.4f} ms", flush=True)
+    k8_launch_split(lambda: fused_vit_block_int8(x, *ws, **kw), b, l, d, mlp)
+    if parent is not None:
+        parent.compare("K8", (b, l, d), lambda: parent.k8(x, ws, **kw),
+                       lambda: fused_vit_block_int8(x, *ws, **kw), (2e-2,))
     del x, ws, out, ref, bf, got
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -2103,8 +2176,8 @@ def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-csrc", metavar="DIR",
-                        help="an earlier tree's kernels/csrc: time its K5 "
-                        "and K6 beside this tree's in phase 9")
+                        help="an earlier tree's kernels/csrc: time its K7 "
+                        "and K8 beside this tree's in phases 10 and 12")
     args = parser.parse_args()
     t_start = time.time()
     card = phase_device()
@@ -2115,11 +2188,11 @@ def main():
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
-    train_k = phase_train_kernels(
-        ParentBackward(args.parent_csrc) if args.parent_csrc else None)
-    k7 = phase_k7()
+    train_k = phase_train_kernels()
+    parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
+    k7 = phase_k7(parent)
     pretrain_launches, _ = phase_pretrain()
-    k8 = phase_k8()
+    k8 = phase_k8(parent)
     k8_launches = phase_int8_encoder()
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",

@@ -80,9 +80,10 @@ __device__ __forceinline__ bf16* swz(bf16* t, int row, int chunk) {
   return t + row * DH + ((chunk ^ (row & 7)) << 3);
 }
 
-// The fragments of load_a_frag, load_b_frags_nk and load_b_frags_kn
-// (vit_block_common.cuh) from a swizzled tile, at (row0, col0) with col0 a
-// multiple of 8.
+// mma.sync fragments from a swizzled tile, at (row0, col0) with col0 a
+// multiple of 8: the A fragment (16 x 16) of a row-major (m, k) tile, and
+// the B fragments of two adjacent n8 tiles of an (n, k) or a (k, n) tile
+// (as load_b_frags_nk and load_b_frags_kn in vit_block_common.cuh).
 __device__ __forceinline__ void lda_sw(uint32_t* a, bf16* t, int row0,
                                        int col0, int lane) {
   ldmatrix_x4(a, swz(t, row0 + (lane & 15), (col0 >> 3) + (lane >> 4)));

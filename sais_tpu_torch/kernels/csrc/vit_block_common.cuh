@@ -1,7 +1,7 @@
 // Device code shared by the ViT-block kernels (K1 and K4 in
 // fused_vit_block.cu, K5 in fused_block_bwd_mlp.cu, K6 in
 // fused_block_bwd_attn.cu, K8 in fused_vit_block_int8.cu) and K7
-// (dino_head_loss.cu), for Hopper (sm_90a).
+// (dino_head_loss.cu, through gemm_sm90.cuh), for Hopper (sm_90a).
 //
 // - LayerNorm forward in f32 rounded to bf16 (K1, K4);
 // - the row passes of the training backward (K5, K6): a prologue that
@@ -9,14 +9,14 @@
 //   the branch cotangent, and the LayerNorm backward; both also write
 //   fixed-order partial column sums;
 // - mma.sync m16n8k16 building blocks (ldmatrix fragments, cp.async) for
-//   the attention kernels, K7 and K8 (the blocks' products run on the wgmma
-//   + TMA GEMM of gemm_sm90.cuh);
+//   the attention kernels (every other product runs on the wgmma + TMA
+//   GEMM of gemm_sm90.cuh);
 // - K1's masked softmax attention per (image, head), bf16 in and out, each
 //   query's score row in registers (K1, K4 and K8 run it);
 // - fixed-order sums of partials: every weight, bias and LayerNorm gradient
-//   is reduced over the B*L rows without atomics and without
-//   read-modify-write across blocks, so results do not depend on the order
-//   blocks run in.
+//   is reduced over the B*L rows (and K7's dh_s over out_dim) without
+//   atomics and without read-modify-write across blocks, so results do not
+//   depend on the order blocks run in.
 //
 // Nothing here allocates: the callers pass every buffer.
 
@@ -274,25 +274,6 @@ cudaError_t ln_bwd(const float* dy, const bf16* x, const float* mean,
 // Fixed-order sums of partials.
 // ---------------------------------------------------------------------------
 
-// out[i] = sum_s partial[s][i], in split order.
-__global__ void reduce_splits_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, size_t n,
-                                     int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += partial[(size_t)s * n + i];
-    out[i] = acc;
-  }
-}
-
-cudaError_t reduce_splits(const float* partial, float* out, size_t n,
-                          int splits, cudaStream_t stream) {
-  const int blocks = (int)((n + 255) / 256 < 8192 ? (n + 255) / 256 : 8192);
-  reduce_splits_kernel<<<blocks, 256, 0, stream>>>(partial, out, n, splits);
-  return cudaGetLastError();
-}
-
 // Up to six sums of partials in one launch (every weight, bias and
 // LayerNorm gradient of one K5 or K6 call): out[i] = sum_p part[p][i] for
 // each segment, in a fixed order.  A block of 256 threads takes 256 / G
@@ -381,21 +362,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
       : "r"(a));
 }
 
-// The A fragment (16 x 16) at the top left of a row-major (m, k) tile; ld
-// in elements.
-__device__ __forceinline__ void load_a_frag(uint32_t* a, const bf16* tile,
-                                            int ld, int lane) {
-  ldmatrix_x4(a, tile + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// The same A fragment from a (k, m) tile, i.e. A stored column by column.
-__device__ __forceinline__ void load_a_frag_km(uint32_t* a, const bf16* tile,
-                                               int ld, int lane) {
-  ldmatrix_x4_trans(a, tile + ((lane & 7) + ((lane >> 4) << 3)) * ld +
-                           ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two adjacent n8 tiles from a row-major (k, n) tile:
+// B fragments of two adjacent n8 tiles from a row-major (k, n) tile (K1's
+// attention; K6 has swizzled variants):
 // b[0..1] for columns 0..7, b[2..3] for columns 8..15.
 __device__ __forceinline__ void load_b_frags_kn(uint32_t* b, const bf16* tile,
                                                 int ld, int lane) {

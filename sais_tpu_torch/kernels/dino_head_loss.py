@@ -19,12 +19,13 @@ Gradients (p = softmax(s), s = l / temp_s):
          dg = u . dw when norm_last_layer=False (else du = dw, dg = 0).
 The teacher inputs get no gradient.
 
-`fused_loss_and_grads` launches the CUDA kernel (`csrc/dino_head_loss.cu`)
-for CUDA tensors, counted in its `.launches`, and runs the plain version
-`fused_loss_and_grads_reference` for CPU tensors; it never falls back from
-one to the other.  The TPU kernel's 8-row padding and its rescaled center
-are MXU tiling choices: the port takes exact shapes, and the center is the
-mean over the real teacher rows.
+`fused_loss_and_grads` launches the CUDA kernel (`csrc/dino_head_loss.cu`:
+every product on the wgmma + TMA GEMM of `csrc/gemm_sm90.cuh`, dl stored
+once in bf16) for CUDA tensors, counted in its `.launches`, and runs the
+plain version `fused_loss_and_grads_reference` for CPU tensors; it never
+falls back from one to the other.  The TPU kernel's 8-row padding and its
+rescaled center are MXU tiling choices: the port takes exact shapes, and
+the center is the mean over the real teacher rows.
 """
 
 from __future__ import annotations
@@ -142,6 +143,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dino_head_loss_workspace.argtypes = [i32] * 4
     lib.dino_head_loss_workspace.restype = ctypes.c_size_t
+    lib.dino_head_loss_offsets.argtypes = [i32] * 4 + [ptr]
+    lib.dino_head_loss_offsets.restype = None
     lib.dino_head_loss.argtypes = ([ptr] * 16 + [i32] * 5 + [f32] * 3
                                    + [ptr])
     lib.dino_head_loss.restype = i32
@@ -164,20 +167,10 @@ def _cuda_operand(t, name, shape, dtype):
     return t.to(dtype).contiguous()
 
 
-def fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
-                         student_temp: float, inv_norm: float, use_g: bool):
-    """K7: (loss, batch_center, dhs, dvs, dgs) as
-    `fused_loss_and_grads_reference` defines them.  CUDA tensors: the
-    hand-written kernel (counted in `fused_loss_and_grads.launches`); CPU
-    tensors: the plain version.  temp_t may be a float or a one-element
-    tensor; it is read on the device, so a tensor costs no host sync."""
-    _check_out_dim(vs.shape[1])
-    if hs.device.type == "cpu":
-        return fused_loss_and_grads_reference(
-            hs, ht, vs, vt, gs, gt, center, temp_t, sel, c,
-            student_temp=student_temp, inv_norm=inv_norm, use_g=use_g)
-    if hs.device.type != "cuda":
-        raise ValueError(f"fused_loss_and_grads: no kernel for {hs.device}")
+def _run_kernel(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
+                student_temp, inv_norm, use_g):
+    """One launch of the CUDA kernel: ((loss, batch_center, dhs, dvs, dgs),
+    its f32 workspace)."""
     rs, db = hs.shape
     rt, k = ht.shape[0], vs.shape[1]
     if db not in BOTTLENECKS:
@@ -221,11 +214,70 @@ def fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
     if rc != 0:
         raise RuntimeError("K7 CUDA launch failed: "
                            + lib.sais_cuda_error_string(rc).decode())
+    return (loss, bc, dhs, dvs, dgs), workspace
+
+
+def fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
+                         student_temp: float, inv_norm: float, use_g: bool):
+    """K7: (loss, batch_center, dhs, dvs, dgs) as
+    `fused_loss_and_grads_reference` defines them.  CUDA tensors: the
+    hand-written kernel (counted in `fused_loss_and_grads.launches`); CPU
+    tensors: the plain version.  temp_t may be a float or a one-element
+    tensor; it is read on the device, so a tensor costs no host sync."""
+    _check_out_dim(vs.shape[1])
+    if hs.device.type == "cpu":
+        return fused_loss_and_grads_reference(
+            hs, ht, vs, vt, gs, gt, center, temp_t, sel, c,
+            student_temp=student_temp, inv_norm=inv_norm, use_g=use_g)
+    if hs.device.type != "cuda":
+        raise ValueError(f"fused_loss_and_grads: no kernel for {hs.device}")
+    out, _ = _run_kernel(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c,
+                         student_temp=student_temp, inv_norm=inv_norm,
+                         use_g=use_g)
     fused_loss_and_grads.launches += 1
-    return loss, bc, dhs, dvs, dgs
+    return out
 
 
 fused_loss_and_grads.launches = 0
+
+# Tile width of the kernel's per-row statistics (csrc/gemm_sm90.cuh: BN).
+STATS_TILE = 192
+
+
+def k7_intermediates(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
+                     student_temp: float, inv_norm: float, use_g: bool):
+    """The card tests' view of K7's epilogues: one launch of the kernel on
+    CUDA tensors (counted in `k7_intermediates.launches`) and, read from
+    its workspace, the student's and the teacher's per-(row, 192-column
+    tile) max and sum exp ("ms", "ls", "mt", "lt", each (rows, tiles)),
+    "lse_s" (rs,), the teacher probabilities "q" (rt, k) f32 and "dl"
+    (rs, k) bf16, beside its outputs ("out")."""
+    if hs.device.type != "cuda":
+        raise ValueError("k7_intermediates reads the CUDA kernel's "
+                         "workspace; it takes CUDA tensors only")
+    _check_out_dim(vs.shape[1])
+    out, ws = _run_kernel(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c,
+                          student_temp=student_temp, inv_norm=inv_norm,
+                          use_g=use_g)
+    k7_intermediates.launches += 1
+    rs, db = hs.shape
+    rt, k = ht.shape[0], vs.shape[1]
+    tiles = -(-k // STATS_TILE)
+    offsets = (ctypes.c_size_t * 7)()
+    _lib().dino_head_loss_offsets(rs, rt, db, k, offsets)
+    views = {}
+    for name, o, shape in zip(
+            ("ms", "ls", "mt", "lt", "lse_s", "q"), offsets,
+            ((rs, tiles), (rs, tiles), (rt, tiles), (rt, tiles), (rs,),
+             (rt, k))):
+        views[name] = ws[o:o + int(np.prod(shape))].view(shape)
+    dl = ws[offsets[6]:].view(torch.bfloat16)[:rs * k]
+    views["dl"] = dl.view(rs, k)
+    views["out"] = out
+    return views
+
+
+k7_intermediates.launches = 0
 
 
 class FusedDinoLoss(torch.autograd.Function):

@@ -18,7 +18,7 @@ residual -> LN -> tanh-GELU MLP + residual) on hand-written CUDA kernels:
   -> int32 products with per-token activation and per-channel weight
   scales, attention in bf16 (`fused_vit_block_int8`, body
   `_block_kernel_int8`), with own copies of `quantize_weight` and
-  `quant_rows`.
+  `quant_rows`; its qkv / proj product alone is `block_gemm_int8`.
 
 Each wrapper launches its kernel (`csrc/fused_vit_block.cu`,
 `csrc/fused_block_bwd_mlp.cu`, `csrc/fused_block_bwd_attn.cu`,
@@ -171,12 +171,36 @@ def quant_rows(y32):
             scale)
 
 
+def int8_products(q, wq):
+    """The int32 products q @ wq of int8 operands, as float64: the integer
+    sums are exact there (|acc| <= 127**2 K < 2**53), so they equal the
+    kernel's int32 ones."""
+    return torch.matmul(q.double(), wq.double())
+
+
 def _int8_mm(q, row_scale, wq, ws, b):
-    """f32(q @ wq) * row_scale * ws + f32(b) (JAX `_int8_mm`).  The integer
-    sums are exact in float64 (|acc| <= 127**2 K < 2**53), so the product
-    equals the kernel's int32 one."""
-    acc = torch.matmul(q.double(), wq.double()).float()
-    return acc * row_scale * ws + b.float()
+    """f32(q @ wq) * row_scale * ws + f32(b) (JAX `_int8_mm`; int32 to f32
+    rounded to nearest)."""
+    return int8_products(q, wq).float() * row_scale * ws + b.float()
+
+
+# K8's int8 GEMM epilogues (`block_gemm_int8`), in the C entry's order.
+GEMM_I8_EPILOGUES = ("bf16", "residual")
+
+
+def block_gemm_int8_reference(q, q_scale, wq, w_scale, bias, epilogue: str,
+                              residual=None):
+    """Plain version of K8's qkv and proj products: v = `_int8_mm(q,
+    q_scale, wq, w_scale, bias)` with q (M, K) int8 and q_scale (M, 1) f32
+    (`quant_rows`), wq (K, N) int8 and w_scale (1, N) f32
+    (`quantize_weight`), bias (N,); "bf16": bf16(v); "residual":
+    residual + bf16(v) in bf16."""
+    v = _int8_mm(q, q_scale, wq, w_scale, bias).to(torch.bfloat16)
+    if epilogue == "bf16":
+        return v
+    if epilogue == "residual":
+        return residual + v
+    raise ValueError(f"epilogue {epilogue!r} not in {GEMM_I8_EPILOGUES}")
 
 
 def vit_block_int8_reference(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
@@ -305,6 +329,10 @@ HEAD_DIM = 64
 MAX_LEN = 256
 K_TILE = 64
 MAX_BWD_DIM = 768   # K5 and K6: a lane keeps D / 32 column sums
+# K8's MLP launch: two consumer warpgroups of 192 output columns each (D a
+# multiple of 384 up to 768, ViT-S and ViT-B), fc1 in slices of 256 hidden
+# columns
+INT8_D_STEP, INT8_MAX_D, INT8_MLP_SLICE = 384, 768, 256
 
 
 def _check_operands(name, tensors, shapes):
@@ -400,6 +428,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_vit_block_int8.argtypes = (
             [ptr] * 15 + [i32] * 6 + [ctypes.c_float, ptr])
         lib.fused_vit_block_int8.restype = i32
+        lib.vit_block_gemm_i8.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.vit_block_gemm_i8.restype = i32
     lib.sais_cuda_error_string.argtypes = [i32]
     lib.sais_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -528,14 +558,65 @@ def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None,
 block_gemm.launches = 0
 
 
+def block_gemm_int8(q, q_scale, wq, w_scale, bias, epilogue: str,
+                    residual=None):
+    """K8's qkv / proj product alone, in the modes of
+    `block_gemm_int8_reference` (a residual with "residual" only).  CUDA
+    tensor: the int8 mode of the wgmma + TMA GEMM (`csrc/gemm_sm90.cuh`,
+    s8 x s8 -> s32, the weight passed transposed, (N, K), as K8 stores it;
+    counted in `block_gemm_int8.launches`), which the card tests hold
+    against an exact integer product; CPU tensor: the plain version."""
+    if epilogue not in GEMM_I8_EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r} not in {GEMM_I8_EPILOGUES}")
+    if (residual is None) != (epilogue != "residual"):
+        raise ValueError("the residual epilogue takes a residual; the other "
+                         "does not")
+    if not _on_cuda(q, "block_gemm_int8"):
+        return block_gemm_int8_reference(q, q_scale, wq, w_scale, bias,
+                                         epilogue, residual)
+    if q.dtype != torch.int8 or wq.dtype != torch.int8 or q.dim() != 2 \
+            or wq.dim() != 2 or q.shape[1] != wq.shape[0]:
+        raise ValueError(f"block_gemm_int8 takes int8 q (M, K) and wq (K, "
+                         f"N); got {q.dtype} {tuple(q.shape)} and "
+                         f"{wq.dtype} {tuple(wq.shape)}")
+    (m, k), n = q.shape, wq.shape[1]
+    if k % 16 or n % K_TILE:
+        raise ValueError(f"K={k} must be a multiple of 16 and N={n} of "
+                         f"{K_TILE}")
+    if q_scale.numel() != m or w_scale.numel() != n:
+        raise ValueError("q_scale takes one scale a row, w_scale one a "
+                         "column")
+    _check_operands("block_gemm_int8", *zip(*(
+        (t, s) for t, s in ((bias, (n,)), (residual, (m, n)))
+        if t is not None)))
+    q = q.contiguous()
+    wt = wq.t().contiguous()
+    qs = q_scale.reshape(m).float().contiguous()
+    ws = w_scale.reshape(n).float().contiguous()
+    if q.data_ptr() % 16 or bias.device != q.device:
+        raise ValueError("block_gemm_int8 operands must be 16-byte aligned "
+                         "and on one device")
+    lib = _lib("fused_vit_block_int8")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=q.device)
+    _launch(lib, lib.vit_block_gemm_i8, "block_gemm_int8", q.device,
+            *(_ptr(t) for t in (q, qs, wt, ws, bias, residual, out)),
+            m, n, k, GEMM_I8_EPILOGUES.index(epilogue))
+    block_gemm_int8.launches += 1
+    return out
+
+
+block_gemm_int8.launches = 0
+
+
 def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
                          fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
                          num_heads: int, valid_len: int,
                          eps: float = 1e-6) -> torch.Tensor:
     """K8, one pre-norm ViT block with W8A8 products (the weights quantized
-    at every call).  CUDA tensor: the hand-written kernel (bf16 only,
-    counted in `fused_vit_block_int8.launches`).  CPU tensor: the plain
-    version `vit_block_int8_reference`."""
+    at every call).  CUDA tensor: the hand-written kernel (bf16 only, D a
+    multiple of 384 up to 768 and an MLP width a multiple of 256; counted
+    in `fused_vit_block_int8.launches`).  CPU tensor: the plain version
+    `vit_block_int8_reference`."""
     weights = (qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b,
                ln1_s, ln1_b, ln2_s, ln2_b)
     if not _on_cuda(x, "fused_vit_block_int8"):
@@ -544,6 +625,12 @@ def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
     _check_cuda_args(x, weights, num_heads, valid_len)
     b, l, d = x.shape
     mlp = fc1_w.shape[1]
+    if d % INT8_D_STEP or d > INT8_MAX_D or mlp % INT8_MLP_SLICE:
+        raise NotImplementedError(
+            f"K8 takes D a multiple of {INT8_D_STEP} up to {INT8_MAX_D} and "
+            f"an MLP width a multiple of {INT8_MLP_SLICE} (its fused MLP "
+            f"gives each of two warpgroups 192 output columns); got D={d}, "
+            f"MLP {mlp}")
     lib = _lib("fused_vit_block_int8")
     out = torch.empty_like(x)
     workspace = torch.empty(

@@ -730,6 +730,51 @@ def test_k7_function_gradients_on_card(cuda):
     assert all(leaf.grad is None for leaf in leaves[3:])
 
 
+@pytest.mark.parametrize("batch,n_local,db,k", [(5, 3, 256, 1024),
+                                                (8, 8, 128, 2048)])
+def test_k7_epilogues_match_plain_formulas(cuda, batch, n_local, db, k):
+    """K7's new epilogues alone, read from its workspace, against the
+    formulas on cuBLAS products: the row statistics of each 192-column tile
+    (max and sum exp), the teacher probabilities q = exp(ts - lse_t) and
+    lse_s within 1e-5 of the largest value (the products summed in another
+    order), and dl (bf16) within 1e-2 of it (a rounding tie of dl's f32
+    value moves one element by a bf16 step)."""
+    from sais_tpu_torch.kernels.dino_head_loss import (k7_intermediates,
+                                                       normed_w)
+    hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(
+        batch, 2, n_local, db, k, seed=k + 1)
+    inv_norm = 1.0 / (batch * 2 * (1 + n_local))
+    got = k7_intermediates(hs, ht, vs, vt, gs, gt, center, 0.07, sel, c,
+                           student_temp=0.1, inv_norm=inv_norm, use_g=True)
+    torch.cuda.synchronize()
+    w = [normed_w(v, g, True)[0].bfloat16().float() for v, g in
+         ((vs, gs), (vt, gt))]
+    s = (hs.float() @ w[0]) * 10.0
+    ts = (ht.float() @ w[1] - center) / 0.07
+
+    def stats(x):
+        tiles = [x[:, a:a + 192] for a in range(0, k, 192)]
+        m = torch.stack([t.amax(1) for t in tiles], 1)
+        return m, torch.stack([torch.exp(t - t.amax(1, keepdim=True)).sum(1)
+                               for t in tiles], 1)
+
+    def lse(m, l_):
+        top = m.amax(1, keepdim=True)
+        return (top + torch.log((l_ * torch.exp(m - top)).sum(
+            1, keepdim=True)))[:, 0]
+
+    for name, x in (("s", s), ("t", ts)):
+        m, l_ = stats(x)
+        _close(got["m" + name], m, "m" + name, rel=1e-5)
+        _close(got["l" + name], l_, "l" + name, rel=1e-5)
+    _close(got["lse_s"], lse(*stats(s)), "lse_s", rel=1e-5)
+    q = torch.exp(ts - lse(*stats(ts))[:, None])
+    _close(got["q"], q, "q", rel=1e-5)
+    p = torch.exp(s - got["lse_s"][:, None])
+    dl = ((c * p - sel @ got["q"]) * (10.0 * inv_norm)).bfloat16().float()
+    _close(got["dl"].float(), dl, "dl", rel=1e-2)
+
+
 def test_k7_rejects_what_it_does_not_take(cuda):
     from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
     hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(2, 2, 2, 256, 256, seed=0)
@@ -778,6 +823,68 @@ def test_k8_rejects_what_it_does_not_take(cuda):
         fused_vit_block_int8(x.float(), *ws, num_heads=6, valid_len=20)
     with pytest.raises(ValueError, match="head dim"):
         fused_vit_block_int8(x, *ws, num_heads=4, valid_len=20)
+    # the fused MLP gives each of two warpgroups 192 output columns
+    x, ws = _inputs(0, 2, 20, d=512, mlp=2048)
+    with pytest.raises(NotImplementedError, match="multiple of 384"):
+        fused_vit_block_int8(x, *ws, num_heads=8, valid_len=20)
+
+
+def test_k8_is_bitwise_repeatable(cuda):
+    """K8 twice on the same inputs: the same bits (int32 sums, exact
+    maxima, per-row LayerNorm in a fixed order)."""
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block_int8
+    x, ws = _inputs(5, 16, 197)
+    kw = dict(num_heads=6, valid_len=197)
+    first = fused_vit_block_int8(x, *ws, **kw)
+    second = fused_vit_block_int8(x, *ws, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_k8_takes_vit_b_width(cuda):
+    """K8 at ViT-B widths (D 768, 12 heads, MLP 3072: two blocks of 384
+    output columns each recompute fc1) against its plain version."""
+    from sais_tpu_torch.kernels.fused_mha import (fused_vit_block_int8,
+                                                  vit_block_int8_reference)
+    x, ws = _inputs(6, 3, 50, d=768, mlp=3072)
+    kw = dict(num_heads=12, valid_len=45)
+    out = fused_vit_block_int8(x, *ws, **kw).float()
+    ref = vit_block_int8_reference(x, *ws, **kw).float()
+    _close(out[:, :45], ref[:, :45], "out")
+
+
+# (N, K) of K8's qkv and proj products and of its fc1 and fc2 shapes; M:
+# the W8A8 encoder's 256 x 197 rows, ragged counts
+I8_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536)]
+I8_M = [50432, 591, 7]
+
+
+@pytest.mark.parametrize("epilogue", ["bf16", "residual"])
+@pytest.mark.parametrize("m", I8_M)
+@pytest.mark.parametrize("n,k", I8_NK)
+def test_int8_gemm_matches_exact_integer_product(cuda, n, k, m, epilogue):
+    """The int8 mode of the wgmma + TMA GEMM alone against its plain
+    version on the same operands (float64 integer products, exact, then
+    the same dequantize and bf16 rounding): equal to the bit."""
+    from sais_tpu_torch.kernels.fused_mha import (block_gemm_int8,
+                                                  block_gemm_int8_reference,
+                                                  quant_rows,
+                                                  quantize_weight)
+    g = torch.Generator().manual_seed(m + n + k)
+    q, qs = quant_rows(torch.randn((m, k), generator=g))
+    wq, ws = quantize_weight(0.05 * torch.randn((k, n), generator=g))
+    bias = (0.05 * torch.randn((n,), generator=g)).bfloat16()
+    resid = None
+    if epilogue == "residual":
+        resid = torch.randn((m, n), generator=g).bfloat16().to(cuda)
+    args = [t.to(cuda) for t in (q, qs, wq, ws, bias)]
+    before = block_gemm_int8.launches
+    out = block_gemm_int8(*args, epilogue, resid)
+    torch.cuda.synchronize()
+    assert block_gemm_int8.launches == before + 1
+    ref = block_gemm_int8_reference(*args, epilogue, resid)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
 
 
 def test_vit_int8_path_runs_k8_only(cuda):

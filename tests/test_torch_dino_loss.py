@@ -301,3 +301,114 @@ def test_fused_head_matches_plain_head_forward():
     # another order (crop-major after the regroup)
     assert np.abs(_np(bc) - _np(ref_bc)).max() <= 1e-5 * np.abs(
         _np(ref_bc)).max()
+
+
+# ---------------------------------------------------------------------------
+# K7's card decomposition (csrc/dino_head_loss.cu on the wgmma GEMM of
+# csrc/gemm_sm90.cuh) emulated in PyTorch and held against the Pallas kernel.
+# ---------------------------------------------------------------------------
+
+TILE = 192   # out_dim columns of a GEMM tile
+
+
+def _card_splits(rows, cols, k):
+    """dh_s's split of K = out_dim (gemm_sm90.cuh, wgrad_splits): about 132
+    blocks over the (rows / 128) x (cols / 192) output tiles, whole 64-wide
+    k tiles a split.  Returns the splits' column bounds."""
+    tiles = -(-rows // 128) * -(-cols // 192)
+    ktiles = -(-k // 64)
+    want = max(1, min(132 // tiles, ktiles))
+    per = -(-ktiles // want) * 64
+    return [(a, min(a + per, k)) for a in range(0, k, per)]
+
+
+def _row_stats(x):
+    """Per 192-column tile, each row's (max, sum exp(x - max)); merged in
+    tile order: lse = m + log(max(sum_i l_i exp(m_i - m), 1e-30))."""
+    tiles = [x[:, a:a + TILE] for a in range(0, x.shape[1], TILE)]
+    m = torch.stack([t.amax(1) for t in tiles], 1)
+    l_ = torch.stack([torch.exp(t - t.amax(1, keepdim=True)).sum(1)
+                      for t in tiles], 1)
+    top = m.amax(1, keepdim=True)
+    return top + torch.log(torch.clamp(
+        (l_ * torch.exp(m - top)).sum(1, keepdim=True), min=1e-30))
+
+
+def k7_in_card_order(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
+                     student_temp, inv_norm, use_g):
+    """Steps 3-11 of dino_head_loss.cu in f32: tile statistics merged in
+    tile order, q = exp(ts - lse_t), the center from 64-row halves' column
+    sums, qbar over each row's pairs in ascending teacher order, the loss
+    from (64-row half, tile) partials, dl stored in bf16, dw = hs^T dl then
+    dv and dg over 8 row parts in order, dh_s as split partials summed in
+    split order."""
+    inv_ts, inv_tt = 1.0 / student_temp, 1.0 / temp_t
+    hs, ht = hs.bfloat16().float(), ht.bfloat16().float()
+    ws, us, ns = tloss.normed_w(vs, gs, use_g)
+    wsb = ws.bfloat16().float()
+    wtb = tloss.normed_w(vt, gt, use_g)[0].bfloat16().float()
+    rs, rt = hs.shape[0], ht.shape[0]
+    tl = ht @ wtb
+    ts = (tl - center.reshape(1, -1)) * inv_tt
+    q = torch.exp(ts - _row_stats(ts))
+    halves = [tl[a:a + 64].sum(0) for a in range(0, rt, 64)]
+    center_b = torch.stack(halves).sum(0) / rt
+    s = (hs @ wsb) * inv_ts
+    lse_s = _row_stats(s)
+    qbar = torch.zeros_like(s)
+    for r in range(rs):
+        for t in torch.nonzero(sel[r])[:, 0].tolist():   # ascending
+            qbar[r] += sel[r, t] * q[t]
+    term = -qbar * s
+    loss_parts = [term[a:a + 64, b:b + TILE].sum() for a in range(0, rs, 64)
+                  for b in range(0, s.shape[1], TILE)]
+    loss = (torch.stack(loss_parts).sum()
+            + (c.reshape(-1, 1) * lse_s).sum()) * inv_norm
+    p = torch.exp(s - lse_s)
+    dl = ((c.reshape(-1, 1) * p - qbar) * (inv_ts * inv_norm)).bfloat16()
+    dl = dl.float()
+    dw = hs.t() @ dl
+    du = dw * gs.reshape(1, -1) if use_g else dw
+    parts = du.shape[0] // 8
+    sud = sum((us * du)[i * parts:(i + 1) * parts].sum(0) for i in range(8))
+    dgs = (sum((us * dw)[i * parts:(i + 1) * parts].sum(0) for i in range(8))
+           if use_g else torch.zeros_like(sud))
+    dvs = (du - us * sud) / ns
+    dhs = sum(dl[:, a:b] @ wsb[:, a:b].t()
+              for a, b in _card_splits(rs, hs.shape[1], s.shape[1]))
+    return loss, center_b, dhs, dvs, dgs
+
+
+@pytest.mark.parametrize("norm_last", [True, False])
+@pytest.mark.parametrize("k", [K, 640])
+def test_card_decomposition_matches_pallas_kernel(norm_last, k):
+    """K7's card decomposition against _fused_loss_and_grads(interpret=True)
+    at the card's limits (loss and center 1e-4 relative; dhs, dvs, dgs
+    1e-2 of the largest value; dgs exactly 0 under norm_last_layer), at
+    out_dims that leave a ragged last tile of 128 and 64 columns."""
+    hs, ht, vs, vt, gs, gt, center = _inputs(5)
+    if k != K:
+        rng = np.random.default_rng(6)
+        vs, vt = (rng.standard_normal((DB, k)).astype(np.float32)
+                  for _ in range(2))
+        gs, gt = ((1.0 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+                  for _ in range(2))
+        center = (0.01 * rng.standard_normal(k)).astype(np.float32)
+    sel, c = jloss.build_pair_structure(B, NG, NL)
+    ref = jloss._fused_loss_and_grads(
+        jnp.asarray(hs, jnp.bfloat16), jnp.asarray(ht, jnp.bfloat16),
+        jnp.asarray(vs), jnp.asarray(vt), jnp.asarray(gs), jnp.asarray(gt),
+        jnp.asarray(center), jnp.float32(TEMP_T), jnp.asarray(sel),
+        jnp.asarray(c), student_temp=TEMP_S, inv_norm=INV_NORM,
+        use_g=not norm_last, interpret=True)
+    got = k7_in_card_order(
+        _t(hs), _t(ht), _t(vs), _t(vt), _t(gs), _t(gt), _t(center), TEMP_T,
+        _t(sel), _t(c), student_temp=TEMP_S, inv_norm=INV_NORM,
+        use_g=not norm_last)
+    for name, a, r in zip(("loss", "center", "dhs", "dvs", "dgs"), got, ref):
+        a, r = _np(a), _np(r)
+        assert a.shape == r.shape, name
+        rel = 1e-4 if name in ("loss", "center") else 1e-2
+        assert np.abs(a - r).max() <= rel * np.abs(r).max(), name
+    if norm_last:
+        assert not got[4].any()
