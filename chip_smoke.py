@@ -40,7 +40,29 @@ Phases, each of which fails the run:
    16-token windows stay dense); features and probabilities are checked
    against the same path through the plain version.  Extraction frames/s
    is the median of three timed runs after a warm-up at the same shapes.
-6. steps path at full width (`steps --stride-divisor 4096 --flash on`):
+6. flow path at full width (`pipeline -mod RGB-Flow` without the video
+   I/O): random RAFT 'things' weights (raft_init, 32 iterations) and the
+   gesture path's ViT-S/16 and fold, 300 synthetic 480x640 frames (one
+   random texture of 8-pixel cells moving 2 pixels a frame, numpy seed 0):
+   FlowExtractor.extract_video over them (jump 15: 19 pairs, two batches
+   of 8 and a tail of 3 padded to 8; bf16 encoders, the rest of RAFT in
+   float32, then the device renderer, preprocess and the ViT on K1), then
+   GestureDecoder(-mod RGB-Flow) over the gesture path's RGB features and
+   these flow features.  Checks: RAFT alone in float32 against float64 on
+   the card (one pair at 240x320, 3 iterations; rtol 1e-3, atol 2e-3);
+   the device renderer within 1 uint8 level of the host renderer on the
+   path's flow fields; the flow features against the same rendered frames
+   through K1's plain version and against the staged route (host
+   rendering, then FeatureExtractor.extract_array; both 5e-2 of the
+   largest value); K1 launches 12 times per ViT batch; window
+   probabilities on the card against the same decoder on the CPU (1e-2).
+   Prints RAFT's ms per pair at batch 8 by CUDA events, split into
+   encoders, correlation pyramid, update loop and upsampling, its
+   TFLOP/s against the operations counted from the conv shapes, the
+   path's pairs/s (host clock, median of three after a warm-up), its peak
+   device memory and the share of its device time that RAFT and the ViT
+   take (torch.profiler ranges).
+7. steps path at full width (`steps --stride-divisor 4096 --flash on`):
    StepRecognizer over a synthetic 20,000-frame feature track (11.1 min at
    30 fps, numpy seed 0): 132 windows x 3 TTA offsets of 301 / 298 / 295
    tokens, CSV to a temporary directory.  K2 must launch exactly 12 times
@@ -48,7 +70,7 @@ Phases, each of which fails the run:
    against the same path through K2's plain version (on the CPU) and
    against the dense path.  Wall time is the median of three after a
    warm-up at the same shapes.
-7. K3 (flash_attention_bwd), f32, H = 4, Dh = 96: the CUDA kernel against
+8. K3 (flash_attention_bwd), f32, H = 4, Dh = 96: the CUDA kernel against
    its plain version (dq, dk, dv) at (B*S, L) = (132, 301), the steps
    shape, (8, 2001) with masked tails that differ per element and one
    element with every key masked (its cotangent is zero, as
@@ -60,7 +82,7 @@ Phases, each of which fails the run:
    scaled_dot_product_attention (f32, additive mask; forward + backward
    minus forward); the least time the card could take (3xTF32, with the
    f32 FFMA bound beside it).
-8. training path at full width (`train --segments ... -bc -e 2 -bs 32
+9. training path at full width (`train --segments ... -bc -e 2 -bs 32
    -lr 0.1 --flash on` without the CSV and H5 I/O): a synthetic in-memory
    feature store (16 videos x 3,000 frames x 384, numpy seed 0) and
    segments table (24 segments of 45-150 frames per video, two classes),
@@ -81,7 +103,7 @@ Phases, each of which fails the run:
    (batch 2, inference mode) on K2 against the dense path at 301, 512,
    1024, 2001 and 8193 tokens, median of five CUDA-event runs each, and
    the length from which flash is faster.
-9. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
+10. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
    (fused_block_bwd_attn), bf16, D = 384, 6 heads of 64, MLP 1536: each
    CUDA kernel against its plain version (out and x1; dx1 and the f32 MLP
    weight gradients; dx and the f32 attention weight gradients) at the
@@ -98,7 +120,7 @@ Phases, each of which fails the run:
    share of K6 at (128, 197) and (512, 37), and fail unless every product
    ran the wgmma + TMA GEMM (none the mma.sync template) and a call makes
    at most 11 (K5) and 12 (K6) launches.
-10. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
+11. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
    norm_last_layer; two runs bitwise equal) at the pretrain step's shape
@@ -114,7 +136,7 @@ Phases, each of which fails the run:
    14 launches.  With `--parent-csrc DIR` (an earlier tree's
    kernels/csrc), its K7 and K8 are built and timed beside this tree's,
    in turns, at both batches and at K8's shape.
-11. pretrain path at full width (`pretrain -bs 64` without the video
+12. pretrain path at full width (`pretrain -bs 64` without the video
    I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
    local at 96, drop path 0.1, adamw, fused blocks, fused loss) from
    fixed seeds, 64 synthetic 480x640 frames (numpy seed 0), border crop
@@ -126,7 +148,7 @@ Phases, each of which fails the run:
    draws, against the same step through the plain versions on the card
    (loss 1e-3 relative, each gradient 5e-2 of its largest value); the
    loss with fused_loss=False printed beside it.
-12. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
+13. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
    CUDA kernel against its plain version (2e-2 of its largest value), two
    runs bitwise equal, and against K1 on the same inputs (cosine >
    0.9999, max relative < 0.02, JAX's limits; the reading at the K1
@@ -137,18 +159,18 @@ Phases, each of which fails the run:
    failing unless every product ran `gemm_sm90_kernel` (its int8 mode),
    no launch the mma.sync gemm_i8_kernel or quant_rows_kernel<float>, and
    a call makes at most 10 launches.
-13. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
+14. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
    and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
    and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
    frames/s beside the bf16 path's (median of three after a warm-up).
-14. prints the kernels line (JSON), then, last, the device line (JSON).
+15. prints the kernels line (JSON), then, last, the device line (JSON).
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
 K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls,
 K7 and K8 calls (per launch), one pretrain step (with K4's, K5's, K6's,
 K1's and K7's shares, read from profiler ranges: K1 and K4 share their
-kernels' names).
+kernels' names) and one flow extraction (RAFT's and the ViT's shares).
 """
 
 from __future__ import annotations
@@ -799,6 +821,277 @@ def phase_main_path(nframes: int):
     check(perr <= 1e-2, f"window probabilities differ by {perr}")
     _profile(lambda: fx.extract_array(frames), "extract_profile", 1)
     _profile(lambda: dec.decode("smoke", feats), "decode_profile", 1)
+    return launches, feats
+
+
+def texture_frames(nframes: int, h: int = 480, w: int = 640, step: int = 2,
+                   seed: int = 0):
+    """`nframes` views of one random texture of 8-pixel cells moving `step`
+    pixels to the left a frame (numpy only: no cv2 on the card's
+    machine)."""
+    import numpy as np
+    width = w + step * nframes
+    cells = np.random.default_rng(seed).integers(
+        0, 256, (h // 8, width // 8 + 1, 3), dtype=np.uint8)
+    base = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)
+    return [base[:, step * i:step * i + w] for i in range(nframes)]
+
+
+def raft_flops(model, h: int, w: int, iters: int):
+    """Operations one pair needs at h x w (multiples of 8), counted from the
+    conv shapes as 2 * cin * cout * kh * kw per output pixel: the feature
+    encoder on both frames and the context encoder on the first, the
+    all-pairs correlation (2 * N^2 * D over N = h/8 * w/8 pixels), `iters`
+    passes of the update block's convolutions and the mask head once.
+    The lookup, the GRU's gates and the upsampling are elementwise and not
+    counted."""
+    import torch.nn as nn
+
+    def conv(c, scale):
+        kh, kw = c.kernel_size
+        return (2 * c.in_channels * c.out_channels * kh * kw
+                * (h // scale) * (w // scale))
+
+    def encoder(enc):
+        total = conv(enc.conv1, 2) + conv(enc.conv2, 8)
+        for i, scale in ((1, 2), (2, 4), (3, 8)):
+            for blk in getattr(enc, f"layer{i}"):
+                total += conv(blk.conv1, scale) + conv(blk.conv2, scale)
+                if blk.downsample is not None:
+                    total += conv(blk.downsample[0], scale)
+        return total
+
+    upd = model.update_block
+    loop = [m for part in (upd.encoder, upd.gru, upd.flow_head)
+            for m in part.modules() if isinstance(m, nn.Conv2d)]
+    n = (h // 8) * (w // 8)
+    return {"encoders": 2 * encoder(model.fnet) + encoder(model.cnet),
+            "correlation": 2 * n * n * model.cfg.feature_dim,
+            "update loop": iters * sum(conv(c, 8) for c in loop),
+            "upsampling": conv(upd.mask[0], 8) + conv(upd.mask[2], 8)}
+
+
+def raft_split_ms(model, cfg, a, b, iters: int):
+    """CUDA-event ms of RAFT's stages on one batch of pairs (a, b: uint8 on
+    the card) and of the whole forward, with the pipeline's dtypes."""
+    import torch
+    from sais_tpu_torch.models import raft as r
+    bf16 = torch.bfloat16
+    with torch.inference_mode(), r.full_f32():
+        out = {"encoders": cuda_time_ms(
+            lambda: r.encode(model, a, b, cfg, bf16), iters=5, warmup=1)}
+        f1, f2, net, inp = r.encode(model, a, b, cfg, bf16)
+        out["correlation"] = cuda_time_ms(
+            lambda: r.corr_pyramid(f1, f2, cfg.corr_levels), iters=5,
+            warmup=1)
+        pyramid = r.corr_pyramid(f1, f2, cfg.corr_levels)
+        out["update loop"] = cuda_time_ms(
+            lambda: r.refine(model, pyramid, net, inp, cfg.corr_radius,
+                             iters), iters=3, warmup=1)
+        net, flow = r.refine(model, pyramid, net, inp, cfg.corr_radius,
+                             iters)
+        out["upsampling"] = cuda_time_ms(
+            lambda: r.upsample_flow(flow,
+                                    model.update_block.upsample_mask(net)),
+            iters=5, warmup=1)
+        del pyramid
+        out["whole"] = cuda_time_ms(
+            lambda: r.raft_forward(model, a, b, cfg, iters, bf16), iters=3,
+            warmup=1)
+    return out
+
+
+def phase_flow(rgb_feats, card: str, nframes: int = 300):
+    """The flow path: RAFT -> flow rendering -> ViT (K1) -> RGB-Flow
+    decoding, at full width (phase 6 of the module docstring)."""
+    import contextlib
+    import copy
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import ModelConfig, PipelineConfig
+    from sais_tpu_torch.infer.pipeline import FlowExtractor, GestureDecoder
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block
+    from sais_tpu_torch.models import raft as raft_mod
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+    from sais_tpu_torch.models.vit import vit_forward_fused, vit_init
+    from sais_tpu_torch.ops.flow_viz import (flow_to_rgb_device,
+                                             flow_to_rgb_uint8)
+    from sais_tpu_torch.ops.preprocess import preprocess_batch
+
+    cfg = PipelineConfig(model=ModelConfig(modalities="RGB-Flow"))
+    raft = raft_mod.raft_init(torch.Generator().manual_seed(3), cfg.raft)
+    vit = vit_init(torch.Generator().manual_seed(0), cfg.vit)
+    frames = texture_frames(nframes)
+    jump = cfg.window.flow_jump_factor
+    npairs = len(range(0, nframes - jump, jump))
+    dev = torch.device("cuda")
+
+    # 1. RAFT alone, float32 against float64 on the card.
+    model = copy.deepcopy(raft).to(dev).eval()
+    a = torch.from_numpy(np.ascontiguousarray(frames[0][:240, :320]))
+    b = torch.from_numpy(np.ascontiguousarray(frames[jump][:240, :320]))
+    a, b = a[None].to(dev), b[None].to(dev)
+    with torch.inference_mode():
+        f32 = raft_mod.raft_forward(model, a, b, iters=3).double()
+        f64 = raft_mod.raft_forward(copy.deepcopy(model).double(), a, b,
+                                    iters=3, compute_dtype=torch.float64)
+    err = (f32 - f64).abs()
+    print(f"flow: RAFT f32 vs f64 on the card at 240x320, 3 iterations: "
+          f"max|diff| {err.max().item():.4g} (max|flow| "
+          f"{f64.abs().max().item():.4g}), worst ratio to the limit "
+          f"{(err / (2e-3 + 1e-3 * f64.abs())).max().item():.4g}",
+          flush=True)
+    # Limit: rtol 1e-3, atol 2e-3, the JAX package's own against the
+    # golden torch RAFT (tests/test_raft_parity.py).
+    check(bool((err <= 2e-3 + 1e-3 * f64.abs()).all()),
+          "RAFT float32 differs from float64 beyond rtol 1e-3, atol 2e-3")
+    # Printed, not checked: the pipeline's bf16 encoders, and TF32 in every
+    # float32 convolution and product with cuDNN in the loop (what PyTorch
+    # would do by default), against the same float64 evaluation.
+    with torch.inference_mode():
+        bf16 = raft_mod.raft_forward(model, a, b, iters=3,
+                                     compute_dtype=torch.bfloat16).double()
+    saved = (raft_mod.full_f32, raft_mod.without_cudnn,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        raft_mod.full_f32 = raft_mod.without_cudnn = contextlib.nullcontext
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            tf32 = raft_mod.raft_forward(model, a, b, iters=3).double()
+    finally:
+        (raft_mod.full_f32, raft_mod.without_cudnn,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    print(f"flow: against the same float64 evaluation, bf16 encoders "
+          f"max|diff| {(bf16 - f64).abs().max().item():.4g}, TF32 "
+          f"everywhere max|diff| {(tf32 - f64).abs().max().item():.4g}",
+          flush=True)
+
+    # The path: warm-up, then the counted run and two more for the median.
+    fx = FlowExtractor(raft, vit, cfg)
+    fx.extract_video(None, frame_source=iter(frames))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_vit_block.launches = 0
+    times = []
+    t0 = time.perf_counter()
+    reps = fx.extract_video(None, frame_source=iter(frames))
+    times.append(time.perf_counter() - t0)
+    launches = fused_vit_block.launches
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fx.extract_video(None, frame_source=iter(frames))
+        times.append(time.perf_counter() - t0)
+    median_s = sorted(times)[1]
+    pair_batch = fx.auto_pair_batch(480, 640)
+    batches = math.ceil(npairs / pair_batch)
+    print(f"{card}: flow path: {nframes} frames of 480x640, {npairs} pairs "
+          f"(jump {jump}) in {batches} batches of {pair_batch}: "
+          f"{median_s:.4f} s median of "
+          f"{', '.join(f'{t:.4f}' for t in times)} "
+          f"({npairs / median_s:.2f} pairs/s, host clock), peak device "
+          f"memory {peak / 2**30:.2f} GiB; K1 launches {launches}",
+          flush=True)
+    check(launches == 12 * batches,
+          f"K1 launched {launches} times on the flow path, expected "
+          f"{12 * batches}")
+    check(reps.shape == (npairs, 384) and np.isfinite(reps).all(),
+          f"flow features {reps.shape} not finite / wrong shape")
+
+    # 2.-4. The renderers, K1 against its plain version, fused against
+    # staged.  The staged route is `extract`'s: flow fields to the host,
+    # the host renderer, then extract_array.
+    stack = np.stack(frames)
+    fields = fx.flow_fields(stack)
+    host_rgb = np.stack([flow_to_rgb_uint8(f) for f in fields])
+    staged = fx._features.extract_array(host_rgb)
+    dev_rgb = flow_to_rgb_device(torch.from_numpy(fields).to(dev))
+    rdiff = np.abs(dev_rgb.cpu().numpy().astype(int) - host_rgb.astype(int))
+    plain = []
+    with torch.inference_mode(), _Annotated(plain=True):
+        for i in range(0, npairs, fx._features.batch_size):
+            x = preprocess_batch(dev_rgb[i:i + fx._features.batch_size],
+                                 cfg.preprocess, torch.bfloat16)
+            plain.append(vit_forward_fused(fx._features.model, x))
+    plain = torch.cat(plain).cpu().numpy()
+    kerr, kscale = np.abs(reps - plain).max(), np.abs(plain).max()
+    serr, sscale = np.abs(reps - staged).max(), np.abs(staged).max()
+    print(f"flow: device renderer vs host renderer on the path's {npairs} "
+          f"flow fields (max|flow| {np.abs(fields).max():.4g}): max "
+          f"{rdiff.max()} level(s), {100 * (rdiff == 0).mean():.4f}% equal; "
+          f"flow features vs K1's plain version max|diff| {kerr:.5g} "
+          f"(max {kscale:.5g}); fused vs staged route max|diff| {serr:.5g} "
+          f"(max {sscale:.5g})", flush=True)
+    check(rdiff.max() <= 1, f"renderers differ by {rdiff.max()} levels")
+    # Limits: the gesture path's feature limit, 5e-2 of the largest value
+    # (12 bf16 blocks; a colour one level off moves the staged route).
+    check(kerr <= 5e-2 * kscale, f"flow features differ from K1's plain "
+          f"version: {kerr} > 5e-2 * {kscale}")
+    check(serr <= 5e-2 * sscale, f"fused and staged routes differ: {serr} "
+          f"> 5e-2 * {sscale}")
+
+    # 6. RGB-Flow decoding on the card against the CPU.
+    fold = (full_model_init(torch.Generator().manual_seed(1), cfg.model),
+            prototypes_init(torch.Generator().manual_seed(2), 2)[1])
+    probs = GestureDecoder([fold], cfg).window_probs("smoke", rgb_feats,
+                                                     reps)
+    ref = GestureDecoder([fold], cfg, device="cpu").window_probs(
+        "smoke", rgb_feats, reps)
+    nwin = (len(rgb_feats) - 15) // 15 + 1
+    perr = np.abs(probs - ref).max()
+    print(f"flow: RGB-Flow window probabilities {probs.shape}, card vs "
+          f"CPU max|diff| {perr:.3g}", flush=True)
+    check(probs.shape == (nwin, 2) and np.isfinite(probs).all(),
+          f"RGB-Flow probabilities {probs.shape} not finite / wrong shape")
+    check(perr <= 1e-2, f"RGB-Flow probabilities differ by {perr}")
+
+    # RAFT's time, split, and its rate against the counted operations.
+    starts = np.arange(0, nframes - jump, jump)[:pair_batch]
+    a = torch.from_numpy(stack[starts]).to(dev)
+    b = torch.from_numpy(stack[starts + jump]).to(dev)
+    del stack, fields, host_rgb, dev_rgb
+    split = raft_split_ms(fx.raft, cfg.raft, a, b, cfg.raft.iters)
+    flops = raft_flops(fx.raft, 480, 640, cfg.raft.iters)
+    total = sum(flops.values())
+    whole = split["whole"] / pair_batch
+    print(f"{card}: RAFT at 480x640, batch {pair_batch}, "
+          f"{cfg.raft.iters} iterations: {whole:.4f} ms per pair "
+          f"({split['whole']:.3f} ms a batch), "
+          f"{total / 1e12:.4f} TFLOP per pair, "
+          f"{total / (whole * 1e-3) / 1e12:.2f} TFLOP/s; " + "; ".join(
+              f"{k} {split[k] / pair_batch:.4f} ms per pair "
+              f"({flops[k] / 1e9:.1f} GFLOP, "
+              f"{flops[k] / (split[k] / pair_batch * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s)" for k in flops), flush=True)
+    del a, b
+    # Why the update loop runs without cuDNN: its heuristics give this
+    # float32 convolution an FFT algorithm.
+    conv = fx.raft.update_block.encoder.conv
+    x = torch.randn((pair_batch, conv.in_channels, 60, 80), device=dev)
+    with torch.inference_mode(), raft_mod.full_f32():
+        t_cudnn = cuda_time_ms(lambda: conv(x), iters=3, warmup=1)
+        with raft_mod.without_cudnn():
+            t_gemm = cuda_time_ms(lambda: conv(x), iters=3, warmup=1)
+    print(f"{card}: flow: the motion encoder's {conv.in_channels} -> "
+          f"{conv.out_channels} 3x3 float32 convolution at batch "
+          f"{pair_batch}: cuDNN {t_cudnn:.3f} ms, im2col + cuBLAS "
+          f"{t_gemm:.3f} ms", flush=True)
+    del x
+
+    fx._features.features = _Ranged("ViT", fx._features.features, None)
+    busy, _, got = _profile(
+        lambda: fx.extract_video(None, frame_source=iter(frames)),
+        "flow_profile", 1, ranges=("ViT",))
+    print(f"{card}: flow: the ViT (preprocess + 12 K1 blocks) "
+          f"{100 * got['ViT'] / busy:.2f}% of the flow path's device busy "
+          f"time", flush=True)
+    del fx, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2184,7 +2477,8 @@ def main():
     phase_build()
     k1 = phase_k1()
     k2 = phase_k2()
-    launches = phase_main_path(nframes=300)
+    launches, rgb_feats = phase_main_path(nframes=300)
+    flow_launches = phase_flow(rgb_feats, card)
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
@@ -2198,7 +2492,8 @@ def main():
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
         "replaces": "sais_tpu/kernels/fused_mha.py:117",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "launches": launches + flow_launches,
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"]}, {

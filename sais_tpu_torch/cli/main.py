@@ -1,15 +1,20 @@
-"""Command line of the port: `extract`, `decode`, `pipeline -mod RGB`,
+"""Command line of the port: `extract`, `flow`, `decode`, `pipeline`,
 `steps`, `train` and `pretrain`, with the flags of `sais`
 (sais_tpu/cli/main.py).
 
-  python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> -mod RGB \
-      --random-init
+  python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> \
+      -mod RGB-Flow --random-init
 
 reads <root>/videos/<video>.mp4, writes DINO features to
-<root>/results/ViT_SelfSupervised_ImageNet_RepsAndLabels.h5 and the
+<root>/results/ViT_SelfSupervised_ImageNet_RepsAndLabels.h5, RAFT flow
+features (RAFT over frame pairs --flow-jump frames apart, the flow
+rendered to RGB, then the ViT) to
+<root>/results/ViT_SelfSupervised_ImageNet_FlowRepsAndLabels.h5 and the
 gesture intervals to <root>/results/Custom_inference_gestures.csv
-(`decode --save-artifacts` also writes the per-window reps, probabilities
-and attention under <root>/params/Fold_0).
+(`-mod RGB` skips the flow stream; `flow --save-flows` also writes the
+rendered flows as <root>/flows/<video>/flows_%08d.jpg; `decode
+--save-artifacts` writes the per-window reps, probabilities and attention
+under <root>/params/Fold_0).
 
   python -m sais_tpu_torch.cli.main steps -f <video> -p <root> -mod RGB \
       --random-init --stride-divisor 4096 --flash on
@@ -29,7 +34,8 @@ prototypes.pkl and metrics.pkl in the JAX package's layout.
   python -m sais_tpu_torch.cli.main pretrain -p <root> -bs 64 -e 100
 
 DINO self-supervised pre-training of a ViT-S/16 (--arch) over the frames
-of every <root>/videos/*.mp4 (border crop, globally shuffled batches,
+of every <root>/videos/*.mp4 (--source flows: the rendered flow images of
+every <root>/flows/<video>/; border crop, globally shuffled batches,
 multi-crop augmentation on the device), the student backbone on K4-K6 and
 the teacher on K1; restartable checkpoints under <root>/pretrain/ckpt and
 per-epoch log lines in <root>/pretrain/log.txt.
@@ -38,10 +44,14 @@ Everything runs on the card (`--device cuda`, the default) unless
 `--device cpu` is given.
 
 Checkpoints: --dino-weights takes the reference
-dino_deitsmall16_pretrain.pth; --params-dir takes folds trained by either
+dino_deitsmall16_pretrain.pth; --raft-weights a RAFT 'things' checkpoint
+(princeton-vl or ptlflow); --params-dir takes folds trained by either
 package (Fold_<i>/params.pkl + prototypes.pkl) or reference folds
 (Fold_<i>/params.zip + prototypes.zip).  --random-init runs freshly
 initialized models from fixed seeds.
+
+Commands and options that are not ported yet are refused, and the message
+names the ROADMAP.md item, by its title, that brings them.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -85,6 +96,23 @@ def _load_vit(args, cfg):
     if not args.random_init:
         sys.exit("need --dino-weights or --random-init")
     return vit_init(torch.Generator().manual_seed(0), cfg.vit)
+
+
+def _load_raft(args, cfg):
+    """RAFT: --raft-weights (a plain state_dict or a ptlflow-style
+    {'state_dict': ...} wrapper) or, only with --random-init, random
+    weights, which make meaningless flow."""
+    from sais_tpu_torch.models.raft import RAFT, raft_init
+    from sais_tpu_torch.port.weights import (load_checkpoint,
+                                             raft_state_from_reference)
+    if args.raft_weights:
+        model = RAFT(cfg.raft)
+        model.load_state_dict(raft_state_from_reference(
+            load_checkpoint(args.raft_weights)))
+        return model.eval()
+    if not args.random_init:
+        sys.exit("need --raft-weights or --random-init")
+    return raft_init(torch.Generator().manual_seed(3), cfg.raft)
 
 
 def load_fold(d: str, cfg):
@@ -129,20 +157,96 @@ def _load_folds(args, cfg):
 
 
 def _check_ported(args):
-    if args.modalities != "RGB":
-        raise NotImplementedError(
-            f"-mod {args.modalities}: the flow stream (RAFT, flow "
-            "rendering) is not ported yet; use -mod RGB")
     if args.seq_parallel:
         raise NotImplementedError(
             f"--seq-parallel {args.seq_parallel}: sequence-parallel ring "
-            "attention is not ported yet; one card runs full-length "
-            "windows on K2 (--flash on)")
+            "attention is not ported yet (ROADMAP.md Queue 1, "
+            "'Parallelism, on torch.distributed'); one card runs "
+            "full-length windows on K2 (--flash on)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel: data-parallel extraction and training are not "
             "ported yet; they come with torch.distributed DDP (ROADMAP.md "
-            "Queue 1, item 5); one card runs without it")
+            "Queue 1, 'Parallelism, on torch.distributed'); one card runs "
+            "without it")
+
+
+def _apply_flow_jump(cfg, args, video_path: Optional[str] = None):
+    """Resolve --flow-jump into cfg.window.flow_jump_factor for every
+    consumer: flow extraction and the window -> flow row mapping of
+    decode / steps must agree on the stride.  'auto' is fps // 2 of the
+    source video (extract_representations.py:437-463)."""
+    if not args.flow_jump:
+        return cfg
+    if args.flow_jump == "auto":
+        if video_path is None or not os.path.exists(video_path):
+            sys.exit("--flow-jump auto needs the source video to read fps "
+                     f"from ({video_path or 'no path available'} not "
+                     "found); pass an explicit stride")
+        from sais_tpu_torch.io.video import VideoReader
+        with VideoReader(video_path) as r:
+            jump = max(int(r.fps // 2), 1)
+        print(f"flow jump {jump} (fps {2 * jump})")
+    else:
+        jump = int(args.flow_jump)
+    return dataclasses.replace(cfg, window=dataclasses.replace(
+        cfg.window, flow_jump_factor=jump))
+
+
+def _reconcile_flow_jump(cfg, args, videoname: str):
+    """Adopt or validate the pair stride `flow` recorded in the flow store:
+    the store's rows are indexed frame // jump at the extraction stride, so
+    decoding at another stride would gather the wrong flow rows.  With no
+    --flow-jump the stored stride is adopted; a contradicting one exits."""
+    from sais_tpu_torch.io.feature_store import FeatureStore, flow_store_path
+    if cfg.model.modalities == "RGB":
+        return cfg
+    path = flow_store_path(args.path)
+    if not os.path.exists(path):
+        return cfg
+    with FeatureStore(path) as fs:
+        stored = fs.video_attr(videoname, "flow_jump")
+    if stored is None:      # a store without the attr: trust the flags
+        return cfg
+    stored = int(stored)
+    if cfg.window.flow_jump_factor == stored:
+        args.flow_jump = str(stored)
+        return cfg
+    if args.flow_jump:
+        sys.exit(f"--flow-jump {cfg.window.flow_jump_factor} contradicts "
+                 f"the stride {videoname}'s flow reps were extracted at "
+                 f"({stored}); re-extract with `flow --force --flow-jump "
+                 f"{cfg.window.flow_jump_factor}` or pass --flow-jump "
+                 f"{stored}")
+    print(f"flow jump {stored} (recorded by extraction)")
+    args.flow_jump = str(stored)
+    return dataclasses.replace(cfg, window=dataclasses.replace(
+        cfg.window, flow_jump_factor=stored))
+
+
+def _already_extracted(store_path: str, videoname: str) -> bool:
+    """Skip a video whose reps exist (extract_representations.py:485)."""
+    from sais_tpu_torch.io.feature_store import FeatureStore
+    if not os.path.exists(store_path):
+        return False
+    with FeatureStore(store_path) as fs:
+        return videoname in fs
+
+
+def _video_path(args) -> str:
+    return os.path.join(args.path, "videos", args.videoname + ".mp4")
+
+
+def _read_flow(args, cfg, required: bool):
+    """The flow reps of the video when the modalities use flow: None for
+    -mod RGB, and also when the store is absent unless `required`."""
+    from sais_tpu_torch.io.feature_store import FeatureStore, flow_store_path
+    path = flow_store_path(args.path)
+    if cfg.model.modalities == "RGB" or not (required
+                                             or os.path.exists(path)):
+        return None
+    with FeatureStore(path) as fs:
+        return fs.read_video(args.videoname)
 
 
 def cmd_extract(args):
@@ -151,17 +255,13 @@ def cmd_extract(args):
     _check_ported(args)
     cfg = _pipeline_config(args)
     store = rgb_store_path(args.path)
-    if not args.force and os.path.exists(store):
-        with FeatureStore(store) as fs:
-            if args.videoname in fs.videos():
-                print(f"{args.videoname}: reps exist, skipping (--force to "
-                      "redo)")
-                return
+    if not args.force and _already_extracted(store, args.videoname):
+        print(f"{args.videoname}: reps exist, skipping (--force to redo)")
+        return
     fx = FeatureExtractor(_load_vit(args, cfg), cfg,
                           batch_size=args.batch_size, device=args.device)
     t0 = time.time()
-    reps = fx.extract_video(os.path.join(args.path, "videos",
-                                         args.videoname + ".mp4"))
+    reps = fx.extract_video(_video_path(args))
     dt = time.time() - t0
     with FeatureStore(store, "a") as fs:
         fs.write_video(args.videoname, reps)
@@ -169,18 +269,48 @@ def cmd_extract(args):
           f"({reps.shape[0] / dt:.0f} frames/s)")
 
 
+def cmd_flow(args):
+    """RAFT flow -> flow RGB -> DINO flow reps (reference main.sh:18, 24),
+    streamed from the video; the pair stride is kept in the store."""
+    from sais_tpu_torch.infer.pipeline import FlowExtractor
+    from sais_tpu_torch.io.feature_store import FeatureStore, flow_store_path
+    _check_ported(args)
+    cfg = _pipeline_config(args)
+    store = flow_store_path(args.path)
+    if not args.force and _already_extracted(store, args.videoname):
+        print(f"{args.videoname}: flow reps exist, skipping (--force to "
+              "redo)")
+        return
+    raft = _load_raft(args, cfg)
+    vit = _load_vit(args, cfg)
+    cfg = _apply_flow_jump(cfg, args, _video_path(args))
+    fx = FlowExtractor(raft, vit, cfg, pair_batch=args.flow_batch,
+                       iters=args.flow_iters, device=args.device)
+    save_dir = (os.path.join(args.path, "flows", args.videoname)
+                if args.save_flows else None)
+    t0 = time.time()
+    reps = fx.extract_video(_video_path(args), save_flow_dir=save_dir)
+    dt = time.time() - t0
+    with FeatureStore(store, "a") as fs:
+        fs.write_video(args.videoname, reps,
+                       attrs={"flow_jump": cfg.window.flow_jump_factor})
+    print(f"extracted flow reps {reps.shape} in {dt:.1f}s")
+
+
 def cmd_decode(args):
     from sais_tpu_torch.infer.pipeline import GestureDecoder
     from sais_tpu_torch.infer.postprocess import write_rows_csv
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
     _check_ported(args)
-    cfg = _pipeline_config(args)
+    cfg = _apply_flow_jump(_pipeline_config(args), args, _video_path(args))
+    cfg = _reconcile_flow_jump(cfg, args, args.videoname)
     folds = _load_folds(args, cfg)
     with FeatureStore(rgb_store_path(args.path)) as fs:
         rgb = fs.read_video(args.videoname)
+    flow = _read_flow(args, cfg, required=False)
     dec = GestureDecoder(folds, cfg, device_batch=args.batch_size,
                          device=args.device)
-    rows = dec.decode(args.videoname, rgb)
+    rows = dec.decode(args.videoname, rgb, flow)
     out = os.path.join(args.path, "results")
     os.makedirs(out, exist_ok=True)
     dest = os.path.join(out, "Custom_inference_gestures.csv")
@@ -189,7 +319,7 @@ def cmd_decode(args):
     if args.save_artifacts:
         # reps_and_labels_<phase> / attention_<phase> (train.py:113-119)
         from sais_tpu_torch.train.checkpoint import save_inference_artifacts
-        art = dec.inference_artifacts(args.videoname, rgb)
+        art = dec.inference_artifacts(args.videoname, rgb, flow)
         save_inference_artifacts(
             os.path.join(args.path, "params", "Fold_0"), "Custom_inference",
             {"reps": art["reps"], "probs": art["probs"],
@@ -214,12 +344,15 @@ def cmd_steps(args):
         window = dataclasses.replace(window,
                                      stride_divisor=args.stride_divisor)
     cfg = dataclasses.replace(cfg, window=window)
+    cfg = _apply_flow_jump(cfg, args, _video_path(args))
+    cfg = _reconcile_flow_jump(cfg, args, args.videoname)
     folds = _load_folds(args, cfg)
     with FeatureStore(rgb_store_path(args.path)) as fs:
         rgb = fs.read_video(args.videoname)
+    flow = _read_flow(args, cfg, required=True)
     rec = StepRecognizer(GestureDecoder(folds, cfg, device=args.device),
                          fps=args.fps)
-    rows = rec.recognize(args.videoname, rgb)
+    rows = rec.recognize(args.videoname, rgb, flow)
     dest = os.path.join(args.path, "results", f"{args.videoname}_steps.csv")
     os.makedirs(os.path.dirname(dest), exist_ok=True)
     write_rows_csv(rows, dest, rec.columns)
@@ -231,6 +364,12 @@ def _check_train_ported(args):
     fold-video -mod RGB on stored reps; the rest comes with later slices
     (ROADMAP.md Queue 1)."""
     _check_ported(args)
+    if args.modalities != "RGB":
+        raise NotImplementedError(
+            f"-mod {args.modalities}: training on the flow stream is not "
+            "ported yet (ROADMAP.md Queue 1, 'Training on flow'); train "
+            "-mod RGB, or decode with flow from folds trained by the JAX "
+            "package")
     if args.dataset != "segments":
         raise NotImplementedError(
             f"--dataset {args.dataset}: not ported yet; the EASE skill and "
@@ -307,35 +446,34 @@ def cmd_train(args):
 
 
 def _check_pretrain_ported(args):
-    """`pretrain` runs the video source with the fused student backbone and,
-    on the card, the fused last layer + loss (K7); what it refuses is
-    listed in ROADMAP.md with the slice that brings it."""
+    """`pretrain` runs the video or flow-image source with the fused
+    student backbone and, on the card, the fused last layer + loss (K7);
+    what it refuses is listed in ROADMAP.md with the slice that brings
+    it."""
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel: data-parallel pre-training is not ported yet; "
             "it comes with torch.distributed DDP and K7's per-shard wrapper "
-            "(ROADMAP item 12)")
+            "(ROADMAP.md Queue 1, 'Parallelism, on torch.distributed')")
     if args.use_bn_in_head:
         raise NotImplementedError(
             "--use-bn-in-head: the BatchNorm DINO head is not ported yet; "
-            "it comes with its own slice (ROADMAP Queue 1, item 10)")
-    if args.source != "videos":
-        raise NotImplementedError(
-            f"--source {args.source}: pre-training on rendered optical "
-            "flow is not ported yet; it comes with the flow stream (RAFT, "
-            "ROADMAP Queue 1, item 10)")
+            "it comes with its own slice (ROADMAP.md Queue 1, 'The "
+            "BatchNorm DINO head')")
 
 
 def cmd_pretrain(args):
     """DINO self-supervised pre-training over surgical video frames
     (reference dino-main/main_dino.py train path, VUA fine-tuning recipe):
-    frames stream from every mp4 under <root>/videos, augmentation is the
-    device multi-crop pipeline, checkpoints resume transparently."""
+    frames stream from every mp4 under <root>/videos (--source flows: the
+    rendered flows_%08d.jpg of every <root>/flows/<video>, the reference's
+    --optical_flow_to_reps mode, main_dino.py:254-257), augmentation is
+    the device multi-crop pipeline, checkpoints resume transparently."""
     import glob
 
     from sais_tpu_torch import resolve_device
     from sais_tpu_torch.io.shuffle_stream import FrameShuffleStream
-    from sais_tpu_torch.io.video import VideoReader
+    from sais_tpu_torch.io.video import VideoReader, read_frame_dir
     from sais_tpu_torch.models import zoo
     from sais_tpu_torch.ops.augment import (center_border_crop,
                                             multi_crop_batch)
@@ -343,9 +481,16 @@ def cmd_pretrain(args):
     from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
     from sais_tpu_torch.utils.logging import MetricLogger
     _check_pretrain_ported(args)
-    videos = sorted(glob.glob(os.path.join(args.path, "videos", "*.mp4")))
-    if not videos:
-        sys.exit(f"no videos under {os.path.join(args.path, 'videos')}")
+    if args.source == "flows":
+        videos = sorted(d for d in glob.glob(
+            os.path.join(args.path, "flows", "*")) if os.path.isdir(d))
+        if not videos:
+            sys.exit(f"no flow dirs under {os.path.join(args.path, 'flows')}")
+    else:
+        videos = sorted(glob.glob(os.path.join(args.path, "videos",
+                                               "*.mp4")))
+        if not videos:
+            sys.exit(f"no videos under {os.path.join(args.path, 'videos')}")
     bs = args.batch_size
     dcfg = DINOConfig(out_dim=args.out_dim, epochs=args.nepochs,
                       batch_size=bs, n_local_crops=args.local_crops,
@@ -357,10 +502,15 @@ def cmd_pretrain(args):
         zoo.check_fused_length(args.arch, vit_cfg, dcfg.global_size)
 
     def _frame_count(v):
+        if args.source == "flows":
+            return len(glob.glob(os.path.join(v, "*.jpg")))
         with VideoReader(v) as r:
             return r.frame_count
 
     def _source(v):
+        if args.source == "flows":
+            return lambda: read_frame_dir(v)
+
         def it():
             with VideoReader(v) as r:
                 yield from r.frames()
@@ -415,6 +565,8 @@ def cmd_pretrain(args):
 def cmd_pipeline(args):
     t0 = time.time()
     cmd_extract(args)
+    if args.modalities != "RGB":
+        cmd_flow(args)
     cmd_decode(args)
     print(f"total {time.time() - t0:.1f}s")
 
@@ -422,7 +574,8 @@ def cmd_pipeline(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sais_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in [("extract", cmd_extract), ("decode", cmd_decode),
+    for name, fn in [("extract", cmd_extract), ("flow", cmd_flow),
+                     ("decode", cmd_decode),
                      ("pipeline", cmd_pipeline), ("steps", cmd_steps),
                      ("train", cmd_train), ("pretrain", cmd_pretrain)]:
         sp = sub.add_parser(name)
@@ -431,6 +584,22 @@ def build_parser() -> argparse.ArgumentParser:
                         required=name not in ("train", "pretrain"))
         sp.add_argument("-p", "--path", default=".")
         sp.add_argument("--dino-weights")
+        sp.add_argument("--raft-weights",
+                        help="RAFT 'things' checkpoint (a state_dict or "
+                             "{'state_dict': ...})")
+        sp.add_argument("--flow-batch", type=int, default=None,
+                        help="RAFT pair batch (default: auto by resolution)")
+        sp.add_argument("--flow-iters", type=int, default=None,
+                        help="RAFT GRU iterations (default 32, the 'things' "
+                             "evaluation setting)")
+        sp.add_argument("--flow-jump", default=None,
+                        help="flow pair stride: frames, or 'auto' = "
+                             "fps // 2 (extract_representations.py:437-463)")
+        sp.add_argument("--save-flows", action="store_true",
+                        help="flow: also write the rendered flow images as "
+                             "flows/<video>/flows_%%08d.jpg (the reference "
+                             "saveFlows layout; read by `pretrain --source "
+                             "flows`)")
         sp.add_argument("--params-dir",
                         help="trained folds: Fold_<i>/params.pkl and "
                              "prototypes.pkl (either package's `train`), "
@@ -440,7 +609,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--nfolds", type=int, default=1)
         sp.add_argument("--nclasses", type=int, default=2)
         sp.add_argument("-mod", "--modalities", default="RGB",
-                        help="RGB (the flow stream is not ported yet)")
+                        choices=["RGB", "Flow", "RGB-Flow"],
+                        help="streams the temporal model reads (train: RGB "
+                             "only, training on flow is not ported yet)")
         sp.add_argument("-bs", "--batch-size", type=int, default=256)
         sp.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
@@ -501,8 +672,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--local-crops", type=int, default=8)
         sp.add_argument("--source", default="videos",
                         choices=["videos", "flows"],
-                        help="pretrain input: decoded video frames (flows "
-                             "is not ported yet)")
+                        help="pretrain input: decoded video frames, or the "
+                             "rendered flow images of `flow --save-flows`")
         sp.add_argument("--crop-policy", default="default",
                         choices=["default", "gronau"],
                         help="pretrain border removal: 0.8/0.8 center crop, "

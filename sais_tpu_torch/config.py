@@ -1,6 +1,6 @@
 """Typed configuration for the port: the dataclasses of `sais_tpu.config`
-that the RGB decoding and Prototypes training paths read, copied with the
-same fields and defaults (the reference values).
+that the decoding (RGB and flow) and Prototypes training paths read,
+copied with the same fields and defaults (the reference values).
 
 - window geometry:   prepare_dataset.py:1711-1715 (0.5 s windows @ 30 fps)
 - TTA offsets:       prepare_dataset.py:2649-2651 (+0, +3, +6 frames)
@@ -9,6 +9,7 @@ same fields and defaults (the reference values).
 - training loop:     train.py:46-96, prepare_model.py:566-567
 - preprocessing:     extract_representations.py:145-162, main_dino.py:300-326
 - ViT-S/16:          dino-main/vision_transformer.py:243-247
+- RAFT 'things':     extract_representations.py:264-288 (ptlflow raft)
 """
 
 from __future__ import annotations
@@ -131,12 +132,31 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RAFTConfig:
+    """RAFT optical-flow estimator (ptlflow 'raft' with the 'things'
+    checkpoint), run over frame pairs flow_jump_factor frames apart
+    (extract_representations.py:264-288).  corr_dtype: the stored
+    correlation pyramid's dtype ('float32', the checkpoint-parity default,
+    or 'bfloat16')."""
+
+    hidden_dim: int = 128
+    context_dim: int = 128
+    feature_dim: int = 256
+    corr_levels: int = 4
+    corr_radius: int = 4
+    iters: int = 32              # RAFT 'things' eval default
+    small: bool = False
+    corr_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """End-to-end configuration for `extract` + `decode`."""
+    """End-to-end configuration for `extract`, `flow` and `decode`."""
 
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     preprocess: PreprocessConfig = dataclasses.field(default_factory=PreprocessConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     window: WindowConfig = dataclasses.field(default_factory=WindowConfig)
     postprocess: PostprocessConfig = dataclasses.field(default_factory=PostprocessConfig)
+    raft: RAFTConfig = dataclasses.field(default_factory=RAFTConfig)
     compute_dtype: str = "bfloat16"

@@ -1,17 +1,21 @@
-"""End-to-end RGB gesture decoding: frames -> DINO features -> windows ->
-temporal model + prototypes over 3 TTA offsets and every fold -> gesture
-intervals.
+"""End-to-end gesture decoding: frames -> DINO features (and, for the flow
+stream, RAFT flow over frame pairs -> rendered flow -> DINO features) ->
+windows -> temporal model + prototypes over 3 TTA offsets and every fold
+-> gesture intervals.
 
 Counterpart of `sais_tpu/infer/pipeline.py` (`FeatureExtractor`,
-`GestureDecoder`).  Both run on the card unless the caller passes
-`device="cpu"`.  Host-to-device copies go through pinned memory with
-`non_blocking=True`, and every chunk runs at its exact size: the JAX
-package's tail buckets and warm-shape bookkeeping exist for XLA's compiled
-shapes, which eager PyTorch does not have.
+`FlowExtractor`, `GestureDecoder`).  All run on the card unless the caller
+passes `device="cpu"`.  Host-to-device copies go through pinned memory with
+`non_blocking=True`, and every decoder chunk runs at its exact size: the
+JAX package's tail buckets and warm-shape bookkeeping exist for XLA's
+compiled shapes, which eager PyTorch does not have.  The flow extractor
+pads its last pair batch as the JAX package does, so that a video runs
+RAFT at one input shape.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import queue
@@ -30,7 +34,10 @@ from sais_tpu_torch.infer.postprocess import (Row, decode_gesture_intervals,
 from sais_tpu_torch.io.video import VideoReader
 from sais_tpu_torch.models.full_model import FullModel, prototypes_forward
 from sais_tpu_torch.models.heads import prototype_probs
+from sais_tpu_torch.models.raft import (RAFT, pad_to_multiple_of_8,
+                                        raft_forward, unpad)
 from sais_tpu_torch.models.vit import VisionTransformer, vit_features
+from sais_tpu_torch.ops.flow_viz import flow_to_rgb_device, flow_to_rgb_uint8
 from sais_tpu_torch.ops.preprocess import preprocess_batch
 
 
@@ -122,6 +129,201 @@ class FeatureExtractor:
         return torch.cat(outs).cpu().numpy()
 
 
+def _save_flow_images(rgb: np.ndarray, out_dir: str, first: int) -> int:
+    """The reference's saveFlows layout (extract_representations.py:254-262):
+    flows_%08d.jpg numbered by pair index, written with PIL; returns the
+    next index."""
+    from PIL import Image
+    os.makedirs(out_dir, exist_ok=True)
+    for i, im in enumerate(rgb):
+        Image.fromarray(im).save(os.path.join(out_dir,
+                                              f"flows_{first + i:08d}.jpg"))
+    return first + len(rgb)
+
+
+class FlowExtractor:
+    """Motion-stream features (reference extract_representations.py
+    --optical_flow, then --optical_flow_to_reps, in one pass with no JPEG
+    round trip): RAFT over frame pairs (i, i + jump) at stride jump, the
+    flow rendered to RGB, then the DINO ViT (K1 on the bf16 path)."""
+
+    def __init__(self, raft: RAFT, vit: VisionTransformer,
+                 cfg: PipelineConfig, pair_batch: Optional[int] = None,
+                 iters: Optional[int] = None,
+                 flow_resize: Optional[Tuple[int, int]] = None,
+                 device: DeviceLike = None):
+        """pair_batch: RAFT pairs per call (None: `auto_pair_batch`).
+        iters: RAFT refinements (default cfg.raft.iters).  flow_resize:
+        (H, W) to resize frames to before RAFT, the reference's policy for
+        oversized inputs (extract_representations.py:122-123).  The RAFT
+        encoders run in bf16 when cfg.compute_dtype is bf16, the rest of
+        RAFT in float32 (`models.raft`)."""
+        self.cfg = cfg
+        self.pair_batch = pair_batch
+        self.iters = cfg.raft.iters if iters is None else iters
+        self.flow_resize = flow_resize
+        self.device = resolve_device(device)
+        self.raft = copy.deepcopy(raft).to(self.device).eval()
+        self.raft_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                           else torch.float32)
+        self._features = FeatureExtractor(vit, cfg, batch_size=64,
+                                          device=self.device)
+        self.peak_buffered_pairs = 0
+
+    def auto_pair_batch(self, height: int, width: int) -> int:
+        """The caller's pair_batch, else the JAX package's rule: as many
+        pairs as keep the float32 level-0 correlation volume under about
+        2 GB, at most 8.  The cap and the limit were measured on a TPU;
+        they stay so that both packages batch alike."""
+        if self.pair_batch is not None:
+            return self.pair_batch
+        hw8 = (height // 8) * (width // 8)
+        return max(1, min(8, int(2e9 / max(hw8 * hw8 * 4, 1))))
+
+    def _resize(self, frame: np.ndarray) -> np.ndarray:
+        if self.flow_resize is None:
+            return frame
+        import cv2
+        h, w = self.flow_resize
+        return cv2.resize(frame, (w, h))
+
+    def flow(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 frame pairs on the device -> (B, H, W, 2)
+        float32 flow (padded to multiples of 8 for RAFT, cut back)."""
+        with torch.inference_mode():
+            p1, pads = pad_to_multiple_of_8(a.float())
+            p2, _ = pad_to_multiple_of_8(b.float())
+            return unpad(raft_forward(self.raft, p1, p2, self.cfg.raft,
+                                      self.iters, self.raft_dtype), pads)
+
+    def fused(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """RAFT, the device renderer, the PIL-exact preprocess and the ViT,
+        all on the device: (B, D) float32 flow reps."""
+        return self._features.features(flow_to_rgb_device(self.flow(a, b)))
+
+    def _pad_tail(self, a: np.ndarray, b: np.ndarray, size: int):
+        """Pad a short chunk to `size` pairs with its last pair, so that a
+        video runs RAFT at one input shape."""
+        n = len(a)
+        if n < size:
+            a = np.concatenate([a, np.repeat(a[-1:], size - n, axis=0)])
+            b = np.concatenate([b, np.repeat(b[-1:], size - n, axis=0)])
+        return to_device(a, self.device), to_device(b, self.device), n
+
+    def flow_fields(self, frames: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) uint8 -> (P, H, W, 2) flow of the pairs (i, i +
+        jump) at stride jump (generate_paths.py:43-54)."""
+        jump = self.cfg.window.flow_jump_factor
+        n = frames.shape[0]
+        if self.flow_resize is not None:
+            frames = np.stack([self._resize(f) for f in frames])
+        starts = np.arange(0, n - jump, jump)
+        pair_batch = self.auto_pair_batch(frames.shape[1], frames.shape[2])
+        flows = []
+        for i in range(0, len(starts), pair_batch):
+            chunk = starts[i:i + pair_batch]
+            a, b, k = self._pad_tail(frames[chunk], frames[chunk + jump],
+                                     pair_batch)
+            flows.append(self.flow(a, b)[:k].cpu())
+        if not flows:
+            return np.zeros((0,) + frames.shape[1:3] + (2,), np.float32)
+        return torch.cat(flows).numpy()
+
+    def extract(self, frames: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(N, H, W, 3) uint8 -> (flow reps (P, D), flow RGB uint8 (P, H, W,
+        3)), rendered on the host."""
+        fields = self.flow_fields(frames)
+        rgb = (np.stack([flow_to_rgb_uint8(f) for f in fields]) if len(fields)
+               else np.zeros((0,) + fields.shape[1:3] + (3,), np.uint8))
+        return self._features.extract_array(rgb), rgb
+
+    def extract_video(self, video_path: Optional[str], prefetch: int = 8,
+                      frame_source=None,
+                      save_flow_dir: Optional[str] = None) -> np.ndarray:
+        """Stream a video: decode -> RAFT -> flow RGB -> DINO reps, without
+        holding the video in host memory.  A producer thread keeps every
+        jump-th frame, and consecutive kept frames are exactly the pairs;
+        they pass through a bounded queue, so at most prefetch + pair_batch
+        pairs are buffered whatever the length.
+
+        Without save_flow_dir the whole chunk stays on the device (`fused`);
+        with it, the flow comes to the host, is rendered there and written
+        as flows_%08d.jpg, and the images go through the ViT.
+        frame_source: an iterator of (H, W, 3) uint8 frames in place of
+        decoding video_path."""
+        if frame_source is None and not os.path.exists(video_path):
+            raise FileNotFoundError(video_path)
+        jump = self.cfg.window.flow_jump_factor
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        errors: List[BaseException] = []
+        stop = threading.Event()
+
+        def producer():
+            prev = None
+            try:
+                with contextlib.ExitStack() as stack:
+                    frames = (iter(frame_source) if frame_source is not None
+                              else stack.enter_context(
+                                  VideoReader(video_path)).frames())
+                    for i, frame in enumerate(frames):
+                        if i % jump:
+                            continue
+                        frame = self._resize(frame)
+                        if prev is not None and not _put_stoppable(
+                                q, (prev, frame), stop):
+                            return
+                        prev = frame
+            except BaseException as e:   # re-raised by the consumer: a
+                errors.append(e)         # decode failure is not an EOF
+            finally:
+                _put_stoppable(q, None, stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        reps: List[torch.Tensor] = []
+        n_saved = 0
+        self.peak_buffered_pairs = 0
+        pair_batch = self.pair_batch
+        buf: List[Tuple[np.ndarray, np.ndarray]] = []
+        done = False
+        try:
+            while not done:
+                item = q.get()
+                if item is None:
+                    done = True
+                else:
+                    buf.append(item)
+                if not buf or not (done or len(buf) == (pair_batch or 8)):
+                    continue
+                self.peak_buffered_pairs = max(self.peak_buffered_pairs,
+                                               len(buf))
+                i1 = np.stack([p[0] for p in buf])
+                i2 = np.stack([p[1] for p in buf])
+                buf = []
+                if pair_batch is None:
+                    pair_batch = self.auto_pair_batch(i1.shape[1],
+                                                      i1.shape[2])
+                for s in range(0, len(i1), pair_batch):
+                    a, b, n = self._pad_tail(i1[s:s + pair_batch],
+                                             i2[s:s + pair_batch], pair_batch)
+                    if save_flow_dir is None:
+                        reps.append(self.fused(a, b)[:n])
+                        continue
+                    rgb = np.stack([flow_to_rgb_uint8(f) for f in
+                                    self.flow(a, b)[:n].cpu().numpy()])
+                    n_saved = _save_flow_images(rgb, save_flow_dir, n_saved)
+                    reps.append(torch.from_numpy(
+                        self._features.extract_array(rgb)))
+        finally:
+            stop.set()           # the producer abandons the rest on error
+            t.join()
+        if errors:
+            raise errors[0]
+        if not reps:
+            return np.zeros((0, self.cfg.vit.embed_dim), np.float32)
+        return torch.cat([r.cpu() for r in reps]).numpy()
+
+
 class GestureDecoder:
     """Sliding-window gesture inference with TTA and fold ensembling and
     post-processing (reference run_experiments.py --inference, then
@@ -173,9 +375,9 @@ class GestureDecoder:
         if flow_reps is None:
             if "Flow" in self.cfg.model.modalities:
                 raise ValueError(
-                    f"model modalities={self.cfg.model.modalities!r} need "
-                    "flow representations but none were given; decode with "
-                    "-mod RGB")
+                    f"model modalities={self.cfg.model.modalities!r} require "
+                    "flow representations but none were supplied (flow store "
+                    "missing?); run flow extraction or decode with -mod RGB")
             return np.zeros((1, rgb_reps.shape[1]), np.float32)
         return flow_reps
 

@@ -1,11 +1,14 @@
 """Host-side video decode through OpenCV, imported at first use.
 
-Own copy of `sais_tpu/io/video.py` (`VideoReader`): decoded frames stream
-straight from the container in batches, with no JPEG round trip.
+Own copy of `sais_tpu/io/video.py` (`VideoReader`, `read_frame_dir`):
+decoded frames stream straight from the container in batches, with no JPEG
+round trip; a reference-layout image directory (the rendered flows_%08d.jpg
+of `flow --save-flows`) reads in name order.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -68,3 +71,16 @@ class VideoReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_frame_dir(frame_dir: str) -> Iterator[np.ndarray]:
+    """Yield the (H, W, 3) uint8 RGB images (.jpg, .png) of a directory in
+    sorted name order; a file that does not decode raises, naming it."""
+    import cv2
+    for name in sorted(os.listdir(frame_dir)):
+        if name.endswith(".jpg") or name.endswith(".png"):
+            path = os.path.join(frame_dir, name)
+            bgr = cv2.imread(path)
+            if bgr is None:
+                raise IOError(f"failed to decode frame image {path!r}")
+            yield bgr[:, :, ::-1]

@@ -15,7 +15,7 @@ The head is plain PyTorch (large products go to torch.matmul).  On the
 fused-loss path (`DINOTrainer(fused_loss=True)`) the trainer calls
 `dino_head_bottleneck` only, and the weight-normed last layer runs inside
 K7 (`kernels.dino_head_loss`) with the loss.  The `use_bn_in_head` variant
-is not ported (ROADMAP Queue 1).
+is not ported (ROADMAP.md Queue 1, 'The BatchNorm DINO head').
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ def _refuse_bn(use_bn: bool) -> None:
     if use_bn:
         raise NotImplementedError(
             "the use_bn_in_head DINO head (--use-bn-in-head) is not ported "
-            "yet; it comes with its own slice (ROADMAP Queue 1)")
+            "yet; it comes with its own slice (ROADMAP.md Queue 1, 'The "
+            "BatchNorm DINO head')")
 
 
 def dino_head_init(generator: torch.Generator, in_dim: int, out_dim: int,

@@ -48,4 +48,5 @@ def check_fused_length(name: str, cfg: ViTConfig, image_size: int) -> None:
         raise NotImplementedError(
             f"--arch {name}: {tokens} tokens at {image_size} px, past the "
             f"{MAX_LEN} the ViT-block kernels take on the card; longer "
-            "sequences are open work (ROADMAP.md)")
+            "sequences are open work (ROADMAP.md Queue 2, 'Still to port: "
+            "the long-sequence range of the ViT-block kernels')")

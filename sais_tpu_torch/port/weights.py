@@ -242,3 +242,70 @@ def prototypes_from_reference(protos: Mapping[str, Any]
     as torch.vstack(list(prototypes.values())) (prepare_miscellaneous.py:16)."""
     keys = list(protos.keys())
     return keys, torch.stack([_f32(protos[k]).reshape(-1) for k in keys])
+
+
+def raft_state_from_reference(sd: Mapping[str, Any]) -> StateDict:
+    """RAFT checkpoint (princeton-vl or ptlflow naming: fnet.*, cnet.*,
+    update_block.*) -> `models.raft.RAFT` state_dict.  Takes a
+    {'state_dict': ...} wrapper and a 'model.' or 'module.' prefix, and the
+    third norm of a residual block as downsample.1 or norm3 (the reference
+    registers the module under both names); num_batches_tracked is
+    dropped (the port's batch norms are frozen)."""
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    out: StateDict = {}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        if head in ("model", "module"):
+            k = rest
+        if k.endswith("num_batches_tracked"):
+            continue
+        if ".norm3." in k:
+            out.setdefault(k.replace(".norm3.", ".downsample.1."), _f32(v))
+        else:
+            out[k] = _f32(v)
+    return out
+
+
+def _conv_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
+    """HWIO kernel -> OIHW weight, and the bias."""
+    return {prefix + "weight": _t(np.asarray(p["w"]).transpose(3, 2, 0, 1)),
+            prefix + "bias": _t(p["b"])}
+
+
+def _bn_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
+    return {prefix + name: _t(p[key]) for name, key in
+            (("weight", "w"), ("bias", "b"), ("running_mean", "rm"),
+             ("running_var", "rv"))}
+
+
+def raft_state_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """`sais_tpu.models.raft` params pytree (numpy leaves) -> RAFT
+    state_dict."""
+    sd: StateDict = {}
+    for enc in ("fnet", "cnet"):
+        tree = params[enc]
+        sd.update(_conv_from_jax(tree["conv1"], f"{enc}.conv1."))
+        sd.update(_conv_from_jax(tree["conv2"], f"{enc}.conv2."))
+        if "norm1" in tree:
+            sd.update(_bn_from_jax(tree["norm1"], f"{enc}.norm1."))
+        for i in (1, 2, 3):
+            for j, blk in enumerate(tree[f"layer{i}"]):
+                p = f"{enc}.layer{i}.{j}."
+                for name, fn in (("conv1", _conv_from_jax),
+                                 ("conv2", _conv_from_jax),
+                                 ("norm1", _bn_from_jax),
+                                 ("norm2", _bn_from_jax),
+                                 ("down", _conv_from_jax),
+                                 ("norm3", _bn_from_jax)):
+                    if name in blk:
+                        dest = {"down": "downsample.0",
+                                "norm3": "downsample.1"}.get(name, name)
+                        sd.update(fn(blk[name], f"{p}{dest}."))
+    u, upd = "update_block.", params["update"]
+    for group in ("encoder", "gru", "flow_head"):
+        for name, conv in upd[group].items():
+            sd.update(_conv_from_jax(conv, f"{u}{group}.{name}."))
+    sd.update(_conv_from_jax(upd["mask0"], u + "mask.0."))
+    sd.update(_conv_from_jax(upd["mask2"], u + "mask.2."))
+    return sd

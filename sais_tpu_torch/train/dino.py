@@ -29,7 +29,8 @@ weight-normed last layer and the loss run as K7
 (`kernels.dino_head_loss.FusedDinoLoss`), which keeps the (rows, out_dim)
 logits out of device memory; otherwise the head and loss are plain
 PyTorch.  The use_bn head and data-parallel steps (`mesh`) are not ported
-(ROADMAP Queue 1 and item 12).
+(ROADMAP.md Queue 1, 'The BatchNorm DINO head' and 'Parallelism, on
+torch.distributed').
 
 Crops are batched per resolution group, image-major ([img0 crop0, img0
 crop1, ...], `ops.augment.multi_crop_batch`'s layout), so the backbone runs
@@ -312,7 +313,8 @@ class DINOTrainer:
             raise NotImplementedError(
                 "data-parallel DINO pre-training (mesh) is not ported yet; "
                 "it comes with torch.distributed DDP and K7's per-shard "
-                "wrapper (ROADMAP item 12)")
+                "wrapper (ROADMAP.md Queue 1, 'Parallelism, on "
+                "torch.distributed')")
         if fused_loss and cfg.use_bn_in_head:
             raise ValueError(
                 "fused_loss is incompatible with use_bn_in_head: the "

@@ -905,3 +905,47 @@ def test_vit_int8_path_runs_k8_only(cuda):
         ref = vit_features(model, images)
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert cos.mean().item() > 0.999, cos
+
+
+def test_raft_f32_on_card_matches_float64(cuda):
+    """RAFT 'things' (random weights from raft_init) on one pair at
+    240x320, 3 iterations: float32 on the card, where raft_forward turns
+    TF32 off, against the same model in float64 on the card.  Limit rtol
+    1e-3, atol 2e-3, the JAX package's own against the golden torch RAFT
+    (tests/test_raft_parity.py)."""
+    import copy
+
+    from sais_tpu_torch.models.raft import raft_forward, raft_init
+    model = raft_init(torch.Generator().manual_seed(3)).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    cells = torch.randint(0, 256, (1, 30, 44, 3), generator=g,
+                          dtype=torch.uint8)
+    texture = cells.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    a = texture[:, :, :320].to(cuda)
+    b = texture[:, :, 24:344].to(cuda)
+    with torch.inference_mode():
+        got = raft_forward(model, a, b, iters=3)
+        ref = raft_forward(copy.deepcopy(model).double(), a, b, iters=3,
+                           compute_dtype=torch.float64)
+    assert got.dtype == torch.float32 and got.shape == (1, 240, 320, 2)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-3, atol=2e-3)
+
+
+def test_flow_renderer_on_card_matches_numpy(cuda):
+    """flow_to_rgb_device on the card against the host renderer (float64
+    numpy), per-image maxima, a zero patch and non-finite vectors: at most
+    one uint8 level apart."""
+    import numpy as np
+
+    from sais_tpu_torch.ops.flow_viz import (flow_to_rgb_device,
+                                             flow_to_rgb_uint8)
+    rng = np.random.default_rng(3)
+    flow = (rng.standard_normal((4, 240, 320, 2)) * 7).astype(np.float32)
+    flow[0] *= 0.01
+    flow[1, :4, :4] = 0
+    flow[2, 3, 5] = np.nan
+    flow[3, 0, 0, 1] = np.inf
+    got = flow_to_rgb_device(torch.from_numpy(flow).to(cuda)).cpu().numpy()
+    ref = np.stack([flow_to_rgb_uint8(f) for f in flow])
+    diff = np.abs(got.astype(int) - ref.astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() > 0.999

@@ -510,13 +510,16 @@ def test_cli_pretrain_e2e_and_resume(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(out / "ckpt")) == ["1.pt", "2.pt"]
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--data-parallel"], "data-parallel"),
-    (["--use-bn-in-head"], "BatchNorm"),
-    (["--source", "flows"], "flow")])
-def test_cli_pretrain_refusals(tmp_path, flags, match):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--data-parallel"], NotImplementedError, "data-parallel"),
+    (["--use-bn-in-head"], NotImplementedError, "BatchNorm"),
+    (["--source", "flows"], SystemExit, "no flow dirs")])
+def test_cli_pretrain_refusals(tmp_path, flags, error, match):
+    """What pretrain refuses, and `--source flows` with an empty
+    <root>/flows, which exits."""
     from sais_tpu_torch.cli import main as cli
-    with pytest.raises(NotImplementedError, match=match):
+    os.makedirs(tmp_path / "flows")
+    with pytest.raises(error, match=match):
         cli.main(["pretrain", "-p", str(tmp_path), "--device", "cpu"]
                  + flags)
 

@@ -4,6 +4,7 @@ CLI, the device default and the package's import isolation."""
 
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -139,7 +140,8 @@ def _synth_video(path, nframes=60, h=48, w=64):
 def test_cli_pipeline_rgb_on_cpu(tmp_path, monkeypatch, capsys):
     """`pipeline -mod RGB --device cpu --random-init` on a synthetic mp4,
     with a tiny architecture in place of ViT-S; bf16 by default, so the
-    fused path runs (K1's plain version on the CPU)."""
+    fused path runs (K1's plain version on the CPU).  Then `decode -mod
+    RGB-Flow` without a flow store refuses to make up a flow stream."""
     from sais_tpu_torch.cli import main as cli
 
     root = tmp_path
@@ -157,7 +159,9 @@ def test_cli_pipeline_rgb_on_cpu(tmp_path, monkeypatch, capsys):
     with FeatureStore(rgb_store_path(str(root))) as fs:
         reps = fs.read_video("vid")
     assert reps.shape == (60, DIM) and np.isfinite(reps).all()
-    with pytest.raises(NotImplementedError, match="flow"):
+    # with no flow store, -mod RGB-Flow raises what the JAX decoder raises
+    # (sais_tpu/infer/pipeline.py:732)
+    with pytest.raises(ValueError, match="flow store missing"):
         cli.main(["decode", "-f", "vid", "-p", str(root), "-mod",
                   "RGB-Flow", "--device", "cpu", "--random-init"])
 
@@ -229,8 +233,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     """Every module of the port, imported in a fresh interpreter, leaves
     jax, the JAX package and its optimizer and checkpoint libraries
-    (optax, orbax), the host libraries the port loads lazily (cv2, h5py)
-    and the ones it does without (pandas, sklearn) out of sys.modules."""
+    (optax, orbax), the host libraries the port loads lazily (cv2, h5py,
+    PIL) and the ones it does without (pandas, sklearn) out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sais_tpu_torch\n"
@@ -239,7 +244,7 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'sais_tpu', 'optax', 'orbax', 'cv2', 'h5py',"
-        " 'pandas', 'sklearn'))\n"
+        " 'PIL', 'pandas', 'sklearn'))\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('sais_tpu_torch.')]), bad)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -249,3 +254,51 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
     assert int(count) >= 25 and bad.strip() == "[]", res.stdout
+
+
+ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ROADMAP.md")
+
+
+def _refuse(case, root):
+    """Run one refusal of the port; returns nothing (it raises)."""
+    from sais_tpu_torch.cli import main as cli
+    cpu = ["-p", str(root), "--device", "cpu"]
+    if case == "DINOTrainer(mesh)":
+        from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
+        DINOTrainer(tconfig.ViTConfig(), DINOConfig(), 1,
+                    torch.Generator(), mesh=object(), device="cpu")
+    elif case == "dino_head_init(use_bn)":
+        from sais_tpu_torch.models.dino_head import dino_head_init
+        dino_head_init(torch.Generator(), 8, 16, use_bn=True)
+    elif case == "check_fused_length(vits8)":
+        from sais_tpu_torch.models import zoo
+        zoo.check_fused_length("vits8", zoo.config("vits8"), 224)
+    else:
+        cmd, *flags = case.split()
+        videos = ["-f", "vid"] if cmd in ("extract", "steps") else []
+        segments = ["--segments", "s.csv"] if cmd == "train" else []
+        cli.main([cmd, *videos, *segments, *cpu, *flags])
+
+
+@pytest.mark.parametrize("case", [
+    "extract --data-parallel 2", "steps --seq-parallel 2",
+    "pretrain --data-parallel", "pretrain --use-bn-in-head",
+    "train -mod RGB-Flow", "train -mod Flow", "DINOTrainer(mesh)",
+    "dino_head_init(use_bn)", "check_fused_length(vits8)"])
+def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
+    """Each refusal of the port raises NotImplementedError and names the
+    ROADMAP.md item that brings what it refuses by its title, as
+    "ROADMAP.md Queue N, '<title>'"; that title opens an item of Queue N
+    (a bold lead), so renumbering the items cannot break the pointer."""
+    with pytest.raises(NotImplementedError) as info:
+        _refuse(case, tmp_path / "absent")
+    msg = " ".join(str(info.value).split())
+    quoted = re.findall(r"ROADMAP\.md Queue (\d+), '([^']+)'", msg)
+    assert quoted, msg
+    with open(ROADMAP) as f:
+        text = f.read()
+    for queue, title in quoted:
+        section = text.split(f"\n### Queue {queue} ")[1].split("\n### ")[0]
+        assert "**" + title in " ".join(section.split()), (queue, title)
+    assert not (tmp_path / "absent").exists()

@@ -274,8 +274,8 @@ def test_cli_steps(tmp_path, monkeypatch, capsys):
             cli.main([a for a in argv if a not in ("--device", "cpu")])
 
 
-@pytest.mark.parametrize("cmd", ["extract", "decode", "pipeline", "steps",
-                                 "train"])
+@pytest.mark.parametrize("cmd", ["extract", "flow", "decode", "pipeline",
+                                 "steps", "train"])
 def test_cli_refuses_data_parallel(cmd, tmp_path):
     """`--data-parallel` is refused, not ignored, by every command that runs
     on one card, before any file is read: the root does not exist."""
