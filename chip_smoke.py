@@ -120,7 +120,20 @@ Phases, each of which fails the run:
    share of K6 at (128, 197) and (512, 37), and fail unless every product
    ran the wgmma + TMA GEMM (none the mma.sync template) and a call makes
    at most 11 (K5) and 12 (K6) launches.
-11. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
+11. long blocks, past the register attention's 256 tokens: K1, K4, K5, K6
+   and K8 at (B, L, valid, D) = (128, 785, 785, 384), the vits8 step's
+   global crops, (64, 785, 785, 768), the vitb8 geometry, (32, 257, 257,
+   384), (16, 1025, 1025, 384) and (32, 800, 785, 384), keys >= 785
+   masked as the JAX package pads them: each CUDA kernel against its
+   plain version (2e-2 of its largest value) and run twice, bitwise
+   equal; K8 against K1 on a reference-initialized block (cosine >
+   0.9999, max relative < 0.02); CUDA-event times of each kernel, its
+   plain version and its library composition, and the least time; at
+   (128, 785) `k1_profile`, `k5_profile` and `k6_profile`, whose
+   attention launches must run the key-tiled kernels
+   (long_attention_kernel; attention_bwd_rows_kernel and
+   attention_bwd_cols_kernel, K6's ten launches).
+12. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
    norm_last_layer; two runs bitwise equal) at the pretrain step's shape
@@ -134,9 +147,11 @@ Phases, each of which fails the run:
    product ran `gemm_sm90_kernel`, none the kernels it replaced
    (grad_h_kernel, grad_v_kernel, stats_kernel), and a call makes at most
    14 launches.  With `--parent-csrc DIR` (an earlier tree's
-   kernels/csrc), its K7 and K8 are built and timed beside this tree's,
-   in turns, at both batches and at K8's shape.
-12. pretrain path at full width (`pretrain -bs 64` without the video
+   kernels/csrc), its K1, K6, K7 and K8 are built and timed beside this
+   tree's, in turns: K1 at (256, 197), K6 at (128, 197) (both bitwise
+   equal to this tree's, whose code there is unchanged), K7 at both
+   batches and K8 at its shape.
+13. pretrain path at full width (`pretrain -bs 64` without the video
    I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
    local at 96, drop path 0.1, adamw, fused blocks, fused loss) from
    fixed seeds, 64 synthetic 480x640 frames (numpy seed 0), border crop
@@ -147,8 +162,11 @@ Phases, each of which fails the run:
    every parameter gradient, with the same weights, crops and drop-path
    draws, against the same step through the plain versions on the card
    (loss 1e-3 relative, each gradient 5e-2 of its largest value); the
-   loss with fused_loss=False printed beside it.
-13. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
+   loss with fused_loss=False printed beside it.  Then the same for
+   `pretrain --arch vits8` (ViT-S/8: 785 + 145 tokens, the globals on
+   the key-tiled attention); both print the median step ms, img/s, and a
+   profiled step's device busy time and idle share beside the card.
+14. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
    CUDA kernel against its plain version (2e-2 of its largest value), two
    runs bitwise equal, and against K1 on the same inputs (cosine >
    0.9999, max relative < 0.02, JAX's limits; the reading at the K1
@@ -159,18 +177,22 @@ Phases, each of which fails the run:
    failing unless every product ran `gemm_sm90_kernel` (its int8 mode),
    no launch the mma.sync gemm_i8_kernel or quant_rows_kernel<float>, and
    a call makes at most 10 launches.
-14. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
+15. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
    and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
    and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
    frames/s beside the bf16 path's (median of three after a warm-up).
-15. prints the kernels line (JSON), then, last, the device line (JSON).
+16. prints the total time, the card, the kernels line (JSON) and, last,
+   the device line (JSON).  K1's launches there add the gesture and flow
+   paths' to the teacher's in both pretrain phases; K4-K7's add both
+   pretrain phases'.
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
 K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls,
-K7 and K8 calls (per launch), one pretrain step (with K4's, K5's, K6's,
-K1's and K7's shares, read from profiler ranges: K1 and K4 share their
-kernels' names) and one flow extraction (RAFT's and the ViT's shares).
+K7 and K8 calls (per launch), one pretrain step of each arch (with K4's,
+K5's, K6's, K1's and K7's shares, read from profiler ranges: K1 and K4
+share their kernels' names) and one flow extraction (RAFT's and the ViT's
+shares).
 """
 
 from __future__ import annotations
@@ -334,17 +356,18 @@ def k1_bound_ms(b, l, d, mlp, weight_bytes):
 
 
 def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
-                 forbid=("gemm_kernel",)):
+                 forbid=("gemm_kernel",), expect=()):
     """Profiles five calls of fn (one call of a kernel's wrapper) and prints
     the device time of each of its launches, labelled in order by
     `labels`, with the rate (`unit`, 1e12 a second) of those in `flops`
     (label -> flops or integer operations) and of those in `extra` (other
     labelled work, e.g. K6's attention backward).  Fails unless a call
     makes exactly len(labels) launches, no more than `limit`, every
-    product in `flops` ran on the wgmma + TMA kernel (`gemm_sm90_kernel`)
-    and no launch ran a kernel named by `forbid` (the mma.sync template
-    `gemm_kernel`, or a kernel the redesign removed).  Returns {label:
-    ms}."""
+    product in `flops` ran on the wgmma + TMA kernel (`gemm_sm90_kernel`),
+    no launch ran a kernel named by `forbid` (the mma.sync template
+    `gemm_kernel`, or a kernel the redesign removed) and each label of
+    `expect` (label -> kernel name fragment) ran the kernel it names.
+    Returns {label: ms}."""
     check(len(labels) <= limit, f"{name}: {len(labels)} launches a call, "
           f"target <= {limit}")
     _, _, got = _profile(fn, name, 5, per_launch=len(labels))
@@ -360,6 +383,9 @@ def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
         if label in flops:
             check("gemm_sm90_kernel" in kernel,
                   f"{name}: {label} ran {kernel}, not the wgmma GEMM")
+        want = dict(expect).get(label)
+        check(want is None or want in short,
+              f"{name}: {label} ran {kernel}, not {want}")
         work = dict(flops, **dict(extra)).get(label)
         if work is not None:
             part += f" ({work / us / 1e6:.1f} {unit})"
@@ -374,46 +400,69 @@ def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
 
 
 BLOCK_LAUNCHES = ("LN1", "qkv", "attention", "proj", "LN2", "fc1", "fc2")
+# the attention kernels' reach: up to 256 tokens the register kernels, past
+# them the key-tiled ones (kernels/csrc/vit_block_common.cuh)
+SHORT_ATT_LEN = 256
 
 
 def block_launch_split(fn, name, b, l, d, mlp):
-    """K1's or K4's seven launches at (b, l) (`launch_split`)."""
+    """K1's or K4's seven launches at (b, l) (`launch_split`), the
+    attention on the register kernel up to 256 tokens, on the key-tiled
+    one past them."""
     m = b * l
     launch_split(fn, f"{name} (B, L) = ({b}, {l})", BLOCK_LAUNCHES,
                  {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
                   "fc1": 2 * m * d * mlp, "fc2": 2 * m * mlp * d},
-                 len(BLOCK_LAUNCHES))
+                 len(BLOCK_LAUNCHES), extra={"attention": 4 * b * l * l * d},
+                 expect={"attention": "long_attention_kernel"
+                         if l > SHORT_ATT_LEN else "attention_kernel<"})
 
 
 # K5's and K6's launches a call, in order, and the targets they are held to
 K5_LAUNCHES = ("prep", "fc1", "dh", "dy", "ln_bwd", "dW2", "dW1", "sum")
 K6_LAUNCHES = ("prep", "qkv", "dctx", "attention_bwd", "dWproj", "dWqkv",
                "dy", "ln_bwd", "sum")
+# past 256 tokens the attention backward is two launches, key-tiled
+K6_LONG_LAUNCHES = ("prep", "qkv", "dctx", "attention_bwd_rows",
+                    "attention_bwd_cols", "dWproj", "dWqkv", "dy", "ln_bwd",
+                    "sum")
 K5_MAX_LAUNCHES, K6_MAX_LAUNCHES = 11, 12
 
 
 def bwd_launch_split(k5, k6, b, l, d, mlp):
     """`k5_profile` and `k6_profile`: the launches of one K5 and one K6 call
     at (b, l), the products' TFLOP/s and the attention backward's share of
-    K6 (its 12 L^2 D flops an image, the ones the function needs)."""
+    K6 (its 12 L^2 D flops an image, the ones the function needs: past 256
+    tokens 8 L^2 D of them in the query-row launch, s, dp, ctx and dq, and
+    4 L^2 D in the key-column launch, dk and dv)."""
     m = b * l
     prod = 2 * m * d * mlp
     launch_split(k5, f"k5_profile (B, L) = ({b}, {l})", K5_LAUNCHES,
                  dict.fromkeys(("fc1", "dh", "dy", "dW2", "dW1"), prod),
                  K5_MAX_LAUNCHES)
+    att = 4 * b * l * l * d
+    if l > SHORT_ATT_LEN:
+        labels, extra = K6_LONG_LAUNCHES, {"attention_bwd_rows": 2 * att,
+                                           "attention_bwd_cols": att}
+        expect = {"attention_bwd_rows": "attention_bwd_rows_kernel",
+                  "attention_bwd_cols": "attention_bwd_cols_kernel"}
+    else:
+        labels, extra = K6_LAUNCHES, {"attention_bwd": 3 * att}
+        expect = {"attention_bwd": "attention_bwd_kernel<"}
     split = launch_split(
-        k6, f"k6_profile (B, L) = ({b}, {l})", K6_LAUNCHES,
+        k6, f"k6_profile (B, L) = ({b}, {l})", labels,
         {"qkv": 6 * m * d * d, "dctx": 2 * m * d * d,
          "dWproj": 2 * m * d * d, "dWqkv": 6 * m * d * d,
-         "dy": 6 * m * d * d}, K6_MAX_LAUNCHES,
-        extra={"attention_bwd": 12 * b * l * l * d})
-    print(f"k6_profile (B, L) = ({b}, {l}): attention_bwd "
-          f"{split['attention_bwd']:.4f} ms, "
-          f"{100 * split['attention_bwd'] / sum(split.values()):.1f}% of "
+         "dy": 6 * m * d * d}, K6_MAX_LAUNCHES, extra=extra, expect=expect)
+    att_ms = sum(split[k] for k in extra)
+    print(f"k6_profile (B, L) = ({b}, {l}): attention backward "
+          f"{att_ms:.4f} ms, {100 * att_ms / sum(split.values()):.1f}% of "
           f"the call", flush=True)
 
 
-def phase_k1():
+def phase_k1(parent=None):
+    """Phase 3; `parent`: a ParentKernels to time beside K1 at (256,
+    197), where both trees run the same code (outputs bitwise equal)."""
     import torch
     from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                                   vit_block_reference)
@@ -462,6 +511,9 @@ def phase_k1():
                       bound_ms=bound_ms, bound_by=bound_by)
         block_launch_split(lambda: fused_vit_block(x, *ws, **kw),
                            "k1_profile", b, l, d, mlp)
+        if parent is not None:
+            parent.compare("K1", (b, l, d), lambda: parent.k1(x, ws, **kw),
+                           lambda: fused_vit_block(x, *ws, **kw), {0: 0.0})
         del x, ws, out, ref, diff
     result["max_abs_err"] = worst
     return result
@@ -1688,8 +1740,10 @@ def library_bwd_ms(fn, inputs, cot):
     return cuda_time_ms(fwd_bwd, iters=10) - fwd_ms
 
 
-def phase_train_kernels():
-    """Phase 9: K4, K5 and K6 at the pretrain shapes."""
+def phase_train_kernels(parent=None):
+    """Phase 9: K4, K5 and K6 at the pretrain shapes; `parent`: a
+    ParentKernels to time beside K6 at (128, 197), where both trees run
+    the same code (outputs bitwise equal)."""
     import torch
     from sais_tpu_torch.kernels.fused_mha import (
         block_bwd_attn_reference, block_bwd_mlp_reference,
@@ -1795,6 +1849,10 @@ def phase_train_kernels():
                                     bound_ms=bound_ms, bound_by=bound_by)
         block_launch_split(runs["K4"][0], "k4_profile", b, l, d, mlp)
         bwd_launch_split(runs["K5"][0], runs["K6"][0], b, l, d, mlp)
+        if parent is not None and (b, l) == (128, 197):
+            parent.compare("K6", (b, l, d), lambda: parent.k6(
+                x, dx1, attn_w, s1, **kw), runs["K6"][0],
+                dict.fromkeys(range(7), 0.0))
         if (b, l) == (128, 197):
             _profile(lambda: [fn() for fn, _ in runs.values()],
                      "k4_k5_k6_profile", 3)
@@ -1805,9 +1863,154 @@ def phase_train_kernels():
     return result
 
 
+# ---------------------------------------------------------------------------
+# K1, K4, K5, K6, K8 past 256 tokens: the key-tiled attention
+# ---------------------------------------------------------------------------
+
+# (B, L, valid, D): the vits8 step's global crops (128 of 785 tokens,
+# ViT-S widths), the vitb8 geometry (ViT-B widths), the first length past
+# the register kernels' reach, a length past 1024, and one masked shape
+# (keys >= 785 of 800 masked, as the JAX package pads rows to 16)
+LONG_SHAPES = ((128, 785, 785, 384), (64, 785, 785, 768),
+               (32, 257, 257, 384), (16, 1025, 1025, 384),
+               (32, 800, 785, 384))
+
+
+def phase_long_blocks():
+    """Phase 11: K1, K4, K5, K6 and K8 at LONG_SHAPES against their plain
+    versions (2e-2 of the plain version's largest value, as at 197 tokens;
+    K8 also against K1 at a reference-initialized block, JAX's limits),
+    each run twice and bitwise equal; ms, bound, plain and library ms of
+    each; k1_profile, k5_profile and k6_profile at (128, 785), which must
+    name the key-tiled attention kernels.  Returns {(B, L, valid, D):
+    {kernel: numbers}}."""
+    import torch
+    from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.kernels import fused_mha as fm
+    from sais_tpu_torch.models.vit import block_weights_bf16, vit_init
+    eps = 1e-6
+    out = {}
+    for b, l, valid, d in LONG_SHAPES:
+        heads, mlp = d // 64, 4 * d
+        x, ws = k1_inputs(b, l, d, heads, mlp, seed=l + d)
+        mlp_w, attn_w = ws[4:8] + ws[10:12], ws[0:4] + ws[8:10]
+        s1, s2 = train_scales(b, l, l)
+        dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            l)).to("cuda", torch.bfloat16)
+        kw = dict(num_heads=heads, valid_len=valid, eps=eps)
+        # K8 at a block as the reference initializes it and unit-normal
+        # tokens (JAX's int8 test; the K8 phase's reading)
+        w8 = [w.detach().cuda() for w in block_weights_bf16(vit_init(
+            torch.Generator().manual_seed(0), ViTConfig(
+                patch_size=8, embed_dim=d, depth=1,
+                num_heads=heads)).blocks[0])]
+        x8 = torch.randn((b, l, d), generator=torch.Generator().manual_seed(
+            1)).to("cuda", torch.bfloat16)
+        x1 = fm.vit_block_train_reference(x, *ws, s1=s1, s2=s2, **kw)[1]
+        dx1 = fm.block_bwd_mlp_reference(x1, dout, *mlp_w, eps=eps, s2=s2)[0]
+        runs = {
+            "K1": (lambda: fm.fused_vit_block(x, *ws, **kw),
+                   lambda: fm.vit_block_reference(x, *ws, **kw)),
+            "K4": (lambda: fm.fused_block_fwd_train(x, *ws, s1=s1, s2=s2,
+                                                    **kw),
+                   lambda: fm.vit_block_train_reference(x, *ws, s1=s1, s2=s2,
+                                                        **kw)),
+            "K5": (lambda: fm.fused_block_bwd_mlp(x1, dout, *mlp_w, eps=eps,
+                                                  s2=s2),
+                   lambda: fm.block_bwd_mlp_reference(x1, dout, *mlp_w,
+                                                      eps=eps, s2=s2)),
+            "K6": (lambda: fm.fused_block_bwd_attn(x, dx1, *attn_w, s1=s1,
+                                                   **kw),
+                   lambda: fm.block_bwd_attn_reference(x, dx1, *attn_w,
+                                                       s1=s1, **kw)),
+            "K8": (lambda: fm.fused_vit_block_int8(x8, *w8, **kw),
+                   lambda: fm.vit_block_int8_reference(x8, *w8, **kw))}
+        line = []
+        for name, (kernel, plain) in runs.items():
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            got = (got,) if isinstance(got, torch.Tensor) else got
+            again = (again,) if isinstance(again, torch.Tensor) else again
+            # fixed-order sums, no atomics: two runs agree to the bit
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  f"{name} differs between two runs at ({b}, {l}, {valid}, "
+                  f"{d})")
+            ref = plain()
+            ref = (ref,) if isinstance(ref, torch.Tensor) else ref
+            worst = 0.0
+            for i, (a, r) in enumerate(zip(got, ref)):
+                if name in ("K1", "K4", "K8"):   # rows past valid: padding
+                    a, r = a[:, :valid], r[:, :valid]
+                err = (a.float() - r.float()).abs().max().item()
+                scale = r.float().abs().max().item()
+                # Limit 2e-2 * max|plain|: the same rounding points summed
+                # in another order (an ulp or two of bf16); for K8 one int8
+                # step at a quantizer tie
+                check(math.isfinite(err) and err <= 2e-2 * scale,
+                      f"{name} output {i} disagrees with its plain version "
+                      f"at (B, L, valid, D) = ({b}, {l}, {valid}, {d}): "
+                      f"{err} > 2e-2 * {scale}")
+                worst = max(worst, err / scale)
+            line.append(f"{name} {worst:.3g}")
+            out.setdefault((b, l, valid, d), {})[name] = {"rel_err": worst}
+            del got, again, ref
+        k8 = fm.fused_vit_block_int8(x8, *w8, **kw)[:, :valid].float()
+        bf = fm.fused_vit_block(x8, *w8, **kw)[:, :valid].float()
+        cos = (torch.dot(k8.ravel(), bf.ravel())
+               / (k8.norm() * bf.norm())).item()
+        rel = ((k8 - bf).abs().max() / bf.abs().max()).item()
+        del k8, bf
+        check(cos > 0.9999 and rel < 0.02, f"K8 too far from K1 at ({b}, "
+              f"{l}, {valid}, {d}): cosine {cos}, max relative {rel}")
+        print(f"long blocks (B, L, valid, D) = ({b}, {l}, {valid}, {d}): "
+              f"max|kernel-plain| / max|plain| {', '.join(line)}; each run "
+              f"twice, bitwise equal; K8 against K1 cosine {cos:.7f}, max "
+              f"relative {rel:.4g}", flush=True)
+
+        # times with branch scales, as the pretrain step runs them
+        lib_w = [w.t().contiguous() if w.dim() == 2 else w for w in ws]
+        library = {
+            "K1": lambda: library_block(x, lib_w, heads, valid, eps),
+            "K4": lambda: library_block(x, lib_w, heads, valid, eps),
+            "K5": lambda: library_bwd_ms(
+                lambda a, *w: library_mlp_half(a, w, eps),
+                [x1] + lib_w[4:8] + lib_w[10:12], dout),
+            "K6": lambda: library_bwd_ms(
+                lambda a, *w: library_attn_half(a, w, heads, valid, eps),
+                [x] + lib_w[0:4] + lib_w[8:10], dx1),
+            "K8": lambda: library_block_int8(x8, w8, heads, valid, eps)}
+        weight_bytes = sum(w.numel() * w.element_size() for w in ws)
+        bounds = train_bounds(b, l, d, mlp)
+        bounds["K1"] = k1_bound_ms(b, l, d, mlp, weight_bytes)
+        k8b = k8_bound_ms(b, l, d, mlp, weight_bytes)
+        bounds["K8"] = (k8b[0], k8b[1], k8b[3], k8b[4])
+        for name, (kernel, plain) in runs.items():
+            ms = cuda_time_ms(kernel, iters=10, warmup=2)
+            plain_ms = cuda_time_ms(plain, iters=2, warmup=1)
+            lib = library[name]
+            lib_ms = lib() if name in ("K5", "K6") else cuda_time_ms(
+                lib, iters=10, warmup=2)
+            bound_ms, bound_by = bounds[name][:2]
+            print(f"long {name} (B, L, valid, D) = ({b}, {l}, {valid}, {d}): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"kernel at {100 * bound_ms / ms:.1f}% of the bound",
+                  flush=True)
+            out[(b, l, valid, d)][name].update(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+        if (b, l, d) == (128, 785, 384):
+            block_launch_split(runs["K1"][0], "k1_profile", b, l, d, mlp)
+            bwd_launch_split(runs["K5"][0], runs["K6"][0], b, l, d, mlp)
+        del x, ws, x1, dx1, dout, x8, w8, runs, library
+        torch.cuda.empty_cache()
+    return out
+
+
 class ParentKernels:
-    """K7 and K8 as an earlier tree built them (`--parent-csrc DIR`: that
-    tree's kernels/csrc, with this tree's C ABI for them:
+    """K1, K6, K7 and K8 as an earlier tree built them (`--parent-csrc
+    DIR`: that tree's kernels/csrc, with this tree's C ABI for them:
+    fused_vit_block_fwd, fused_block_bwd_attn(_workspace),
     dino_head_loss(_workspace) and fused_vit_block_int8(_workspace), as
     of PR 9's tree), built here into a temporary directory and timed
     beside this tree's kernels on the same card, in turns (earlier, this,
@@ -1818,7 +2021,8 @@ class ParentKernels:
         from sais_tpu_torch.kernels import _build
         self.tmp = tempfile.mkdtemp(prefix="parent_kernels_")
         procs = {}
-        for name in ("dino_head_loss", "fused_vit_block_int8"):
+        for name in ("fused_vit_block", "fused_block_bwd_attn",
+                     "dino_head_loss", "fused_vit_block_int8"):
             out = os.path.join(self.tmp, f"{name}.so")
             procs[name] = (out, subprocess.Popen(
                 [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
@@ -1839,7 +2043,51 @@ class ParentKernels:
         k8.fused_vit_block_int8_workspace.argtypes = [i32] * 3
         k8.fused_vit_block_int8_workspace.restype = ctypes.c_size_t
         k8.fused_vit_block_int8.argtypes = [ptr] * 15 + [i32] * 6 + [f32, ptr]
-        print(f"parent K7 and K8 built from {csrc}", flush=True)
+        k1 = self.libs["fused_vit_block"]
+        k1.fused_vit_block_fwd.argtypes = [ptr] * 17 + [i32] * 6 + [f32, ptr]
+        k6 = self.libs["fused_block_bwd_attn"]
+        k6.fused_block_bwd_attn_workspace.argtypes = [i32] * 3
+        k6.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
+        k6.fused_block_bwd_attn.argtypes = [ptr] * 25 + [i32] * 5 + [f32, ptr]
+        print(f"parent K1, K6, K7 and K8 built from {csrc}", flush=True)
+
+    def k1(self, x, ws, num_heads, valid_len, eps):
+        import torch
+        b, l, d = x.shape
+        mlp = ws[4].shape[1]
+        out = torch.empty_like(x)
+        bufs = [torch.empty(shape, dtype=x.dtype, device=x.device) for shape
+                in ((b * l, d), (b * l, max(3 * d, mlp)), (b * l, d))]
+        rc = self.libs["fused_vit_block"].fused_vit_block_fwd(
+            *(t.data_ptr() for t in (x, *ws, out, *bufs)), b, l, d,
+            num_heads, mlp, valid_len, eps,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K1 launch failed ({rc})")
+        return out
+
+    def k6(self, x, dx1, attn_w, s1, num_heads, valid_len, eps):
+        import torch
+        lib = self.libs["fused_block_bwd_attn"]
+        b, l, d = x.shape
+        rows = b * l
+        bf = dict(dtype=torch.bfloat16, device=x.device)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x)
+        grads = [torch.empty(w.shape, **f32) for w in attn_w]
+        bufs = [torch.empty((rows, d), **bf) for _ in range(4)] + [
+            torch.empty((rows, 3 * d), **bf) for _ in range(2)] + [
+            torch.empty((rows, d), **f32), torch.empty((2 * rows,), **f32),
+            torch.empty((lib.fused_block_bwd_attn_workspace(b, l, d),),
+                        **f32)]
+        if s1 is None:
+            bufs[1] = None   # buf_dbr is only written with s1
+        rc = lib.fused_block_bwd_attn(
+            *(None if t is None else t.data_ptr() for t in (
+                x, dx1, s1, *attn_w, dx, *grads, *bufs)),
+            b, l, d, num_heads, valid_len, eps,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K6 launch failed ({rc})")
+        return (dx, *grads)
 
     def k7(self, hs, ht, vs, vt, gs, gt, center, tt, sel, c, *, student_temp,
            inv_norm, use_g):
@@ -2121,28 +2369,32 @@ def phase_k7(parent=None):
     return result
 
 
-def phase_pretrain(batch: int = 64):
-    """`pretrain` at full width: ViT-S/16, DINO head out_dim 65536, 2 global
-    crops at 224 + 8 local at 96, batch 64, adamw, drop path 0.1, the
-    student on K4-K6, the teacher on K1, the last layer and loss on K7."""
+def phase_pretrain(card: str, batch: int = 64, arch: str = "vits16"):
+    """`pretrain --arch <arch>` at full width: the zoo's backbone (vits16:
+    197 tokens a global crop; vits8: 785), DINO head out_dim 65536, 2
+    global crops at 224 + 8 local at 96, batch 64, adamw, drop path 0.1,
+    the student on K4-K6, the teacher on K1, the last layer and loss on
+    K7.  Returns (launches of K4, K5, K6, K1, K7 over five steps, median
+    step seconds)."""
     import numpy as np
     import torch
-    from sais_tpu_torch.config import ViTConfig
     from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
     from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
                                                   fused_block_bwd_mlp,
                                                   fused_block_fwd_train,
                                                   fused_vit_block)
+    from sais_tpu_torch.models import zoo
     from sais_tpu_torch.ops.augment import (center_border_crop,
                                             multi_crop_batch)
     from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
 
+    vit_cfg = zoo.config(arch)
     cfg = DINOConfig(out_dim=65536, batch_size=batch, n_global_crops=2,
                      n_local_crops=8, drop_path_rate=0.1)
     counters = (fused_block_fwd_train, fused_block_bwd_mlp,
                 fused_block_bwd_attn, fused_vit_block, fused_loss_and_grads)
     t0 = time.perf_counter()
-    trainer = DINOTrainer(ViTConfig(), cfg, niter_per_ep=1000,
+    trainer = DINOTrainer(vit_cfg, cfg, niter_per_ep=1000,
                           generator=torch.Generator().manual_seed(0),
                           optimizer="adamw", fused_blocks=True)
     check(trainer.fused_loss, "DINOTrainer on the card did not default to "
@@ -2160,9 +2412,12 @@ def phase_pretrain(batch: int = 64):
           and tuple(l.shape) == (8 * batch, 96, 96, 3)
           and bool(torch.isfinite(g).all() and torch.isfinite(l).all()),
           f"crops {tuple(g.shape)} / {tuple(l.shape)} not finite / wrong")
-    print(f"pretrain: ViT-S/16 + DINO head (out_dim 65536), batch {batch}: "
-          f"crops {tuple(g.shape)} + {tuple(l.shape)}; set-up "
-          f"{setup_s:.1f} s", flush=True)
+    tokens = [(s // vit_cfg.patch_size) ** 2 + 1 for s in (224, 96)]
+    print(f"pretrain {arch}: ViT patch {vit_cfg.patch_size}, D "
+          f"{vit_cfg.embed_dim}, depth {vit_cfg.depth} + DINO head (out_dim "
+          f"65536), batch "
+          f"{batch}: crops {tuple(g.shape)} + {tuple(l.shape)} ({tokens[0]} "
+          f"+ {tokens[1]} tokens); set-up {setup_s:.1f} s", flush=True)
 
     losses = [trainer.step(g, l)]    # warm-up
     torch.cuda.synchronize()
@@ -2177,7 +2432,8 @@ def phase_pretrain(batch: int = 64):
         per_step.append([c.launches - b0 for c, b0 in zip(counters, before)])
     launches = [c.launches for c in counters]
     step_s = sorted(times)[2]
-    print(f"pretrain: 5 steps {', '.join(f'{1e3 * t:.2f}' for t in times)}"
+    print(f"pretrain {arch}: 5 steps "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in times)}"
           f" ms (median {1e3 * step_s:.2f} ms, {batch / step_s:.1f} img/s); "
           f"losses {[round(x, 5) for x in losses]}; launches a step "
           f"(K4, K5, K6, K1, K7) {per_step[0]}, over the 5 steps {launches}",
@@ -2208,7 +2464,8 @@ def phase_pretrain(batch: int = 64):
     gaps = {n: (grad_k[n] - grad_p[n]).abs().max().item()
             / max(grad_p[n].abs().max().item(), 1e-30) for n in grad_p}
     worst = sorted(gaps.items(), key=lambda kv: kv[1])[-3:]
-    print(f"pretrain step, kernels vs plain versions on the card (plain "
+    print(f"pretrain {arch} step, kernels vs plain versions on the card "
+          f"(plain "
           f"{plain_s:.1f} s): loss {loss_k:.6f} vs {loss_p:.6f} (rel "
           f"{rel:.3g}); {len(gaps)} gradients, worst max|diff| / max|plain| "
           f"{', '.join(f'{n} {v:.3g}' for n, v in worst)}", flush=True)
@@ -2225,7 +2482,7 @@ def phase_pretrain(batch: int = 64):
     trainer.fused_loss = False
     loss_u, _ = grads(False)
     trainer.fused_loss = True
-    print(f"pretrain step, K7 vs fused_loss=False on the card: loss "
+    print(f"pretrain {arch} step, K7 vs fused_loss=False on the card: loss "
           f"{loss_k:.6f} vs {loss_u:.6f} (rel "
           f"{abs(loss_k - loss_u) / abs(loss_u):.3g}; JAX's limit 5e-3)",
           flush=True)
@@ -2233,8 +2490,13 @@ def phase_pretrain(batch: int = 64):
         p.grad = None
 
     with _Annotated():
-        _profile(lambda: trainer.step(g, l), "pretrain_step_profile", 1,
-                 ranges=("K4", "K5", "K6", "K1", "K7"))
+        busy_us, wall_us, _ = _profile(
+            lambda: trainer.step(g, l), f"pretrain_step_profile {arch}", 1,
+            ranges=("K4", "K5", "K6", "K1", "K7"))
+    print(f"pretrain {arch} ({card}): step {1e3 * step_s:.2f} ms median, "
+          f"{batch / step_s:.1f} img/s; a profiled step: device busy "
+          f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms wall, "
+          f"{100 * (1 - busy_us / wall_us):.1f}% idle", flush=True)
     del trainer
     torch.cuda.empty_cache()
     return launches, step_s
@@ -2469,30 +2731,33 @@ def main():
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-csrc", metavar="DIR",
-                        help="an earlier tree's kernels/csrc: time its K7 "
-                        "and K8 beside this tree's in phases 10 and 12")
+                        help="an earlier tree's kernels/csrc: time its K1, "
+                        "K6, K7 and K8 beside this tree's")
     args = parser.parse_args()
     t_start = time.time()
     card = phase_device()
     phase_build()
-    k1 = phase_k1()
+    parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
+    k1 = phase_k1(parent)
     k2 = phase_k2()
     launches, rgb_feats = phase_main_path(nframes=300)
     flow_launches = phase_flow(rgb_feats, card)
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
-    train_k = phase_train_kernels()
-    parent = ParentKernels(args.parent_csrc) if args.parent_csrc else None
+    train_k = phase_train_kernels(parent)
+    phase_long_blocks()
     k7 = phase_k7(parent)
-    pretrain_launches, _ = phase_pretrain()
+    # launches of K4, K5, K6, K1, K7 on both pretrain paths
+    pretrain_launches = [a + b for a, b in zip(
+        phase_pretrain(card)[0], phase_pretrain(card, arch="vits8")[0])]
     k8 = phase_k8(parent)
     k8_launches = phase_int8_encoder()
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
         "replaces": "sais_tpu/kernels/fused_mha.py:117",
-        "launches": launches + flow_launches,
+        "launches": launches + flow_launches + pretrain_launches[3],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -33,7 +33,8 @@ prototypes.pkl and metrics.pkl in the JAX package's layout.
 
   python -m sais_tpu_torch.cli.main pretrain -p <root> -bs 64 -e 100
 
-DINO self-supervised pre-training of a ViT-S/16 (--arch) over the frames
+DINO self-supervised pre-training of a ViT-S/16 (--arch: also the patch-8
+ViT-S/8 and ViT-B/8, 785 tokens a global crop, and ViT-B/16) over the frames
 of every <root>/videos/*.mp4 (--source flows: the rendered flow images of
 every <root>/flows/<video>/; border crop, globally shuffled batches,
 multi-crop augmentation on the device), the student backbone on K4-K6 and
@@ -498,8 +499,6 @@ def cmd_pretrain(args):
                       drop_path_rate=args.drop_path)
     vit_cfg = zoo.config(args.arch)
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        zoo.check_fused_length(args.arch, vit_cfg, dcfg.global_size)
 
     def _frame_count(v):
         if args.source == "flows":
@@ -686,8 +685,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--arch", default="vits16",
                         help="pretrain backbone geometry: vits16 / vits8 / "
                              "vitb16 / vitb8 or their dino_* aliases (the "
-                             "patch-8 ones exceed the kernels' 256 tokens "
-                             "and are refused on the card)")
+                             "patch-8 ones: 785 tokens a global crop)")
         sp.add_argument("--loader-threads", type=int, default=4,
                         help="parallel decode threads feeding the shuffle "
                              "buffer")

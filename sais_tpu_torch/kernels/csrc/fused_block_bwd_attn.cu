@@ -28,35 +28,37 @@
 // per-chunk partial column sums, all summed in a fixed order by the last
 // launch: no atomics.
 //
-// One C entry point enqueues nine launches on the caller's stream; the five
-// products run on the wgmma + TMA GEMM of gemm_sm90.cuh (Wproj and Wqkv
-// read as their transposes, ctx and y transposed for the weight
-// gradients):
+// One C entry point enqueues nine launches on the caller's stream (ten past
+// 256 tokens, where (4) is two); the five products run on the wgmma + TMA
+// GEMM of gemm_sm90.cuh (Wproj and Wqkv read as their transposes, ctx and
+// y transposed for the weight gradients):
 //
 //   (1) bwd_prep_kernel          LN1(x) -> y, mean, 1/std; dbr; dbproj parts
 //   (2) gemm_sm90 EPI_BIAS       y @ Wqkv + bqkv -> qkv
 //   (3) gemm_sm90 EPI_NONE       dbr @ Wproj^T -> dctx
-//   (4) attention_bwd_kernel     ctx, dqkv; dbqkv parts (per 16-row tile)
+//   (4) attention_bwd_kernel     ctx, dqkv; dbqkv parts (per 16-row tile);
+//       past 256 tokens attention_bwd_rows_kernel (ctx, dq, the saved
+//       m, l, r) then attention_bwd_cols_kernel (dk, dv), key-tiled
 //   (5) gemm_sm90 A_MN, split K  ctx^T dbr -> dWproj parts
 //   (6) gemm_sm90 A_MN, split K  y^T dqkv -> dWqkv parts
 //   (7) gemm_sm90 EPI_F32        dqkv @ Wqkv^T -> dy (f32)
 //   (8) ln_bwd_kernel            dx; dln1_b, dln1_s parts
 //   (9) sum_parts_kernel         every gradient, parts in fixed order
 //
-// The attention backward (attention_bwd_kernel) takes one (image, head) a
-// block: Q, K, V and dctx of the head (L <= 256 rows of 64) live in shared
-// memory (at most 131 KB; swizzled, not padded, so that up to 208 rows two
-// blocks share an SM).  p of a whole head is 256 x 256 f32 = 256 KB, so it
-// is never stored: phase A gives each warp 16-query tiles and walks the
-// keys in 16-key chunks twice, first for each row's max, sum and
-// rowsum(dp p) (per lane, online, merged over the quad), then for p, ds,
-// ctx and dq in registers; phase B gives each warp 16-key tiles and walks
-// the queries, computing s^T and dp^T directly from the saved row
-// statistics, for dk and dv.  Every product is mma.sync m16n8k16; the score
-// accumulators are re-packed to bf16 A fragments in registers.  Keys at or
-// past valid_len score -1e30 (p exactly 0), tile padding -inf.  Each
-// 16-row tile's bf16 dq, dk and dv are also summed over its rows (a shuffle
-// tree over the fragment's row lanes) into one partial row of dbqkv.
+// The attention backward (attention_bwd_kernel) takes, up to 256 tokens, one
+// (image, head) a block: Q, K, V and dctx of the head (L <= 256 rows of 64)
+// live in shared memory (at most 131 KB; swizzled, not padded, so that up to
+// 208 rows two blocks share an SM).  p of a whole head is 256 x 256 f32 = 256
+// KB, so it is never stored: phase A gives each warp 16-query tiles and walks
+// the keys in 16-key chunks twice, first for each row's max, sum and rowsum(dp
+// p) (per lane, online, merged over the quad), then for p, ds, ctx and dq in
+// registers; phase B gives each warp 16-key tiles and walks the queries,
+// computing s^T and dp^T directly from the saved row statistics, for dk and
+// dv.  Every product is mma.sync m16n8k16; the score accumulators are
+// re-packed to bf16 A fragments in registers.  Keys at or past valid_len score
+// -1e30 (p exactly 0), tile padding -inf.  Each 16-row tile's bf16 dq, dk and
+// dv are also summed over its rows (a shuffle tree over the fragment's row
+// lanes) into one partial row of dbqkv.
 
 #include "gemm_sm90.cuh"
 
@@ -119,6 +121,15 @@ __device__ __forceinline__ void tile_colsum(float (*o)[4], float mul,
       *reinterpret_cast<float2*>(part + nd * 8 + 2 * lane) =
           make_float2(c[0], c[1]);
   }
+}
+
+// pack_bf16 of a 16 x 16 chunk's accumulators (two n8 tiles) as the A
+// fragment of the next mma.
+__device__ __forceinline__ void pack_a(uint32_t* a, const float (*v)[4]) {
+  a[0] = pack_bf16(v[0][0], v[0][1]);
+  a[1] = pack_bf16(v[0][2], v[0][3]);
+  a[2] = pack_bf16(v[1][0], v[1][1]);
+  a[3] = pack_bf16(v[1][2], v[1][3]);
 }
 
 // qkv: (B*L, 3D) [q heads | k heads | v heads]; dctx, ctx: (B*L, D);
@@ -273,14 +284,8 @@ __global__ void __launch_bounds__(ATTB_THREADS, KT <= 13 ? 2 : 1)
           ds[j][e] = p[j][e] * (dp[j][e] - d[r]);
         }
       uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(p[0][0], p[0][1]);
-      pa[1] = pack_bf16(p[0][2], p[0][3]);
-      pa[2] = pack_bf16(p[1][0], p[1][1]);
-      pa[3] = pack_bf16(p[1][2], p[1][3]);
-      sa[0] = pack_bf16(ds[0][0], ds[0][1]);
-      sa[1] = pack_bf16(ds[0][2], ds[0][3]);
-      sa[2] = pack_bf16(ds[1][0], ds[1][1]);
-      sa[3] = pack_bf16(ds[1][2], ds[1][3]);
+      pack_a(pa, p);
+      pack_a(sa, ds);
 #pragma unroll
       for (int nd = 0; nd < DH / 8; nd += 2) {
         uint32_t vb[4], kb[4];
@@ -370,14 +375,8 @@ __global__ void __launch_bounds__(ATTB_THREADS, KT <= 13 ? 2 : 1)
           ds[j][e] = de;
         }
       uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(p[0][0], p[0][1]);
-      pa[1] = pack_bf16(p[0][2], p[0][3]);
-      pa[2] = pack_bf16(p[1][0], p[1][1]);
-      pa[3] = pack_bf16(p[1][2], p[1][3]);
-      sa[0] = pack_bf16(ds[0][0], ds[0][1]);
-      sa[1] = pack_bf16(ds[0][2], ds[0][3]);
-      sa[2] = pack_bf16(ds[1][0], ds[1][1]);
-      sa[3] = pack_bf16(ds[1][2], ds[1][3]);
+      pack_a(pa, p);
+      pack_a(sa, ds);
 #pragma unroll
       for (int nd = 0; nd < DH / 8; nd += 2) {
         uint32_t cb[4], qb[4];
@@ -452,10 +451,403 @@ cudaError_t attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The key-tiled attention backward for L > 256 (patch-8 ViTs: 785 tokens),
+// where a head's Q, K, V and dctx (402 KB at 785 rows) no longer fit a
+// block's shared memory.  Two launches, each with blocks of 4 warps over
+// 64 rows of one (image, head), each warp 16 rows whose A fragments stay
+// in registers, the other operands streamed in 64-row tiles through a
+// cp.async double buffer (36-38 KB), padded rows as in K1's attention:
+//
+// - attention_bwd_rows_kernel, per 64 queries, sweeps the K and V tiles
+//   twice: first each lane's running max m, sum l of exp(s - m) and d = sum
+//   exp(s - m) dp, merged over the quad into m, l and r = d / l =
+//   rowsum(dp p) (summed from the f32 p, as the JAX kernel does, not
+//   FlashAttention's rowsum(dO O)), saved to stats (B, H, L, 3), m in the
+//   log2 domain of K1's key-tiled attention (vit_block_common.cuh: scores
+//   times log2 e, exp as ex2.approx, p times 1 / l); then p = exp(s - m) /
+//   l, pb = bf16(p), ds = bf16(p (dp - r)), ctx += pb v and dq += ds k in
+//   f32.
+// - attention_bwd_cols_kernel, per 64 keys, sweeps the Q, dctx and stats
+//   tiles once: s^T = k q^T and dp^T = v dctx^T, p and ds from the saved
+//   (m, l, r), dv += pb^T dctx and dk += ds^T q.
+//
+// Both keep the register kernel's rounding points and 16-row dbqkv
+// partials (each 16-row tile's columns summed by the one warp that owns
+// it); nothing is accumulated across blocks, so two runs agree to the bit.
+// They execute 12 L^2 Dh (rows: s and dp twice, ctx, dq) + 8 L^2 Dh
+// (columns: s^T, dp^T, dv, dk) flops a head against the 12 L^2 Dh the
+// function needs; like K1's key-tiled attention they keep the scores in
+// the log2 domain (ex2.approx, p times 1 / l).
+// ---------------------------------------------------------------------------
+constexpr int LBWD_ROWS = 64;
+constexpr int LBWD_THREADS = 128;
+constexpr size_t LBWD_TILE = (size_t)LBWD_ROWS * ATT_LD;   // bf16 elements
+constexpr size_t LBWD_ROWS_SMEM = 4 * LBWD_TILE * sizeof(bf16);
+constexpr size_t LBWD_COLS_SMEM =
+    4 * LBWD_TILE * sizeof(bf16) + 2 * 3 * LBWD_ROWS * sizeof(float);
+
+// Rows [r0, r0 + 64) of two bf16 matrices with row strides lda and ldb
+// (DH columns from a and b) into padded (64, ATT_LD) tiles, rows past L
+// zero-filled.
+__device__ __forceinline__ void load_tile_pair(bf16* ta, bf16* tb,
+                                               const bf16* a, size_t lda,
+                                               const bf16* b, size_t ldb,
+                                               int r0, int L) {
+  for (int i = threadIdx.x; i < LBWD_ROWS * (DH / 8); i += LBWD_THREADS) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    const bool ok = r0 + r < L;
+    const size_t row = ok ? r0 + r : 0;
+    cp_async16(ta + r * ATT_LD + c, a + row * lda + c, ok);
+    cp_async16(tb + r * ATT_LD + c, b + row * ldb + c, ok);
+  }
+}
+
+__global__ void __launch_bounds__(LBWD_THREADS)
+    attention_bwd_rows_kernel(const bf16* __restrict__ qkv,
+                              const bf16* __restrict__ dctx,
+                              bf16* __restrict__ ctx,
+                              bf16* __restrict__ dqkv,
+                              float* __restrict__ dqkv_part,
+                              float* __restrict__ stats, int L, int D,
+                              int valid_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [2][64][ATT_LD]
+  bf16* Vs = Ks + 2 * LBWD_TILE;                  // [2][64][ATT_LD]
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qkv_stride = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * L * qkv_stride + h * DH;
+  const bf16* dbase = dctx + (size_t)b * L * D + h * DH;
+  const int nt = (L + LBWD_ROWS - 1) / LBWD_ROWS;
+  const float scale = 0.125f;   // DH ** -0.5, a power of two
+
+  // tile j: key tile j % nt of sweep j / nt, into stage j % 2
+  auto load = [&](int j) {
+    load_tile_pair(Ks + (j & 1) * LBWD_TILE, Vs + (j & 1) * LBWD_TILE,
+                   base + D, qkv_stride, base + 2 * D, qkv_stride,
+                   (j % nt) * LBWD_ROWS, L);
+    cp_async_commit();
+  };
+  load(0);
+
+  const int q0 = blockIdx.x * LBWD_ROWS + warp * 16;
+  const int r0 = q0 + g, r1 = r0 + 8;
+  uint32_t qa[DH / 16][4], da[DH / 16][4];
+  load_a_rows(qa, base, qkv_stride, r0, L, t);
+  load_a_rows(da, dbase, D, r0, L, t);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+  float oc[DH / 8][4], oq[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd)
+    oc[nd][0] = oc[nd][1] = oc[nd][2] = oc[nd][3] = oq[nd][0] = oq[nd][1] =
+        oq[nd][2] = oq[nd][3] = 0.f;
+
+  for (int j = 0; j < 2 * nt; ++j) {
+    if (j + 1 < 2 * nt) {
+      load(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = Ks + (j & 1) * LBWD_TILE;
+    const bf16* vs = Vs + (j & 1) * LBWD_TILE;
+    const int k0 = (j % nt) * LBWD_ROWS;
+    for (int kc = 0; kc < LBWD_ROWS / 16; ++kc) {
+      // s and dp of 16 keys: rows g (elements 0, 1) and g + 8 (2, 3), keys
+      // k0 + 16 kc + 8 jj + 2 t + e
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = dp[jj][0] = dp[jj][1] =
+            dp[jj][2] = dp[jj][3] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < DH / 16; ++kq) {
+        uint32_t kb[4], vb[4];
+        load_b_frags_nk(kb, ks + kc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
+        load_b_frags_nk(vb, vs + kc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
+        mma_bf16_16816(s[0], qa[kq], kb[0], kb[1]);
+        mma_bf16_16816(s[1], qa[kq], kb[2], kb[3]);
+        mma_bf16_16816(dp[0], da[kq], vb[0], vb[1]);
+        mma_bf16_16816(dp[1], da[kq], vb[2], vb[3]);
+      }
+      const int c0 = k0 + kc * 16;
+      log2_scores<2>(s, c0, t, c0 + 16 <= valid_len, L, valid_len);
+      if (j < nt) {
+        // sweep 1, online per lane
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[r];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+            mx = fmaxf(mx, fmaxf(s[jj][2 * r], s[jj][2 * r + 1]));
+          if (mx == -INFINITY) continue;   // no key of this lane yet
+          const float alpha = m[r] == -INFINITY ? 0.f : ex2(m[r] - mx);
+          l[r] *= alpha;
+          d[r] *= alpha;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pe = ex2(s[jj][2 * r + e] - mx);
+              l[r] += pe;
+              d[r] += pe * dp[jj][2 * r + e];
+            }
+          m[r] = mx;
+        }
+      } else {
+        // sweep 2: p, ds; ctx += pb v, dq += ds k
+        float p[2][4], ds[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            p[jj][e] = ex2(s[jj][e] - m[r]) * l[r];
+            ds[jj][e] = p[jj][e] * (dp[jj][e] - d[r]);
+          }
+        uint32_t pa[4], sa[4];
+        pack_a(pa, p);
+        pack_a(sa, ds);
+#pragma unroll
+        for (int nd = 0; nd < DH / 8; nd += 2) {
+          uint32_t vb[4], kb[4];
+          load_b_frags_kn(vb, vs + kc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
+          load_b_frags_kn(kb, ks + kc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
+          mma_bf16_16816(oc[nd], pa, vb[0], vb[1]);
+          mma_bf16_16816(oc[nd + 1], pa, vb[2], vb[3]);
+          mma_bf16_16816(oq[nd], sa, kb[0], kb[1]);
+          mma_bf16_16816(oq[nd + 1], sa, kb[2], kb[3]);
+        }
+      }
+    }
+    if (j == nt - 1) {
+      // merge the quad's lanes: m, l and r = rowsum(dp p) of each row,
+      // saved; then l is kept as 1 / l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mq = m[r];
+        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 1));
+        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+        const float a = m[r] == -INFINITY ? 0.f : ex2(m[r] - mq);
+        float lq = l[r] * a, dq = d[r] * a;
+        lq += __shfl_xor_sync(0xffffffffu, lq, 1);
+        lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+        dq += __shfl_xor_sync(0xffffffffu, dq, 1);
+        dq += __shfl_xor_sync(0xffffffffu, dq, 2);
+        m[r] = mq;
+        l[r] = lq;
+        d[r] = dq / lq;
+      }
+      float* st = stats + ((size_t)b * heads + h) * L * 3;
+      if (t == 0 && r0 < L) {
+        st[3 * r0] = m[0];
+        st[3 * r0 + 1] = l[0];
+        st[3 * r0 + 2] = d[0];
+      }
+      if (t == 0 && r1 < L) {
+        st[3 * r1] = m[1];
+        st[3 * r1 + 1] = l[1];
+        st[3 * r1 + 2] = d[1];
+      }
+      l[0] = 1.f / l[0];
+      l[1] = 1.f / l[1];
+    }
+    __syncthreads();   // stage j % 2 is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (r0 < L) {
+      const size_t row = (size_t)b * L + r0;
+      *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
+          __floats2bfloat162_rn(oc[nd][0], oc[nd][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH + col) =
+          __floats2bfloat162_rn(oq[nd][0] * scale, oq[nd][1] * scale);
+    }
+    if (r1 < L) {
+      const size_t row = (size_t)b * L + r1;
+      *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
+          __floats2bfloat162_rn(oc[nd][2], oc[nd][3]);
+      *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH + col) =
+          __floats2bfloat162_rn(oq[nd][2] * scale, oq[nd][3] * scale);
+    }
+  }
+  const int tiles16 = (L + 15) / 16;
+  if (q0 < L)
+    tile_colsum(oq, scale, r0 < L, r1 < L,
+                dqkv_part + ((size_t)b * tiles16 + q0 / 16) * 3 * D + h * DH,
+                lane);
+}
+
+__global__ void __launch_bounds__(LBWD_THREADS)
+    attention_bwd_cols_kernel(const bf16* __restrict__ qkv,
+                              const bf16* __restrict__ dctx,
+                              const float* __restrict__ stats,
+                              bf16* __restrict__ dqkv,
+                              float* __restrict__ dqkv_part, int L, int D,
+                              int valid_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [2][64][ATT_LD]
+  bf16* Cs = Qs + 2 * LBWD_TILE;                  // dctx, [2][64][ATT_LD]
+  float* Ss = reinterpret_cast<float*>(Cs + 2 * LBWD_TILE);   // [2][64][3]
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qkv_stride = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * L * qkv_stride + h * DH;
+  const bf16* dbase = dctx + (size_t)b * L * D + h * DH;
+  const float* st = stats + ((size_t)b * heads + h) * L * 3;
+  const int nt = (L + LBWD_ROWS - 1) / LBWD_ROWS;
+  const float scale = 0.125f;
+
+  // query tile j into stage j % 2: Q and dctx by cp.async, the saved (m,
+  // l, r) by plain loads as (m, 1 / l, r) (rows past L never used)
+  auto load = [&](int j) {
+    const int s0 = j * LBWD_ROWS;
+    load_tile_pair(Qs + (j & 1) * LBWD_TILE, Cs + (j & 1) * LBWD_TILE, base,
+                   qkv_stride, dbase, D, s0, L);
+    cp_async_commit();
+    float* ss = Ss + (j & 1) * 3 * LBWD_ROWS;
+    for (int i = threadIdx.x; i < 3 * LBWD_ROWS; i += LBWD_THREADS) {
+      const float v = 3 * s0 + i < 3 * L ? st[3 * s0 + i] : 1.f;
+      ss[i] = i % 3 == 1 ? 1.f / v : v;
+    }
+  };
+  load(0);
+
+  // this warp's keys k0 + g and k0 + g + 8: their K and V rows as A
+  const int k0 = blockIdx.x * LBWD_ROWS + warp * 16;
+  uint32_t ka[DH / 16][4], va[DH / 16][4];
+  load_a_rows(ka, base + D, qkv_stride, k0 + g, L, t);
+  load_a_rows(va, base + 2 * D, qkv_stride, k0 + g, L, t);
+  const float add0 = k0 + g >= valid_len ? kNegInf : 0.f;
+  const float add1 = k0 + g + 8 >= valid_len ? kNegInf : 0.f;
+  const bool key0 = k0 + g < L, key1 = k0 + g + 8 < L;
+  float ok_[DH / 8][4], ov[DH / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd)
+    ok_[nd][0] = ok_[nd][1] = ok_[nd][2] = ok_[nd][3] = ov[nd][0] =
+        ov[nd][1] = ov[nd][2] = ov[nd][3] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    if (j + 1 < nt) {
+      load(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qs = Qs + (j & 1) * LBWD_TILE;
+    const bf16* cs = Cs + (j & 1) * LBWD_TILE;
+    const float* ss = Ss + (j & 1) * 3 * LBWD_ROWS;
+    for (int qc = 0; qc < LBWD_ROWS / 16; ++qc) {
+      // s^T = K Q^T and dp^T = V dctx^T for 16 keys x 16 queries
+      float st_[2][4], dpt[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        st_[jj][0] = st_[jj][1] = st_[jj][2] = st_[jj][3] = dpt[jj][0] =
+            dpt[jj][1] = dpt[jj][2] = dpt[jj][3] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < DH / 16; ++kq) {
+        uint32_t qb[4], cb[4];
+        load_b_frags_nk(qb, qs + qc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
+        load_b_frags_nk(cb, cs + qc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
+        mma_bf16_16816(st_[0], ka[kq], qb[0], qb[1]);
+        mma_bf16_16816(st_[1], ka[kq], qb[2], qb[3]);
+        mma_bf16_16816(dpt[0], va[kq], cb[0], cb[1]);
+        mma_bf16_16816(dpt[1], va[kq], cb[2], cb[3]);
+      }
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qc * 16 + jj * 8 + 2 * t + (e & 1);   // in the tile
+          const bool key_ok = (e >> 1) ? key1 : key0;
+          const float add = (e >> 1) ? add1 : add0;
+          float pe = 0.f, de = 0.f;
+          if (j * LBWD_ROWS + qi < L && key_ok) {
+            pe = ex2(st_[jj][e] * kScaleLog2 + add - ss[3 * qi]) *
+                 ss[3 * qi + 1];
+            de = pe * (dpt[jj][e] - ss[3 * qi + 2]);
+          }
+          p[jj][e] = pe;
+          ds[jj][e] = de;
+        }
+      uint32_t pa[4], sa[4];
+      pack_a(pa, p);
+      pack_a(sa, ds);
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; nd += 2) {
+        uint32_t cb[4], qb[4];
+        load_b_frags_kn(cb, cs + qc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
+        load_b_frags_kn(qb, qs + qc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
+        mma_bf16_16816(ov[nd], pa, cb[0], cb[1]);
+        mma_bf16_16816(ov[nd + 1], pa, cb[2], cb[3]);
+        mma_bf16_16816(ok_[nd], sa, qb[0], qb[1]);
+        mma_bf16_16816(ok_[nd + 1], sa, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();   // stage j % 2 is free for tile j + 2
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (key0) {
+      bf16* out = dqkv + ((size_t)b * L + k0 + g) * 3 * D + h * DH + col;
+      *reinterpret_cast<__nv_bfloat162*>(out + D) =
+          __floats2bfloat162_rn(ok_[nd][0] * scale, ok_[nd][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
+          __floats2bfloat162_rn(ov[nd][0], ov[nd][1]);
+    }
+    if (key1) {
+      bf16* out = dqkv + ((size_t)b * L + k0 + g + 8) * 3 * D + h * DH + col;
+      *reinterpret_cast<__nv_bfloat162*>(out + D) =
+          __floats2bfloat162_rn(ok_[nd][2] * scale, ok_[nd][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
+          __floats2bfloat162_rn(ov[nd][2], ov[nd][3]);
+    }
+  }
+  if (k0 < L) {
+    float* part = dqkv_part +
+                  ((size_t)b * ((L + 15) / 16) + k0 / 16) * 3 * D + h * DH;
+    tile_colsum(ok_, scale, key0, key1, part + D, lane);
+    tile_colsum(ov, 1.f, key0, key1, part + 2 * D, lane);
+  }
+}
+
+cudaError_t long_attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
+                               bf16* dqkv, float* dqkv_part, float* stats,
+                               int B, int L, int D, int heads, int valid_len,
+                               cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)LBWD_ROWS_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_bwd_cols_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)LBWD_COLS_SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid((L + LBWD_ROWS - 1) / LBWD_ROWS, heads, B);
+  attention_bwd_rows_kernel<<<grid, LBWD_THREADS, LBWD_ROWS_SMEM, stream>>>(
+      qkv, dctx, ctx, dqkv, dqkv_part, stats, L, D, valid_len);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  attention_bwd_cols_kernel<<<grid, LBWD_THREADS, LBWD_COLS_SMEM, stream>>>(
+      qkv, dctx, stats, dqkv, dqkv_part, L, D, valid_len);
+  return cudaGetLastError();
+}
+
+
 // The workspace: each gradient's partials, in floats, in the order the
 // final sum reads them.
 struct AttnParts {
-  size_t dbqkv, dbproj, dln_b, dln_s, dwproj, dwqkv, total;
+  size_t dbqkv, dbproj, dln_b, dln_s, dwproj, dwqkv, stats, total;
   AttnParts(int batch, int seq, int dim) {
     const int rows = batch * seq;
     const size_t chunks = row_chunks(rows);
@@ -465,7 +857,10 @@ struct AttnParts {
     dln_s = dln_b + chunks * dim;
     dwproj = dln_s + chunks * dim;
     dwqkv = dwproj + wgrad_partials(dim, dim, rows);
-    total = dwqkv + wgrad_partials(dim, 3 * dim, rows);
+    stats = dwqkv + wgrad_partials(dim, 3 * dim, rows);
+    // past 256 tokens the key-tiled backward's saved (m, l, r), (B, H, L, 3)
+    total = stats + (seq > SHORT_ATT_LEN
+                         ? (size_t)batch * (dim / DH) * seq * 3 : 0);
   }
 };
 
@@ -497,7 +892,7 @@ int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
                          int batch, int seq, int dim, int heads, int valid_len,
                          float eps, void* stream_ptr) {
   if (heads <= 0 || dim != heads * DH || dim > MAX_BWD_DIM || seq < 1 ||
-      seq > 16 * 16 || valid_len < 1 || valid_len > seq || batch < 1)
+      valid_len < 1 || valid_len > seq || batch < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   auto w = [](const void* p) { return static_cast<const bf16*>(p); };
@@ -525,8 +920,14 @@ int fused_block_bwd_attn(const void* x, const void* dx1, const void* s1,
   if ((e = gemm_sm90<EPI_NONE, false, true>(dbr, w(proj_w), nullptr, dctx,
                                             rows, dim, dim, stream)))
     return (int)e;
-  if ((e = attention_bwd(qkv, dctx, ctx, dqkv, ws + parts.dbqkv, batch, seq,
-                         dim, heads, valid_len, stream))) return (int)e;
+  if (seq > SHORT_ATT_LEN)
+    e = long_attention_bwd(qkv, dctx, ctx, dqkv, ws + parts.dbqkv,
+                           ws + parts.stats, batch, seq, dim, heads,
+                           valid_len, stream);
+  else
+    e = attention_bwd(qkv, dctx, ctx, dqkv, ws + parts.dbqkv, batch, seq,
+                      dim, heads, valid_len, stream);
+  if (e) return (int)e;
   if ((e = wgrad_sm90(ctx, dbr, ws + parts.dwproj, dim, dim, rows, stream)))
     return (int)e;
   if ((e = wgrad_sm90(y, dqkv, ws + parts.dwqkv, dim, 3 * dim, rows,

@@ -28,11 +28,15 @@
 //
 //   (1) layer_norm_kernel              LN1 -> y
 //   (2) gemm_sm90_kernel<EPI_BIAS>     y @ Wqkv + b -> qkv
-//   (3) attention_kernel<KT>           per (head, image): K and V loaded
-//                                      once into shared memory; a warp keeps
-//                                      a query tile's whole key row of
-//                                      scores in registers, two-pass f32
-//                                      softmax, P re-used as the A operand
+//   (3) attention_kernel<KT>           up to 256 tokens, per (head,
+//                                      image): K and V loaded once into
+//                                      shared memory; a warp keeps a query
+//                                      tile's whole key row of scores in
+//                                      registers, two-pass f32 softmax, P
+//                                      re-used as the A operand; past 256
+//       long_attention_kernel          per (64 queries, head, image), K and
+//                                      V streamed in 64-key tiles, two
+//                                      sweeps (vit_block_common.cuh)
 //   (4) gemm_sm90_kernel<EPI_RESIDUAL> [s1 *] (ctx @ Wproj + b) + x -> x1
 //   (5) layer_norm_kernel              LN2 -> y
 //   (6) gemm_sm90_kernel<EPI_GELU>     y @ W1 + b1, tanh-GELU -> h
@@ -64,8 +68,8 @@ cudaError_t block_forward(const void* x, const void* qkv_w,
                           int batch, int seq, int dim, int heads, int mlp,
                           int valid_len, float eps, void* stream_ptr) {
   if (heads <= 0 || dim != heads * DH || dim % sm90::BK != 0 ||
-      mlp % sm90::BK != 0 || seq < 1 || seq > 16 * 16 || valid_len < 1 ||
-      valid_len > seq || batch < 1)
+      mlp % sm90::BK != 0 || seq < 1 || valid_len < 1 || valid_len > seq ||
+      batch < 1)
     return cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;

@@ -34,7 +34,8 @@
 //                                   stored transposed (N, K), the K-major
 //                                   B of 8-bit wgmma
 //   (3) gemm_sm90 EPI_I8_BF16       qkv
-//   (4) attention_kernel<KT>        (vit_block_common.cuh, K1's)
+//   (4) attention_kernel<KT>        (vit_block_common.cuh, K1's; past 256
+//       or long_attention_kernel    tokens the key-tiled one)
 //   (5) quant_rows_kernel           ctx -> int8 rows
 //   (6) gemm_sm90 EPI_I8_RESID      x1 = x + bf16(proj)
 //   (7) ln_quant_kernel             LN2
@@ -338,7 +339,7 @@ int fused_vit_block_int8(const void* x, const void* qkv_w, const void* qkv_b,
                          void* stream_ptr) {
   if (heads <= 0 || dim != heads * DH || dim % (2 * sm90::MLP_NC) != 0 ||
       dim > sm90::MLP_MAX_D || mlp % sm90::MLP_SLICE != 0 || seq < 1 ||
-      seq > 16 * 16 || valid_len < 1 || valid_len > seq || batch < 1)
+      valid_len < 1 || valid_len > seq || batch < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;

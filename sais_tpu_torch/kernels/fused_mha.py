@@ -279,29 +279,21 @@ def block_bwd_mlp_reference(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s,
             (dy * xhat).sum(0), dy.sum(0))
 
 
-def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
-                             ln1_b, num_heads: int, valid_len: int,
-                             eps: float = 1e-6, s1=None):
-    """Plain PyTorch version of K6, the backward through x1 = x + [s1 *]
-    proj(attn(qkv(LN1(x)))) with `_attn_bwd_kernel` / `_attn_bwd_tail`'s
-    rounding points.  Returns (dx in x's dtype, dqkv_w, dqkv_b, dproj_w,
-    dproj_b, dln1_s, dln1_b in float32, shaped as the weights); dqkv's
-    columns are [dq heads | dk heads | dv heads], as qkv_w's are."""
-    b, l, d = x.shape
-    dh = d // num_heads
-    dtype = x.dtype
+def _attention_bwd(qkv, dctx, num_heads, valid_len):
+    """Backward of `_attention_ctx` for the cotangent dctx (B, L, D), with
+    `_attn_bwd_kernel`'s rounding points: (ctx (B, L, D), dqkv (B, L, 3D))
+    in qkv's dtype, dqkv's columns [dq heads | dk heads | dv heads]; p in
+    f32, pb = p rounded, ds = p (dp - rowsum(dp p)) rounded, dq and dk
+    scaled by dh^-0.5 in f32 before their rounding."""
+    b, l, d3 = qkv.shape
+    dh = d3 // 3 // num_heads
+    dtype = qkv.dtype
     scale = dh ** -0.5
-    key_mask = torch.where(torch.arange(l, device=x.device) >= valid_len,
+    key_mask = torch.where(torch.arange(l, device=qkv.device) >= valid_len,
                            _NEG_INF, 0.0)
-    xf, dx1f = x.reshape(-1, d), dx1.reshape(-1, d)
-    xhat, rstd = _ln_stats(xf, eps)
-    s32 = ln1_s.float()
-    y = (xhat * s32 + ln1_b.float()).to(dtype)
-    qkv = (_mm(y, qkv_w, dtype) + qkv_b).reshape(b, l, 3, num_heads, dh)
-    q, k, v = (t.float() for t in qkv.unbind(2))
-    dbr = dx1f * s1.reshape(-1, 1).to(dtype) if s1 is not None else dx1f
-    dctx = _mm(dbr, proj_w.t(), dtype).reshape(b, l, num_heads, dh).float()
-
+    q, k, v = (t.float() for t in qkv.reshape(b, l, 3, num_heads,
+                                               dh).unbind(2))
+    dctx = dctx.reshape(b, l, num_heads, dh).float()
     s = torch.einsum("blhd,bmhd->bhlm", q * scale, k)
     p = torch.softmax(s + key_mask, dim=-1)
     pb = p.to(dtype).float()
@@ -311,9 +303,31 @@ def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
     ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dtype).float()
     dq = torch.einsum("bhlm,bmhd->blhd", ds, k) * scale
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q) * scale
-    dqkv = torch.stack([dq, dk, dv], 2).to(dtype).reshape(-1, 3 * d)
+    dqkv = torch.stack([dq, dk, dv], 2).to(dtype)
+    return ctx.reshape(b, l, d3 // 3), dqkv.reshape(b, l, d3)
+
+
+def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
+                             ln1_b, num_heads: int, valid_len: int,
+                             eps: float = 1e-6, s1=None):
+    """Plain PyTorch version of K6, the backward through x1 = x + [s1 *]
+    proj(attn(qkv(LN1(x)))) with `_attn_bwd_kernel` / `_attn_bwd_tail`'s
+    rounding points.  Returns (dx in x's dtype, dqkv_w, dqkv_b, dproj_w,
+    dproj_b, dln1_s, dln1_b in float32, shaped as the weights); dqkv's
+    columns are [dq heads | dk heads | dv heads], as qkv_w's are."""
+    b, l, d = x.shape
+    dtype = x.dtype
+    xf, dx1f = x.reshape(-1, d), dx1.reshape(-1, d)
+    xhat, rstd = _ln_stats(xf, eps)
+    s32 = ln1_s.float()
+    y = (xhat * s32 + ln1_b.float()).to(dtype)
+    qkv = (_mm(y, qkv_w, dtype) + qkv_b).reshape(b, l, 3 * d)
+    dbr = dx1f * s1.reshape(-1, 1).to(dtype) if s1 is not None else dx1f
+    dctx = _mm(dbr, proj_w.t(), dtype).reshape(b, l, d)
+    ctx, dqkv = _attention_bwd(qkv, dctx, num_heads, valid_len)
 
     ctx = ctx.reshape(-1, d)
+    dqkv = dqkv.reshape(-1, 3 * d)
     dproj_w = ctx.float().t() @ dbr.float()
     dproj_b = dbr.float().sum(0)
     dqkv_w = y.float().t() @ dqkv.float()
@@ -324,9 +338,10 @@ def block_bwd_attn_reference(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s,
             (dy * xhat).sum(0), dy.sum(0))
 
 
-# Shapes the CUDA kernels take (kernels/csrc/*.cu).
+# Shapes the CUDA kernels take (kernels/csrc/*.cu).  Any sequence length:
+# up to 256 tokens the attention (forward and K6's backward) keeps a head
+# in one block, past 256 the key-tiled kernels stream it.
 HEAD_DIM = 64
-MAX_LEN = 256
 K_TILE = 64
 MAX_BWD_DIM = 768   # K5 and K6: a lane keeps D / 32 column sums
 # K8's MLP launch: two consumer warpgroups of 192 output columns each (D a
@@ -363,10 +378,8 @@ def _check_geometry(x, num_heads, valid_len, mlp=None):
     if d % K_TILE or (mlp is not None and mlp % K_TILE):
         raise ValueError(f"D={d} and MLP width {mlp} must be multiples of "
                          f"{K_TILE}")
-    if not 1 <= l <= MAX_LEN:
-        raise NotImplementedError(
-            f"sequence length {l} outside the kernels' 1..{MAX_LEN} (the "
-            "score rows of a query live in registers)")
+    if l < 1:
+        raise ValueError(f"sequence length {l}: the kernels take L >= 1")
     if not 1 <= valid_len <= l:
         raise ValueError(f"valid_len={valid_len} outside 1..{l}")
 

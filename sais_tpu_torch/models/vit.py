@@ -1,4 +1,5 @@
-"""DINO Vision Transformer (ViT-S/16) in PyTorch.
+"""DINO Vision Transformer (ViT-S/16, and the zoo's ViT-S/8, ViT-B/16 and
+ViT-B/8) in PyTorch.
 
 Counterpart of `sais_tpu/models/vit.py`.  The modules carry the names of
 DINO's state_dict (dino-main/vision_transformer.py: `patch_embed.proj`,

@@ -2,9 +2,9 @@
 `pretrain --arch`.
 
 Counterpart of `config` in `sais_tpu/models/zoo.py`: vits16 / vits8 /
-vitb16 / vitb8 and their torch-hub aliases dino_*.  At 224 px the patch-8
-geometries have 785 tokens, past the 256 the ViT-block kernels take
-(K1, K4-K6), so they are refused on a CUDA device (`check_fused_length`).
+vitb16 / vitb8 and their torch-hub aliases dino_*.  Every geometry runs on
+the card: at 224 px the patch-8 ones have 785 tokens, which the ViT-block
+kernels (K1, K4-K6, K8) take through their key-tiled attention.
 """
 
 from __future__ import annotations
@@ -38,15 +38,3 @@ def config(name: str) -> ViTConfig:
                        f"{sorted(CONFIGS) + sorted(ALIASES)}")
     return CONFIGS[key]
 
-
-def check_fused_length(name: str, cfg: ViTConfig, image_size: int) -> None:
-    """Refuse a geometry whose token count at image_size exceeds what the
-    ViT-block kernels take (K1, K4-K6: 256 tokens)."""
-    from sais_tpu_torch.kernels.fused_mha import MAX_LEN
-    tokens = (image_size // cfg.patch_size) ** 2 + 1
-    if tokens > MAX_LEN:
-        raise NotImplementedError(
-            f"--arch {name}: {tokens} tokens at {image_size} px, past the "
-            f"{MAX_LEN} the ViT-block kernels take on the card; longer "
-            "sequences are open work (ROADMAP.md Queue 2, 'Still to port: "
-            "the long-sequence range of the ViT-block kernels')")

@@ -22,10 +22,12 @@ Counterpart of `sais_tpu/train/dino.py`, in eager PyTorch on one device
 
 With `fused_blocks` (the default on the card at batch >= 32) the student
 backbone runs on K4 / K5 / K6 (`vit_features_trainable_fused`) and the
-teacher on K1 (`vit_forward_fused`); otherwise both run the plain bf16
-path (`vit_forward_train`).  With `fused_loss` (the default on the card,
-JAX's auto rule) the head's bottleneck runs per resolution group and the
-weight-normed last layer and the loss run as K7
+teacher on K1 (`vit_forward_fused`), at any zoo geometry (the patch-8
+ones' 785-token global crops on the kernels' key-tiled attention);
+otherwise both run the plain bf16 path (`vit_forward_train`).  With
+`fused_loss` (the default on the card, JAX's auto rule) the head's
+bottleneck runs per resolution group and the weight-normed last layer and
+the loss run as K7
 (`kernels.dino_head_loss.FusedDinoLoss`), which keeps the (rows, out_dim)
 logits out of device memory; otherwise the head and loss are plain
 PyTorch.  The use_bn head and data-parallel steps (`mesh`) are not ported

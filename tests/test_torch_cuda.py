@@ -80,9 +80,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                         *ws, **kw)
     with pytest.raises(ValueError, match="valid_len"):
         fused_vit_block(x, *ws, num_heads=6, valid_len=21)
-    long_x, long_ws = _inputs(1, 1, 257)
-    with pytest.raises(NotImplementedError, match="sequence length"):
-        fused_vit_block(long_x, *long_ws, num_heads=6, valid_len=257)
+    with pytest.raises(ValueError, match="sequence length"):
+        fused_vit_block(x[:, :0], *ws, num_heads=6, valid_len=1)
 
 
 # (N, K) of the blocks' products at ViT-S widths: the forward's qkv, proj,
@@ -92,11 +91,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 # 384), dy (384, 1152).  "wgrad" takes a (M, K) and w (M, N) and returns
 # (K, N) over the M rows: dWqkv (384 x 1152), dWproj (384 x 384), dW1
 # (384 x 1536), dW2 (1536 x 384), a partial tile (384 x 320).  M: the K1
-# main path's 256 x 197 rows, ragged counts, the pretrain step's (512, 37)
-# and (128, 197) groups.
+# main path's 256 x 197 rows, ragged counts, the ViT-S/16 pretrain step's
+# (512, 37) and (128, 197) groups, and the vits8 step's (128, 785) globals
+# and (512, 145) locals.
 GEMM_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536), (320, 384),
            (384, 1152)]
-GEMM_M = [50432, 591, 18944, 7, 25216]
+GEMM_M = [50432, 591, 18944, 7, 25216, 100480, 74240]
 
 
 @pytest.mark.parametrize("epilogue,scaled", [("bias", False),
@@ -567,16 +567,68 @@ def test_train_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         fused_block_bwd_attn(x, x, *ws[0:4], *ws[8:10], num_heads=4,
                              valid_len=20)
-    long_x, long_ws = _inputs(1, 1, 257)
-    with pytest.raises(NotImplementedError, match="sequence length"):
-        fused_block_bwd_attn(long_x, long_x, *long_ws[0:4], *long_ws[8:10],
-                             num_heads=6, valid_len=257)
+    with pytest.raises(ValueError, match="sequence length"):
+        fused_block_bwd_attn(x[:, :0], x[:, :0], *ws[0:4], *ws[8:10],
+                             num_heads=6, valid_len=1)
     wide_x, wide_ws = _inputs(2, 1, 4, d=832, mlp=4 * 832)
     with pytest.raises(NotImplementedError, match="768"):
         fused_block_bwd_mlp(wide_x, wide_x, *wide_ws[4:8], *wide_ws[10:12])
     with pytest.raises(NotImplementedError, match="768"):
         fused_block_bwd_attn(wide_x, wide_x, *wide_ws[0:4], *wide_ws[8:10],
                              num_heads=13, valid_len=4)
+
+
+@pytest.mark.parametrize("b,l,valid,d", [(2, 785, 785, 384),
+                                         (1, 1025, 1025, 384),
+                                         (2, 800, 785, 384),
+                                         (1, 785, 785, 768)])
+def test_long_blocks_match_plain_versions(cuda, b, l, valid, d):
+    """Past the register attention's 256 tokens (the patch-8 ViTs' 785 at
+    224 px, 1025, and 800 rows with keys >= 785 masked, as the JAX package
+    pads them; ViT-S and ViT-B widths): K1, K4, K5, K6 and K8 against their
+    plain versions (`_close`'s limit), one launch each, and K1, K4, K6 and
+    K8 twice on the same inputs, equal to the bit."""
+    from sais_tpu_torch.kernels.fused_mha import (
+        block_bwd_attn_reference, block_bwd_mlp_reference,
+        fused_block_bwd_attn, fused_block_bwd_mlp, fused_block_fwd_train,
+        fused_vit_block_int8, vit_block_int8_reference,
+        vit_block_train_reference)
+    heads = d // 64
+    x, ws = _inputs(l + d, b, l, d=d, mlp=4 * d)
+    s1, s2 = _scales(b, l, l)
+    kw = dict(num_heads=heads, valid_len=valid)
+    counters = (fused_vit_block, fused_block_fwd_train, fused_block_bwd_mlp,
+                fused_block_bwd_attn, fused_vit_block_int8)
+    counts = [c.launches for c in counters]
+    dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(l)
+                       ).to(cuda, torch.bfloat16)
+    runs = [(fused_vit_block(x, *ws, **kw),
+             fused_block_fwd_train(x, *ws, s1=s1, s2=s2, **kw),
+             fused_block_bwd_mlp(x, dout, *ws[4:8], *ws[10:12], s2=s2),
+             fused_block_bwd_attn(x, dout, *ws[0:4], *ws[8:10], s1=s1, **kw),
+             fused_vit_block_int8(x, *ws, **kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 2 for n in counts]
+    for first, second in zip(*runs):
+        first = (first,) if isinstance(first, torch.Tensor) else first
+        second = (second,) if isinstance(second, torch.Tensor) else second
+        for i, (u, v) in enumerate(zip(first, second)):
+            assert torch.equal(u, v), i
+    out, (k4_out, k4_x1), mlp, attn, k8 = runs[0]
+    _close(out[:, :valid], vit_block_reference(x, *ws, **kw)[:, :valid],
+           "K1")
+    ref_out, ref_x1 = vit_block_train_reference(x, *ws, s1=s1, s2=s2, **kw)
+    _close(k4_x1[:, :valid], ref_x1[:, :valid], "K4 x1")
+    _close(k4_out[:, :valid], ref_out[:, :valid], "K4 out")
+    ref = block_bwd_mlp_reference(x, dout, *ws[4:8], *ws[10:12], s2=s2)
+    for i, (a, r) in enumerate(zip(mlp, ref)):
+        _close(a, r, f"K5 output {i}")
+    ref = block_bwd_attn_reference(x, dout, *ws[0:4], *ws[8:10], s1=s1,
+                                   **kw)
+    for i, (a, r) in enumerate(zip(attn, ref)):
+        _close(a, r, f"K6 output {i}")
+    _close(k8[:, :valid], vit_block_int8_reference(x, *ws, **kw)[:, :valid],
+           "K8")
 
 
 def test_train_backward_kernels_are_bitwise_repeatable(cuda):
@@ -854,9 +906,10 @@ def test_k8_takes_vit_b_width(cuda):
 
 
 # (N, K) of K8's qkv and proj products and of its fc1 and fc2 shapes; M:
-# the W8A8 encoder's 256 x 197 rows, ragged counts
+# the W8A8 encoder's 256 x 197 rows, ragged counts, and the patch-8
+# geometries' 128 x 785 and 512 x 145 rows
 I8_NK = [(1152, 384), (384, 384), (1536, 384), (384, 1536)]
-I8_M = [50432, 591, 7]
+I8_M = [50432, 591, 7, 100480, 74240]
 
 
 @pytest.mark.parametrize("epilogue", ["bf16", "residual"])
@@ -904,6 +957,34 @@ def test_vit_int8_path_runs_k8_only(cuda):
         assert fused_vit_block_int8.launches == k8 + cfg.depth
         ref = vit_features(model, images)
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    assert cos.mean().item() > 0.999, cos
+
+
+def test_vit_patch8_paths_run_the_long_kernels(cuda, monkeypatch):
+    """A ViT-S/8 (the zoo's vits8, depth cut to 3) at 224 px: 785 tokens a
+    crop.  vit_forward_fused through K1 against the same path through K1's
+    plain version (CLS within 5e-2 of the largest value, as at 197), and
+    vit_features(quant="int8") through K8 once a block, K1 never, CLS
+    cosine against the K1 path > 0.999."""
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block_int8
+    from sais_tpu_torch.models import vit, zoo
+    from sais_tpu_torch.models.vit import vit_features
+    cfg = dataclasses.replace(zoo.config("vits8"), depth=3)
+    model = vit_init(torch.Generator().manual_seed(0), cfg).to(
+        cuda, torch.bfloat16)
+    images = torch.randn((4, 224, 224, 3),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    k1, k8 = fused_vit_block.launches, fused_vit_block_int8.launches
+    with torch.inference_mode():
+        got = vit_forward_fused(model, images)
+        q8 = vit_features(model, images, quant="int8")
+        assert fused_vit_block.launches == k1 + cfg.depth
+        assert fused_vit_block_int8.launches == k8 + cfg.depth
+        monkeypatch.setattr(vit, "fused_vit_block", vit_block_reference)
+        ref = vit_forward_fused(model, images)
+    assert got.shape == (4, 384) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(q8, got, dim=-1)
     assert cos.mean().item() > 0.999, cos
 
 

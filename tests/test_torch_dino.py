@@ -525,7 +525,11 @@ def test_cli_pretrain_refusals(tmp_path, flags, error, match):
 
 
 def test_zoo_configs_and_kernel_length_limit():
+    """The zoo's geometries are JAX's, and the ViT-block kernels take every
+    one of them at 224 px: the patch-8 archs' 785 tokens pass the kernels'
+    geometry check (no length cap), as do 1025."""
     from sais_tpu.models import zoo as jzoo
+    from sais_tpu_torch.kernels import fused_mha
     from sais_tpu_torch.models import zoo
     for name in list(jzoo.CONFIGS) + list(jzoo.ALIASES):
         j, t = jzoo.config(name), zoo.config(name)
@@ -533,10 +537,15 @@ def test_zoo_configs_and_kernel_length_limit():
             t.patch_size, t.embed_dim, t.depth, t.num_heads)
     with pytest.raises(KeyError):
         zoo.config("vitl16")
-    zoo.check_fused_length("vitb16", zoo.config("vitb16"), 224)
-    for name in ("vits8", "dino_vitb8"):
-        with pytest.raises(NotImplementedError, match="785 tokens"):
-            zoo.check_fused_length(name, zoo.config(name), 224)
+    assert not hasattr(zoo, "check_fused_length")
+    for name in ("vits16", "vits8", "dino_vitb8", "vitb16"):
+        cfg = zoo.config(name)
+        tokens = (224 // cfg.patch_size) ** 2 + 1
+        assert tokens == (785 if cfg.patch_size == 8 else 197)
+        x = torch.zeros((1, tokens, cfg.embed_dim), dtype=torch.bfloat16)
+        fused_mha._check_geometry(x, cfg.num_heads, tokens, 4 * cfg.embed_dim)
+    fused_mha._check_geometry(torch.zeros((1, 1025, 384),
+                                          dtype=torch.bfloat16), 6, 1000)
 
 
 def test_shuffle_stream_and_logger_match_jax(tmp_path):

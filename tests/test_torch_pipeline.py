@@ -271,9 +271,6 @@ def _refuse(case, root):
     elif case == "dino_head_init(use_bn)":
         from sais_tpu_torch.models.dino_head import dino_head_init
         dino_head_init(torch.Generator(), 8, 16, use_bn=True)
-    elif case == "check_fused_length(vits8)":
-        from sais_tpu_torch.models import zoo
-        zoo.check_fused_length("vits8", zoo.config("vits8"), 224)
     else:
         cmd, *flags = case.split()
         videos = ["-f", "vid"] if cmd in ("extract", "steps") else []
@@ -285,7 +282,7 @@ def _refuse(case, root):
     "extract --data-parallel 2", "steps --seq-parallel 2",
     "pretrain --data-parallel", "pretrain --use-bn-in-head",
     "train -mod RGB-Flow", "train -mod Flow", "DINOTrainer(mesh)",
-    "dino_head_init(use_bn)", "check_fused_length(vits8)"])
+    "dino_head_init(use_bn)"])
 def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
     """Each refusal of the port raises NotImplementedError and names the
     ROADMAP.md item that brings what it refuses by its title, as
@@ -302,3 +299,38 @@ def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
         section = text.split(f"\n### Queue {queue} ")[1].split("\n### ")[0]
         assert "**" + title in " ".join(section.split()), (queue, title)
     assert not (tmp_path / "absent").exists()
+
+
+@pytest.mark.parametrize("arch", ["vits8", "vitb8", "dino_vits8"])
+def test_cli_pretrain_takes_patch8_archs_on_the_card(arch, tmp_path,
+                                                    monkeypatch):
+    """`pretrain --arch <patch-8 arch>` with the card as its device reaches
+    DINOTrainer with the zoo's patch-8 geometry (785 tokens a 224 px global
+    crop): nothing on the way refuses it.  The device resolves to "cuda"
+    without a card here, and the trainer is replaced by a recorder that
+    stops the command."""
+    import sais_tpu_torch
+    from sais_tpu_torch.cli import main as cli
+    from sais_tpu_torch.models import zoo
+    from sais_tpu_torch.train import dino
+
+    class Reached(Exception):
+        pass
+
+    seen = []
+
+    def trainer(vit_cfg, dcfg, niter_per_ep, generator, optimizer, device):
+        seen.append((vit_cfg, dcfg, device))
+        raise Reached
+
+    monkeypatch.setattr(dino, "DINOTrainer", trainer)
+    monkeypatch.setattr(sais_tpu_torch, "resolve_device",
+                        lambda device=None: torch.device(device or "cuda"))
+    os.makedirs(tmp_path / "videos")
+    _synth_video(str(tmp_path / "videos" / "v.mp4"), nframes=8)
+    with pytest.raises(Reached):
+        cli.main(["pretrain", "-p", str(tmp_path), "--arch", arch])
+    (vit_cfg, dcfg, device), = seen
+    assert device.type == "cuda" and vit_cfg == zoo.config(arch)
+    assert vit_cfg.patch_size == 8
+    assert (dcfg.global_size // vit_cfg.patch_size) ** 2 + 1 == 785
