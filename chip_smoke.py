@@ -11,7 +11,11 @@ Phases, each of which fails the run:
    nvcc process per source, all started together; prints ptxas registers
    and spills per source.  The flash libraries (K2, K3) must not spill, and
    cuobjdump -sass must show a TF32 HMMA in each of their kernels (K2's
-   forward, K3's dq and dk / dv), their products' 3xTF32 route.
+   forward, K3's dq and dk / dv), their products' 3xTF32 route.  The
+   key-tiled attention kernels past 256 tokens (long_attention_sm90_kernel
+   in K1's and K8's libraries, attention_bwd_rows_sm90_kernel and
+   attention_bwd_cols_sm90_kernel in K6's) must show wgmma (HGMMA) and no
+   mma.sync HMMA.16816 in their SASS, and no spill in their ptxas report.
 3. K1 (fused_vit_block) at ViT-S/16 widths, batch 256, bf16: the CUDA
    kernel against its plain PyTorch version at L = 197 and at L = 208 with
    keys >= 197 masked; CUDA-event times of the kernel, the plain version
@@ -130,9 +134,13 @@ Phases, each of which fails the run:
    0.9999, max relative < 0.02); CUDA-event times of each kernel, its
    plain version and its library composition, and the least time; at
    (128, 785) `k1_profile`, `k5_profile` and `k6_profile`, whose
-   attention launches must run the key-tiled kernels
-   (long_attention_kernel; attention_bwd_rows_kernel and
-   attention_bwd_cols_kernel, K6's ten launches).
+   attention launches must run the key-tiled wgmma kernels
+   (long_attention_sm90_kernel; attention_bwd_rows_sm90_kernel and
+   attention_bwd_cols_sm90_kernel, K6's ten launches), with the TFLOP/s
+   of the flops each needs and of those it executes.  With `--parent-csrc
+   DIR`, the earlier tree's K1 and K6 are timed beside this tree's at
+   (128, 785, 384) and (64, 785, 768), in turns, their outputs within 2e-2
+   of this tree's largest value (the plain versions' limit).
 12. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
@@ -264,10 +272,8 @@ FLASH_KERNELS = {"flash_attention": ("flash_fwd_kernel",),
                                          "flash_bwd_dkv_kernel")}
 
 
-def check_tf32_sass(name, fragments):
-    """cuobjdump -sass of one built library: prints the TF32 HMMA and FFMA
-    count of every kernel named by `fragments` and fails unless each has a
-    TF32 HMMA."""
+def _sass(name):
+    """{function: its SASS lines} of one built library (cuobjdump -sass)."""
     from sais_tpu_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(_build.library_path(name))],
@@ -277,17 +283,82 @@ def check_tf32_sass(name, fragments):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             current = line.split("Function :")[1].strip()
-            funcs[current] = [0, 0]
+            funcs[current] = []
         elif current is not None:
-            funcs[current][0] += "HMMA" in line and "TF32" in line
-            funcs[current][1] += "FFMA" in line
+            funcs[current].append(line)
+    return funcs
+
+
+def _named(funcs, name, frag):
+    found = {f: v for f, v in funcs.items() if frag in f}
+    check(bool(found), f"{name}: no kernel named {frag}")
+    return sorted(found.items())
+
+
+def check_tf32_sass(name, fragments):
+    """cuobjdump -sass of one built library: prints the TF32 HMMA and FFMA
+    count of every kernel named by `fragments` and fails unless each has a
+    TF32 HMMA."""
+    funcs = _sass(name)
     for frag in fragments:
-        found = {f: c for f, c in funcs.items() if frag in f}
-        check(bool(found), f"{name}: no kernel named {frag} in the SASS")
-        for func, (hmma, ffma) in sorted(found.items()):
+        for func, lines in _named(funcs, name, frag):
+            hmma = sum("HMMA" in line and "TF32" in line for line in lines)
+            ffma = sum("FFMA" in line for line in lines)
             print(f"  {name}: {func}: {hmma} TF32 HMMA, {ffma} FFMA",
                   flush=True)
             check(hmma > 0, f"{func} has no TF32 HMMA instruction")
+
+
+# the attention kernels' reach: up to 256 tokens the register kernels
+# (kernels/csrc/vit_block_common.cuh), past them the key-tiled ones on
+# wgmma + TMA (attention_sm90.cuh, fused_block_bwd_attn.cu)
+SHORT_ATT_LEN = 256
+LONG_ATTENTION = "long_attention_sm90_kernel"
+LONG_ATTENTION_BWD = ("attention_bwd_rows_sm90_kernel",
+                      "attention_bwd_cols_sm90_kernel")
+
+# The key-tiled attention kernels past 256 tokens must run their products
+# on wgmma (HGMMA in the SASS, no mma.sync HMMA.16816), and must not spill.
+ATTENTION_SASS = {"fused_vit_block": (LONG_ATTENTION,),
+                  "fused_vit_block_int8": (LONG_ATTENTION,),
+                  "fused_block_bwd_attn": LONG_ATTENTION_BWD}
+
+
+def kernel_ptxas(log):
+    """{entry function: [its ptxas -v lines]} of one source's build log."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+            out[current] = []
+        elif current is not None:
+            out[current].append(line.strip())
+    return out
+
+
+def check_wgmma_sass(name, fragments, log):
+    """Every kernel of `name` named by `fragments`: HGMMA and no
+    HMMA.16816 in its SASS, and (where this run built the library, `log`)
+    no spill in its ptxas report."""
+    funcs = _sass(name)
+    report = kernel_ptxas(log) if log is not None else {}
+    for frag in fragments:
+        for func, lines in _named(funcs, name, frag):
+            hgmma = sum("HGMMA" in line for line in lines)
+            hmma = sum("HMMA.16816" in line for line in lines)
+            ptxas = [x for f, v in report.items() if f in func or func in f
+                     for x in v if "registers" in x or "spill" in x]
+            print(f"  {name}: {frag}: {hgmma} HGMMA, {hmma} HMMA.16816; "
+                  + ("; ".join(ptxas) if log is not None
+                     else "library cached, built by an earlier run"),
+                  flush=True)
+            check(hgmma > 0 and hmma == 0,
+                  f"{func}: products not on wgmma ({hgmma} HGMMA, {hmma} "
+                  f"HMMA.16816)")
+            spills = [x for x in ptxas if "spill stores" in x and
+                      " 0 bytes spill stores, 0 bytes spill loads" not in x]
+            check(log is None or (ptxas and not spills),
+                  f"{func} spills registers: {spills or 'no ptxas report'}")
 
 
 def phase_build():
@@ -311,6 +382,8 @@ def phase_build():
     for name, fragments in FLASH_KERNELS.items():
         check_tf32_sass(name, fragments)
     check(not spilled, f"{', '.join(spilled)} spill registers")
+    for name, fragments in ATTENTION_SASS.items():
+        check_wgmma_sass(name, fragments, logs.get(name))
 
 
 def k1_inputs(b, l, d, heads, mlp, seed):
@@ -356,12 +429,13 @@ def k1_bound_ms(b, l, d, mlp, weight_bytes):
 
 
 def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
-                 forbid=("gemm_kernel",), expect=()):
+                 forbid=("gemm_kernel",), expect=(), executed=()):
     """Profiles five calls of fn (one call of a kernel's wrapper) and prints
     the device time of each of its launches, labelled in order by
     `labels`, with the rate (`unit`, 1e12 a second) of those in `flops`
     (label -> flops or integer operations) and of those in `extra` (other
-    labelled work, e.g. K6's attention backward).  Fails unless a call
+    labelled work, e.g. K6's attention backward; beside it the rate of the
+    operations its design executes, `executed`).  Fails unless a call
     makes exactly len(labels) launches, no more than `limit`, every
     product in `flops` ran on the wgmma + TMA kernel (`gemm_sm90_kernel`),
     no launch ran a kernel named by `forbid` (the mma.sync template
@@ -387,7 +461,11 @@ def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
         check(want is None or want in short,
               f"{name}: {label} ran {kernel}, not {want}")
         work = dict(flops, **dict(extra)).get(label)
-        if work is not None:
+        done = dict(executed).get(label)
+        if work is not None and done is not None:
+            part += (f" ({work / us / 1e6:.1f} {unit} needed, "
+                     f"{done / us / 1e6:.1f} executed)")
+        elif work is not None:
             part += f" ({work / us / 1e6:.1f} {unit})"
         parts.append(part)
     gemm_ms = sum(split[k] for k in flops)
@@ -400,22 +478,23 @@ def launch_split(fn, name, labels, flops, limit, extra=(), unit="TFLOP/s",
 
 
 BLOCK_LAUNCHES = ("LN1", "qkv", "attention", "proj", "LN2", "fc1", "fc2")
-# the attention kernels' reach: up to 256 tokens the register kernels, past
-# them the key-tiled ones (kernels/csrc/vit_block_common.cuh)
-SHORT_ATT_LEN = 256
 
 
 def block_launch_split(fn, name, b, l, d, mlp):
     """K1's or K4's seven launches at (b, l) (`launch_split`), the
-    attention on the register kernel up to 256 tokens, on the key-tiled
-    one past them."""
+    attention on the register kernel up to 256 tokens (4 L^2 D flops an
+    image, executed once), on the key-tiled one past them (the same 4 L^2 D
+    needed, 6 L^2 D executed: S in both sweeps)."""
     m = b * l
+    att = 4 * b * l * l * d
+    long = l > SHORT_ATT_LEN
     launch_split(fn, f"{name} (B, L) = ({b}, {l})", BLOCK_LAUNCHES,
                  {"qkv": 6 * m * d * d, "proj": 2 * m * d * d,
                   "fc1": 2 * m * d * mlp, "fc2": 2 * m * mlp * d},
-                 len(BLOCK_LAUNCHES), extra={"attention": 4 * b * l * l * d},
-                 expect={"attention": "long_attention_kernel"
-                         if l > SHORT_ATT_LEN else "attention_kernel<"})
+                 len(BLOCK_LAUNCHES), extra={"attention": att},
+                 expect={"attention": LONG_ATTENTION if long
+                         else "attention_kernel<"},
+                 executed={"attention": att * 3 // 2 if long else att})
 
 
 # K5's and K6's launches a call, in order, and the targets they are held to
@@ -434,7 +513,10 @@ def bwd_launch_split(k5, k6, b, l, d, mlp):
     at (b, l), the products' TFLOP/s and the attention backward's share of
     K6 (its 12 L^2 D flops an image, the ones the function needs: past 256
     tokens 8 L^2 D of them in the query-row launch, s, dp, ctx and dq, and
-    4 L^2 D in the key-column launch, dk and dv)."""
+    4 L^2 D in the key-column launch, dk and dv; both designs execute 20
+    L^2 D: s and dp twice, ctx, dq, then s^T, dp^T, dv, dk, past 256
+    tokens 12 L^2 D in the query-row launch and 8 in the key-column
+    one)."""
     m = b * l
     prod = 2 * m * d * mlp
     launch_split(k5, f"k5_profile (B, L) = ({b}, {l})", K5_LAUNCHES,
@@ -444,16 +526,20 @@ def bwd_launch_split(k5, k6, b, l, d, mlp):
     if l > SHORT_ATT_LEN:
         labels, extra = K6_LONG_LAUNCHES, {"attention_bwd_rows": 2 * att,
                                            "attention_bwd_cols": att}
-        expect = {"attention_bwd_rows": "attention_bwd_rows_kernel",
-                  "attention_bwd_cols": "attention_bwd_cols_kernel"}
+        executed = {"attention_bwd_rows": 3 * att,
+                    "attention_bwd_cols": 2 * att}
+        expect = dict(zip(("attention_bwd_rows", "attention_bwd_cols"),
+                          LONG_ATTENTION_BWD))
     else:
         labels, extra = K6_LAUNCHES, {"attention_bwd": 3 * att}
+        executed = {"attention_bwd": 5 * att}
         expect = {"attention_bwd": "attention_bwd_kernel<"}
     split = launch_split(
         k6, f"k6_profile (B, L) = ({b}, {l})", labels,
         {"qkv": 6 * m * d * d, "dctx": 2 * m * d * d,
          "dWproj": 2 * m * d * d, "dWqkv": 6 * m * d * d,
-         "dy": 6 * m * d * d}, K6_MAX_LAUNCHES, extra=extra, expect=expect)
+         "dy": 6 * m * d * d}, K6_MAX_LAUNCHES, extra=extra, expect=expect,
+        executed=executed)
     att_ms = sum(split[k] for k in extra)
     print(f"k6_profile (B, L) = ({b}, {l}): attention backward "
           f"{att_ms:.4f} ms, {100 * att_ms / sum(split.values()):.1f}% of "
@@ -685,7 +771,7 @@ def phase_k2():
 
 
 def _profile(fn, name: str, steps: int, shares=None, ranges=(),
-             per_launch: int = 0):
+             per_launch: int = 0, window: int = 1):
     """torch.profiler over `steps` calls of fn: prints the per-kernel table
     and the device's busy time (the union of its kernel and copy
     intervals) against the host's wall time.  `shares`: label -> kernel
@@ -694,7 +780,9 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
     is printed the same way.  `per_launch`: the number of device launches
     one call of fn makes, in a fixed order; their names and mean device
     times go to got["per_launch"] (the run fails if the calls differ).
-    Returns (busy us, wall us, {label: us})."""
+    A window in which the profiler lost the device records of more than
+    two calls is taken again, up to three windows.  Returns (busy us, wall
+    us, {label: us})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -755,6 +843,16 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
             elif seg is not None:
                 seg.append(e)
         whole = [c for c in calls if len(c) == per_launch]
+        # the host launched every call (cudaLaunchKernel); a window whose
+        # device records the profiler dropped says nothing of the kernels,
+        # so it is taken again (a wrapper that makes another number of
+        # launches reads no call whole in any window)
+        if len(whole) < steps - 2 and window < 3:
+            print(f"{name}: the profiler kept {len(whole)} of {steps} calls "
+                  f"whole ({[len(c) for c in calls]} launches between "
+                  f"markers); profiling again", flush=True)
+            return _profile(fn, name, steps, shares, ranges, per_launch,
+                            window + 1)
         check(len(whole) >= steps - 2,
               f"{name}: {len(whole)} of {steps} calls read whole, expected "
               f"{per_launch} launches a call; launches between markers: "
@@ -1876,14 +1974,16 @@ LONG_SHAPES = ((128, 785, 785, 384), (64, 785, 785, 768),
                (32, 800, 785, 384))
 
 
-def phase_long_blocks():
+def phase_long_blocks(parent=None):
     """Phase 11: K1, K4, K5, K6 and K8 at LONG_SHAPES against their plain
     versions (2e-2 of the plain version's largest value, as at 197 tokens;
     K8 also against K1 at a reference-initialized block, JAX's limits),
     each run twice and bitwise equal; ms, bound, plain and library ms of
     each; k1_profile, k5_profile and k6_profile at (128, 785), which must
-    name the key-tiled attention kernels.  Returns {(B, L, valid, D):
-    {kernel: numbers}}."""
+    name the key-tiled attention kernels.  `parent`: a ParentKernels whose
+    K1 and K6 are timed beside this tree's at the two 785-token shapes of
+    ViT-S and ViT-B widths (outputs within the plain limit).  Returns {(B,
+    L, valid, D): {kernel: numbers}}."""
     import torch
     from sais_tpu_torch.config import ViTConfig
     from sais_tpu_torch.kernels import fused_mha as fm
@@ -1999,6 +2099,17 @@ def phase_long_blocks():
             out[(b, l, valid, d)][name].update(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+        if parent is not None and (l, valid) == (785, 785):
+            # the earlier tree's key-tiled kernels, with branch scales as
+            # the pretrain step runs K6
+            for name, old in (("K1", lambda: parent.k1(x, ws, **kw)),
+                              ("K6", lambda: parent.k6(x, dx1, attn_w, s1,
+                                                       **kw))):
+                kernel = runs[name][0]
+                outs = 1 if name == "K1" else 7
+                t = parent.compare(name, (b, l, d), old, kernel,
+                                   dict.fromkeys(range(outs), 2e-2))
+                out[(b, l, valid, d)][name]["parent_ms"] = t[0]
         if (b, l, d) == (128, 785, 384):
             block_launch_split(runs["K1"][0], "k1_profile", b, l, d, mlp)
             bwd_launch_split(runs["K5"][0], runs["K6"][0], b, l, d, mlp)
@@ -2746,7 +2857,7 @@ def main():
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
     train_k = phase_train_kernels(parent)
-    phase_long_blocks()
+    phase_long_blocks(parent)
     k7 = phase_k7(parent)
     # launches of K4, K5, K6, K1, K7 on both pretrain paths
     pretrain_launches = [a + b for a, b in zip(

@@ -37,8 +37,9 @@
 //   (2) gemm_sm90 EPI_BIAS       y @ Wqkv + bqkv -> qkv
 //   (3) gemm_sm90 EPI_NONE       dbr @ Wproj^T -> dctx
 //   (4) attention_bwd_kernel     ctx, dqkv; dbqkv parts (per 16-row tile);
-//       past 256 tokens attention_bwd_rows_kernel (ctx, dq, the saved
-//       m, l, r) then attention_bwd_cols_kernel (dk, dv), key-tiled
+//       past 256 tokens attention_bwd_rows_sm90_kernel (ctx, dq, the
+//       saved m, 1 / l, r, lse) then attention_bwd_cols_sm90_kernel (dk,
+//       dv), key-tiled on wgmma + TMA
 //   (5) gemm_sm90 A_MN, split K  ctx^T dbr -> dWproj parts
 //   (6) gemm_sm90 A_MN, split K  y^T dqkv -> dWqkv parts
 //   (7) gemm_sm90 EPI_F32        dqkv @ Wqkv^T -> dy (f32)
@@ -60,7 +61,7 @@
 // dv are also summed over its rows (a shuffle tree over the fragment's row
 // lanes) into one partial row of dbqkv.
 
-#include "gemm_sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
@@ -452,373 +453,415 @@ cudaError_t attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
 }
 
 // ---------------------------------------------------------------------------
-// The key-tiled attention backward for L > 256 (patch-8 ViTs: 785 tokens),
-// where a head's Q, K, V and dctx (402 KB at 785 rows) no longer fit a
-// block's shared memory.  Two launches, each with blocks of 4 warps over
-// 64 rows of one (image, head), each warp 16 rows whose A fragments stay
-// in registers, the other operands streamed in 64-row tiles through a
-// cp.async double buffer (36-38 KB), padded rows as in K1's attention:
+// The key-tiled attention backward past 256 tokens (patch-8 ViTs: 785
+// tokens), where a head's Q, K, V and dctx (402 KB at 785 rows) no longer
+// fit a block's shared memory.  Two launches on wgmma + TMA, built like the
+// forward of attention_sm90.cuh: a persistent grid; a block is two
+// consumer warpgroups of 64 rows of one (image, head) each and a producer
+// warp that streams 64 x 64 bf16 tiles with the 128-byte swizzle through
+// 3-D tensor maps, zeros past L, into a ring of STAGES stages with full and
+// empty mbarriers; every product an m64n64k16 wgmma with no operand copied
+// or transposed:
 //
-// - attention_bwd_rows_kernel, per 64 queries, sweeps the K and V tiles
-//   twice: first each lane's running max m, sum l of exp(s - m) and d = sum
-//   exp(s - m) dp, merged over the quad into m, l and r = d / l =
-//   rowsum(dp p) (summed from the f32 p, as the JAX kernel does, not
-//   FlashAttention's rowsum(dO O)), saved to stats (B, H, L, 3), m in the
-//   log2 domain of K1's key-tiled attention (vit_block_common.cuh: scores
-//   times log2 e, exp as ex2.approx, p times 1 / l); then p = exp(s - m) /
-//   l, pb = bf16(p), ds = bf16(p (dp - r)), ctx += pb v and dq += ds k in
-//   f32.
-// - attention_bwd_cols_kernel, per 64 keys, sweeps the Q, dctx and stats
-//   tiles once: s^T = k q^T and dp^T = v dctx^T, p and ds from the saved
-//   (m, l, r), dv += pb^T dctx and dk += ds^T q.
+// - attention_bwd_rows_sm90_kernel, per 64 queries (Q and dctx loaded once
+//   into a double buffer), sweeps the K and V tiles twice.  Sweep 1: S = Q
+//   K^T and dP = dctx V^T (SS), each lane's running max m, sum l of exp(s
+//   - m) and d = sum exp(s - m) dp, merged over the quad into m, l and r =
+//   d / l = rowsum(dp p) (summed from the f32 p, as the JAX kernel does,
+//   not FlashAttention's rowsum(dO O)), saved to stats (B, H, L, 4) as (m,
+//   1 / l, r, lse = m + log2 l): a row is the 16 bytes of a TMA box.
+//   Sweep 2: S and dP again, p = exp(s - m) / l and ds = p (dp - r) in
+//   registers, then ctx += bf16(p) V and dq += bf16(ds) K as RS wgmmas (V
+//   and K read MN-major).
+// - attention_bwd_cols_sm90_kernel, per 64 keys (K and V loaded once as
+//   the A operands), sweeps the Q, dctx and saved-statistics tiles once:
+//   S^T = K Q^T and dP^T = V dctx^T (SS), p = exp2(t - lse) and ds = p (dp
+//   - r) from the saved (r, lse), then dv += bf16(p)^T dctx and dk +=
+//   bf16(ds)^T Q (RS, dctx and Q read MN-major).
 //
-// Both keep the register kernel's rounding points and 16-row dbqkv
-// partials (each 16-row tile's columns summed by the one warp that owns
-// it); nothing is accumulated across blocks, so two runs agree to the bit.
-// They execute 12 L^2 Dh (rows: s and dp twice, ctx, dq) + 8 L^2 Dh
-// (columns: s^T, dp^T, dv, dk) flops a head against the 12 L^2 Dh the
-// function needs; like K1's key-tiled attention they keep the scores in
-// the log2 domain (ex2.approx, p times 1 / l).
+// A block of 288 threads holds 168 registers a thread: s, dp and the two
+// 64 x 64 output accumulators take 128 of them, so a consumer waits for
+// each group of products before it issues the next (a second tile's s and
+// dp, or the next tile's products in flight beside the bf16 fragments of
+// this one, would spill); the two consumers' products and exponentials
+// interleave on the SM instead.  p and ds are rounded to bf16 fragments as
+// they are formed, so the f32 values die as they are used.
+//
+// Both keep the register kernel's rounding points, the log2 domain of the
+// forward (ex2.approx, p times 1 / l) and its 16-row dbqkv partials: warp
+// w of a consumer holds rows 16w .. 16w + 15 of the m64 accumulator, whose
+// layout is the mma.sync fragment's, so each 16-row tile's columns are
+// summed by the one warp that owns it; nothing is accumulated across
+// blocks, so two runs agree to the bit.  They execute 12 L^2 Dh (rows: s
+// and dp twice, ctx, dq) + 8 L^2 Dh (columns: s^T, dp^T, dv, dk) flops a
+// head against the 12 L^2 Dh the function needs, and 3 L^2 ex2.
 // ---------------------------------------------------------------------------
-constexpr int LBWD_ROWS = 64;
-constexpr int LBWD_THREADS = 128;
-constexpr size_t LBWD_TILE = (size_t)LBWD_ROWS * ATT_LD;   // bf16 elements
-constexpr size_t LBWD_ROWS_SMEM = 4 * LBWD_TILE * sizeof(bf16);
-constexpr size_t LBWD_COLS_SMEM =
-    4 * LBWD_TILE * sizeof(bf16) + 2 * 3 * LBWD_ROWS * sizeof(float);
+constexpr int KATT_STATS = katt::ROWS * 16;   // a tile's (m, 1 / l, r, 0)
+constexpr int KATT_COLS_STAGE = 2 * katt::TILE + KATT_STATS;
+constexpr int KATT_ROWS_SMEM =
+    4 * katt::BWD_CONS * katt::TILE + katt::STAGES * 2 * katt::TILE + 1024;
+constexpr int KATT_COLS_SMEM =
+    4 * katt::BWD_CONS * katt::TILE + katt::STAGES * KATT_COLS_STAGE + 1024;
+static_assert(KATT_COLS_STAGE % 1024 == 0,
+              "stages keep the swizzle's alignment");
 
-// Rows [r0, r0 + 64) of two bf16 matrices with row strides lda and ldb
-// (DH columns from a and b) into padded (64, ATT_LD) tiles, rows past L
-// zero-filled.
-__device__ __forceinline__ void load_tile_pair(bf16* ta, bf16* tb,
-                                               const bf16* a, size_t lda,
-                                               const bf16* b, size_t ldb,
-                                               int r0, int L) {
-  for (int i = threadIdx.x; i < LBWD_ROWS * (DH / 8); i += LBWD_THREADS) {
-    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-    const bool ok = r0 + r < L;
-    const size_t row = ok ? r0 + r : 0;
-    cp_async16(ta + r * ATT_LD + c, a + row * lda + c, ok);
-    cp_async16(tb + r * ATT_LD + c, b + row * ldb + c, ok);
+// tile_colsum of a wgmma accumulator (its register 4 nd + i is element i
+// of the mma.sync fragment's n8 tile nd).
+__device__ __forceinline__ void acc_colsum(const float (&o)[32], float mul,
+                                           bool ok0, bool ok1, float* part,
+                                           int lane) {
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    float c[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      c[e] = (ok0 ? bf16_round(o[4 * nd + e] * mul) : 0.f) +
+             (ok1 ? bf16_round(o[4 * nd + 2 + e] * mul) : 0.f);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 4);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 8);
+      c[e] += __shfl_xor_sync(0xffffffffu, c[e], 16);
+    }
+    if (lane < 4)
+      *reinterpret_cast<float2*>(part + nd * 8 + 2 * lane) =
+          make_float2(c[0], c[1]);
   }
 }
 
-__global__ void __launch_bounds__(LBWD_THREADS)
-    attention_bwd_rows_kernel(const bf16* __restrict__ qkv,
-                              const bf16* __restrict__ dctx,
-                              bf16* __restrict__ ctx,
-                              bf16* __restrict__ dqkv,
-                              float* __restrict__ dqkv_part,
-                              float* __restrict__ stats, int L, int D,
-                              int valid_len) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [2][64][ATT_LD]
-  bf16* Vs = Ks + 2 * LBWD_TILE;                  // [2][64][ATT_LD]
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qkv_stride = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * L * qkv_stride + h * DH;
-  const bf16* dbase = dctx + (size_t)b * L * D + h * DH;
-  const int nt = (L + LBWD_ROWS - 1) / LBWD_ROWS;
+// Rows row0 + {g, g + 8} (where below L) of a 64 x 64 accumulator times
+// mul into the bf16 matrix at out (row stride ld), columns 8j + 2 (t % 4).
+__device__ __forceinline__ void store_rows(const float (&o)[32], float mul,
+                                           bf16* out, size_t ld, int row0,
+                                           int L, int g, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= L) continue;
+    bf16* dst = out + (size_t)row * ld + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * h] * mul, o[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// qkv: (B*L, 3D) (map_qkv), dctx: (B*L, D) (map_dctx), both 3-D maps;
+// ctx: (B*L, D); dqkv: (B*L, 3D), the dq columns written here;
+// dqkv_part: (B * ceil(L / 16), 3D); stats: (B, H, L) float4.
+__global__ void __launch_bounds__(katt::threads(katt::BWD_CONS), 1)
+    attention_bwd_rows_sm90_kernel(
+        const __grid_constant__ CUtensorMap map_qkv,
+        const __grid_constant__ CUtensorMap map_dctx,
+        bf16* __restrict__ ctx, bf16* __restrict__ dqkv,
+        float* __restrict__ dqkv_part, float4* __restrict__ stats, int B,
+        int L, int D, int heads, int valid_len) {
+  using namespace katt;
+  constexpr int CONS = BWD_CONS;
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 4];
+  extern __shared__ __align__(1024) unsigned char katt_smem[];
+  const uint32_t base = (smem_u32(katt_smem) + 1023) & ~1023u;
+  const uint32_t hbuf = base;                       // [2][CONS] Q, dctx
+  const uint32_t kv = base + 4 * CONS * TILE;       // [STAGES] K, V
+  const Ring<STAGES> ring(bars);
+  const Ring<2> hring(bars + 2 * STAGES);
+  const int nt = (L + ROWS - 1) / ROWS;
+  const int pairs = (nt + CONS - 1) / CONS;
+  const int units = B * heads * pairs;
+  if (threadIdx.x == 0) {
+    ring.init(CONS);
+    hring.init(CONS);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer warp: a unit's Q and dctx tiles, then its K and V tiles
+  // twice
+  if (threadIdx.x >= 128 * CONS) {
+    if (threadIdx.x != 128 * CONS) return;
+    produce(
+        ring, hring, 2 * nt, units,
+        [&](int k, uint32_t bar) {
+          const Unit w(blockIdx.x + k * gridDim.x, pairs, heads);
+          mbar_expect_tx(bar, CONS * 2 * TILE);
+          for (int c = 0; c < CONS; ++c) {
+            const uint32_t dst = hbuf + ((k & 1) * CONS + c) * 2 * TILE;
+            const int row = (w.pair * CONS + c) * ROWS;
+            tma_load_3d(dst, &map_qkv, w.h * DH, row, w.b, bar);
+            tma_load_3d(dst + TILE, &map_dctx, w.h * DH, row, w.b, bar);
+          }
+        },
+        [&](int k, int i, int n, uint32_t bar) {
+          const Unit w(blockIdx.x + k * gridDim.x, pairs, heads);
+          const uint32_t st = kv + (n % STAGES) * 2 * TILE;
+          const int k0 = (i % nt) * ROWS;
+          mbar_expect_tx(bar, 2 * TILE);
+          tma_load_3d(st, &map_qkv, D + w.h * DH, k0, w.b, bar);
+          tma_load_3d(st + TILE, &map_qkv, 2 * D + w.h * DH, k0, w.b, bar);
+        });
+    return;
+  }
+  auto ktile = [&](int n) { return kv + (n % STAGES) * 2 * TILE; };
+
+  const int c = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
   const float scale = 0.125f;   // DH ** -0.5, a power of two
-
-  // tile j: key tile j % nt of sweep j / nt, into stage j % 2
-  auto load = [&](int j) {
-    load_tile_pair(Ks + (j & 1) * LBWD_TILE, Vs + (j & 1) * LBWD_TILE,
-                   base + D, qkv_stride, base + 2 * D, qkv_stride,
-                   (j % nt) * LBWD_ROWS, L);
-    cp_async_commit();
-  };
-  load(0);
-
-  const int q0 = blockIdx.x * LBWD_ROWS + warp * 16;
-  const int r0 = q0 + g, r1 = r0 + 8;
-  uint32_t qa[DH / 16][4], da[DH / 16][4];
-  load_a_rows(qa, base, qkv_stride, r0, L, t);
-  load_a_rows(da, dbase, D, r0, L, t);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
-  float oc[DH / 8][4], oq[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd)
-    oc[nd][0] = oc[nd][1] = oc[nd][2] = oc[nd][3] = oq[nd][0] = oq[nd][1] =
-        oq[nd][2] = oq[nd][3] = 0.f;
-
-  for (int j = 0; j < 2 * nt; ++j) {
-    if (j + 1 < 2 * nt) {
-      load(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = Ks + (j & 1) * LBWD_TILE;
-    const bf16* vs = Vs + (j & 1) * LBWD_TILE;
-    const int k0 = (j % nt) * LBWD_ROWS;
-    for (int kc = 0; kc < LBWD_ROWS / 16; ++kc) {
-      // s and dp of 16 keys: rows g (elements 0, 1) and g + 8 (2, 3), keys
-      // k0 + 16 kc + 8 jj + 2 t + e
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = dp[jj][0] = dp[jj][1] =
-            dp[jj][2] = dp[jj][3] = 0.f;
-#pragma unroll
-      for (int kq = 0; kq < DH / 16; ++kq) {
-        uint32_t kb[4], vb[4];
-        load_b_frags_nk(kb, ks + kc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
-        load_b_frags_nk(vb, vs + kc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
-        mma_bf16_16816(s[0], qa[kq], kb[0], kb[1]);
-        mma_bf16_16816(s[1], qa[kq], kb[2], kb[3]);
-        mma_bf16_16816(dp[0], da[kq], vb[0], vb[1]);
-        mma_bf16_16816(dp[1], da[kq], vb[2], vb[3]);
+  int use = 0, it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it, use += 2 * nt) {
+    const Unit w(u, pairs, heads);
+    const int q0 = (w.pair * CONS + c) * ROWS;
+    hring.wait(it);
+    if (q0 >= L) {   // no tile of this consumer in the unit: keep pace
+      for (int i = 0; i < 2 * nt; ++i) {
+        ring.wait(use + i);
+        if (lane == 0) ring.release(use + i);
       }
-      const int c0 = k0 + kc * 16;
-      log2_scores<2>(s, c0, t, c0 + 16 <= valid_len, L, valid_len);
-      if (j < nt) {
-        // sweep 1, online per lane
+      if (lane == 0) hring.release(it);
+      continue;
+    }
+    const uint32_t qt = hbuf + ((it & 1) * CONS + c) * 2 * TILE;
+    // S = Q K^T and dP = dctx V^T of ring use n, one commit group
+    auto issue_sdp = [&](float(&s)[32], float(&dp)[32], int n) {
+      product_ss(s, qt, ktile(n));
+      product_ss(dp, qt + TILE, ktile(n) + TILE);
+      sm90::wgmma_commit();
+    };
+
+    // sweep 1: per lane m, l, d; merged, saved
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+    float s[32], dp[32];
+    for (int j = 0; j < nt; ++j) {
+      ring.wait(use + j);
+      sm90::wgmma_fence();
+      issue_sdp(s, dp, use + j);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(s);
+      sm90::fence_acc(dp);
+      if (lane == 0) ring.release(use + j);
+      log2_scores(s, j * ROWS, tq, (j + 1) * ROWS <= valid_len, L,
+                  valid_len);
+      lane_stats<true>(s, dp, m, l, d);
+    }
+    quad_merge(m, l, d);
+    float4* st = stats + ((size_t)w.b * heads + w.h) * L;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mx = m[r];
+    for (int h = 0; h < 2; ++h) {
+      const float lse = m[h] + log2f(l[h]);   // log2 domain
+      d[h] = d[h] / l[h];   // r = rowsum(dp p)
+      l[h] = 1.f / l[h];
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (tq == 0 && row < L) st[row] = make_float4(m[h], l[h], d[h], lse);
+    }
+
+    // sweep 2: p = exp(s - m) / l and ds = p (dp - r), then ctx += pb v and
+    // dq += ds k
+    const int u2 = use + nt;
+    float oc[32], oq[32];
+    zero(oc);
+    zero(oq);
+    for (int j = 0; j < nt; ++j) {
+      ring.wait(u2 + j);
+      sm90::wgmma_fence();
+      issue_sdp(s, dp, u2 + j);
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(s);
+      sm90::fence_acc(dp);
+      log2_scores(s, j * ROWS, tq, (j + 1) * ROWS <= valid_len, L,
+                  valid_len);
+      // p and ds, rounded to bf16 pairs in the A fragments' layout as they
+      // are formed
+      uint32_t pa[4][4], da[4][4];
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj)
-            mx = fmaxf(mx, fmaxf(s[jj][2 * r], s[jj][2 * r + 1]));
-          if (mx == -INFINITY) continue;   // no key of this lane yet
-          const float alpha = m[r] == -INFINITY ? 0.f : ex2(m[r] - mx);
-          l[r] *= alpha;
-          d[r] *= alpha;
+      for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj)
+        for (int h = 0; h < 2; ++h) {
+          float pe[2], de[2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float pe = ex2(s[jj][2 * r + e] - mx);
-              l[r] += pe;
-              d[r] += pe * dp[jj][2 * r + e];
-            }
-          m[r] = mx;
-        }
-      } else {
-        // sweep 2: p, ds; ctx += pb v, dq += ds k
-        float p[2][4], ds[2][4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            p[jj][e] = ex2(s[jj][e] - m[r]) * l[r];
-            ds[jj][e] = p[jj][e] * (dp[jj][e] - d[r]);
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * h + e;
+            pe[e] = ex2(s[i] - m[h]) * l[h];
+            de[e] = pe[e] * (dp[i] - d[h]);
           }
-        uint32_t pa[4], sa[4];
-        pack_a(pa, p);
-        pack_a(sa, ds);
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; nd += 2) {
-          uint32_t vb[4], kb[4];
-          load_b_frags_kn(vb, vs + kc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-          load_b_frags_kn(kb, ks + kc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-          mma_bf16_16816(oc[nd], pa, vb[0], vb[1]);
-          mma_bf16_16816(oc[nd + 1], pa, vb[2], vb[3]);
-          mma_bf16_16816(oq[nd], sa, kb[0], kb[1]);
-          mma_bf16_16816(oq[nd + 1], sa, kb[2], kb[3]);
+          pa[jj / 2][2 * (jj % 2) + h] = pack_bf16(pe[0], pe[1]);
+          da[jj / 2][2 * (jj % 2) + h] = pack_bf16(de[0], de[1]);
         }
-      }
+      sm90::wgmma_fence();
+      product_rs(oc, pa, ktile(u2 + j) + TILE);
+      product_rs(oq, da, ktile(u2 + j));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(oc);
+      sm90::fence_acc(oq);
+      if (lane == 0) ring.release(u2 + j);
     }
-    if (j == nt - 1) {
-      // merge the quad's lanes: m, l and r = rowsum(dp p) of each row,
-      // saved; then l is kept as 1 / l
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mq = m[r];
-        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 1));
-        mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
-        const float a = m[r] == -INFINITY ? 0.f : ex2(m[r] - mq);
-        float lq = l[r] * a, dq = d[r] * a;
-        lq += __shfl_xor_sync(0xffffffffu, lq, 1);
-        lq += __shfl_xor_sync(0xffffffffu, lq, 2);
-        dq += __shfl_xor_sync(0xffffffffu, dq, 1);
-        dq += __shfl_xor_sync(0xffffffffu, dq, 2);
-        m[r] = mq;
-        l[r] = lq;
-        d[r] = dq / lq;
-      }
-      float* st = stats + ((size_t)b * heads + h) * L * 3;
-      if (t == 0 && r0 < L) {
-        st[3 * r0] = m[0];
-        st[3 * r0 + 1] = l[0];
-        st[3 * r0 + 2] = d[0];
-      }
-      if (t == 0 && r1 < L) {
-        st[3 * r1] = m[1];
-        st[3 * r1 + 1] = l[1];
-        st[3 * r1 + 2] = d[1];
-      }
-      l[0] = 1.f / l[0];
-      l[1] = 1.f / l[1];
-    }
-    __syncthreads();   // stage j % 2 is free for tile j + 2
-  }
+    if (lane == 0) hring.release(it);
 
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (r0 < L) {
-      const size_t row = (size_t)b * L + r0;
-      *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
-          __floats2bfloat162_rn(oc[nd][0], oc[nd][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH + col) =
-          __floats2bfloat162_rn(oq[nd][0] * scale, oq[nd][1] * scale);
-    }
-    if (r1 < L) {
-      const size_t row = (size_t)b * L + r1;
-      *reinterpret_cast<__nv_bfloat162*>(ctx + row * D + h * DH + col) =
-          __floats2bfloat162_rn(oc[nd][2], oc[nd][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dqkv + row * 3 * D + h * DH + col) =
-          __floats2bfloat162_rn(oq[nd][2] * scale, oq[nd][3] * scale);
-    }
+    const int r0 = q0 + 16 * warp;
+    const size_t row0 = (size_t)w.b * L;
+    store_rows(oc, 1.f, ctx + row0 * D + w.h * DH, D, r0, L, g, tq);
+    store_rows(oq, scale, dqkv + row0 * 3 * D + w.h * DH, 3 * D, r0, L, g,
+               tq);
+    if (r0 < L)
+      acc_colsum(oq, scale, r0 + g < L, r0 + g + 8 < L,
+                 dqkv_part + ((size_t)w.b * ((L + 15) / 16) + r0 / 16) * 3 *
+                     D + w.h * DH,
+                 lane);
   }
-  const int tiles16 = (L + 15) / 16;
-  if (q0 < L)
-    tile_colsum(oq, scale, r0 < L, r1 < L,
-                dqkv_part + ((size_t)b * tiles16 + q0 / 16) * 3 * D + h * DH,
-                lane);
 }
 
-__global__ void __launch_bounds__(LBWD_THREADS)
-    attention_bwd_cols_kernel(const bf16* __restrict__ qkv,
-                              const bf16* __restrict__ dctx,
-                              const float* __restrict__ stats,
-                              bf16* __restrict__ dqkv,
-                              float* __restrict__ dqkv_part, int L, int D,
-                              int valid_len) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [2][64][ATT_LD]
-  bf16* Cs = Qs + 2 * LBWD_TILE;                  // dctx, [2][64][ATT_LD]
-  float* Ss = reinterpret_cast<float*>(Cs + 2 * LBWD_TILE);   // [2][64][3]
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qkv_stride = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * L * qkv_stride + h * DH;
-  const bf16* dbase = dctx + (size_t)b * L * D + h * DH;
-  const float* st = stats + ((size_t)b * heads + h) * L * 3;
-  const int nt = (L + LBWD_ROWS - 1) / LBWD_ROWS;
-  const float scale = 0.125f;
+// map_stats: the rows pass's stats as (4, L, B*H) f32; dqkv: the dk and
+// dv columns written here.
+__global__ void __launch_bounds__(katt::threads(katt::BWD_CONS), 1)
+    attention_bwd_cols_sm90_kernel(
+        const __grid_constant__ CUtensorMap map_qkv,
+        const __grid_constant__ CUtensorMap map_dctx,
+        const __grid_constant__ CUtensorMap map_stats,
+        bf16* __restrict__ dqkv, float* __restrict__ dqkv_part, int B, int L,
+        int D, int heads, int valid_len) {
+  using namespace katt;
+  constexpr int CONS = BWD_CONS;
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 4];
+  extern __shared__ __align__(1024) unsigned char katt_smem[];
+  const uint32_t base = (smem_u32(katt_smem) + 1023) & ~1023u;
+  const uint32_t hbuf = base;                       // [2][CONS] K, V
+  const uint32_t qd = base + 4 * CONS * TILE;       // [STAGES] Q, dctx, stats
+  const Ring<STAGES> ring(bars);
+  const Ring<2> hring(bars + 2 * STAGES);
+  const int nt = (L + ROWS - 1) / ROWS;
+  const int pairs = (nt + CONS - 1) / CONS;
+  const int units = B * heads * pairs;
+  if (threadIdx.x == 0) {
+    ring.init(CONS);
+    hring.init(CONS);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
 
-  // query tile j into stage j % 2: Q and dctx by cp.async, the saved (m,
-  // l, r) by plain loads as (m, 1 / l, r) (rows past L never used)
-  auto load = [&](int j) {
-    const int s0 = j * LBWD_ROWS;
-    load_tile_pair(Qs + (j & 1) * LBWD_TILE, Cs + (j & 1) * LBWD_TILE, base,
-                   qkv_stride, dbase, D, s0, L);
-    cp_async_commit();
-    float* ss = Ss + (j & 1) * 3 * LBWD_ROWS;
-    for (int i = threadIdx.x; i < 3 * LBWD_ROWS; i += LBWD_THREADS) {
-      const float v = 3 * s0 + i < 3 * L ? st[3 * s0 + i] : 1.f;
-      ss[i] = i % 3 == 1 ? 1.f / v : v;
-    }
-  };
-  load(0);
-
-  // this warp's keys k0 + g and k0 + g + 8: their K and V rows as A
-  const int k0 = blockIdx.x * LBWD_ROWS + warp * 16;
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-  load_a_rows(ka, base + D, qkv_stride, k0 + g, L, t);
-  load_a_rows(va, base + 2 * D, qkv_stride, k0 + g, L, t);
-  const float add0 = k0 + g >= valid_len ? kNegInf : 0.f;
-  const float add1 = k0 + g + 8 >= valid_len ? kNegInf : 0.f;
-  const bool key0 = k0 + g < L, key1 = k0 + g + 8 < L;
-  float ok_[DH / 8][4], ov[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd)
-    ok_[nd][0] = ok_[nd][1] = ok_[nd][2] = ok_[nd][3] = ov[nd][0] =
-        ov[nd][1] = ov[nd][2] = ov[nd][3] = 0.f;
-
-  for (int j = 0; j < nt; ++j) {
-    if (j + 1 < nt) {
-      load(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qs = Qs + (j & 1) * LBWD_TILE;
-    const bf16* cs = Cs + (j & 1) * LBWD_TILE;
-    const float* ss = Ss + (j & 1) * 3 * LBWD_ROWS;
-    for (int qc = 0; qc < LBWD_ROWS / 16; ++qc) {
-      // s^T = K Q^T and dp^T = V dctx^T for 16 keys x 16 queries
-      float st_[2][4], dpt[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        st_[jj][0] = st_[jj][1] = st_[jj][2] = st_[jj][3] = dpt[jj][0] =
-            dpt[jj][1] = dpt[jj][2] = dpt[jj][3] = 0.f;
-#pragma unroll
-      for (int kq = 0; kq < DH / 16; ++kq) {
-        uint32_t qb[4], cb[4];
-        load_b_frags_nk(qb, qs + qc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
-        load_b_frags_nk(cb, cs + qc * 16 * ATT_LD + kq * 16, ATT_LD, lane);
-        mma_bf16_16816(st_[0], ka[kq], qb[0], qb[1]);
-        mma_bf16_16816(st_[1], ka[kq], qb[2], qb[3]);
-        mma_bf16_16816(dpt[0], va[kq], cb[0], cb[1]);
-        mma_bf16_16816(dpt[1], va[kq], cb[2], cb[3]);
-      }
-      float p[2][4], ds[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qc * 16 + jj * 8 + 2 * t + (e & 1);   // in the tile
-          const bool key_ok = (e >> 1) ? key1 : key0;
-          const float add = (e >> 1) ? add1 : add0;
-          float pe = 0.f, de = 0.f;
-          if (j * LBWD_ROWS + qi < L && key_ok) {
-            pe = ex2(st_[jj][e] * kScaleLog2 + add - ss[3 * qi]) *
-                 ss[3 * qi + 1];
-            de = pe * (dpt[jj][e] - ss[3 * qi + 2]);
+  // the producer warp: a unit's K and V tiles, then its Q, dctx and stats
+  // tiles
+  if (threadIdx.x >= 128 * CONS) {
+    if (threadIdx.x != 128 * CONS) return;
+    produce(
+        ring, hring, nt, units,
+        [&](int k, uint32_t bar) {
+          const Unit w(blockIdx.x + k * gridDim.x, pairs, heads);
+          mbar_expect_tx(bar, CONS * 2 * TILE);
+          for (int c = 0; c < CONS; ++c) {
+            const uint32_t dst = hbuf + ((k & 1) * CONS + c) * 2 * TILE;
+            const int row = (w.pair * CONS + c) * ROWS;
+            tma_load_3d(dst, &map_qkv, D + w.h * DH, row, w.b, bar);
+            tma_load_3d(dst + TILE, &map_qkv, 2 * D + w.h * DH, row, w.b,
+                        bar);
           }
-          p[jj][e] = pe;
-          ds[jj][e] = de;
-        }
-      uint32_t pa[4], sa[4];
-      pack_a(pa, p);
-      pack_a(sa, ds);
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; nd += 2) {
-        uint32_t cb[4], qb[4];
-        load_b_frags_kn(cb, cs + qc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-        load_b_frags_kn(qb, qs + qc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-        mma_bf16_16816(ov[nd], pa, cb[0], cb[1]);
-        mma_bf16_16816(ov[nd + 1], pa, cb[2], cb[3]);
-        mma_bf16_16816(ok_[nd], sa, qb[0], qb[1]);
-        mma_bf16_16816(ok_[nd + 1], sa, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();   // stage j % 2 is free for tile j + 2
+        },
+        [&](int k, int i, int n, uint32_t bar) {
+          const Unit w(blockIdx.x + k * gridDim.x, pairs, heads);
+          const uint32_t st = qd + (n % STAGES) * KATT_COLS_STAGE;
+          mbar_expect_tx(bar, KATT_COLS_STAGE);
+          tma_load_3d(st, &map_qkv, w.h * DH, i * ROWS, w.b, bar);
+          tma_load_3d(st + TILE, &map_dctx, w.h * DH, i * ROWS, w.b, bar);
+          tma_load_3d(st + 2 * TILE, &map_stats, 0, i * ROWS,
+                      w.b * heads + w.h, bar);
+        });
+    return;
   }
+  auto qtile = [&](int n) { return qd + (n % STAGES) * KATT_COLS_STAGE; };
 
+  const int c = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const float scale = 0.125f;
+  int use = 0, it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it, use += nt) {
+    const int k0 = ((u % pairs) * CONS + c) * ROWS;
+    hring.wait(it);
+    if (k0 >= L) {   // no tile of this consumer in the unit: keep pace
+      for (int i = 0; i < nt; ++i) {
+        ring.wait(use + i);
+        if (lane == 0) ring.release(use + i);
+      }
+      if (lane == 0) hring.release(it);
+      continue;
+    }
+    const uint32_t kt = hbuf + ((it & 1) * CONS + c) * 2 * TILE;
+    const int r0 = k0 + 16 * warp;   // this warp's keys
+    // s^T = K Q^T and dp^T = V dctx^T of ring use n, one commit group
+    float s[32], dp[32], dk[32], dv[32];
+    uint32_t pa[4][4], da[4][4];
+    auto issue_sdp = [&](int n) {
+      product_ss(s, kt, qtile(n));
+      product_ss(dp, kt + TILE, qtile(n) + TILE);
+      sm90::wgmma_commit();
+    };
+    // p = exp2(t - lse) and ds = p (dp - r) of ring use n from its saved
+    // (r, lse) (lse = m + log2 l: the normalised p of the rows pass up to
+    // f32 rounding of the exponent), rounded to bf16 pairs in the A
+    // fragments' layout as they are formed.  Columns past L need no mask:
+    // their Q, dctx and statistics rows arrive as zeros, so ds = p (0 - 0)
+    // = 0 there and p multiplies a zero dctx row.
+    auto probs = [&](int n) {
+      sm90::fence_acc(s);
+      sm90::fence_acc(dp);
+      // (r, lse) of query column q at sv + 16 q
+      const uint32_t sv = qtile(n) + 2 * TILE + 8;
+      // the mask added to the scores of this thread's keys r0 + g, r0 + g
+      // + 8: -inf past L (p = 0 there)
+      float kadd[2];
 #pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (key0) {
-      bf16* out = dqkv + ((size_t)b * L + k0 + g) * 3 * D + h * DH + col;
-      *reinterpret_cast<__nv_bfloat162*>(out + D) =
-          __floats2bfloat162_rn(ok_[nd][0] * scale, ok_[nd][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
-          __floats2bfloat162_rn(ov[nd][0], ov[nd][1]);
+      for (int h = 0; h < 2; ++h) {
+        const int key = r0 + g + 8 * h;
+        kadd[h] = key >= L ? -INFINITY : key >= valid_len ? kNegInf : 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        float2 v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+                       : "=f"(v[e].x), "=f"(v[e].y)
+                       : "r"(sv + 16 * (8 * jj + 2 * tq + e)));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float pe[2], de[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * h + e;
+            pe[e] = ex2(s[i] * kScaleLog2 + kadd[h] - v[e].y);
+            de[e] = pe[e] * (dp[i] - v[e].x);
+          }
+          pa[jj / 2][2 * (jj % 2) + h] = pack_bf16(pe[0], pe[1]);
+          da[jj / 2][2 * (jj % 2) + h] = pack_bf16(de[0], de[1]);
+        }
+      }
+    };
+    zero(dk);
+    zero(dv);
+    for (int j = 0; j < nt; ++j) {
+      const int n = use + j;
+      ring.wait(n);
+      sm90::wgmma_fence();
+      issue_sdp(n);
+      sm90::wgmma_wait<0>();
+      probs(n);
+      sm90::wgmma_fence();
+      product_rs(dv, pa, qtile(n) + TILE);   // dv += pb^T dctx
+      product_rs(dk, da, qtile(n));          // dk += ds^T q
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(dk);
+      sm90::fence_acc(dv);
+      if (lane == 0) ring.release(n);
     }
-    if (key1) {
-      bf16* out = dqkv + ((size_t)b * L + k0 + g + 8) * 3 * D + h * DH + col;
-      *reinterpret_cast<__nv_bfloat162*>(out + D) =
-          __floats2bfloat162_rn(ok_[nd][2] * scale, ok_[nd][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(out + 2 * D) =
-          __floats2bfloat162_rn(ov[nd][2], ov[nd][3]);
+    if (lane == 0) hring.release(it);
+
+    const Unit wo(u, pairs, heads);   // recomputed: fewer live registers
+    bf16* out = dqkv + (size_t)wo.b * L * 3 * D + wo.h * DH;
+    store_rows(dk, scale, out + D, 3 * D, r0, L, g, tq);
+    store_rows(dv, 1.f, out + 2 * D, 3 * D, r0, L, g, tq);
+    if (r0 < L) {
+      float* part = dqkv_part +
+                    ((size_t)wo.b * ((L + 15) / 16) + r0 / 16) * 3 * D +
+                    wo.h * DH;
+      acc_colsum(dk, scale, r0 + g < L, r0 + g + 8 < L, part + D, lane);
+      acc_colsum(dv, 1.f, r0 + g < L, r0 + g + 8 < L, part + 2 * D, lane);
     }
-  }
-  if (k0 < L) {
-    float* part = dqkv_part +
-                  ((size_t)b * ((L + 15) / 16) + k0 / 16) * 3 * D + h * DH;
-    tile_colsum(ok_, scale, key0, key1, part + D, lane);
-    tile_colsum(ov, 1.f, key0, key1, part + 2 * D, lane);
   }
 }
 
@@ -826,23 +869,35 @@ cudaError_t long_attention_bwd(const bf16* qkv, const bf16* dctx, bf16* ctx,
                                bf16* dqkv, float* dqkv_part, float* stats,
                                int B, int L, int D, int heads, int valid_len,
                                cudaStream_t stream) {
+  CUtensorMap map_qkv, map_dctx, map_stats;
+  if (!katt::make_rows_map(&map_qkv, qkv, 3 * D, L, B) ||
+      !katt::make_rows_map(&map_dctx, dctx, D, L, B) ||
+      !sm90::aligned16({stats}) ||
+      !katt::make_map_3d(&map_stats, stats, true, 4, L, B * heads, 16,
+                         (size_t)L * 16, 4))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      attention_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)LBWD_ROWS_SMEM);
+      attention_bwd_rows_sm90_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, KATT_ROWS_SMEM);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attention_bwd_cols_kernel,
+    e = cudaFuncSetAttribute(attention_bwd_cols_sm90_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)LBWD_COLS_SMEM);
+                             KATT_COLS_SMEM);
   if (e != cudaSuccess) return e;
-  dim3 grid((L + LBWD_ROWS - 1) / LBWD_ROWS, heads, B);
-  attention_bwd_rows_kernel<<<grid, LBWD_THREADS, LBWD_ROWS_SMEM, stream>>>(
-      qkv, dctx, ctx, dqkv, dqkv_part, stats, L, D, valid_len);
+  const int pairs = ((L + katt::ROWS - 1) / katt::ROWS + katt::BWD_CONS -
+                     1) / katt::BWD_CONS;
+  const int grid = katt::persistent_grid(B * heads * pairs);
+  if (grid < 1) return cudaErrorInvalidValue;
+  constexpr int threads = katt::threads(katt::BWD_CONS);
+  attention_bwd_rows_sm90_kernel<<<grid, threads, KATT_ROWS_SMEM, stream>>>(
+      map_qkv, map_dctx, ctx, dqkv, dqkv_part,
+      reinterpret_cast<float4*>(stats), B, L, D, heads, valid_len);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  attention_bwd_cols_kernel<<<grid, LBWD_THREADS, LBWD_COLS_SMEM, stream>>>(
-      qkv, dctx, stats, dqkv, dqkv_part, L, D, valid_len);
+  attention_bwd_cols_sm90_kernel<<<grid, threads, KATT_COLS_SMEM, stream>>>(
+      map_qkv, map_dctx, map_stats, dqkv, dqkv_part, B, L, D, heads,
+      valid_len);
   return cudaGetLastError();
 }
-
 
 // The workspace: each gradient's partials, in floats, in the order the
 // final sum reads them.
@@ -858,9 +913,10 @@ struct AttnParts {
     dwproj = dln_s + chunks * dim;
     dwqkv = dwproj + wgrad_partials(dim, dim, rows);
     stats = dwqkv + wgrad_partials(dim, 3 * dim, rows);
-    // past 256 tokens the key-tiled backward's saved (m, l, r), (B, H, L, 3)
+    // past 256 tokens the key-tiled backward's saved (m, 1 / l, r, 0),
+    // (B, H, L, 4)
     total = stats + (seq > SHORT_ATT_LEN
-                         ? (size_t)batch * (dim / DH) * seq * 3 : 0);
+                         ? (size_t)batch * (dim / DH) * seq * 4 : 0);
   }
 };
 

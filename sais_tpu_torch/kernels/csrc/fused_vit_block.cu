@@ -34,9 +34,10 @@
 //                                      tile's whole key row of scores in
 //                                      registers, two-pass f32 softmax, P
 //                                      re-used as the A operand; past 256
-//       long_attention_kernel          per (64 queries, head, image), K and
-//                                      V streamed in 64-key tiles, two
-//                                      sweeps (vit_block_common.cuh)
+//       long_attention_sm90_kernel     per (image, head, three 64-query
+//                                      tiles), K and V streamed by TMA in
+//                                      64-key tiles, two sweeps on wgmma
+//                                      (attention_sm90.cuh)
 //   (4) gemm_sm90_kernel<EPI_RESIDUAL> [s1 *] (ctx @ Wproj + b) + x -> x1
 //   (5) layer_norm_kernel              LN2 -> y
 //   (6) gemm_sm90_kernel<EPI_GELU>     y @ W1 + b1, tanh-GELU -> h
@@ -44,16 +45,16 @@
 //
 // The four products, 92% of the flops, run on gemm_sm90.cuh: TMA loads
 // into a 4-stage shared-memory ring, wgmma.mma_async on two consumer
-// warpgroups, the epilogues on the accumulators, a TMA store.  The
-// attention stays on mma.sync (vit_block_common.cuh; K8 runs it too).  The
+// warpgroups, the epilogues on the accumulators, a TMA store.  Up to 256
+// tokens the attention stays on mma.sync (vit_block_common.cuh), past them
+// it runs on wgmma + TMA (attention_sm90.cuh); K8 runs both.  The
 // intermediates (y, qkv / h, x1) round-trip through device memory, about
 // 4x the bytes of the TPU kernel.  Later work: LayerNorm in the GEMM
 // prologue, the MLP fused (h kept on chip), a persistent GEMM scheduler.
 //
 // The kernels allocate nothing: the caller passes the scratch buffers.
 
-#include "gemm_sm90.cuh"
-#include "vit_block_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 

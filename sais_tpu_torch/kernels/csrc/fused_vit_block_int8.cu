@@ -34,8 +34,9 @@
 //                                   stored transposed (N, K), the K-major
 //                                   B of 8-bit wgmma
 //   (3) gemm_sm90 EPI_I8_BF16       qkv
-//   (4) attention_kernel<KT>        (vit_block_common.cuh, K1's; past 256
-//       or long_attention_kernel    tokens the key-tiled one)
+//   (4) attention_kernel<KT>        K1's (vit_block_common.cuh; past 256
+//       or long_attention_sm90_     tokens the key-tiled one on wgmma,
+//       kernel                      attention_sm90.cuh)
 //   (5) quant_rows_kernel           ctx -> int8 rows
 //   (6) gemm_sm90 EPI_I8_RESID      x1 = x + bf16(proj)
 //   (7) ln_quant_kernel             LN2
@@ -49,7 +50,7 @@
 //
 // The kernels allocate nothing: the caller passes the workspace.
 
-#include "gemm_sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 

@@ -9,11 +9,11 @@
 //   the branch cotangent, and the LayerNorm backward; both also write
 //   fixed-order partial column sums;
 // - mma.sync m16n8k16 building blocks (ldmatrix fragments, cp.async) for
-//   the attention kernels (every other product runs on the wgmma + TMA
-//   GEMM of gemm_sm90.cuh);
-// - K1's masked softmax attention, bf16 in and out (K1, K4 and K8 run it):
+//   the register attention kernels (every other product runs on the wgmma
+//   + TMA GEMM of gemm_sm90.cuh);
+// - K1's masked softmax attention, bf16 in and out (K1, K4 and K8 run it)
 //   up to 256 tokens per (image, head), each query's score row in
-//   registers; past 256 key-tiled, per (image, head, 64 queries);
+//   registers (past 256 tokens attention_sm90.cuh's key-tiled kernel);
 // - fixed-order sums of partials: every weight, bias and LayerNorm gradient
 //   is reduced over the B*L rows (and K7's dh_s over out_dim) without
 //   atomics and without read-modify-write across blocks, so results do not
@@ -578,263 +578,6 @@ cudaError_t launch_attention(const bf16* qkv, bf16* ctx, int B, int L, int D,
   attention_kernel<KT><<<grid, ATT_THREADS, smem, stream>>>(qkv, ctx, L, D,
                                                             valid_len);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Key-tiled masked softmax attention for L > 256 (the patch-8 ViTs: 785
-// tokens at 224 px), where a head's K and V (2 L 72 bf16: 230 KB at 785)
-// no longer fit a block's shared memory, nor a query's scores its
-// registers.  A block of 4 warps takes 64 queries of one (image, head),
-// each warp 16 of them, with their Q fragments in registers; K and V
-// stream in 64-key tiles through a cp.async double buffer (36 KB).
-//
-// The JAX kernel rounds the normalized f32 softmax to bf16 before the
-// product with v (`_packed_attn_ctx`), so an online softmax that rescales
-// an unnormalized accumulator would round elsewhere.  Instead the keys are
-// swept twice: sweep 1 (K tiles only) keeps each lane's running max m and
-// sum l of exp(s - m) for its two rows, merged over the quad at the end;
-// sweep 2 (K and V tiles) recomputes s, forms p = exp(s - m) / l, rounds it
-// to bf16 as the A fragment of the mma and accumulates ctx += pb v in f32.
-// That is 6 L^2 Dh flops a head executed against the 4 L^2 Dh the function
-// needs.  Masking as above: keys at or past valid_len score -1e30, tile
-// padding past L -inf (its K and V rows are zero-filled); a tile with
-// neither skips the masks.
-//
-// The elementwise work, not the mma, sets the pace here, so the scores are
-// kept in the log2 domain (t = s log2 e, one multiply), exp(s - m) is
-// ex2.approx(t - m) (FlashAttention's formulation, a few f32 ulps from
-// expf) and p multiplies by 1 / l: the same f32 p up to ulps, rounded to
-// bf16 at the same point.
-// ---------------------------------------------------------------------------
-constexpr int SHORT_ATT_LEN = 16 * 16;   // the register kernel's reach
-// DH ** -0.5 * log2(e): scores to the log2 domain of the key-tiled kernels
-constexpr float kScaleLog2 = 0.125f * 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The scores of a 16-row tile's accumulators (q . k) over keys [k0, k0 + 8
-// N8) in the log2 domain, t = q . k dh^-0.5 log2 e, masked past valid_len
-// (-1e30) and past L (-inf) unless `full` says no key there is either.
-template <int N8>
-__device__ __forceinline__ void log2_scores(float (*s)[4], int k0, int t,
-                                            bool full, int L,
-                                            int valid_len) {
-  if (full) {
-#pragma unroll
-    for (int jj = 0; jj < N8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[jj][e] *= kScaleLog2;
-    return;
-  }
-#pragma unroll
-  for (int jj = 0; jj < N8; ++jj)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = k0 + jj * 8 + 2 * t + e;
-      const float add = col >= valid_len ? kNegInf : 0.f;
-      s[jj][e] = col >= L ? -INFINITY : s[jj][e] * kScaleLog2 + add;
-      s[jj][2 + e] = col >= L ? -INFINITY : s[jj][2 + e] * kScaleLog2 + add;
-    }
-}
-
-constexpr int LATT_ROWS = 64;                // queries a block, keys a tile
-constexpr int LATT_THREADS = 128;
-constexpr size_t LATT_SMEM = 4 * (size_t)LATT_ROWS * ATT_LD * sizeof(bf16);
-
-// A warp's A fragments of 16 rows x DH: rows r0 (the lane's g) and r0 + 8
-// of the bf16 matrix at m with row stride ld, its first DH columns; zero
-// past row L.
-__device__ __forceinline__ void load_a_rows(uint32_t (*a)[4],
-                                            const bf16* m, size_t ld,
-                                            int r0, int L, int t) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int kq = 0; kq < DH / 16; ++kq) {
-    const int c = kq * 16 + 2 * t;
-    a[kq][0] = r0 < L ? ld_u32(m + (size_t)r0 * ld + c) : 0u;
-    a[kq][1] = r1 < L ? ld_u32(m + (size_t)r1 * ld + c) : 0u;
-    a[kq][2] = r0 < L ? ld_u32(m + (size_t)r0 * ld + c + 8) : 0u;
-    a[kq][3] = r1 < L ? ld_u32(m + (size_t)r1 * ld + c + 8) : 0u;
-  }
-}
-
-__global__ void __launch_bounds__(LATT_THREADS)
-    long_attention_kernel(const bf16* __restrict__ qkv,
-                          bf16* __restrict__ ctx, int L, int D,
-                          int valid_len) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [2][64][ATT_LD]
-  bf16* Vs = Ks + 2 * LATT_ROWS * ATT_LD;         // [2][64][ATT_LD]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t row_stride = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * L * row_stride + h * DH;
-  const int nt = (L + LATT_ROWS - 1) / LATT_ROWS;
-
-  // tile j < nt: sweep 1 over key tile j (K only); j >= nt: sweep 2 over
-  // key tile j - nt (K and V), into stage j % 2
-  auto load = [&](int j) {
-    const int k0 = (j % nt) * LATT_ROWS;
-    bf16* ks = Ks + (j & 1) * LATT_ROWS * ATT_LD;
-    bf16* vs = Vs + (j & 1) * LATT_ROWS * ATT_LD;
-    for (int i = tid; i < LATT_ROWS * (DH / 8); i += LATT_THREADS) {
-      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
-      const bool ok = k0 + r < L;
-      const bf16* src = base + (size_t)(ok ? k0 + r : 0) * row_stride + c;
-      cp_async16(ks + r * ATT_LD + c, src + D, ok);
-      if (j >= nt) cp_async16(vs + r * ATT_LD + c, src + 2 * D, ok);
-    }
-    cp_async_commit();
-  };
-  load(0);
-
-  const int r0 = blockIdx.x * LATT_ROWS + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[DH / 16][4];
-  load_a_rows(qa, base, row_stride, r0, L, t);
-
-  // per row: running max m (log2 domain) and sum l, after sweep 1 1 / l
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd)
-    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-
-  for (int j = 0; j < 2 * nt; ++j) {
-    if (j + 1 < 2 * nt) {
-      load(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = Ks + (j & 1) * LATT_ROWS * ATT_LD;
-    const bf16* vs = Vs + (j & 1) * LATT_ROWS * ATT_LD;
-    const int k0 = (j % nt) * LATT_ROWS;
-
-    // S = Q K^T for 64 keys: s[n8 tile][0..1] row g, [2..3] row g + 8
-    float s[LATT_ROWS / 8][4];
-#pragma unroll
-    for (int jj = 0; jj < LATT_ROWS / 8; ++jj)
-      s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < LATT_ROWS / 8; jj += 2) {
-#pragma unroll
-      for (int kq = 0; kq < DH / 16; ++kq) {
-        uint32_t kb[4];
-        load_b_frags_nk(kb, ks + jj * 8 * ATT_LD + kq * 16, ATT_LD, lane);
-        mma_bf16_16816(s[jj], qa[kq], kb[0], kb[1]);
-        mma_bf16_16816(s[jj + 1], qa[kq], kb[2], kb[3]);
-      }
-    }
-    log2_scores<LATT_ROWS / 8>(s, k0, t, k0 + LATT_ROWS <= valid_len, L,
-                               valid_len);
-
-    if (j < nt) {
-      // sweep 1: this lane's running max and sum of its two rows
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m[r];
-#pragma unroll
-        for (int jj = 0; jj < LATT_ROWS / 8; ++jj)
-          mx = fmaxf(mx, fmaxf(s[jj][2 * r], s[jj][2 * r + 1]));
-        if (mx == -INFINITY) continue;   // no key of this lane yet
-        float sum = m[r] == -INFINITY ? 0.f : l[r] * ex2(m[r] - mx);
-#pragma unroll
-        for (int jj = 0; jj < LATT_ROWS / 8; ++jj)
-          sum += ex2(s[jj][2 * r] - mx) + ex2(s[jj][2 * r + 1] - mx);
-        l[r] = sum;
-        m[r] = mx;
-      }
-      if (j == nt - 1) {
-        // merge the four lanes of each row; keep 1 / l
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mq = m[r];
-          mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 1));
-          mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
-          float lq = m[r] == -INFINITY ? 0.f : l[r] * ex2(m[r] - mq);
-          lq += __shfl_xor_sync(0xffffffffu, lq, 1);
-          lq += __shfl_xor_sync(0xffffffffu, lq, 2);
-          m[r] = mq;
-          l[r] = 1.f / lq;
-        }
-      }
-    } else {
-      // sweep 2: ctx += bf16(exp(s - m) / l) v, 16 keys an mma
-#pragma unroll
-      for (int kc = 0; kc < LATT_ROWS / 16; ++kc) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(ex2(s[2 * kc][0] - m[0]) * l[0],
-                          ex2(s[2 * kc][1] - m[0]) * l[0]);
-        pa[1] = pack_bf16(ex2(s[2 * kc][2] - m[1]) * l[1],
-                          ex2(s[2 * kc][3] - m[1]) * l[1]);
-        pa[2] = pack_bf16(ex2(s[2 * kc + 1][0] - m[0]) * l[0],
-                          ex2(s[2 * kc + 1][1] - m[0]) * l[0]);
-        pa[3] = pack_bf16(ex2(s[2 * kc + 1][2] - m[1]) * l[1],
-                          ex2(s[2 * kc + 1][3] - m[1]) * l[1]);
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; nd += 2) {
-          uint32_t vb[4];
-          load_b_frags_kn(vb, vs + kc * 16 * ATT_LD + nd * 8, ATT_LD, lane);
-          mma_bf16_16816(o[nd], pa, vb[0], vb[1]);
-          mma_bf16_16816(o[nd + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();   // stage j % 2 is free for tile j + 2
-  }
-
-  bf16* out0 = ctx + ((size_t)b * L + r0) * D + h * DH;
-  bf16* out1 = ctx + ((size_t)b * L + r1) * D + h * DH;
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (r0 < L)
-      *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
-          __floats2bfloat162_rn(o[nd][0], o[nd][1]);
-    if (r1 < L)
-      *reinterpret_cast<__nv_bfloat162*>(out1 + col) =
-          __floats2bfloat162_rn(o[nd][2], o[nd][3]);
-  }
-}
-
-cudaError_t launch_long_attention(const bf16* qkv, bf16* ctx, int B, int L,
-                                  int D, int heads, int valid_len,
-                                  cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      long_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)LATT_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((L + LATT_ROWS - 1) / LATT_ROWS, heads, B);
-  long_attention_kernel<<<grid, LATT_THREADS, LATT_SMEM, stream>>>(
-      qkv, ctx, L, D, valid_len);
-  return cudaGetLastError();
-}
-
-// Up to 256 tokens the register kernel, past them the key-tiled one.
-cudaError_t attention(const bf16* qkv, bf16* ctx, int B, int L, int D,
-                      int heads, int valid_len, cudaStream_t stream) {
-  if (L > SHORT_ATT_LEN)
-    return launch_long_attention(qkv, ctx, B, L, D, heads, valid_len,
-                                 stream);
-  switch ((L + 15) / 16) {
-#define SAIS_ATT_CASE(kt) \
-  case kt:                \
-    return launch_attention<kt>(qkv, ctx, B, L, D, heads, valid_len, stream);
-    SAIS_ATT_CASE(1) SAIS_ATT_CASE(2) SAIS_ATT_CASE(3) SAIS_ATT_CASE(4)
-    SAIS_ATT_CASE(5) SAIS_ATT_CASE(6) SAIS_ATT_CASE(7) SAIS_ATT_CASE(8)
-    SAIS_ATT_CASE(9) SAIS_ATT_CASE(10) SAIS_ATT_CASE(11) SAIS_ATT_CASE(12)
-    SAIS_ATT_CASE(13) SAIS_ATT_CASE(14) SAIS_ATT_CASE(15) SAIS_ATT_CASE(16)
-#undef SAIS_ATT_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace

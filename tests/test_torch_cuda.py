@@ -631,6 +631,52 @@ def test_long_blocks_match_plain_versions(cuda, b, l, valid, d):
            "K8")
 
 
+@pytest.mark.parametrize("b,l,valid,d", [(4, 785, 785, 384),
+                                         (2, 800, 785, 384),
+                                         (2, 1025, 1025, 768)])
+def test_key_tiled_attention_matches_plain_versions(cuda, b, l, valid, d):
+    """The wgmma + TMA key-tiled attention past 256 tokens through the
+    kernels that run it: the forward (long_attention_sm90_kernel) in K1 and
+    K4, the backward pair (attention_bwd_rows_sm90_kernel,
+    attention_bwd_cols_sm90_kernel) in K6, against their plain versions at
+    `_close`'s limit, and each twice on the same inputs, equal to the bit.
+    Four patch-8 crops (13 query tiles a head: the last group of three
+    tiles a block has one), rows padded to 800 with keys >= 785 masked, and
+    1025 tokens at ViT-B width (17 tiles)."""
+    from sais_tpu_torch.kernels.fused_mha import (
+        block_bwd_attn_reference, fused_block_bwd_attn,
+        fused_block_fwd_train, vit_block_train_reference)
+    x, ws = _inputs(l + 2 * d, b, l, d=d, mlp=4 * d)
+    s1, s2 = _scales(b, l, l + 1)
+    kw = dict(num_heads=d // 64, valid_len=valid)
+    dx1 = torch.randn(x.shape, generator=torch.Generator().manual_seed(l)
+                      ).to(cuda, torch.bfloat16)
+    counts = [f.launches for f in (fused_vit_block, fused_block_fwd_train,
+                                   fused_block_bwd_attn)]
+    runs = [(fused_vit_block(x, *ws, **kw),
+             fused_block_fwd_train(x, *ws, s1=s1, s2=s2, **kw),
+             fused_block_bwd_attn(x, dx1, *ws[0:4], *ws[8:10], s1=s1, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fused_vit_block, fused_block_fwd_train,
+                                 fused_block_bwd_attn)] == [
+        n + 2 for n in counts]
+    for first, second in zip(*runs):
+        first = (first,) if isinstance(first, torch.Tensor) else first
+        second = (second,) if isinstance(second, torch.Tensor) else second
+        for i, (u, v) in enumerate(zip(first, second)):
+            assert torch.equal(u, v), i
+    out, (k4_out, k4_x1), attn = runs[0]
+    _close(out[:, :valid], vit_block_reference(x, *ws, **kw)[:, :valid],
+           "K1")
+    ref_out, ref_x1 = vit_block_train_reference(x, *ws, s1=s1, s2=s2, **kw)
+    _close(k4_x1[:, :valid], ref_x1[:, :valid], "K4 x1")
+    _close(k4_out[:, :valid], ref_out[:, :valid], "K4 out")
+    ref = block_bwd_attn_reference(x, dx1, *ws[0:4], *ws[8:10], s1=s1, **kw)
+    for i, (a, r) in enumerate(zip(attn, ref)):
+        _close(a, r, f"K6 output {i}")
+
+
 def test_train_backward_kernels_are_bitwise_repeatable(cuda):
     """K5 and K6 reduce every gradient in a fixed order without atomics, so
     two runs on the same inputs agree to the bit (the pretrain step's

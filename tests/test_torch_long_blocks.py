@@ -4,15 +4,17 @@ interpret=True on the CPU:
 
 - the plain versions of K1, K4, K5, K6 and K8 at 785 and 257 tokens and at
   the JAX package's padded shape (800 rows, keys >= 785 masked);
-- the card's key-tiled attention emulated in torch (forward: two sweeps
-  over 64-key tiles, each lane's running max and sum merged over its quad,
-  then p = exp(s - m) / l rounded to bf16 before the product with v; K6's
-  backward: a query-row pass that saves (m, l, r = rowsum(dp p)) and forms
-  ctx and dq, then a key-column pass that forms dk and dv from the saved
-  statistics) inside the plain blocks, against the Pallas kernels at 785,
-  257 and 1025 tokens (the card keeps the scores in the log2 domain and
-  takes exp as ex2.approx, which moves p by f32 ulps; emulated here with
-  torch.exp);
+- the card's key-tiled attention (wgmma kernels over 64 x 64 tiles)
+  emulated in torch (forward: two sweeps over 64-key tiles, each lane's
+  running max and sum merged over its quad, then p = exp(s - m) / l
+  rounded to bf16 before the product with v; K6's backward: a query-row
+  pass whose lanes keep (m, l, d = sum exp(s - m) dp) over 64-key tiles,
+  saves (m, l, r = rowsum(dp p), lse = m + log l) and forms ctx and dq,
+  then a key-column pass that forms p = exp(s - lse), ds, dk and dv from
+  the saved statistics) inside the plain blocks, against the Pallas
+  kernels at 785, 257, 769 (one past a tile boundary) and 1025 tokens (the
+  card keeps the scores in the log2 domain and takes exp as ex2.approx,
+  which moves p by f32 ulps; emulated here with torch.exp);
 - the patch-8 backbone paths (`vit_features` on K1, the trainable fused
   path on K4-K6, `vit_forward_train`) against the JAX package's.
 
@@ -36,8 +38,9 @@ from sais_tpu.kernels import fused_mha as jmha
 from sais_tpu_torch.kernels import fused_mha as tmha
 
 HEADS, D, MLP = 2, 128, 512
-TILE = 64        # the key-tiled kernels' rows a block and keys a tile
-LANES = 4        # lanes sharing a score row in an mma.sync fragment
+TILE = 64        # the key-tiled kernels' rows a consumer and keys a tile
+LANES = 4        # lanes sharing a score row in a wgmma (or mma.sync)
+                 # accumulator fragment
 
 # (B, L, valid): the patch-8 global crop, the first length past the register
 # kernels' 256, and the JAX package's padded rows with keys >= 785 masked
@@ -218,9 +221,11 @@ def _tiled_scores(qkv, num_heads, valid_len):
 
 def _lane_stats(s, chunk, dp=None):
     """Each row's (m, l[, r]) as the kernels form them: keys in chunks of
-    `chunk`, each lane's running max m and sum l of exp(s - m) (and d = sum
-    exp(s - m) dp) over its own columns (column c of a chunk belongs to
-    lane (c % 8) // 2), then the four lanes merged; r = d / l."""
+    `chunk` (a tile: 64 keys on the card), each lane's running max m and
+    sum l of exp(s - m) (and d = sum exp(s - m) dp) over its own columns
+    (column c of a chunk belongs to lane (c % 8) // 2), the chunk's values
+    summed, then merged into the running ones; then the four lanes merged;
+    r = d / l."""
     *lead, lk = s.shape
     shape = (*lead, lk // 8, LANES, 2)
     s_l = s.reshape(shape).transpose(-3, -2)          # (..., lane, n8, 2)
@@ -247,9 +252,11 @@ def _lane_stats(s, chunk, dp=None):
 
 
 def emulated_long_attention(qkv, num_heads, valid_len):
-    """long_attention_kernel in torch: sweep 1 over 64-key tiles for each
-    row's (m, l), sweep 2 for p = exp(s - m) / l rounded to qkv's dtype and
-    ctx += pb v accumulated in f32 tile by tile, ctx rounded once."""
+    """long_attention_sm90_kernel in torch: sweep 1 over 64-key tiles for
+    each row's (m, l), sweep 2 for p = exp(s - m) / l rounded to qkv's dtype
+    and ctx += pb v accumulated in f32 tile by tile, ctx rounded once (each
+    64-query tile alone: the card's grouping of query tiles into units
+    changes which block runs them, not what they compute)."""
     b, l, d3 = qkv.shape
     q, k, v, s = _tiled_scores(qkv, num_heads, valid_len)
     m, lsum, _ = _lane_stats(s, TILE)
@@ -262,11 +269,11 @@ def emulated_long_attention(qkv, num_heads, valid_len):
 
 def emulated_long_attention_bwd(qkv, dctx, num_heads, valid_len):
     """K6's key-tiled attention backward in torch.  The query-row pass:
-    (m, l, r) from 16-key chunks per lane, then per 64-key tile p, pb, ds =
+    (m, l, r) from 64-key tiles per lane, then per 64-key tile p, pb, ds =
     bf16(p (dp - r)), ctx += pb v and dq += ds k in f32.  The key-column
-    pass: s^T and dp^T again, p and ds from the saved (m, l, r), dv += pb^T
-    dctx and dk += ds^T q per 64-query tile.  Returns (ctx, dqkv) as
-    `fused_mha._attention_bwd` does."""
+    pass: s^T and dp^T again, p = exp(s - lse) and ds from the saved (r,
+    lse = m + log l), dv += pb^T dctx and dk += ds^T q per 64-query tile.
+    Returns (ctx, dqkv) as `fused_mha._attention_bwd` does."""
     b, l, d3 = qkv.shape
     dtype = qkv.dtype
     dh = d3 // 3 // num_heads
@@ -274,7 +281,8 @@ def emulated_long_attention_bwd(qkv, dctx, num_heads, valid_len):
     q, k, v, s = _tiled_scores(qkv, num_heads, valid_len)
     dc = dctx.float().reshape(b, l, num_heads, dh).transpose(1, 2)
     dp = dc @ v.transpose(-1, -2)
-    m, lsum, r = _lane_stats(s, 16, dp)          # saved (B, H, L, 3)
+    m, lsum, r = _lane_stats(s, TILE, dp)        # saved with lse
+    lse = m + torch.log(lsum)
     ctx, dq = torch.zeros(q.shape), torch.zeros(q.shape)
     for k0 in range(0, s.shape[-1], TILE):
         sl = slice(k0, k0 + TILE)
@@ -288,7 +296,7 @@ def emulated_long_attention_bwd(qkv, dctx, num_heads, valid_len):
         sl = slice(q0, q0 + TILE)
         st = s[..., sl, :].transpose(-1, -2)        # (B, H, keys, queries)
         dpt = dp[..., sl, :].transpose(-1, -2)
-        p = torch.exp(st - m[..., None, sl]) / lsum[..., None, sl]
+        p = torch.exp(st - lse[..., None, sl])
         ds = (p * (dpt - r[..., None, sl])).to(dtype).float()
         dv += p.to(dtype).float() @ dc[..., sl, :]
         dk += ds @ q[..., sl, :]
@@ -298,7 +306,8 @@ def emulated_long_attention_bwd(qkv, dctx, num_heads, valid_len):
     return ctx.transpose(1, 2).reshape(b, l, d3 // 3).to(dtype), dqkv
 
 
-EMULATED = [(1, 785, 785), (2, 257, 257), (1, 1025, 1025), (1, 800, 785)]
+EMULATED = [(1, 785, 785), (2, 257, 257), (1, 769, 769), (1, 1025, 1025),
+            (1, 800, 785)]
 
 
 @pytest.mark.parametrize("b,l,valid", EMULATED)
@@ -362,7 +371,8 @@ def test_emulated_tiled_backward_matches_pallas(b, l, valid, monkeypatch):
 def test_emulated_statistics_equal_softmax():
     """The lane-wise running (m, l, r) of `_lane_stats`, merged, equal the
     row max, the softmax sum and rowsum(dp p) of the whole row in float64
-    terms: the online rescaling changes f32 rounding only."""
+    terms: the online rescaling changes f32 rounding only; and the key-column
+    pass's p = exp(s - lse), lse = m + log l, is the normalised softmax."""
     rng = np.random.default_rng(12)
     qkv = _t(rng.standard_normal((1, 300, 3 * D)))
     _, _, v, s = _tiled_scores(qkv, HEADS, 290)
@@ -378,6 +388,9 @@ def test_emulated_statistics_equal_softmax():
         p = p / p.sum(-1, keepdim=True)
         np.testing.assert_allclose(r.numpy(), (p * dp.double()).sum(
             -1).numpy(), rtol=1e-4, atol=1e-5)
+        p_lse = torch.exp(s - (m + torch.log(lsum))[..., None])
+        np.testing.assert_allclose(p_lse.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-7)
 
 
 # ---------------------------------------------------------------------------
