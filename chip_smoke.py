@@ -107,7 +107,28 @@ Phases, each of which fails the run:
    (batch 2, inference mode) on K2 against the dense path at 301, 512,
    1024, 2001 and 8193 tokens, median of five CUDA-event runs each, and
    the length from which flash is faster.
-10. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
+10. skill path at full width (`train --dataset vua-ease -d NH_02 -il -bc
+   -e 2 -bs 8 -lr 0.1` and `assess`, without the CSV and H5 I/O): a
+   synthetic stitch table (numpy seed 0: 48 videos x 6 stitches x the
+   three RACE / EASE pairs, maj in {0, 1, 2}, explanation rows for the
+   low-skill stitches) and 384-d features of 6,000 frames a video (RGB
+   and flow, in memory); build_ease_dataset -> skill_batches ->
+   PrototypeTrainer(use_importance=True).fit from fixed torch.Generator
+   seeds, with --flash on (K3 exactly 4 x train batches, K2 4 x (train
+   batches + 3 x eval batches)) and dense (no launch), and on the CPU;
+   epoch losses flash vs dense and card vs CPU within 1e-3; one -il step's
+   loss (1e-5 relative) and every parameter gradient flash vs dense (1e-3
+   of its largest value, frame_pos in the norm); the -il step's median
+   ms; one epoch of `-d NH_02+ND_02` (linearB) with the same launch rule;
+   then SkillAssessor over the trained fold on the USC_inference table and
+   the inference rows of 4 videos (96 segments), -mod RGB and RGB-Flow,
+   flash and dense: K2 exactly 4 x segments x 3 TTA x modalities, the
+   probabilities, the importance (of its largest value) and the flash
+   path's CLS attention row against row 0 of the dense (f+1, f+1) matrix
+   within 1e-4, importance of length f; segments/s (host clock, median of
+   three after a warm-up) and one profiled assess's idle share, each
+   beside the card's name and power limit.
+11. K4 (fused_block_fwd_train), K5 (fused_block_bwd_mlp) and K6
    (fused_block_bwd_attn), bf16, D = 384, 6 heads of 64, MLP 1536: each
    CUDA kernel against its plain version (out and x1; dx1 and the f32 MLP
    weight gradients; dx and the f32 attention weight gradients) at the
@@ -124,7 +145,7 @@ Phases, each of which fails the run:
    share of K6 at (128, 197) and (512, 37), and fail unless every product
    ran the wgmma + TMA GEMM (none the mma.sync template) and a call makes
    at most 11 (K5) and 12 (K6) launches.
-11. long blocks, past the register attention's 256 tokens: K1, K4, K5, K6
+12. long blocks, past the register attention's 256 tokens: K1, K4, K5, K6
    and K8 at (B, L, valid, D) = (128, 785, 785, 384), the vits8 step's
    global crops, (64, 785, 785, 768), the vitb8 geometry, (32, 257, 257,
    384), (16, 1025, 1025, 384) and (32, 800, 785, 384), keys >= 785
@@ -141,7 +162,7 @@ Phases, each of which fails the run:
    DIR`, the earlier tree's K1 and K6 are timed beside this tree's at
    (128, 785, 384) and (64, 785, 768), in turns, their outputs within 2e-2
    of this tree's largest value (the plain versions' limit).
-12. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
+13. K7 (dino_head_loss), the DINO last layer + loss: the CUDA kernel
    against its plain version (loss and center 1e-4 relative; dhs, dvs,
    dgs 1e-2 of the plain version's largest value; dgs exactly 0 under
    norm_last_layer; two runs bitwise equal) at the pretrain step's shape
@@ -159,7 +180,7 @@ Phases, each of which fails the run:
    tree's, in turns: K1 at (256, 197), K6 at (128, 197) (both bitwise
    equal to this tree's, whose code there is unchanged), K7 at both
    batches and K8 at its shape.
-13. pretrain path at full width (`pretrain -bs 64` without the video
+14. pretrain path at full width (`pretrain -bs 64` without the video
    I/O): DINOTrainer(ViT-S/16, out_dim 65536, 2 global crops at 224 + 8
    local at 96, drop path 0.1, adamw, fused blocks, fused loss) from
    fixed seeds, 64 synthetic 480x640 frames (numpy seed 0), border crop
@@ -174,7 +195,7 @@ Phases, each of which fails the run:
    `pretrain --arch vits8` (ViT-S/8: 785 + 145 tokens, the globals on
    the key-tiled attention); both print the median step ms, img/s, and a
    profiled step's device busy time and idle share beside the card.
-14. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
+15. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
    CUDA kernel against its plain version (2e-2 of its largest value), two
    runs bitwise equal, and against K1 on the same inputs (cosine >
    0.9999, max relative < 0.02, JAX's limits; the reading at the K1
@@ -185,18 +206,20 @@ Phases, each of which fails the run:
    failing unless every product ran `gemm_sm90_kernel` (its int8 mode),
    no launch the mma.sync gemm_i8_kernel or quant_rows_kernel<float>, and
    a call makes at most 10 launches.
-15. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
+16. W8A8 encoder: 256 synthetic 480x640 frames through preprocess_batch
    and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
    and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
    frames/s beside the bf16 path's (median of three after a warm-up).
-16. prints the total time, the card, the kernels line (JSON) and, last,
+17. prints the total time, the card, the kernels line (JSON) and, last,
    the device line (JSON).  K1's launches there add the gesture and flow
    paths' to the teacher's in both pretrain phases; K4-K7's add both
-   pretrain phases'.
+   pretrain phases'; K2's and K3's add the skill path's to the training
+   path's.
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
-K3 calls, one long train step (with K2's and K3's shares), K4-K6 calls,
+K3 calls, one long train step (with K2's and K3's shares), one assess,
+K4-K6 calls,
 K7 and K8 calls (per launch), one pretrain step of each arch (with K4's,
 K5's, K6's, K1's and K7's shares, read from profiler ranges: K1 and K4
 share their kernels' names) and one flow extraction (RAFT's and the ViT's
@@ -1699,6 +1722,357 @@ def phase_train():
     return train_k2, train_k3
 
 
+# ---------------------------------------------------------------------------
+# The skill path: `train --dataset vua-ease` and `assess`
+# ---------------------------------------------------------------------------
+
+SKILL_RACES = (("Needle Handling", "# Repositions"),
+               ("Needle Driving", "Driving Sequence"),
+               ("Needle Withdrawal", "Wrist Rotation"))
+
+
+def _synthetic_ease_data(nvideos: int = 48, stitches: int = 6,
+                         nframes: int = 6000):
+    """A VUA_EASE_Stitch_Paths-schema table (numpy seed 0): nvideos x
+    stitches x the three RACE / EASE pairs, maj in {0, 1, 2}; explanation
+    rows (six relative spans) for the low-skill stitches; 384-d f32
+    features of nframes frames a video, RGB and flow, in memory."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    rows, expl = [], []
+    for v in range(nvideos):
+        for s in range(stitches):
+            start = int(rng.integers(1, nframes - 900))
+            entry = start + int(rng.integers(40, 300))
+            wd = entry + int(rng.integers(60, 300))
+            wd_end = wd + int(rng.integers(90, 250))
+            for race, ease in SKILL_RACES:
+                maj = int(rng.integers(0, 3))
+                rows.append({
+                    "File": v + 1, "Stitch": s,
+                    "Path": f"C:\\EASE\\vid{v:02d}",
+                    "videoname": f"case{v:02d}", "Anatomy":
+                    "Posterior" if s % 2 else "Anterior", "RACE": race,
+                    "EASE": ease, "maj": maj,
+                    "Needle Handling Start Frame": start,
+                    "Needle Entry Start Frame": entry,
+                    "Needle Withdrawal Start Frame": wd,
+                    "Needle Withdrawal End Frame": wd_end})
+                if maj != 2:
+                    e = {"File Number": v + 1, "Stitch": s, "Hospital": "USC",
+                         "Suturing Phase": "N" + race.split()[1][0]}
+                    for n in range(1, 7):
+                        a = int(rng.integers(0, 100))
+                        e[f"Start{n} Frame"] = float(a)
+                        e[f"End{n} Frame"] = float(a + rng.integers(5, 40))
+                    expl.append(e)
+    feats = rng.standard_normal((2, nvideos, nframes, 384)).astype(np.float32)
+    rgb = {f"vid{v:02d}": feats[0, v] for v in range(nvideos)}
+    flow = {f"vid{v:02d}": feats[1, v] for v in range(nvideos)}
+    return rows, expl, _ArrayStore(rgb), _ArrayStore(flow)
+
+
+def _skill_trainer(data, domain, cfg, device, importance=True):
+    """The PrototypeTrainer(use_importance=...) and loaders of `train
+    --dataset vua-ease -d <domain> [-il] -bc -bs 8 -lr 0.1` on fold 0,
+    from fixed seeds; returns (trainer, loaders, batches a phase, tables,
+    classes)."""
+    import dataclasses
+
+    import torch
+    from sais_tpu_torch.config import TrainConfig
+    from sais_tpu_torch.data.skill import build_ease_dataset, skill_batches
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+    from sais_tpu_torch.train.loop import PrototypeTrainer
+    rows, expl, store, _ = data
+    frames, classes = build_ease_dataset(rows, domain, 0, balance=True,
+                                         explanations=[expl],
+                                         importance_loss=importance)
+    multi = "+" in domain
+    nclasses = len(classes) * (2 if multi else 1)
+    mcfg = dataclasses.replace(cfg.model, nclasses=nclasses,
+                               importance_head=importance, multi_task=multi)
+    model = full_model_init(torch.Generator().manual_seed(0), mcfg)
+    keys, protos = prototypes_init(torch.Generator().manual_seed(1), nclasses)
+    trainer = PrototypeTrainer(mcfg, TrainConfig(lr=0.1, batch_size=8,
+                                                 importance_loss=importance),
+                               model, keys, protos, device=device)
+
+    def loader(phase):
+        return lambda epoch=0: skill_batches(
+            frames[phase], store, None, classes, domain, phase, 8,
+            shuffle=phase == "train", importance_loss=importance, seed=epoch,
+            tta=phase != "train")
+
+    loaders = {ph: loader(ph) for ph in ("train", "val", "test")
+               if frames[ph]}
+    nb = {ph: math.ceil(len(frames[ph]) / 8) for ph in loaders}
+    return trainer, loaders, nb, frames, classes
+
+
+def _skill_fit(data, domain, cfg, device, nepochs=2):
+    """`_skill_trainer`'s fit of nepochs; returns (trainer, result, epoch
+    losses, batches a phase, tables, classes)."""
+    trainer, loaders, nb, frames, classes = _skill_trainer(data, domain, cfg,
+                                                           device)
+    losses = []
+    run_epoch = trainer.run_epoch
+
+    def recording(batches, train):
+        loss, m = run_epoch(batches, train)
+        losses.append(loss)
+        return loss, m
+
+    trainer.run_epoch = recording
+    result = trainer.fit(loaders, nepochs=nepochs, log=lambda line: None)
+    return trainer, result, losses, nb, frames, classes
+
+
+def phase_skill(card: str):
+    """`train --dataset vua-ease -il` (dense and --flash on, card and CPU),
+    one epoch of `-d NH_02+ND_02`, and `assess` over the trained fold
+    (USC_inference and inference rows of 4 videos, -mod RGB and RGB-Flow,
+    flash and dense); returns the K2 and K3 launches of the driven runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                       TemporalConfig)
+    from sais_tpu_torch.data.skill import ease_inference_table, with_video
+    from sais_tpu_torch.infer.skill import SkillAssessor
+    from sais_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                        flash_attention_bwd)
+    from sais_tpu_torch.models.full_model import FullModel
+
+    t0 = time.perf_counter()
+    data = _synthetic_ease_data()
+    print(f"skill path data: {len(data[0])} stitch rows, {len(data[1])} "
+          f"explanation rows, 48 videos x 6000 frames x 384 "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def config(use_flash, modalities="RGB"):
+        return PipelineConfig(model=ModelConfig(
+            modalities=modalities, temporal=TemporalConfig(
+                use_flash=use_flash)))
+
+    # (a) `train --dataset vua-ease -d NH_02 -il -bc -e 2 -bs 8 -lr 0.1`
+    k2 = k3 = 0
+    fits = {}
+    for mode, use_flash in (("flash", True), ("dense", None)):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        t = time.perf_counter()
+        tr, result, losses, nb, frames, classes = _skill_fit(
+            data, "NH_02", config(use_flash), None)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        fk2, fk3 = flash_attention.launches, flash_attention_bwd.launches
+        fits[mode] = (tr, result, losses)
+        train_b = 2 * nb["train"]
+        eval_b = 2 * (nb.get("val", 0) + nb.get("test", 0))
+        print(f"skill fit ({mode}): rows train/val/test "
+              f"{[len(frames[p]) for p in ('train', 'val', 'test')]}, "
+              f"classes {classes}, {train_b} train and {eval_b} eval batches "
+              f"in 2 epochs: {fit_s:.4f} s, best epoch "
+              f"{result['best_epoch']}, losses "
+              f"{[round(x, 6) for x in losses]}; K2 launches {fk2}, K3 "
+              f"launches {fk3}; {card}", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"skill fit ({mode}): non-finite epoch loss {losses}")
+        if mode == "flash":
+            check(fk3 == 4 * train_b,
+                  f"skill fit: K3 launched {fk3} times, expected 4 x "
+                  f"{train_b}")
+            check(fk2 == 4 * (train_b + 3 * eval_b),
+                  f"skill fit: K2 launched {fk2} times, expected 4 x "
+                  f"({train_b} + 3 x {eval_b})")
+            k2, k3 = k2 + fk2, k3 + fk3
+        else:
+            check(fk2 == fk3 == 0, f"dense skill fit launched K2 {fk2}, "
+                  f"K3 {fk3} times on windows of at most 129 tokens")
+    ldiff = float(np.max(np.abs(np.subtract(fits["flash"][2],
+                                            fits["dense"][2]))))
+    t = time.perf_counter()
+    _, _, cpu_losses, _, _, _ = _skill_fit(data, "NH_02", config(True),
+                                           "cpu")
+    cpu_s = time.perf_counter() - t
+    cdiff = float(np.max(np.abs(np.subtract(fits["flash"][2], cpu_losses))))
+    # Limits 1e-3: f32 on both sides; two epochs of SGD carry the
+    # summation-order differences of every step (the training phase's
+    # card-vs-CPU limit).
+    print(f"skill fit epoch losses: flash vs dense max|diff| {ldiff:.3g}; "
+          f"card vs CPU (plain versions, {cpu_s:.1f} s) max|diff| "
+          f"{cdiff:.3g}", flush=True)
+    check(ldiff <= 1e-3, f"skill fit: flash and dense losses differ {ldiff}")
+    check(cdiff <= 1e-3, f"skill fit: card and CPU losses differ {cdiff}")
+
+    # one -il step, flash against dense, from the same weights and batch
+    rows, expl, store, flow_store = data
+    from sais_tpu_torch.data.skill import skill_batches
+    batch = next(skill_batches(frames["train"], store, None, classes,
+                               "NH_02", "train", 8, True,
+                               importance_loss=True, seed=7))
+    check(batch["importance"].any(), "the -il batch has no importance "
+          "target")
+
+    def step_grads(use_flash):
+        tr = _skill_trainer(data, "NH_02", config(use_flash), None)[0]
+        loss = float(tr.train_step(batch)[0])
+        named = dict(tr.model.named_parameters(), prototypes=tr.prototypes)
+        return tr, loss, {n: p.grad.detach().clone() for n, p in
+                          named.items() if p.grad is not None}
+
+    ftr, floss, fg = step_grads(True)
+    dtr, dloss, dg = step_grads(None)
+    gaps = {n: ((fg[n] - dg[n]).abs().max().item()
+                / max(dg[n].abs().max().item(), 1e-30),
+                (fg[n] - dg[n]).norm().item() / max(dg[n].norm().item(),
+                                                    1e-30)) for n in dg}
+    worst = max((v[0], n) for n, v in gaps.items() if n != "frame_pos")
+    print(f"skill -il step: loss flash {floss:.8f} dense {dloss:.8f}; "
+          f"{len(dg)} gradients, worst max|flash - dense| / max|dense| "
+          f"{worst[0]:.3g} ({worst[1]}); importance.weight "
+          f"{gaps['importance.weight'][0]:.3g}; frame_pos norm-relative "
+          f"{gaps['frame_pos'][1]:.3g}", flush=True)
+    check(set(fg) == set(dg) and "importance.weight" in dg,
+          "the -il step's gradients miss the importance head")
+    check(abs(floss - dloss) <= 1e-5 * abs(dloss),
+          f"skill -il step loss differs: {floss} vs {dloss}")
+    # Limit 1e-3 of the largest dense gradient (f32, summation order);
+    # frame_pos, whose rows are single-token sums that a ReLU flip at
+    # rounding level moves, in the norm (the training phase's rule).
+    check(worst[0] <= 1e-3, f"skill -il gradient {worst[1]} differs: "
+          f"{worst[0]}")
+    check(gaps["frame_pos"][1] <= 1e-3,
+          f"skill -il frame_pos gradient differs: {gaps['frame_pos']}")
+
+    def step_ms(tr):
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return sorted(times)[2]
+
+    print(f"skill -il train step (batch 8): flash {step_ms(ftr):.3f} ms, "
+          f"dense {step_ms(dtr):.3f} ms median of 5; {card}", flush=True)
+    del ftr, dtr
+
+    # (b) one epoch of `-d NH_02+ND_02 -il --flash on` (linearB)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    mtr, _, mlosses, mnb, _, _ = _skill_fit(data, "NH_02+ND_02",
+                                            config(True), None, nepochs=1)
+    torch.cuda.synchronize()
+    mk2, mk3 = flash_attention.launches, flash_attention_bwd.launches
+    train_b = mnb["train"]
+    eval_b = mnb.get("val", 0) + mnb.get("test", 0)
+    print(f"skill fit NH_02+ND_02 (1 epoch): losses "
+          f"{[round(x, 6) for x in mlosses]}, {len(mtr.prototype_keys)} "
+          f"prototypes; K2 launches {mk2}, K3 launches {mk3}", flush=True)
+    check(mtr.model.linearB is not None and all(
+        math.isfinite(x) for x in mlosses), "multi-task fit failed")
+    check(mk3 == 4 * train_b and mk2 == 4 * (train_b + 3 * eval_b),
+          f"multi-task fit launched K2 {mk2}, K3 {mk3} times")
+    k2, k3 = k2 + mk2, k3 + mk3
+    del mtr
+
+    # (c) `assess` over the trained fold: USC_inference and inference rows
+    # of 4 videos, -mod RGB and RGB-Flow, flash and dense
+    model = FullModel(fits["flash"][0].model_cfg)
+    model.load_state_dict(fits["flash"][1]["model"])
+    protos = fits["flash"][1]["prototypes"]
+    videos = ["vid44", "vid45", "vid46", "vid47"]
+    table = with_video(rows)
+    phases = {"USC_inference": ease_inference_table(table, "USC_inference",
+                                                    "NH_02"),
+              "inference": table}
+    work = [(ph, v, [r for r in tab if r["Video"] == v])
+            for ph, tab in phases.items() for v in videos]
+    nseg = sum(len(w[2]) for w in work)
+
+    def assess(assessor, use_flow):
+        return [assessor.assess_segments(
+            store.read_video(v), flow_store.read_video(v) if use_flow
+            else None, segs, phase=ph, videoname=v) for ph, v, segs in work]
+
+    arts = {}
+    for mods in ("RGB", "RGB-Flow"):
+        nmod = 2 if mods == "RGB-Flow" else 1
+        for mode, use_flash in (("flash", True), ("dense", None)):
+            cfg = config(use_flash, mods)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, importance_head=True))
+            assessor = SkillAssessor(model, protos, cfg)
+            flash_attention.launches = 0
+            arts[mods, mode] = assess(assessor, nmod == 2)
+            torch.cuda.synchronize()
+            launches = flash_attention.launches
+            if mode == "flash":
+                check(launches == 4 * nseg * 3 * nmod,
+                      f"assess ({mods}, flash) launched K2 {launches} "
+                      f"times, expected 4 x {nseg} x 3 x {nmod}")
+                k2 += launches
+            else:
+                check(launches == 0, f"dense assess launched K2 {launches} "
+                      "times")
+            if mods == "RGB":
+                walls = []
+                for _ in range(4):       # a warm-up, then three timed
+                    t = time.perf_counter()
+                    assess(assessor, False)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                med = sorted(walls[1:])[1]
+                print(f"assess ({mode}, -mod RGB): {nseg} segments x 3 TTA "
+                      f"in {med:.4f} s median of "
+                      f"{', '.join(f'{w:.4f}' for w in walls[1:])}: "
+                      f"{nseg / med:.1f} segments/s; {card}", flush=True)
+                if mode == "dense":
+                    busy, wall, _ = _profile(
+                        lambda: assess(assessor, False), "assess_profile", 1)
+                    print(f"assess (dense, -mod RGB) profiled: device busy "
+                          f"{busy / 1e3:.3f} ms of {wall / 1e3:.3f} ms, "
+                          f"{100 * (1 - busy / wall):.1f}% idle; {card}",
+                          flush=True)
+    for mods in ("RGB", "RGB-Flow"):
+        perr = ierr = aerr = 0.0
+        for fa, da, (_, _, segs) in zip(arts[mods, "flash"],
+                                        arts[mods, "dense"], work):
+            for t in range(3):
+                perr = max(perr, float(np.abs(np.stack(fa["probs"][t])
+                                              - np.stack(da["probs"][t]))
+                                       .max()))
+            for seg, fi, di, fatt, datt in zip(segs, fa["importance"],
+                                               da["importance"],
+                                               fa["attention"],
+                                               da["attention"]):
+                f = len(di)
+                check(datt.shape == (f + 1, f + 1) and fatt.shape == (f + 1,)
+                      and fi.shape == (f,),
+                      f"assess artifacts: dense attention {datt.shape}, "
+                      f"flash {fatt.shape}, importance {fi.shape}, f {f}")
+                ierr = max(ierr, float(np.abs(fi - di).max()
+                                       / max(np.abs(di).max(), 1e-30)))
+                aerr = max(aerr, float(np.abs(fatt - datt[0]).max()))
+        # Limits 1e-4 (probabilities, the CLS attention row; importance
+        # relative to its largest value): f32 on both sides, K2's 3xTF32
+        # keeps f32 accuracy.
+        print(f"assess ({mods}) flash vs dense: max|prob diff| {perr:.3g}, "
+              f"importance {ierr:.3g} of max, CLS attention row "
+              f"{aerr:.3g}", flush=True)
+        check(perr <= 1e-4, f"assess ({mods}) probabilities differ {perr}")
+        check(ierr <= 1e-4, f"assess ({mods}) importance differs {ierr}")
+        check(aerr <= 1e-4, f"assess ({mods}) CLS attention differs {aerr}")
+        probs = np.stack(arts[mods, "dense"][0]["probs"][0])
+        check(np.isfinite(probs).all() and np.abs(probs.sum(1) - 1).max()
+              <= 1e-5, "assess probabilities not finite / not summing to 1")
+    return k2, k3
+
+
 CROSSOVER_LENGTHS = (301, 512, 1024, 2001, 8193)
 
 
@@ -2856,6 +3230,9 @@ def main():
     phase_steps(nframes=20000)
     k3 = phase_k3()
     k2_launches, k3_launches = phase_train()
+    skill_k2, skill_k3 = phase_skill(card)
+    k2_launches += skill_k2
+    k3_launches += skill_k3
     train_k = phase_train_kernels(parent)
     phase_long_blocks(parent)
     k7 = phase_k7(parent)

@@ -1,5 +1,5 @@
 """Command line of the port: `extract`, `flow`, `decode`, `pipeline`,
-`steps`, `train` and `pretrain`, with the flags of `sais`
+`steps`, `assess`, `train` and `pretrain`, with the flags of `sais`
 (sais_tpu/cli/main.py).
 
   python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> \
@@ -30,6 +30,26 @@ trains the Prototypes task on the stored RGB features of the segments
 (Video / StartFrame / EndFrame / Gesture) with the reference's fold-video
 split, one fold per --nfolds, and writes <root>/params/Fold_<k>/params.pkl,
 prototypes.pkl and metrics.pkl in the JAX package's layout.
+
+  python -m sais_tpu_torch.cli.main train -p <root> --dataset vua-ease \
+      --segments VUA_EASE_Stitch_Paths.csv -d NH_02 -il \
+      --explanations expl1.csv expl2.csv -bc -e 50 -bs 2
+
+trains skill assessment over EASE stitch annotations (`-d A+B`: one model
+over two domains, the second through the linearB head; `--domains`: one
+model per domain under params/<domain>/Fold_<k>; `-il`: the frame
+importance loss; `-bg` / `-sg` with `--meta`: surgeon / patient group
+balancing; `--dataset vua-ease-stitch` (`-tf`): the NH / ND / NW sub-phase
+task); `-mod Flow` / `RGB-Flow` read the flow store.
+
+  python -m sais_tpu_torch.cli.main assess -f <video> -p <root> \
+      --segments VUA_EASE_Stitch_Paths.csv --phase USC_inference -d NH_02 \
+      --params-dir <root>/params --nclasses 2
+
+assesses skill over the video's stitch segments with every fold and
+writes <root>/results/<video>_skill_fold<k>.csv and, under
+<root>/params/Fold_<k>, reps_and_labels_<phase>.pkl, attention_<phase>.pkl
+and importance_<phase>.pkl (the reference's inference artifacts).
 
   python -m sais_tpu_torch.cli.main pretrain -p <root> -bs 64 -e 100
 
@@ -120,7 +140,9 @@ def load_fold(d: str, cfg):
     """(FullModel, prototypes) of one fold directory: params.pkl +
     prototypes.pkl written by `train` (either package; the JAX pytree), or
     the reference's params.zip + prototypes.zip.  The model keeps the
-    checkpoint's own positional-table length, as the JAX package does."""
+    checkpoint's own positional-table length, and has the importance and
+    linearB heads exactly when the checkpoint has them, as the JAX package
+    does."""
     from sais_tpu_torch.models.full_model import FullModel
     from sais_tpu_torch.port.weights import (full_model_params_from_jax,
                                              full_model_params_from_reference,
@@ -137,7 +159,9 @@ def load_fold(d: str, cfg):
         _, protos = prototypes_from_reference(
             load_checkpoint(os.path.join(d, "prototypes.zip")))
     model = FullModel(dataclasses.replace(
-        cfg.model, temporal=dataclasses.replace(
+        cfg.model, importance_head="importance.weight" in sd,
+        multi_task="linearB.weight" in sd,
+        temporal=dataclasses.replace(
             cfg.model.temporal, max_positions=len(sd["frame_pos"]))))
     model.load_state_dict(sd)
     return model, protos
@@ -360,24 +384,112 @@ def cmd_steps(args):
     print(f"wrote {len(rows)} step windows to {dest}")
 
 
-def _check_train_ported(args):
-    """`train` runs -t Prototypes --dataset segments --split-policy
-    fold-video -mod RGB on stored reps; the rest comes with later slices
-    (ROADMAP.md Queue 1)."""
+# the key that carries a segments row's label in the CSV through `assess`
+_ROW_LABEL = "\0row"
+
+
+def cmd_assess(args):
+    """Skill assessment over annotated stitch segments (-f video):
+    EASE-domain probabilities + frame-importance + CLS attention, exported
+    in the reference's inference-artifact layout (train.py:113-121)."""
+    from sais_tpu_torch.data.datasets import read_segments
+    from sais_tpu_torch.data.reference_datasets import vua_ease_window
+    from sais_tpu_torch.data.skill import (EASE_INFERENCE_PHASES,
+                                           ease_inference_table, with_video)
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
+    from sais_tpu_torch.infer.skill import SkillAssessor
+    from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
+    from sais_tpu_torch.train.checkpoint import save_inference_artifacts
     _check_ported(args)
-    if args.modalities != "RGB":
+    if not args.segments:
+        sys.exit("assess needs --segments <csv> (stitch rows, or StartFrame "
+                 "/ EndFrame / RACE)")
+    cfg = _apply_flow_jump(_pipeline_config(args), args, _video_path(args))
+    cfg = _reconcile_flow_jump(cfg, args, args.videoname)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, importance_head=True))
+    folds = _load_folds(args, cfg)
+    # each row keeps its line number in the CSV, the label pandas gives it
+    segments = [dict(r, **{_ROW_LABEL: i}) for i, r in
+                enumerate(read_segments(args.segments))]
+    if segments and "Path" in segments[0]:
+        segments = with_video(segments)
+    if (args.phase in EASE_INFERENCE_PHASES and segments
+            and {"RACE", "EASE", "maj"} <= set(segments[0])):
+        # reference phase-table selection for cross-hospital inference
+        # (prepare_dataset.py:304-380): RACE/EASE filter, maj remap, and
+        # the phase's sampling/balancing — applied over the WHOLE stitch
+        # CSV (the per-video sampling depends on every video's rows)
+        # before restricting to this video
+        segments = ease_inference_table(segments, args.phase, args.domain)
+    rows = [r for r in segments if str(r["Video"]) == args.videoname]
+    if not rows:
+        sys.exit(f"no segments for video {args.videoname} in "
+                 f"{args.segments}")
+    if "StartFrame" not in rows[0]:
+        # stitch-schema CSV (per-RACE frame columns): derive the
+        # race-specific windows exactly like the reference
+        # (getStartAndEndFrame; data/reference_datasets.vua_ease_window)
+        spans = [vua_ease_window(r["RACE"], r) for r in rows]
+        if any(isinstance(v, float) for span in spans for v in span):
+            spans = [tuple(float(v) for v in span) for span in spans]
+        rows = [dict(r, StartFrame=a, EndFrame=b)
+                for r, (a, b) in zip(rows, spans)]
+    labels = [r.pop(_ROW_LABEL) for r in rows]
+    with FeatureStore(rgb_store_path(args.path)) as fs:
+        rgb = fs.read_video(args.videoname)
+    flow = _read_flow(args, cfg, required=True)
+    assessor = None
+    for fold, (model, protos) in enumerate(folds):
+        if assessor is None:
+            assessor = SkillAssessor(model, protos, cfg, device=args.device)
+        else:
+            assessor.set_fold(model, protos)
+        art = assessor.assess_segments(
+            rgb, flow, rows, phase=args.phase, videoname=args.videoname,
+            # reference flow-jump selection per phase unless the user
+            # explicitly overrode the stride
+            flow_jump=(cfg.window.flow_jump_factor if args.flow_jump
+                       else None))
+        savepath = os.path.join(args.path, "params", f"Fold_{fold}")
+        save_inference_artifacts(
+            savepath, args.phase,
+            {"reps": art["reps"], "probs": art["probs"],
+             "videonames": [args.videoname] * len(rows)},
+            attention=art["attention"],
+            importance=art["importance"] or None)
+        mean_probs = np.mean([np.stack(art["probs"][t])
+                              for t in sorted(art["probs"])], axis=0)
+        out = [dict(r, **{f"prob_{c}": p[c] for c in range(len(p))})
+               for r, p in zip(rows, mean_probs)]
+        dest = os.path.join(args.path, "results",
+                            f"{args.videoname}_skill_fold{fold}.csv")
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        write_rows_csv(out, dest, index=labels)
+        print(f"fold {fold}: wrote {dest} + artifacts under {savepath}")
+
+
+SKILL_DATASETS = ("vua-ease", "vua-ease-stitch")
+
+
+def _check_train_ported(args):
+    """`train` runs -t Prototypes on stored reps: --dataset segments
+    (--split-policy fold-video, -mod RGB) and the EASE skill and stitch
+    branches (any -mod); the rest comes with later slices (ROADMAP.md
+    Queue 1)."""
+    _check_ported(args)
+    if args.dataset in ("vua-gestures", "dvc-ucl"):
+        raise NotImplementedError(
+            f"--dataset {args.dataset}: not ported yet; the gesture-timestamp "
+            "tables come with the reference dataset branches (ROADMAP.md "
+            "Queue 1, 'The other training branches and flags')")
+    if args.modalities != "RGB" and args.dataset not in SKILL_DATASETS:
         raise NotImplementedError(
             f"-mod {args.modalities}: training on the flow stream is not "
             "ported yet (ROADMAP.md Queue 1, 'Training on flow'); train "
             "-mod RGB, or decode with flow from folds trained by the JAX "
             "package")
-    if args.dataset != "segments":
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: not ported yet; the EASE skill and "
-            "stitch branches (vua-ease, vua-ease-stitch) come with the "
-            "skill-training slice, the gesture-timestamp tables "
-            "(vua-gestures, dvc-ucl) with the reference dataset branches")
-    if args.split_policy != "fold-video":
+    if args.split_policy != "fold-video" and args.dataset == "segments":
         raise NotImplementedError(
             f"--split-policy {args.split_policy}: not ported yet; the named "
             "reference split policies come with the reference dataset "
@@ -395,55 +507,152 @@ def _check_train_ported(args):
                  "EndFrame, Gesture)")
 
 
+def _skill_dataset(args, segments, fold: int):
+    """The EASE skill or stitch branch's SegmentDataset for one fold, with
+    the JAX package's checks and messages for bad flag combinations
+    (sais_tpu/cli/main.py:541-600)."""
+    from sais_tpu_torch.data.datasets import SegmentDataset, read_segments
+    if args.dataset == "vua-ease-stitch":
+        # VUA_EASE_Stitch sub-phase recognition branch
+        # (prepare_dataset.py:428-568): same annotations, label = EASE
+        # domain (NH vs ND vs NW)
+        from sais_tpu_torch.data.reference_datasets import stitch_phase_tables
+        frames, classes = stitch_phase_tables(
+            segments, fold, training_fraction=args.training_fraction)
+        return SegmentDataset(frames, list(classes), list(classes))
+    # VUA_EASE skill branch (prepare_dataset.py:63-426): RACE/EASE
+    # filters, 0.9/0.1 fold split, explanation-derived importance
+    from sais_tpu_torch.data.skill import build_ease_dataset
+    if args.balance_groups and args.single_group:
+        sys.exit("-bg and -sg are mutually exclusive "
+                 "(prepare_dataset.py:281-287 asserts this)")
+    if (args.balance_groups or args.single_group) \
+            and not args.balance_classes:
+        sys.exit("-bg/-sg require -bc: the reference applies group "
+                 "balancing/restriction only inside the "
+                 "balance==True branch (prepare_dataset.py:281-291)")
+    meta = None
+    use_group = args.balance_groups or args.single_group
+    if use_group:
+        from sais_tpu_torch.data.reference_datasets import prepare_usc_meta
+        if not args.meta:
+            sys.exit("--balance-groups/--single-group need --meta <csv>")
+        meta = prepare_usc_meta(read_segments(args.meta))
+    explanations = ([read_segments(p) for p in args.explanations]
+                    if args.importance_loss else None)
+    frames, classes = build_ease_dataset(
+        segments, args.domain, fold, balance=args.balance_classes,
+        explanations=explanations, importance_loss=args.importance_loss,
+        meta=meta, group=args.group if use_group else None,
+        group_val=args.single_group)
+    return SegmentDataset(frames, [str(c) for c in classes], classes)
+
+
 def cmd_train(args):
-    """Training over folds (run_experiments.py:85-116): per fold, the
-    reference fold-video split and class balancing, PrototypeTrainer with
-    early stopping, the best snapshot saved under params/Fold_<k>."""
+    """Training over domains x folds (run_experiments.py:85-116): per fold,
+    the dataset's split and class balancing, PrototypeTrainer with early
+    stopping, the best snapshot saved under params/[<domain>/]Fold_<k>."""
+    if args.domains:
+        # reference -domains loop (run_experiments.py:44,85-90): one
+        # invocation trains every domain; artifacts nest per domain
+        for dom in args.domains:
+            print(f"Domain: {dom}")
+            cmd_train(argparse.Namespace(**{
+                **vars(args), "domains": None, "domain": dom,
+                "params_subdir": dom if len(args.domains) > 1 else None}))
+        return
     from sais_tpu_torch.config import TrainConfig
     from sais_tpu_torch.data.collate import segment_batches
     from sais_tpu_torch.data.datasets import (build_segment_dataset,
                                               read_segments)
-    from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
+    from sais_tpu_torch.data.skill import skill_batches
+    from sais_tpu_torch.io.feature_store import (FeatureStore,
+                                                 flow_store_path,
+                                                 rgb_store_path)
     from sais_tpu_torch.models.full_model import (full_model_init,
                                                   prototypes_init)
     from sais_tpu_torch.train.checkpoint import save_training_result
     from sais_tpu_torch.train.loop import PrototypeTrainer
     _check_train_ported(args)
+    skill_mode = args.dataset == "vua-ease"
+    stitch_mode = args.dataset == "vua-ease-stitch"
+    if args.training_fraction < 1 and not stitch_mode:
+        sys.exit("-tf only applies to --dataset vua-ease-stitch (and the "
+                 "library-level NS_vs_VUA tables): the reference subsamples "
+                 "the train split only in those branches "
+                 "(prepare_dataset.py:549, :703)")
+    if args.importance_loss:
+        if not skill_mode:
+            sys.exit("--importance-loss requires --dataset vua-ease "
+                     "(explanations are EASE stitch annotations)")
+        if not args.explanations:
+            sys.exit("--importance-loss needs --explanations <csv> [...]")
     cfg = _pipeline_config(args)
     segments = read_segments(args.segments)
     store = FeatureStore(rgb_store_path(args.path))
+    flow_store = (FeatureStore(flow_store_path(args.path))
+                  if cfg.model.modalities != "RGB" else None)
     try:
         for fold in range(args.nfolds):
             print(f"Fold: {fold}")
-            ds = build_segment_dataset(segments, fold,
-                                       balance=args.balance_classes)
-            mcfg = dataclasses.replace(cfg.model, nclasses=len(ds.classes))
+            if skill_mode or stitch_mode:
+                ds = _skill_dataset(args, segments, fold)
+            else:
+                ds = build_segment_dataset(segments, fold,
+                                           balance=args.balance_classes)
+            # multi-task '+' domains double the label space (+2 offset for
+            # the second domain, prepare_dataset.py:2156-2158)
+            multi = skill_mode and "+" in args.domain
+            nclasses = len(ds.classes) * (2 if multi else 1)
+            mcfg = dataclasses.replace(
+                cfg.model, nclasses=nclasses,
+                importance_head=args.importance_loss, multi_task=multi)
             # random init from fixed seeds: model 2k, prototypes 2k + 1
             model = full_model_init(torch.Generator().manual_seed(2 * fold),
                                     mcfg)
             keys, protos = prototypes_init(
-                torch.Generator().manual_seed(2 * fold + 1), len(ds.classes),
+                torch.Generator().manual_seed(2 * fold + 1), nclasses,
                 mcfg.proj_dim)
             trainer = PrototypeTrainer(
                 mcfg, TrainConfig(lr=args.lr, nepochs=args.nepochs,
-                                  batch_size=args.batch_size),
+                                  batch_size=args.batch_size,
+                                  importance_loss=args.importance_loss),
                 model, keys, protos, device=args.device)
 
-            def loader(rows, train):
-                # the epoch index seeds the per-epoch reshuffle
+            def loader(rows, phase):
+                # the epoch index seeds the per-epoch reshuffle; val and
+                # test carry the 3-way TTA variants
+                train = phase == "train"
+                if skill_mode:
+                    return lambda epoch=0: skill_batches(
+                        rows, store, flow_store, ds.skill_classes,
+                        args.domain, phase, args.batch_size, train,
+                        importance_loss=args.importance_loss, seed=epoch,
+                        tta=not train)
+                if stitch_mode:
+                    return lambda epoch=0: skill_batches(
+                        rows, store, flow_store, ds.skill_classes,
+                        "NH_vs_ND_vs_NW", phase, args.batch_size, train,
+                        seed=epoch, tta=not train, branch="stitch",
+                        label_fn=lambda r: ds.skill_classes.index(r["EASE"]))
                 return lambda epoch=0: segment_batches(
                     rows, store, ds.classes, cfg.window, args.batch_size,
                     shuffle=train, seed=epoch, tta=not train)
 
-            loaders = {ph: loader(ds.frames[ph], ph == "train")
+            loaders = {ph: loader(ds.frames[ph], ph)
                        for ph in ("train", "val", "test") if ds.frames[ph]}
             result = trainer.fit(loaders, nepochs=args.nepochs)
-            savepath = os.path.join(args.path, "params", f"Fold_{fold}")
+            subdir = getattr(args, "params_subdir", None)
+            savepath = os.path.join(args.path, "params",
+                                    *((subdir,) if subdir else ()),
+                                    f"Fold_{fold}")
             save_training_result(savepath, result)
             print(f"saved fold {fold} (best epoch {result['best_epoch']}) "
                   f"to {savepath}")
     finally:
         store.close()
+        if flow_store is not None:
+            flow_store.close()
 
 
 def _check_pretrain_ported(args):
@@ -576,7 +785,8 @@ def build_parser() -> argparse.ArgumentParser:
     for name, fn in [("extract", cmd_extract), ("flow", cmd_flow),
                      ("decode", cmd_decode),
                      ("pipeline", cmd_pipeline), ("steps", cmd_steps),
-                     ("train", cmd_train), ("pretrain", cmd_pretrain)]:
+                     ("assess", cmd_assess), ("train", cmd_train),
+                     ("pretrain", cmd_pretrain)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
         sp.add_argument("-f", "--videoname",
@@ -609,8 +819,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--nclasses", type=int, default=2)
         sp.add_argument("-mod", "--modalities", default="RGB",
                         choices=["RGB", "Flow", "RGB-Flow"],
-                        help="streams the temporal model reads (train: RGB "
-                             "only, training on flow is not ported yet)")
+                        help="streams the temporal model reads (train "
+                             "--dataset segments: RGB only, training it on "
+                             "flow is not ported yet)")
         sp.add_argument("-bs", "--batch-size", type=int, default=256)
         sp.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
@@ -642,10 +853,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="temporal pos-emb table size (default: the "
                              "reference's 2000); raise it for windows of "
                              "more than 2000 frames")
+        sp.add_argument("--phase", default="inference",
+                        help="assess: the phase whose sampling policy, flow "
+                             "jump and EASE table apply, and the artifact "
+                             "suffix (reps_and_labels_<phase> etc., "
+                             "train.py:113-121)")
         # training flags (run_experiments.py:19-46 equivalents)
         sp.add_argument("--segments",
                         help="train: CSV with Video/StartFrame/EndFrame/"
-                             "Gesture")
+                             "Gesture, or EASE stitch rows (--dataset "
+                             "vua-ease / vua-ease-stitch); assess: the "
+                             "stitch or segment rows to assess")
         sp.add_argument("-lr", "--lr", type=float, default=0.1)
         sp.add_argument("-e", "--nepochs", type=int, default=50)
         sp.add_argument("-bc", "--balance-classes", action="store_true")
@@ -661,8 +879,38 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--dataset", default="segments",
                         choices=["segments", "vua-ease", "vua-ease-stitch",
                                  "vua-gestures", "dvc-ucl"],
-                        help="train: segments (the others are not ported "
-                             "yet)")
+                        help="train: segments, vua-ease or vua-ease-stitch "
+                             "(vua-gestures and dvc-ucl are not ported yet)")
+        sp.add_argument("-tf", "--training-fraction", type=float, default=1.0,
+                        help="subsample the train split to this fraction "
+                             "(run_experiments.py -tf; sample(random_state=0)"
+                             ", prepare_dataset.py:549,703)")
+        sp.add_argument("-bg", "--balance-groups", action="store_true",
+                        help="balance surgeon/patient groups within classes "
+                             "(balanceGroups, prepare_dataset.py:190-213)")
+        sp.add_argument("--meta", help="surgeon/patient meta CSV for -bg/-sg")
+        sp.add_argument("-sg", "--single-group", nargs="?",
+                        const="ProstateLarge60ml", default=None,
+                        help="restrict the train split to one group value "
+                             "of --group (run_experiments.py:100-103; bare "
+                             "-sg uses the reference's hardcoded "
+                             "ProstateLarge60ml)")
+        sp.add_argument("--group", default="Caseload Group",
+                        help="meta column for group balancing")
+        sp.add_argument("--domains", nargs="+", default=None,
+                        help="train several domains in one invocation "
+                             "(run_experiments.py -domains); artifacts "
+                             "nest under params/<domain>/Fold_<k>")
+        sp.add_argument("-d", "--domain", default="NH_02",
+                        help="EASE domain, e.g. NH_02 or NH_02+ND_02 "
+                             "(run_experiments.py -d)")
+        sp.add_argument("-il", "--importance-loss", action="store_true",
+                        help="add the frame-importance BCE to the NCE loss "
+                             "(run_experiments.py:36, perform_training.py"
+                             ":127-130)")
+        sp.add_argument("--explanations", nargs="*",
+                        help="EASE explanation CSVs (prepare_dataset.py"
+                             ":65-77) for --importance-loss")
         sp.add_argument("-dt", "--data-type", default="reps",
                         choices=["reps", "raw"],
                         help="train: reps (raw is not ported yet)")

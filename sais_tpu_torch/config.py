@@ -1,6 +1,7 @@
 """Typed configuration for the port: the dataclasses of `sais_tpu.config`
-that the decoding (RGB and flow) and Prototypes training paths read,
-copied with the same fields and defaults (the reference values).
+that the decoding (RGB and flow), Prototypes training and skill paths
+read, copied with the same fields and defaults (the reference values),
+and the per-video fps tables of the skill path's flow jump.
 
 - window geometry:   prepare_dataset.py:1711-1715 (0.5 s windows @ 30 fps)
 - TTA offsets:       prepare_dataset.py:2649-2651 (+0, +3, +6 frames)
@@ -84,7 +85,10 @@ class ModelConfig:
     proj_dim: int = 256          # linear: rep_dim -> 256 (prepare_model.py:47)
     aux_logit_dim: int = 3       # linear2: 256 -> 3 (prepare_model.py:50)
     nclasses: int = 2
+    n_attention_classes: int = 3  # MIL per-class modules (prepare_model.py:88)
     modalities: str = "RGB-Flow"  # 'RGB' | 'Flow' | 'RGB-Flow'
+    importance_head: bool = False  # importance_function (prepare_model.py:55-56)
+    multi_task: bool = False     # '+'-joined domains -> linearB head
     temporal: TemporalConfig = dataclasses.field(default_factory=TemporalConfig)
 
 
@@ -121,6 +125,34 @@ class PostprocessConfig:
     class_names: Sequence[str] = ("in-view", "out-of-view")
 
 
+# ---------------------------------------------------------------------------
+# Per-video fps tables (config data the reference scatters through code)
+# ---------------------------------------------------------------------------
+# prepare_dataset.py:24-26: the VUA training videos' fps, used to derive the
+# flow jump size (jump = fps // 2, prepare_dataset.py:2245).  The reference
+# ships only video '1' at 20 fps.
+VUA_FPS_TABLE = {"1": 20.0}
+
+# extract_representations.py:437-463: per-video fps for the HMH hospital's
+# videos, used when generating flows (jump_size = fps // 2) and when loading
+# flow reps for HMH_inference (prepare_dataset.py:1960).
+HMH_FPS_TABLE = {
+    "HMV1": 30.0, "HMV2": 30.0, "HMV3": 30.0,
+    "HMV4": 60.0, "HMV5": 60.0, "HMV6": 60.0, "HMV7": 60.0,
+    "HMV8": 59.94, "HMV9": 59.94, "HMV10": 59.94, "HMV11": 59.94,
+    "HMV12": 59.94, "HMV13": 59.94, "HMV14": 59.94, "HMV15": 59.94,
+    "HMV16": 59.94, "HMV17": 59.94, "HMV18": 59.94, "HMV19": 59.94,
+    "HMV20": 59.94, "HMV21": 59.94, "HMV22": 59.94,
+    "HMV23": 29.97, "HMV24": 29.97, "HMV25": 29.97, "HMV26": 29.97,
+}
+
+# Dataset-keyed flow jump sizes for inference phases
+# (prepare_dataset.py:2240-2245: Gronau fixed 15, Lab/AFB fixed 30,
+# HMH per-video fps // 2, VUA per-video fps // 2).
+FLOW_JUMP_BY_PHASE = {"Gronau_inference": 15, "Lab_inference": 30,
+                      "AFB_inference": 30}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training loop (train.py:46-96, prepare_model.py:566-567)."""
@@ -129,6 +161,7 @@ class TrainConfig:
     nepochs: int = 50
     max_patience: int = 5        # train.py:48
     batch_size: int = 2          # main.sh:27 '-bs 2'
+    importance_loss: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

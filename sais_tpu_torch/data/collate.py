@@ -6,7 +6,7 @@ to its longest segment; the JAX package rounds that length up to a bucket
 (16, 32, 64, 128), and the port keeps the buckets so that both packages
 see the same arrays.  Mask semantics: mask[i, :, len_i + 1:] = True, slot 0
 the always-valid CLS (createPaddingMask, prepare_dataset.py:2798-2806).
-The flow stream waits for its slice.
+The skill path's collation (with its flow rows) is `data/skill.py`.
 """
 
 from __future__ import annotations
@@ -22,11 +22,12 @@ from sais_tpu_torch.data.windows import segment_frame_indices
 BUCKETS = (16, 32, 64, 128)
 
 
-def bucket_for(n: int) -> int:
-    for b in BUCKETS:
+def bucket_for(n: int, buckets: Sequence[int] = BUCKETS) -> int:
+    """The first bucket that holds n frames; raises past the last."""
+    for b in buckets:
         if n <= b:
             return b
-    raise ValueError(f"length {n} exceeds largest bucket {BUCKETS[-1]}")
+    raise ValueError(f"length {n} exceeds largest bucket {buckets[-1]}")
 
 
 def collate_segments(rows: Sequence[Row], rgb_store,

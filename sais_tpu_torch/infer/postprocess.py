@@ -14,12 +14,13 @@ process_inference_results.py:201-258:
 4. frames -> HH:MM:SS at 30 fps (:185-197);
 5. write results/Custom_inference_gestures.csv (:258) with the columns,
    column order and leading index column of pandas' `DataFrame.to_csv`
-   (`write_rows_csv`, which also writes the steps CSV).
+   (`write_rows_csv`, which also writes the steps and skill CSVs).
 """
 
 from __future__ import annotations
 
 import csv
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -129,18 +130,26 @@ def decode_gesture_intervals(probs: np.ndarray, start_frames: np.ndarray,
     return rows
 
 
+def _cell(value: object) -> object:
+    # pandas writes a missing value as an empty cell
+    return "" if isinstance(value, float) and math.isnan(value) else value
+
+
 def write_rows_csv(rows: List[Row], path: str,
-                   columns: Optional[Sequence[object]] = None) -> None:
-    """The file pandas' `DataFrame(rows).to_csv(path)` writes: a header
-    with an empty index label, then the row number and the values of each
-    row (floats as their shortest round-trip repr).  No rows: the header
-    alone when `columns` names them, else '""' (pandas' empty frame)."""
+                   columns: Optional[Sequence[object]] = None,
+                   index: Optional[Sequence[object]] = None) -> None:
+    """The file pandas' `DataFrame(rows, index=index).to_csv(path)` writes:
+    a header with an empty index label, then each row's label (its number
+    when `index` is None) and its values (floats as their shortest
+    round-trip repr, NaN as an empty cell).  No rows: the header alone
+    when `columns` names them, else '""' (pandas' empty frame)."""
     with open(path, "w", newline="") as f:
         if not rows and columns is None:
             f.write('""\n')
             return
         w = csv.writer(f, lineterminator="\n")
         columns = list(rows[0]) if rows else list(columns)
+        labels = range(len(rows)) if index is None else index
         w.writerow([""] + columns)
-        for i, row in enumerate(rows):
-            w.writerow([i] + [row[c] for c in columns])
+        for label, row in zip(labels, rows):
+            w.writerow([label] + [_cell(row[c]) for c in columns])

@@ -1,10 +1,11 @@
 """Prototype head: cosine similarity to prototypes, softmax, entropy, the
-NCE training loss and the label -> prototype column rule.
+NCE training loss and the label -> prototype column rule, and the
+per-frame importance head.
 
-Counterpart of the Prototypes half of `sais_tpu/models/heads.py`
-(prepare_miscellaneous.py:14-46, :97-161, process_inference_results.py
-:76-91,131).  The MIL head and the importance head wait for the slices
-that train them.
+Counterpart of the Prototypes and importance parts of
+`sais_tpu/models/heads.py` (prepare_miscellaneous.py:14-46, :97-161,
+process_inference_results.py:76-91,131, prepare_model.py:419-421).  The
+MIL head waits for the classification slice.
 """
 
 from __future__ import annotations
@@ -58,3 +59,11 @@ def nce_loss(video_reps: torch.Tensor, prototypes: torch.Tensor,
 def entropy(probs: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Prediction entropy -sum(p log p) (process_inference_results.py:131)."""
     return -(probs * torch.log(probs)).sum(dim)
+
+
+def importance_scores(full_seq: torch.Tensor, importance: torch.nn.Linear
+                      ) -> torch.Tensor:
+    """Per-frame importance logits (prepare_model.py:419-421):
+    full_seq (B, S, F+1, D) -> (B, S, F+1, 1), CLS slot included as in the
+    reference."""
+    return importance(full_seq)

@@ -108,7 +108,8 @@ def dino_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     """`sais_tpu.models.full_model` params -> FullModel state_dict (the
-    parts the Prototypes inference path reads)."""
+    parts the Prototypes path reads, and the importance and linearB heads
+    where the tree has them)."""
     sd: StateDict = {"frame_cls": _t(tree["frame_cls"]),
                      "frame_pos": _t(tree["frame_pos"])}
     for i, layer in enumerate(tree["frame_encoder"]["layers"]):
@@ -128,8 +129,9 @@ def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
             p + "norm2.weight": _t(layer["ln2_s"]),
             p + "norm2.bias": _t(layer["ln2_b"]),
         })
-    sd.update(_linear_from_jax(tree["linear"], "linear."))
-    sd.update(_linear_from_jax(tree["linear2"], "linear2."))
+    for name in ("linear", "linear2", "importance", "linearB"):
+        if name in tree:
+            sd.update(_linear_from_jax(tree[name], name + "."))
     return sd
 
 
@@ -146,7 +148,8 @@ def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
                              ) -> Dict[str, Any]:
     """FullModel state_dict -> `sais_tpu.models.full_model` params pytree
     (numpy leaves), the inverse of `full_model_params_from_jax`: the
-    parameters the Prototypes path reads, in the JAX package's layout."""
+    parameters the Prototypes path reads (with the importance and linearB
+    heads where the model has them), in the JAX package's layout."""
     nlayers = 1 + max(int(k.split(".")[2]) for k in sd
                       if k.startswith("frame_encoder.layers."))
     layers = []
@@ -166,13 +169,14 @@ def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
             "ln2_s": _np(sd[p + "norm2.weight"]),
             "ln2_b": _np(sd[p + "norm2.bias"]),
         })
-    return {"frame_cls": _np(sd["frame_cls"]),
+    tree = {"frame_cls": _np(sd["frame_cls"]),
             "frame_pos": _np(sd["frame_pos"]),
-            "frame_encoder": {"layers": layers},
-            "linear": {"w": _npT(sd["linear.weight"]),
-                       "b": _np(sd["linear.bias"])},
-            "linear2": {"w": _npT(sd["linear2.weight"]),
-                        "b": _np(sd["linear2.bias"])}}
+            "frame_encoder": {"layers": layers}}
+    for name in ("linear", "linear2", "importance", "linearB"):
+        if name + ".weight" in sd:
+            tree[name] = {"w": _npT(sd[name + ".weight"]),
+                          "b": _np(sd[name + ".bias"])}
+    return tree
 
 
 def load_checkpoint(path: str) -> Any:
@@ -221,7 +225,8 @@ def _pos_table(sd: Mapping[str, Any], prefix: str) -> torch.Tensor:
 def full_model_params_from_reference(sd: Mapping[str, Any]) -> StateDict:
     """Reference fullModel state_dict (params.zip) -> FullModel state_dict.
     The frame encoder keeps torch's TransformerEncoder names, so its keys
-    move across as they are."""
+    move across as they are; importance_function.* becomes importance.*,
+    and linearB.* stays (torch_port.py:199-204)."""
     sd = strip_module_prefix(sd)
     out: StateDict = {
         "frame_cls": _f32(sd["frame_cls"]).reshape(-1),
@@ -231,8 +236,10 @@ def full_model_params_from_reference(sd: Mapping[str, Any]) -> StateDict:
     for k, v in sd.items():
         if k.startswith(enc):
             out["frame_encoder." + k[len(enc):]] = _f32(v)
-        elif k.split(".")[0] in ("linear", "linear2"):
+        elif k.split(".")[0] in ("linear", "linear2", "linearB"):
             out[k] = _f32(v)
+        elif k.startswith("importance_function."):
+            out["importance." + k[len("importance_function."):]] = _f32(v)
     return out
 
 

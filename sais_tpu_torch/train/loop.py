@@ -9,18 +9,21 @@ perform_training.py:49-227):
 - per-epoch phases train / val / test; early stop once the val loss has
   failed to improve max_patience consecutive epochs; the best snapshot
   (parameters + prototypes) is kept from the best-val-loss epoch;
-- the NCE prototype loss; a train step's metric probabilities come from
-  the pre-update prototypes (loop.py:136-139); val and test run 3-way TTA,
-  with the loss the mean of the per-augment losses and the probabilities
-  the mean of the per-augment softmaxes (loop.py:189-202);
+- the NCE prototype loss, plus, with use_importance (`-il`), the
+  reference's importance loss at train steps only (loop.py:98-131,
+  perform_training.py:127-130); a batch's primary_domain (multi-task '+'
+  domains) routes its rows through linear / linearB; a train step's metric
+  probabilities come from the pre-update prototypes (loop.py:136-139); val
+  and test run 3-way TTA, with the loss the mean of the per-augment losses
+  and the probabilities the mean of the per-augment softmaxes
+  (loop.py:189-202);
 - a non-finite loss raises FloatingPointError.
 
 Eager PyTorch on one device (the card unless `device='cpu'`).  The
 temporal encoder's flash path is differentiable (K2 forward, K3 backward),
 so `resolve_flash` applies in training as in inference.  Data-parallel
 (`mesh`, with its padded-batch weights) and sequence-parallel (`seq_mesh`)
-training wait for the parallelism slice, the importance loss for the
-skill-training slice.
+training wait for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from sais_tpu_torch.config import ModelConfig, TrainConfig
 from sais_tpu_torch.models.full_model import FullModel, prototypes_forward
 from sais_tpu_torch.models.heads import nce_loss, prototype_probs
 from sais_tpu_torch.train import metrics as metrics_lib
+from sais_tpu_torch.train.losses import importance_loss_reference
 
 Batch = Dict[str, Any]
 
@@ -48,16 +52,16 @@ class PrototypeTrainer:
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  model: FullModel, prototype_keys: Sequence[str],
                  prototypes: torch.Tensor, mesh: Any = None,
-                 use_importance: bool = False, seq_mesh: Any = None,
+                 use_importance: Optional[bool] = None, seq_mesh: Any = None,
                  device: DeviceLike = None):
+        """use_importance: add the importance loss at train steps (None:
+        train_cfg.importance_loss); the model needs its importance head."""
         if mesh is not None or seq_mesh is not None:
             raise NotImplementedError(
                 "data- and sequence-parallel training (mesh / seq_mesh) are "
                 "not ported yet; they come with the parallelism slice")
-        if use_importance:
-            raise NotImplementedError(
-                "the importance loss is not ported yet; it comes with the "
-                "skill-training slice (--dataset vua-ease)")
+        self.use_importance = (train_cfg.importance_loss
+                               if use_importance is None else use_importance)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.prototype_keys = list(prototype_keys)
@@ -74,19 +78,23 @@ class PrototypeTrainer:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items() if k != "tta"}
 
-    def _loss(self, b: Dict[str, torch.Tensor]
+    def _loss(self, b: Dict[str, torch.Tensor], with_importance: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         out = prototypes_forward(self.model, self.model_cfg, b.get("rgb"),
                                  b.get("rgb_mask"), b.get("flow"),
-                                 b.get("flow_mask"))
-        return (nce_loss(out.video_rep, self.prototypes, b["label_cols"]),
-                out.video_rep)
+                                 b.get("flow_mask"), b.get("primary_domain"))
+        loss = nce_loss(out.video_rep, self.prototypes, b["label_cols"])
+        if with_importance:
+            loss = loss + importance_loss_reference(
+                out.importances, b["importance"], b["ipad"], b["labels"])
+        return loss, out.video_rep
 
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step; returns (loss, probabilities under the pre-update
         prototypes), both detached on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, reps = self._loss(self._device_batch(batch))
+        loss, reps = self._loss(self._device_batch(batch),
+                                self.use_importance)
         loss.backward()
         with torch.no_grad():
             probs = prototype_probs(reps, self.prototypes)
@@ -95,7 +103,7 @@ class PrototypeTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        loss, reps = self._loss(self._device_batch(batch))
+        loss, reps = self._loss(self._device_batch(batch), False)
         return loss, prototype_probs(reps, self.prototypes)
 
     # -- epochs ---------------------------------------------------------------

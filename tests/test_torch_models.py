@@ -189,9 +189,10 @@ def test_resolve_flash_never_takes_an_unported_kernel():
 
 
 def test_reference_checkpoint_loads_like_jax():
-    """A random reference fullModel state_dict (params.zip layout) and a
-    prototypes ParameterDict: the port's loaders against the JAX package's
-    torch_port converters, same window probabilities."""
+    """A random reference fullModel state_dict (params.zip layout, with its
+    importance_function) and a prototypes ParameterDict: the port's loaders
+    against the JAX package's torch_port converters, same window
+    probabilities and importance scores."""
     from sais_tpu.port.torch_port import (full_model_params_from_torch,
                                           prototypes_from_torch)
     from sais_tpu_torch.port.weights import (full_model_params_from_reference,
@@ -205,9 +206,9 @@ def test_reference_checkpoint_loads_like_jax():
     protos = {"a": torch.rand(1, 256, generator=gen),
               "b": torch.rand(1, 256, generator=gen)}
     temporal = dict(TEMP, max_positions=16)
-    jcfg = JModelConfig(rep_dim=32, modalities="RGB",
+    jcfg = JModelConfig(rep_dim=32, modalities="RGB", importance_head=True,
                         temporal=JTemporalConfig(**temporal))
-    cfg = ModelConfig(rep_dim=32, modalities="RGB",
+    cfg = ModelConfig(rep_dim=32, modalities="RGB", importance_head=True,
                       temporal=TemporalConfig(**temporal))
     model = tfm.FullModel(cfg)
     model.load_state_dict(full_model_params_from_reference(sd))
@@ -224,3 +225,5 @@ def test_reference_checkpoint_loads_like_jax():
     np.testing.assert_allclose(
         probs.numpy(), np.asarray(jheads.prototype_probs(ref.video_rep,
                                                          jpmat)), atol=1e-4)
+    np.testing.assert_allclose(out.importances.numpy(),
+                               np.asarray(ref.importances), atol=1e-4)

@@ -318,8 +318,9 @@ def test_trainer_refuses_what_is_not_ported():
         PrototypeTrainer(*args, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="parallelism"):
         PrototypeTrainer(*args, seq_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="skill"):
-        PrototypeTrainer(*args, use_importance=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="parallelism"):
+        PrototypeTrainer(*args, mesh=object(), use_importance=True,
+                         device="cpu")
 
 
 def _write_store(root, videos, frames, dim, seed=0):
@@ -407,7 +408,7 @@ def test_cli_train_on_cpu_and_refusals(tmp_path, monkeypatch, capsys):
     cli.main(["decode", "-f", "v0", "-p", str(tmp_path), "--device", "cpu",
               "--params-dir", str(tmp_path / "params"), "--nfolds", "2"])
     assert "gesture intervals" in capsys.readouterr().out
-    for flags, match in ((["--dataset", "vua-ease"], "skill-training"),
+    for flags, match in ((["--dataset", "vua-gestures"], "dataset branches"),
                          (["--dataset", "dvc-ucl"], "dataset branches"),
                          (["--split-policy", "louo"], "split policies"),
                          (["-t", "MIL"], "classification"),
