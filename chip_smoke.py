@@ -210,11 +210,40 @@ Phases, each of which fails the run:
    and vit_features(bf16 ViT-S/16, quant="int8"): K8 must launch 12 times
    and K1 not at all; mean CLS cosine against the K1 path >= 0.999;
    frames/s beside the bf16 path's (median of three after a warm-up).
-17. prints the total time, the card, the kernels line (JSON) and, last,
+17. classification path at full width (`train -t MIL --dataset
+   vua-gestures -d 1_vs_2 -bc -e 2 -bs 32 --flash on` and the other reps
+   branches, without the CSV and H5 I/O): a synthetic VUA gesture-timestamp
+   CSV (numpy seed 0: 40 videos x 60 gestures, Paths with either
+   separator, an object Gesture column with multi-label and empty cells)
+   read by `read_segments`, 6,000 x 384 features a video and a flow row
+   every 15 frames, in memory; vua_gestures_tables(fold 0) ->
+   segment_batches -> ClassificationTrainer(MIL) for 2 epochs from fixed
+   seeds with --flash on (K3 exactly 4 a train batch, K2 4 a train batch +
+   12 an eval batch: MIL reads RGB only, the clip encoder stays dense),
+   dense (no launch) and on the CPU, epoch losses flash against dense and
+   dense against the CPU within 1e-3; K2's signed error at the first
+   layer against the dense path, and the dense fit again with that signed
+   error (and with unbiased noise of its size) in every layer's
+   attention output, printed beside them; the MIL step's median ms and
+   the device time of one step (queued behind a spin kernel); a
+   Prototypes fit on `--dataset segments --split-policy per-gesture-video
+   -mod RGB-Flow --flash on` (8 and 24 launches a train and an eval
+   batch: two modalities, flow windows of 2-16 tokens) and the same fit
+   dense, epoch losses within 1e-3; one
+   -t MIL step at -dim 128 and at -dim 768 (head widths 32 and 192) flash
+   against dense (4 launches of each kernel; loss 1e-5 relative, each
+   gradient 1e-3 of its largest dense value, frame_pos in the norm); a
+   `--no-self-attention` fit (no launch); then K2 and K3 alone at (B*S, H,
+   L, Dh) = (32, 4, 129, 32) and (32, 4, 129, 192) against their plain
+   versions (1e-4 of the largest value; three elements with masked keys
+   inside the valid range; the all-masked element exactly 0), with CUDA-event times beside SDPA's, the device time a call (the
+   calls queued behind a spin kernel) and the bound, and at Dh 50 (packed
+   into 52-wide buffers) against the plain version.
+18. prints the total time, the card, the kernels line (JSON) and, last,
    the device line (JSON).  K1's launches there add the gesture and flow
    paths' to the teacher's in both pretrain phases; K4-K7's add both
-   pretrain phases'; K2's and K3's add the skill path's to the training
-   path's.
+   pretrain phases'; K2's and K3's add the skill and classification paths'
+   to the training path's.
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
@@ -242,6 +271,11 @@ PEAK_TF32_FLOPS = 494.7e12   # H100 SXM dense TF32 (K2 and K3's route)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 # the kernel torch.cuda._sleep launches: _profile's marker between calls
 MARKER = "spin_kernel"
+# the host's kernel launch calls, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+# spin launches that open every profiler window (`_profile_window`)
+PROFILE_PAD = 256
 
 
 def fail(msg: str) -> None:
@@ -261,6 +295,25 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of fn: the calls are enqueued behind a
+    50 ms spin kernel, so they run back to back on the device whatever the
+    host's launch rate, and CUDA events time them there."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -793,26 +846,21 @@ def phase_k2():
     return result
 
 
-def _profile(fn, name: str, steps: int, shares=None, ranges=(),
-             per_launch: int = 0, window: int = 1):
-    """torch.profiler over `steps` calls of fn: prints the per-kernel table
-    and the device's busy time (the union of its kernel and copy
-    intervals) against the host's wall time.  `shares`: label -> kernel
-    name fragment, whose summed device time is printed as a share of the
-    busy time; `ranges`: names of record_function ranges whose device time
-    is printed the same way.  `per_launch`: the number of device launches
-    one call of fn makes, in a fixed order; their names and mean device
-    times go to got["per_launch"] (the run fails if the calls differ).
-    A window in which the profiler lost the device records of more than
-    two calls is taken again, up to three windows.  Returns (busy us, wall
-    us, {label: us})."""
+def _profile_window(fn, steps: int, per_launch: int):
+    """One torch.profiler window over `steps` calls of fn -> (profiler,
+    wall us, launch calls of fn on the host, kernel records of fn's
+    launches on the device, spin records dropped)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # The profiler drops the first device records of a window: none
+        # early in the process, 6 to 23 after some minutes of work (card
+        # probes).  Spin launches take that loss before the calls.
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             if per_launch:
@@ -824,19 +872,73 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    # every launch call on the host has one kernel record on the device in
+    # a window the profiler kept whole (copies are not counted either side;
+    # the spin launches, pad and markers, are not counted)
+    spins = PROFILE_PAD + (steps + 1 if per_launch else 0)
+    launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                   and e.name in LAUNCH_CALLS) - spins
+    kept = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and MARKER not in e.name)
+    dropped = spins - sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and MARKER in e.name)
+    return prof, wall_us, launched, kept, dropped
+
+
+def _profile(fn, name: str, steps: int, shares=None, ranges=(),
+             per_launch: int = 0):
+    """torch.profiler over `steps` calls of fn: prints the per-kernel table
+    and the device's busy time (the union of its kernel and copy
+    intervals) against the host's wall time.  `shares`: label -> kernel
+    name fragment, whose summed device time is printed as a share of the
+    busy time; `ranges`: names of record_function ranges whose device time
+    is printed the same way.  `per_launch`: the number of device launches
+    one call of fn makes, in a fixed order; their names and mean device
+    times go to got["per_launch"] (the run fails if the calls differ).
+    Each window opens with PROFILE_PAD spin launches, which take the
+    profiler's loss of a window's first device records.  A window that
+    still kept fewer kernel records of fn's launches than the host made
+    launch calls is taken again, up to three windows; the one that kept
+    most is read, with its count printed beside its readings, and the run
+    fails if it lacks more than max(2, 2%) of them or holds no device
+    time.  Returns (busy us, wall us, {label: us})."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(3):
+        w = _profile_window(fn, steps, per_launch)
+        if best is None or w[3] - w[2] > best[3] - best[2]:
+            best = w
+        if w[3] >= w[2]:
+            break
+        print(f"{name}: the profiler kept {w[3]} kernel records of {w[2]} "
+              f"launches", flush=True)
+    prof, wall_us, launched, kept, dropped = best
+    check(launched - kept <= max(2, launched // 50),
+          f"{name}: the profiler kept {kept} kernel records of {launched} "
+          f"launches in its best of three windows")
+    kept_note = ("" if kept >= launched else
+                 f", {kept} kernel records of {launched} launches kept")
+    if dropped:
+        kept_note += f", {dropped} spin records dropped"
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not (per_launch and MARKER in e.name))
+                   and MARKER not in e.name)
     busy_us, end = 0.0, -math.inf
     for lo, hi in spans:
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
+    check(busy_us > 0, f"{name}: no device time in the window")
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
     print(f"{name} ({steps} calls): device busy {busy_us:.0f} us of "
           f"{wall_us:.0f} us wall ({100 * (1 - busy_us / wall_us):.1f}% "
-          f"idle)\n{table}", flush=True)
+          f"idle{kept_note})\n{table}", flush=True)
     got = {}
     for label, frag in (shares or {}).items():
         got[label] = sum(e.time_range.end - e.time_range.start
@@ -866,16 +968,6 @@ def _profile(fn, name: str, steps: int, shares=None, ranges=(),
             elif seg is not None:
                 seg.append(e)
         whole = [c for c in calls if len(c) == per_launch]
-        # the host launched every call (cudaLaunchKernel); a window whose
-        # device records the profiler dropped says nothing of the kernels,
-        # so it is taken again (a wrapper that makes another number of
-        # launches reads no call whole in any window)
-        if len(whole) < steps - 2 and window < 3:
-            print(f"{name}: the profiler kept {len(whole)} of {steps} calls "
-                  f"whole ({[len(c) for c in calls]} launches between "
-                  f"markers); profiling again", flush=True)
-            return _profile(fn, name, steps, shares, ranges, per_launch,
-                            window + 1)
         check(len(whole) >= steps - 2,
               f"{name}: {len(whole)} of {steps} calls read whole, expected "
               f"{per_launch} launches a call; launches between markers: "
@@ -2073,6 +2165,490 @@ def phase_skill(card: str):
     return k2, k3
 
 
+# ---------------------------------------------------------------------------
+# The classification path: `train -t MIL` and the other reps branches
+# ---------------------------------------------------------------------------
+
+# gesture cells of the synthetic VUA timestamp table and their shares: the
+# reference's integer labels, a padded one, a multi-label cell and an
+# empty cell (both dropped by the cleanup)
+GESTURE_CELLS = (("1", 0.3), ("2", 0.25), ("7", 0.12), ("13", 0.1),
+                 (" 2", 0.05), ("3", 0.08), ("1,2", 0.05), ("", 0.05))
+
+
+def _synthetic_gesture_data(nvideos: int = 40, per_video: int = 60,
+                            nframes: int = 6000):
+    """A VUA gesture-timestamp CSV (numpy seed 0): nvideos x per_video
+    gestures of 30-150 frames, Paths with either separator, the Gesture
+    column an object column with multi-label and empty cells, read back
+    by `read_segments`; 384-d f32 features of nframes frames a video and
+    flow rows every 15 frames, in memory."""
+    import csv
+
+    import numpy as np
+    from sais_tpu_torch.data.datasets import read_segments
+    rng = np.random.default_rng(0)
+    cells, shares = zip(*GESTURE_CELLS)
+    rows = []
+    for v in range(nvideos):
+        path = (f"C:\\VUA\\videos\\vid{v:02d}" if v % 2
+                else f"/data/VUA/videos/vid{v:02d}")
+        for _ in range(per_video):
+            start = int(rng.integers(1, nframes - 160))
+            rows.append({"Path": path, "StartFrame": start,
+                         "EndFrame": start + int(rng.integers(30, 151)),
+                         "Gesture": cells[int(rng.choice(len(cells),
+                                                         p=shares))]})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gestures.csv")
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
+        rows = read_segments(path)
+    rgb = rng.standard_normal((nvideos, nframes, 384)).astype(np.float32)
+    flow = rng.standard_normal((nvideos, nframes // 15, 384)).astype(
+        np.float32)
+    return (rows, _ArrayStore({f"vid{v:02d}": rgb[v] for v in range(nvideos)}),
+            _ArrayStore({f"vid{v:02d}": flow[v] for v in range(nvideos)}))
+
+
+def _cls_config(use_flash, modalities="RGB", rep_dim=384, **kw):
+    from sais_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                       TemporalConfig)
+    return PipelineConfig(model=ModelConfig(
+        rep_dim=rep_dim, modalities=modalities, **kw,
+        temporal=TemporalConfig(rep_dim=rep_dim, use_flash=use_flash)))
+
+
+def _task_fit(frames, classes, stores, cfg, device, task="MIL",
+              nepochs=2, attn_error=None):
+    """`cmd_train`'s fold loop for one fold from fixed seeds, batch 32, lr
+    0.1: ClassificationTrainer.run_epoch over train / val / test for
+    nepochs (MIL), or PrototypeTrainer.fit (Prototypes).  `attn_error`
+    (mode, shift, noise): every frame-encoder layer's attention output
+    scaled by 1 + shift ("signed"), or by 1 + noise * N(0, 1) drawn per
+    value from a fixed seed ("noise"), on its way into out_proj.
+    Returns (trainer, epoch losses, batches a phase, wall seconds)."""
+    import dataclasses
+
+    import torch
+    from sais_tpu_torch.config import TrainConfig
+    from sais_tpu_torch.data.collate import segment_batches
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+    from sais_tpu_torch.train.classification import ClassificationTrainer
+    from sais_tpu_torch.train.loop import PrototypeTrainer
+    store, flow_store = stores
+    mcfg = dataclasses.replace(cfg.model, nclasses=len(classes))
+    model = full_model_init(torch.Generator().manual_seed(0), mcfg)
+    if attn_error is not None:
+        mode, shift, noise = attn_error
+        gens = {}
+
+        def move(module, args):
+            x = args[0]
+            if mode == "signed":
+                return (x * (1 + shift),)
+            g = gens.setdefault(x.device, torch.Generator(
+                device=x.device).manual_seed(5))
+            return (x * (1 + noise * torch.randn(
+                x.shape, generator=g, device=x.device)),)
+
+        for layer in model.frame_encoder.layers:
+            layer.self_attn.out_proj.register_forward_pre_hook(move)
+    tcfg = TrainConfig(lr=0.1, batch_size=32)
+    if mcfg.modalities == "RGB":
+        flow_store = None
+
+    def loader(phase):
+        train = phase == "train"
+        return lambda epoch=0: segment_batches(
+            frames[phase], store, classes, cfg.window, 32, shuffle=train,
+            seed=epoch, tta=not train, flow_store=flow_store)
+
+    loaders = {ph: loader(ph) for ph in ("train", "val", "test")
+               if frames[ph]}
+    nb = {ph: math.ceil(len(frames[ph]) / 32) for ph in loaders}
+    losses = []
+    t0 = time.perf_counter()
+    if task == "Prototypes":
+        keys, protos = prototypes_init(torch.Generator().manual_seed(1),
+                                       len(classes))
+        trainer = PrototypeTrainer(mcfg, tcfg, model, keys, protos,
+                                   device=device)
+        run_epoch = trainer.run_epoch
+
+        def recording(batches, train):
+            loss, m = run_epoch(batches, train)
+            losses.append(loss)
+            return loss, m
+
+        trainer.run_epoch = recording
+        trainer.fit(loaders, nepochs=nepochs, log=lambda line: None)
+    else:
+        trainer = ClassificationTrainer(mcfg, tcfg, model, task=task,
+                                        device=device)
+        for epoch in range(nepochs):
+            for phase, make in loaders.items():
+                losses.append(trainer.run_epoch(make(epoch),
+                                                phase == "train")[0])
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    return trainer, losses, nb, time.perf_counter() - t0
+
+
+def k2_signed_error(frames, classes, stores, batch):
+    """K2's output at the first frame-encoder layer of the MIL model (its
+    input the same on both paths, from the same weights), against the
+    dense path's attention output on the card: (mean((K2 - dense) *
+    sign(dense)), mean|K2 - dense|), each over the mean |dense|."""
+    import torch
+    got = {}
+    for mode, use_flash in (("flash", True), ("dense", None)):
+        tr = _task_fit({"train": [], "val": [], "test": []}, classes, stores,
+                       _cls_config(use_flash), None, nepochs=0)[0]
+
+        def keep(module, args, mode=mode):
+            got[mode] = args[0].detach().double()
+
+        tr.model.frame_encoder.layers[0].self_attn.out_proj.\
+            register_forward_pre_hook(keep)
+        with torch.no_grad():
+            tr.loss_fn(tr.model, tr._device_batch(batch))
+        del tr
+    d, ref = got["flash"] - got["dense"], got["dense"]
+    scale = ref.abs().mean()
+    return (((d * ref.sign()).mean() / scale).item(),
+            (d.abs().mean() / scale).item())
+
+
+def _grad_gaps(ga, gb):
+    """name -> (max|a - b| / max|b|, ||a - b|| / ||b||)"""
+    return {n: ((ga[n] - gb[n]).abs().max().item()
+                / max(gb[n].abs().max().item(), 1e-30),
+                (ga[n] - gb[n]).norm().item()
+                / max(gb[n].norm().item(), 1e-30)) for n in gb}
+
+
+def k23_widths(card: str):
+    """K2 and K3 at (B*S, H, L, Dh) = (32, 4, 129, 32) and (32, 4, 129,
+    192), the -dim 128 and -dim 768 MIL batches' attention (17-129 tokens
+    a gesture window), masked tails that differ per element, three
+    elements with masked keys inside the valid range as well and one
+    element with every key masked: each against its plain version
+    (PERF.md §2's limits, 1e-4 of the largest plain value), CUDA-event
+    times beside SDPA's and the bound.  Then Dh 50, which the wrapper
+    packs into 52-wide aligned buffers, against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from sais_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd, flash_attention_reference, key_bias)
+    b, h, l = 32, 4, 129
+    out_rows = {}
+    for dh in (32, 192, 50):
+        g = torch.Generator().manual_seed(dh)
+        q, k, v, do = (torch.randn((b, h, l, dh), generator=g).cuda()
+                       for _ in range(4))
+        valid = [l - (37 * i) % l for i in range(b - 1)] + [0]
+        mask = torch.arange(l)[None, :] >= torch.tensor(valid)[:, None]
+        # elements 1-3: masked keys inside the valid range too (a key
+        # mask that is not a suffix)
+        mask[1:4, 5:100:3] = True
+        valid = (~mask).sum(1).tolist()
+        mask = mask.cuda()
+        bias = key_bias(mask)
+        out = flash_attention(q, k, v, mask)
+        fwd, lse = flash_attention_fwd(q, k, v, bias)
+        ref, ref_lse = flash_attention_reference(q, k, v, bias)
+        ref0 = ref.clone()
+        ref0[-1] = 0.0
+        do[-1] = 0.0
+        got = flash_attention_bwd(q, k, v, bias, fwd, lse, do)
+        want = flash_attention_bwd_reference(q, k, v, bias, fwd, lse, do)
+        torch.cuda.synchronize()
+        errs = {"out": ((out - ref0).abs().max().item(),
+                        ref0.abs().max().item()),
+                "lse": ((lse[:-1] - ref_lse[:-1]).abs().max().item(),
+                        max(1.0, ref_lse[:-1].abs().max().item()))}
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = ((x - y).abs().max().item(), y.abs().max().item())
+        for name, (err, scale) in errs.items():
+            check(math.isfinite(err) and err <= 1e-4 * scale,
+                  f"K2/K3 {name} at Dh {dh}: {err} > 1e-4 * {scale}")
+        check(torch.count_nonzero(out[-1]).item() == 0
+              and all(torch.count_nonzero(x[-1]).item() == 0 for x in got),
+              f"Dh {dh}: the all-masked element is not exactly 0")
+        line = ", ".join(f"{n} {e:.3g} (max {s:.3g})"
+                         for n, (e, s) in errs.items())
+        if dh == 50:
+            print(f"K2/K3 (B*S, H, L, Dh) = ({b}, {h}, {l}, {dh}), packed "
+                  f"to 52: {line}", flush=True)
+            continue
+        lib_mask = bias[:, None, None, :]
+        k2_ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, bias))
+        k2_plain = cuda_time_ms(lambda: flash_attention_reference(
+            q, k, v, bias), iters=5, warmup=1)
+        k2_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask))
+        k3_ms = cuda_time_ms(lambda: flash_attention_bwd(
+            q, k, v, bias, fwd, lse, do))
+        k3_plain = cuda_time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, bias, fwd, lse, do), iters=5, warmup=1)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(lq, lk, lv,
+                                                  attn_mask=lib_mask)
+
+        with torch.no_grad():
+            lib_fwd_ms = cuda_time_ms(lib_fwd)
+        k3_lib = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_fwd(), (lq, lk, lv), do)) - lib_fwd_ms
+        k2b = k2_bound_ms(b, h, l, dh, valid)
+        k3b = k3_bound_ms(b, h, l, dh, valid)
+        # device time a call: at these sizes the CUDA-event times above
+        # can read the host's launch rate instead
+        k2_dev = cuda_device_ms(lambda: flash_attention_fwd(q, k, v, bias))
+        k3_dev = cuda_device_ms(lambda: flash_attention_bwd(
+            q, k, v, bias, fwd, lse, do))
+        out_rows[dh] = dict(k2=(k2_ms, k2b[0], k2b[1], k2_plain, k2_lib),
+                            k3=(k3_ms, k3b[0], k3b[1], k3_plain, k3_lib))
+        line += (f"; device time a call K2 {k2_dev:.4f} ms, K3 "
+                 f"{k3_dev:.4f} ms")
+        print(f"K2/K3 (B*S, H, L, Dh) = ({b}, {h}, {l}, {dh}): {line}; K2 "
+              f"{k2_ms:.4f} ms (bound {k2b[0]:.4f} by {k2b[1]}, plain "
+              f"{k2_plain:.4f}, SDPA {k2_lib:.4f}); K3 {k3_ms:.4f} ms "
+              f"(bound {k3b[0]:.4f} by {k3b[1]}, plain {k3_plain:.4f}, "
+              f"SDPA backward {k3_lib:.4f}); {card}", flush=True)
+        del q, k, v, do, lq, lk, lv
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def phase_classification(card: str):
+    """`train -t MIL --dataset vua-gestures -d 1_vs_2 -bc -e 2 -bs 32
+    --flash on` (fold 0; flash, dense and on the CPU; the dense fit again
+    with K2's signed error), a Prototypes fit on `--dataset segments
+    --split-policy per-gesture-video -mod RGB-Flow --flash on` and dense,
+    one -t MIL step at -dim 128 and at -dim 768 (K2 / K3 at
+    head widths 32 and 192 against the dense path), a `--no-self-attention`
+    fit, and K2 / K3 alone at those widths; returns the K2 and K3
+    launches of the driven runs."""
+    import numpy as np
+    import torch
+    from sais_tpu_torch.data.collate import segment_batches
+    from sais_tpu_torch.data.reference_datasets import (
+        clean_gesture_timestamps, per_gesture_video_split,
+        vua_gestures_tables)
+    from sais_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                        flash_attention_bwd)
+
+    t0 = time.perf_counter()
+    rows, store, flow_store = _synthetic_gesture_data()
+    tables, classes = vua_gestures_tables(rows, "1_vs_2", 0, balance=True)
+    frames = {ph: [dict(r, Gesture=str(r["Gesture"])) for r in tables[ph]]
+              for ph in ("train", "val", "test")}
+    classes = [str(c) for c in classes]
+    print(f"classification path data: {len(rows)} gesture rows, 40 videos "
+          f"x 6000 frames x 384 and 400 flow rows a video "
+          f"({time.perf_counter() - t0:.1f} s); vua-gestures 1_vs_2 fold 0 "
+          f"rows train/val/test {[len(frames[p]) for p in frames]}, classes "
+          f"{classes}", flush=True)
+    check(classes == ["1", "2"], f"vua-gestures 1_vs_2 classes {classes}")
+    stores = (store, None)
+
+    # (a) the MIL fit: flash (K2 / K3), dense, and on the CPU
+    k2 = k3 = 0
+    fits = {}
+    for mode, use_flash, device in (("flash", True, None),
+                                    ("dense", None, None),
+                                    ("CPU", True, "cpu")):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        tr, losses, nb, fit_s = _task_fit(frames, classes, stores,
+                                          _cls_config(use_flash), device)
+        fk2, fk3 = flash_attention.launches, flash_attention_bwd.launches
+        fits[mode] = (tr, losses)
+        train_b = 2 * nb["train"]
+        eval_b = 2 * (nb.get("val", 0) + nb.get("test", 0))
+        print(f"MIL fit ({mode}): {train_b} train and {eval_b} eval "
+              f"batches in 2 epochs, {fit_s:.4f} s; losses "
+              f"{[round(x, 6) for x in losses]}; K2 launches {fk2}, K3 "
+              f"launches {fk3}; {card}", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"MIL fit ({mode}): non-finite epoch loss {losses}")
+        if mode == "flash":
+            # m = 1: MIL reads RGB only; the clip encoder stays dense
+            check(fk3 == 4 * train_b, f"MIL fit: K3 launched {fk3} times, "
+                  f"expected 4 x {train_b}")
+            check(fk2 == 4 * train_b + 12 * eval_b,
+                  f"MIL fit: K2 launched {fk2} times, expected 4 x "
+                  f"{train_b} + 12 x {eval_b}")
+            k2, k3 = k2 + fk2, k3 + fk3
+        elif mode == "dense":
+            check(fk2 == fk3 == 0, f"dense MIL fit launched K2 {fk2}, K3 "
+                  f"{fk3} times")
+    def gap(x, y):
+        return float(np.max(np.abs(np.subtract(fits[x][1], fits[y][1]))))
+
+    batch = next(segment_batches(frames["train"], store, classes,
+                                 _cls_config(True).window, 32, True, seed=7))
+    # Where flash and dense part: K2's output at the first encoder layer
+    # (the same input on both paths, from the same weights) against the
+    # dense path's, as a signed share of its mean |value|; then the dense
+    # fit again with every frame-encoder layer's attention output moved by
+    # that share, and by unbiased noise of K2's mean |error|
+    shift, noise = k2_signed_error(frames, classes, stores, batch)
+    for mode in ("signed", "noise"):
+        fits[mode] = (None, _task_fit(frames, classes, stores,
+                                      _cls_config(None), None,
+                                      attn_error=(mode, shift, noise))[1])
+    # Limits 1e-3: f32 on both sides; two epochs of SGD carry the
+    # differences of every step (the training phase's limit)
+    print(f"MIL fit epoch losses: flash vs dense max|diff| "
+          f"{gap('flash', 'dense'):.3g}; dense (card) vs CPU "
+          f"{gap('dense', 'CPU'):.3g}; flash vs CPU "
+          f"{gap('flash', 'CPU'):.3g}.  K2 at the first layer against the "
+          f"dense path: signed error {shift:.3g}, mean |error| {noise:.3g} "
+          f"of the mean |value|; the dense fit with that signed error in "
+          f"every layer's attention: losses "
+          f"{[round(x, 6) for x in fits['signed'][1]]}, vs flash "
+          f"{gap('signed', 'flash'):.3g}, vs dense "
+          f"{gap('signed', 'dense'):.3g}; with unbiased noise of that size: "
+          f"vs dense {gap('noise', 'dense'):.3g}", flush=True)
+    check(gap("flash", "dense") <= 1e-3,
+          f"MIL fit: flash and dense losses differ {gap('flash', 'dense')}")
+    check(gap("dense", "CPU") <= 1e-3,
+          f"MIL fit: card and CPU losses differ {gap('dense', 'CPU')}")
+
+    def step_ms(tr):
+        tr.train_step(batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            tr.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return sorted(times)[2]
+
+    flash_ms, dense_ms = (step_ms(fits[m][0]) for m in ("flash", "dense"))
+    # the device time of one step, its launches queued behind a spin
+    # kernel (the batch already on the card, so the step enqueues without
+    # waiting): what the step would take if the host kept up
+    cuda_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    busy_ms = cuda_device_ms(lambda: fits["flash"][0].train_step(cuda_batch),
+                             iters=1, warmup=2)
+    print(f"MIL train step (batch 32, {batch['rgb'].shape[2] + 1} tokens): "
+          f"flash {flash_ms:.3f} ms, dense {dense_ms:.3f} ms median of 5; "
+          f"device time of a flash step {busy_ms:.3f} ms "
+          f"({100 * (1 - busy_ms / flash_ms):.1f}% idle); {card}",
+          flush=True)
+    del fits
+
+    # (b) Prototypes on --dataset segments --split-policy per-gesture-video
+    # -mod RGB-Flow --flash on: flow windows of 2-16 tokens (a segment
+    # with no flow row keeps one masked slot beside the CLS) on K2 / K3,
+    # and the same fit dense
+    segs = clean_gesture_timestamps(rows, int_labels=False)
+    pframes = dict(zip(("train", "val", "test"),
+                       per_gesture_video_split(segs, 0, balance=True)))
+    pclasses = sorted({r["Gesture"] for r in segs})
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    _, plosses, pnb, pfit_s = _task_fit(
+        pframes, pclasses, (store, flow_store),
+        _cls_config(True, "RGB-Flow"), None, task="Prototypes")
+    pk2, pk3 = flash_attention.launches, flash_attention_bwd.launches
+    dlosses = _task_fit(pframes, pclasses, (store, flow_store),
+                        _cls_config(None, "RGB-Flow"), None,
+                        task="Prototypes")[1]
+    pdiff = float(np.max(np.abs(np.subtract(plosses, dlosses))))
+    train_b = 2 * pnb["train"]
+    eval_b = 2 * (pnb.get("val", 0) + pnb.get("test", 0))
+    print(f"Prototypes fit (per-gesture-video, RGB-Flow, flash): rows "
+          f"train/val/test {[len(pframes[p]) for p in pframes]}, classes "
+          f"{pclasses}, {pfit_s:.4f} s, losses "
+          f"{[round(x, 6) for x in plosses]}; K2 launches {pk2}, K3 "
+          f"launches {pk3}; dense losses {[round(x, 6) for x in dlosses]}, "
+          f"max|flash - dense| {pdiff:.3g}; {card}", flush=True)
+    check(all(math.isfinite(x) for x in plosses),
+          f"RGB-Flow fit: non-finite loss {plosses}")
+    check(pdiff <= 1e-3, f"RGB-Flow fit: flash and dense losses differ "
+          f"{pdiff}")
+    check(pk3 == 8 * train_b and pk2 == 8 * train_b + 24 * eval_b,
+          f"RGB-Flow fit launched K2 {pk2}, K3 {pk3} times; expected "
+          f"{8 * train_b + 24 * eval_b} and {8 * train_b}")
+    k2, k3 = k2 + pk2, k3 + pk3
+
+    # (c) one -t MIL step at -dim 128 and -dim 768 (head widths 32 and
+    # 192), flash against dense from the same weights and batch
+    rng = np.random.default_rng(3)
+    few = sorted({r["Video"] for r in frames["train"]})[:8]
+    few_rows = [r for r in frames["train"] if r["Video"] in few][:32]
+    for dim in (128, 768):
+        dstore = _ArrayStore({v: rng.standard_normal((6000, dim)).astype(
+            np.float32) for v in few})
+        dbatch = next(segment_batches(few_rows, dstore, classes,
+                                      _cls_config(True).window, 32, False))
+        result = {}
+        for mode, use_flash in (("flash", True), ("dense", False)):
+            tr = _task_fit({"train": [], "val": [], "test": []}, classes,
+                           (dstore, None), _cls_config(use_flash,
+                                                       rep_dim=dim),
+                           None, nepochs=0)[0]
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            loss, _ = tr.loss_fn(tr.model, tr._device_batch(dbatch))
+            loss.backward()
+            torch.cuda.synchronize()
+            result[mode] = (loss.item(), {
+                n: p.grad.detach().clone()
+                for n, p in tr.model.named_parameters()
+                if p.grad is not None}, flash_attention.launches,
+                flash_attention_bwd.launches)
+            del tr
+        (floss, fg, fk2, fk3), (dloss, dg, dk2, dk3) = (result["flash"],
+                                                        result["dense"])
+        gaps = _grad_gaps(fg, dg)
+        worst = max((v[0], n) for n, v in gaps.items() if n != "frame_pos")
+        print(f"MIL step at -dim {dim} (head width {dim // 4}, batch 32, "
+              f"{dbatch['rgb'].shape[2] + 1} tokens): loss flash "
+              f"{floss:.8f} dense {dloss:.8f}; K2 launches {fk2}, K3 {fk3} "
+              f"(dense {dk2}, {dk3}); worst gradient max|flash - dense| / "
+              f"max|dense| {worst[0]:.3g} ({worst[1]}); frame_pos "
+              f"norm-relative {gaps['frame_pos'][1]:.3g}", flush=True)
+        check(fk2 == fk3 == 4 and dk2 == dk3 == 0,
+              f"-dim {dim} step launched K2 {fk2}, K3 {fk3} (dense {dk2}, "
+              f"{dk3})")
+        check(set(fg) == set(dg), "-dim step: gradients differ in members")
+        check(abs(floss - dloss) <= 1e-5 * abs(dloss),
+              f"-dim {dim} step loss differs: {floss} vs {dloss}")
+        # the long step's rule: 1e-3 of the largest dense gradient,
+        # frame_pos in the norm
+        check(worst[0] <= 1e-3, f"-dim {dim} gradient {worst[1]} differs: "
+              f"{worst[0]}")
+        check(gaps["frame_pos"][1] <= 1e-3,
+              f"-dim {dim} frame_pos gradient differs: {gaps['frame_pos']}")
+        k2, k3 = k2 + fk2, k3 + fk3
+        del dstore
+
+    # (d) a --no-self-attention MIL fit under --flash on: no encoder, so
+    # neither kernel runs
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    _, nlosses, _, nfit_s = _task_fit(
+        frames, classes, stores, _cls_config(True, self_attention=False),
+        None, nepochs=1)
+    nk2, nk3 = flash_attention.launches, flash_attention_bwd.launches
+    print(f"--no-self-attention MIL fit (1 epoch): {nfit_s:.4f} s, losses "
+          f"{[round(x, 6) for x in nlosses]}; K2 launches {nk2}, K3 "
+          f"launches {nk3}", flush=True)
+    check(nk2 == nk3 == 0 and all(math.isfinite(x) for x in nlosses),
+          f"--no-self-attention fit: K2 {nk2}, K3 {nk3}, losses {nlosses}")
+
+    k23_widths(card)
+    return k2, k3
+
+
 CROSSOVER_LENGTHS = (301, 512, 1024, 2001, 8193)
 
 
@@ -3241,6 +3817,9 @@ def main():
         phase_pretrain(card)[0], phase_pretrain(card, arch="vits8")[0])]
     k8 = phase_k8(parent)
     k8_launches = phase_int8_encoder()
+    cls_k2, cls_k3 = phase_classification(card)
+    k2_launches += cls_k2
+    k3_launches += cls_k3
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",

@@ -26,10 +26,17 @@ features (stride 1) with the temporal attention on K2, and writes
   python -m sais_tpu_torch.cli.main train -p <root> --segments segs.csv \
       -bc -e 50 -bs 2 -lr 0.1 --flash auto
 
-trains the Prototypes task on the stored RGB features of the segments
+trains the Prototypes task on the stored features of the segments
 (Video / StartFrame / EndFrame / Gesture) with the reference's fold-video
 split, one fold per --nfolds, and writes <root>/params/Fold_<k>/params.pkl,
-prototypes.pkl and metrics.pkl in the JAX package's layout.
+prototypes.pkl and metrics.pkl in the JAX package's layout
+(`--split-policy per-gesture-video / louo / instance`: the reference's
+other splits; `--dataset vua-gestures -d X_vs_Y` (else Top4) and `dvc-ucl`:
+the gesture-timestamp tables, Path / StartFrame / EndFrame / Gesture;
+`-t MIL / ClassificationHead`: the classification tasks, -e epochs
+without early stopping; `-mod Flow / RGB-Flow` read the flow store;
+`--no-self-attention`: snippets are plain frame means; `-dim`: the
+features' width).
 
   python -m sais_tpu_torch.cli.main train -p <root> --dataset vua-ease \
       --segments VUA_EASE_Stitch_Paths.csv -d NH_02 -il \
@@ -136,13 +143,19 @@ def _load_raft(args, cfg):
     return raft_init(torch.Generator().manual_seed(3), cfg.raft)
 
 
+# the members decoding does not read (the MIL task's)
+_MIL_MEMBERS = ("clip_cls", "clip_pos", "clip_encoder", "attentionA",
+                "attentionB", "attention_modules", "final_modules")
+
+
 def load_fold(d: str, cfg):
     """(FullModel, prototypes) of one fold directory: params.pkl +
     prototypes.pkl written by `train` (either package; the JAX pytree), or
     the reference's params.zip + prototypes.zip.  The model keeps the
     checkpoint's own positional-table length, and has the importance and
     linearB heads exactly when the checkpoint has them, as the JAX package
-    does."""
+    does.  A fold without the clip and MIL members (the port's Prototypes
+    folds before it carried them) loads with those members zero."""
     from sais_tpu_torch.models.full_model import FullModel
     from sais_tpu_torch.port.weights import (full_model_params_from_jax,
                                              full_model_params_from_reference,
@@ -158,12 +171,29 @@ def load_fold(d: str, cfg):
             load_checkpoint(os.path.join(d, "params.zip")))
         _, protos = prototypes_from_reference(
             load_checkpoint(os.path.join(d, "prototypes.zip")))
-    model = FullModel(dataclasses.replace(
+    mcfg = dataclasses.replace(
         cfg.model, importance_head="importance.weight" in sd,
         multi_task="linearB.weight" in sd,
         temporal=dataclasses.replace(
-            cfg.model.temporal, max_positions=len(sd["frame_pos"]))))
-    model.load_state_dict(sd)
+            cfg.model.temporal, max_positions=len(sd["frame_pos"])))
+    if "cls_head.weight" in sd:
+        mcfg = dataclasses.replace(mcfg, data_type="raw",
+                                   nclasses=len(sd["cls_head.weight"]))
+    nmil = len({k.split(".")[1] for k in sd
+                if k.startswith("final_modules.")})
+    if nmil:
+        mcfg = dataclasses.replace(mcfg, n_attention_classes=nmil)
+    model = FullModel(mcfg)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    # a fold the port wrote before it carried the clip encoder and the MIL
+    # modules has only the Prototypes path's members, which decoding reads
+    absent = [k for k in missing if k.split(".")[0] not in _MIL_MEMBERS]
+    if absent or unexpected:
+        raise RuntimeError(f"fold {d}: missing {absent}, unexpected "
+                           f"{unexpected}")
+    with torch.no_grad():
+        for name in missing:
+            model.get_parameter(name).zero_()
     return model, protos
 
 
@@ -469,39 +499,15 @@ def cmd_assess(args):
         print(f"fold {fold}: wrote {dest} + artifacts under {savepath}")
 
 
-SKILL_DATASETS = ("vua-ease", "vua-ease-stitch")
-
-
 def _check_train_ported(args):
-    """`train` runs -t Prototypes on stored reps: --dataset segments
-    (--split-policy fold-video, -mod RGB) and the EASE skill and stitch
-    branches (any -mod); the rest comes with later slices (ROADMAP.md
-    Queue 1)."""
+    """`train` runs every branch of the JAX package on stored reps; the
+    raw-video path comes with a later slice (ROADMAP.md Queue 1)."""
     _check_ported(args)
-    if args.dataset in ("vua-gestures", "dvc-ucl"):
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: not ported yet; the gesture-timestamp "
-            "tables come with the reference dataset branches (ROADMAP.md "
-            "Queue 1, 'The other training branches and flags')")
-    if args.modalities != "RGB" and args.dataset not in SKILL_DATASETS:
-        raise NotImplementedError(
-            f"-mod {args.modalities}: training on the flow stream is not "
-            "ported yet (ROADMAP.md Queue 1, 'Training on flow'); train "
-            "-mod RGB, or decode with flow from folds trained by the JAX "
-            "package")
-    if args.split_policy != "fold-video" and args.dataset == "segments":
-        raise NotImplementedError(
-            f"--split-policy {args.split_policy}: not ported yet; the named "
-            "reference split policies come with the reference dataset "
-            "branches")
-    if args.task != "Prototypes":
-        raise NotImplementedError(
-            f"-t {args.task}: not ported yet; the MIL and "
-            "ClassificationHead tasks come with the classification slice")
     if args.data_type != "reps":
         raise NotImplementedError(
             f"--data-type {args.data_type}: not ported yet; raw-video "
-            "training (R3D / ViT snippets) comes with the raw-video slice")
+            "training (R3D / ViT snippets) comes with the raw-video path "
+            "(ROADMAP.md Queue 1, 'The rest')")
     if not args.segments:
         sys.exit("train needs --segments <csv> (Video, StartFrame, "
                  "EndFrame, Gesture)")
@@ -548,10 +554,50 @@ def _skill_dataset(args, segments, fold: int):
     return SegmentDataset(frames, [str(c) for c in classes], classes)
 
 
+def _gesture_dataset(args, segments, fold: int):
+    """The gesture-timestamp branches (prepare_dataset.py:1283-1395,
+    :1396-1500): vua-gestures (-d X_vs_Y, else Top4) and dvc-ucl, the
+    Gesture labels as str and the classes in their int order."""
+    from sais_tpu_torch.data.datasets import SegmentDataset
+    from sais_tpu_torch.data.reference_datasets import (dvc_ucl_tables,
+                                                        vua_gestures_tables)
+    if args.dataset == "vua-gestures":
+        frames, classes = vua_gestures_tables(
+            segments, args.domain if "_vs_" in args.domain else "Top4",
+            fold, balance=args.balance_classes)
+    else:
+        frames, classes = dvc_ucl_tables(segments, fold,
+                                         balance=args.balance_classes)
+    return SegmentDataset(
+        {ph: [dict(r, Gesture=str(r["Gesture"])) for r in frames[ph]]
+         for ph in ("train", "val", "test")}, [str(c) for c in classes])
+
+
+def _policy_dataset(args, segments, fold: int):
+    """--dataset segments under a named reference split policy
+    (data/reference_datasets.py); the classes are the whole table's."""
+    from sais_tpu_torch.data.datasets import SegmentDataset, _unique
+    from sais_tpu_torch.data.reference_datasets import (
+        instance_split, leave_one_user_out_split, per_gesture_video_split)
+    classes = sorted(_unique(r["Gesture"] for r in segments))
+    if args.split_policy == "per-gesture-video":
+        parts = per_gesture_video_split(segments, fold,
+                                        balance=args.balance_classes)
+    elif args.split_policy == "louo":
+        parts = leave_one_user_out_split(segments, fold)
+    else:
+        parts = instance_split(segments, balance=args.balance_classes)
+    return SegmentDataset(dict(zip(("train", "val", "test"), parts)),
+                          classes)
+
+
 def cmd_train(args):
     """Training over domains x folds (run_experiments.py:85-116): per fold,
-    the dataset's split and class balancing, PrototypeTrainer with early
-    stopping, the best snapshot saved under params/[<domain>/]Fold_<k>."""
+    the dataset's split and class balancing, then -t Prototypes:
+    PrototypeTrainer with early stopping, the best snapshot saved under
+    params/[<domain>/]Fold_<k>; -t MIL / ClassificationHead: nepochs
+    epochs of ClassificationTrainer, no early stopping, the last model
+    saved with the fold's fresh prototypes, as the JAX package does."""
     if args.domains:
         # reference -domains loop (run_experiments.py:44,85-90): one
         # invocation trains every domain; artifacts nest per domain
@@ -572,7 +618,9 @@ def cmd_train(args):
     from sais_tpu_torch.models.full_model import (full_model_init,
                                                   prototypes_init)
     from sais_tpu_torch.train.checkpoint import save_training_result
+    from sais_tpu_torch.train.classification import ClassificationTrainer
     from sais_tpu_torch.train.loop import PrototypeTrainer
+    from sais_tpu_torch.train.metrics import format_metrics
     _check_train_ported(args)
     skill_mode = args.dataset == "vua-ease"
     stitch_mode = args.dataset == "vua-ease-stitch"
@@ -589,35 +637,43 @@ def cmd_train(args):
             sys.exit("--importance-loss needs --explanations <csv> [...]")
     cfg = _pipeline_config(args)
     segments = read_segments(args.segments)
+    use_flow = cfg.model.modalities != "RGB"
     store = FeatureStore(rgb_store_path(args.path))
-    flow_store = (FeatureStore(flow_store_path(args.path))
-                  if cfg.model.modalities != "RGB" else None)
+    flow_store = (FeatureStore(flow_store_path(args.path)) if use_flow
+                  else None)
     try:
         for fold in range(args.nfolds):
             print(f"Fold: {fold}")
             if skill_mode or stitch_mode:
                 ds = _skill_dataset(args, segments, fold)
-            else:
+            elif args.dataset in ("vua-gestures", "dvc-ucl"):
+                ds = _gesture_dataset(args, segments, fold)
+            elif args.split_policy == "fold-video":
                 ds = build_segment_dataset(segments, fold,
                                            balance=args.balance_classes)
+            else:
+                ds = _policy_dataset(args, segments, fold)
             # multi-task '+' domains double the label space (+2 offset for
             # the second domain, prepare_dataset.py:2156-2158)
             multi = skill_mode and "+" in args.domain
             nclasses = len(ds.classes) * (2 if multi else 1)
             mcfg = dataclasses.replace(
                 cfg.model, nclasses=nclasses,
-                importance_head=args.importance_loss, multi_task=multi)
+                importance_head=args.importance_loss, multi_task=multi,
+                self_attention=not args.no_self_attention)
+            if args.rep_dim:
+                mcfg = dataclasses.replace(
+                    mcfg, rep_dim=args.rep_dim, temporal=dataclasses.replace(
+                        mcfg.temporal, rep_dim=args.rep_dim))
             # random init from fixed seeds: model 2k, prototypes 2k + 1
             model = full_model_init(torch.Generator().manual_seed(2 * fold),
                                     mcfg)
             keys, protos = prototypes_init(
                 torch.Generator().manual_seed(2 * fold + 1), nclasses,
                 mcfg.proj_dim)
-            trainer = PrototypeTrainer(
-                mcfg, TrainConfig(lr=args.lr, nepochs=args.nepochs,
-                                  batch_size=args.batch_size,
-                                  importance_loss=args.importance_loss),
-                model, keys, protos, device=args.device)
+            tcfg = TrainConfig(lr=args.lr, nepochs=args.nepochs,
+                               batch_size=args.batch_size,
+                               importance_loss=args.importance_loss)
 
             def loader(rows, phase):
                 # the epoch index seeds the per-epoch reshuffle; val and
@@ -637,18 +693,33 @@ def cmd_train(args):
                         label_fn=lambda r: ds.skill_classes.index(r["EASE"]))
                 return lambda epoch=0: segment_batches(
                     rows, store, ds.classes, cfg.window, args.batch_size,
-                    shuffle=train, seed=epoch, tta=not train)
+                    shuffle=train, seed=epoch, tta=not train,
+                    flow_store=flow_store)
 
             loaders = {ph: loader(ds.frames[ph], ph)
                        for ph in ("train", "val", "test") if ds.frames[ph]}
-            result = trainer.fit(loaders, nepochs=args.nepochs)
             subdir = getattr(args, "params_subdir", None)
             savepath = os.path.join(args.path, "params",
                                     *((subdir,) if subdir else ()),
                                     f"Fold_{fold}")
-            save_training_result(savepath, result)
-            print(f"saved fold {fold} (best epoch {result['best_epoch']}) "
-                  f"to {savepath}")
+            if args.task == "Prototypes":
+                trainer = PrototypeTrainer(mcfg, tcfg, model, keys, protos,
+                                           device=args.device)
+                result = trainer.fit(loaders, nepochs=args.nepochs)
+                save_training_result(savepath, result)
+                print(f"saved fold {fold} (best epoch "
+                      f"{result['best_epoch']}) to {savepath}")
+                continue
+            trainer = ClassificationTrainer(mcfg, tcfg, model,
+                                            task=args.task,
+                                            device=args.device)
+            for epoch in range(args.nepochs):
+                for phase, make in loaders.items():
+                    _, m = trainer.run_epoch(make(epoch), phase == "train")
+                    print(format_metrics(phase, m))
+            save_training_result(savepath, {"model": trainer.snapshot(),
+                                            "prototypes": protos})
+            print(f"saved fold {fold} to {savepath}")
     finally:
         store.close()
         if flow_store is not None:
@@ -869,22 +940,34 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("-bc", "--balance-classes", action="store_true")
         sp.add_argument("-t", "--task", default="Prototypes",
                         choices=["Prototypes", "MIL", "ClassificationHead"],
-                        help="train: Prototypes (the others are not "
-                             "ported yet)")
+                        help="train: the task head; MIL and "
+                             "ClassificationHead train nepochs epochs "
+                             "without early stopping")
         sp.add_argument("--split-policy", default="fold-video",
                         choices=["fold-video", "per-gesture-video", "louo",
                                  "instance"],
-                        help="train: fold-video (the others are not "
-                             "ported yet)")
+                        help="train --dataset segments: the reference "
+                             "split policy (data/reference_datasets.py)")
         sp.add_argument("--dataset", default="segments",
                         choices=["segments", "vua-ease", "vua-ease-stitch",
                                  "vua-gestures", "dvc-ucl"],
-                        help="train: segments, vua-ease or vua-ease-stitch "
-                             "(vua-gestures and dvc-ucl are not ported yet)")
+                        help="vua-ease: EASE stitch-annotation skill branch; "
+                             "vua-ease-stitch: sub-phase (NH/ND/NW) "
+                             "recognition over the same annotations; "
+                             "vua-gestures/dvc-ucl: gesture-timestamp "
+                             "classification branches")
         sp.add_argument("-tf", "--training-fraction", type=float, default=1.0,
                         help="subsample the train split to this fraction "
                              "(run_experiments.py -tf; sample(random_state=0)"
                              ", prepare_dataset.py:549,703)")
+        sp.add_argument("--no-self-attention", action="store_true",
+                        help="disable the temporal transformer: snippets "
+                             "become plain frame means — equivalent to the "
+                             "reference CLI WITHOUT -sa "
+                             "(prepare_model.py:296-301). Our default "
+                             "matches the reference's published commands "
+                             "(-sa on). No -sa short alias on purpose: its "
+                             "polarity here would be inverted.")
         sp.add_argument("-bg", "--balance-groups", action="store_true",
                         help="balance surgeon/patient groups within classes "
                              "(balanceGroups, prepare_dataset.py:190-213)")
@@ -897,6 +980,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "ProstateLarge60ml)")
         sp.add_argument("--group", default="Caseload Group",
                         help="meta column for group balancing")
+        sp.add_argument("-dim", "--rep-dim", type=int, default=None,
+                        help="representation dim override "
+                             "(run_experiments.py -dim; default 384 for "
+                             "ViT reps, 512 for the R3D raw path)")
         sp.add_argument("--domains", nargs="+", default=None,
                         help="train several domains in one invocation "
                              "(run_experiments.py -domains); artifacts "

@@ -79,7 +79,10 @@ class TemporalConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """SAIS temporal model, Prototypes task (prepare_model.py:18-515)."""
+    """SAIS temporal model (prepare_model.py:18-515).  self_attention=False
+    is the reference CLI without -sa (prepare_model.py:296-301): snippets
+    become plain frame means; data_type 'raw' adds the cls_head that the
+    raw-video path trains (prepare_model.py:423-440)."""
 
     rep_dim: int = 384
     proj_dim: int = 256          # linear: rep_dim -> 256 (prepare_model.py:47)
@@ -89,6 +92,8 @@ class ModelConfig:
     modalities: str = "RGB-Flow"  # 'RGB' | 'Flow' | 'RGB-Flow'
     importance_head: bool = False  # importance_function (prepare_model.py:55-56)
     multi_task: bool = False     # '+'-joined domains -> linearB head
+    self_attention: bool = True
+    data_type: str = "reps"      # 'raw' | 'reps'
     temporal: TemporalConfig = dataclasses.field(default_factory=TemporalConfig)
 
 

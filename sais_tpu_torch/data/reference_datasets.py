@@ -1,30 +1,210 @@
 """Named dataset policies from the reference's per-dataset branches: the
-part of `sais_tpu/data/reference_datasets.py` that the EASE skill and
-stitch branches of `train` and `assess` use, without pandas (tables are
-row lists, `data.datasets`; each function returns the rows pandas returns
-there, in the same order):
+part of `sais_tpu/data/reference_datasets.py` that `train` and `assess`
+reach, without pandas (tables are row lists, `data.datasets`; each
+function returns the rows pandas returns there, in the same order):
 
+- class balancing by downsampling to the minority count with
+  random_state=1 (balance_gestures, prepare_dataset.py:1502-1511);
+- the per-gesture video split, 90/10, with the reference's
+  val-subset-of-train quirk (prepare_dataset.py:1047-1076, 1548-1567);
+  the instance split 80/20 (:1577-1590, val == test); leave-one-user-out
+  (:1513-1537);
+- the minimum-duration filter (> 10 frames, :969-977) and the
+  gesture-timestamp tables: VUA_Gestures_Classification (:1283-1395) and
+  DVC_UCL_Gestures_Classification (:1396-1500), over the shared timestamp
+  cleanup;
 - the VUA_EASE_Stitch windows and sub-phase tables (getStartAndEndFrame,
-  prepare_dataset.py:600-612; the training path, :428-568);
+  :600-612; the training path, :428-568);
 - the USC surgeon / patient meta table (loadMetaInfo, :240-257) and the
   `-bg` / `-sg` group balancing and restriction over it (balanceGroups /
   getSingleGroup, :190-236).
 
-pandas' date parsing, pd.cut and pd.qcut are reproduced for the meta
-table; the group labels are `Category` values, so value_counts and merges
-see their category order.  The gesture-timestamp tables and split
-policies wait for their slice.
+The RNG semantics are the reference's: python `random` seeded with the
+fold, and DataFrame.sample(n, random_state=r), which takes the first n of
+np.random.RandomState(r).permutation(len).  pandas' `unique` keeps the
+order of first appearance, `isin` keeps the table's order and `concat`
+the parts' order; pandas' date parsing, pd.cut and pd.qcut are
+reproduced for the meta table, whose group labels are `Category` values,
+so value_counts and merges see their category order.
 """
 
 from __future__ import annotations
 
 import datetime
+import random
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from sais_tpu_torch.data.datasets import (NAN, Category, Row, isna,
-                                          merge_rows)
+from sais_tpu_torch.data.datasets import (NAN, Category, Row, _unique,
+                                          isna, merge_rows)
+from sais_tpu_torch.data.skill import _sample
+
+
+def _isin(rows: Sequence[Row], col: str, values) -> List[Row]:
+    chosen = set(values)
+    return [r for r in rows if r[col] in chosen]
+
+
+def balance_gestures(rows: Sequence[Row], label_col: str = "Gesture",
+                     random_state: int = 1) -> List[Row]:
+    """Downsample every class to the minority count (balance_gestures,
+    prepare_dataset.py:1502-1511; random_state=1 here, 0 in the
+    'maj'-label variant), the classes in order of first appearance."""
+    labels = _unique(r[label_col] for r in rows)
+    counts = [sum(1 for r in rows if r[label_col] == lab) for lab in labels
+              if not isna(lab)]
+    n = min(counts)
+    out: List[Row] = []
+    for lab in labels:
+        out += _sample([r for r in rows if r[label_col] == lab], n,
+                       random_state)
+    return out
+
+
+def per_gesture_video_split(rows: Sequence[Row], fold: int,
+                            balance: bool = True,
+                            label_col: str = "Gesture",
+                            video_col: str = "Video"
+                            ) -> Tuple[List[Row], List[Row], List[Row]]:
+    """kind='Video' split (prepare_dataset.py:1047-1076): per gesture,
+    90% of videos train; val is 10% OF ALL VIDEOS sampled from the train
+    pool (`int(0.1*nvids)`, :1068 — NOT 10% of train); the original leaves
+    val inside train (the subtraction is commented out) — preserved.
+    balance=False still balances val and test."""
+    parts: Tuple[List[Row], List[Row], List[Row]] = ([], [], [])
+    for gesture in sorted(_unique(r[label_col] for r in rows)):
+        cur = [r for r in rows if r[label_col] == gesture]
+        vids = _unique(r[video_col] for r in cur)
+        rng = random.Random(fold)
+        train_vids = rng.sample(vids, int(0.9 * len(vids)))
+        val_vids = rng.sample(train_vids, int(0.1 * len(vids)))
+        test_vids = list(set(vids) - set(train_vids) - set(val_vids))
+        for part, chosen in zip(parts, (train_vids, val_vids, test_vids)):
+            part += _isin(cur, video_col, chosen)
+    return tuple(balance_gestures(d, label_col)
+                 if d and (balance or i > 0) else d
+                 for i, d in enumerate(parts))
+
+
+def instance_split(rows: Sequence[Row], balance: bool = True,
+                   label_col: str = "Gesture"
+                   ) -> Tuple[List[Row], List[Row], List[Row]]:
+    """kind='Instance' 80/20 split (prepare_dataset.py:1577-1590);
+    test == val in the reference."""
+    if balance:
+        rows = balance_gestures(rows, label_col)
+    n = len(rows)
+    indices = random.Random(0).sample(list(range(n)), n)
+    ntrain = int(0.8 * n)
+    val = [rows[i] for i in indices[ntrain:]]
+    return [rows[i] for i in indices[:ntrain]], val, list(val)
+
+
+def leave_one_user_out_split(rows: Sequence[Row], fold: int,
+                             subject_col: str = "Subject"
+                             ) -> Tuple[List[Row], List[Row], List[Row]]:
+    """JIGSAWS kind='User' (prepare_dataset.py:1513-1537): test user is
+    users[fold] (users in order of first appearance); the remaining users,
+    sorted, are fold-seed shuffled, the last one is val, the rest train."""
+    users = _unique(r[subject_col] for r in rows)
+    test_user = users[fold]
+    others = set(users) - {test_user}
+    shuffled = random.Random(fold).sample(sorted(others), len(others))
+    return (_isin(rows, subject_col, shuffled[:-1]),
+            [r for r in rows if r[subject_col] == shuffled[-1]],
+            [r for r in rows if r[subject_col] == test_user])
+
+
+def filter_min_frames(rows: Sequence[Row], min_nframes: int = 10
+                      ) -> List[Row]:
+    """Drop gestures spanning <= min_nframes (prepare_dataset.py:969-977)."""
+    return [r for r in rows if r["EndFrame"] - r["StartFrame"] > min_nframes]
+
+
+# ---------------------------------------------------------------------------
+# VUA_Gestures_Classification (prepare_dataset.py:1283-1395)
+# ---------------------------------------------------------------------------
+
+def clean_gesture_timestamps(rows: Sequence[Row],
+                             int_labels: bool = True) -> List[Row]:
+    """Shared timestamp-CSV cleanup (prepare_dataset.py:1358-1364 and
+    :1476-1482): Video from the path tail, stripped labels, drop NaN and
+    multi-label rows, integer-cast gestures.  The cast is str -> int, as
+    pandas' astype(int) of the stripped strings: a numeric Gesture column
+    with an empty cell is float, its labels read '1.0', and the cast
+    raises ValueError there, as it does in the JAX package."""
+    out = []
+    for r in rows:
+        r = dict(r)
+        if "Video" not in r:
+            p = r["Path"]
+            r["Video"] = p.split("\\")[-1] if "\\" in p else p.split("/")[-1]
+        r["Gesture"] = str(r["Gesture"]).strip()
+        if r["Gesture"] != "nan" and len(r["Gesture"].split(",")) == 1:
+            out.append(r)
+    if int_labels:
+        for r in out:
+            r["Gesture"] = int(r["Gesture"])
+    return out
+
+
+VUA_TOP4_GESTURES = [1, 2, 7, 13]  # prepare_dataset.py:1378
+
+
+def vua_gestures_tables(rows: Sequence[Row], domain: str, fold: int,
+                        balance: bool = True
+                        ) -> Tuple[Dict[str, List[Row]], List]:
+    """VUA_Gestures_Classification (prepare_dataset.py:1283-1395):
+    domain = 'Top4' or 'X_vs_Y'; per-gesture video split with the
+    val-inside-train quirk; phases include the merged 'train+val' table
+    the reference loader exposes (:1392-1394)."""
+    rows = clean_gesture_timestamps(rows)
+    if "vs" in domain:
+        gestures = [int(g) for g in domain.split("_vs_")]
+    else:  # 'Top4'
+        gestures = VUA_TOP4_GESTURES
+    tr, va, te = per_gesture_video_split(_isin(rows, "Gesture", gestures),
+                                         fold, balance=balance)
+    classes = sorted(_unique(r["Gesture"] for r in tr))
+    return {"train": tr, "val": va, "train+val": tr + va, "test": te}, \
+        classes
+
+
+# ---------------------------------------------------------------------------
+# DVC_UCL_Gestures_Classification (prepare_dataset.py:1396-1500)
+# ---------------------------------------------------------------------------
+
+DVC_UCL_GESTURES = [0, 1, 2, 3, 4, 6, 7]  # :1488 ('removed 5 b/c not enough')
+
+
+def dvc_ucl_tables(rows: Sequence[Row], fold: int, balance: bool = True
+                   ) -> Tuple[Dict[str, List[Row]], List]:
+    """DVC_UCL branch: unlike the NS/VUA splits, the 'Feb 26 2022'
+    train-minus-val subtraction IS active here (:1432), and the loader
+    trains on train+val merged with the test split as both val and test
+    (:1497)."""
+    rows = _isin(clean_gesture_timestamps(rows), "Gesture", DVC_UCL_GESTURES)
+    tr: List[Row] = []
+    va: List[Row] = []
+    te: List[Row] = []
+    for gesture in sorted(_unique(r["Gesture"] for r in rows)):
+        cur = [r for r in rows if r["Gesture"] == gesture]
+        vids = _unique(r["Video"] for r in cur)
+        rng = random.Random(fold)
+        train_vids = rng.sample(vids, int(0.9 * len(vids)))
+        val_vids = rng.sample(train_vids, int(0.1 * len(vids)))
+        train_vids = list(set(train_vids) - set(val_vids))
+        test_vids = list(set(vids) - set(train_vids) - set(val_vids))
+        tr += _isin(cur, "Video", train_vids)
+        va += _isin(cur, "Video", val_vids)
+        te += _isin(cur, "Video", test_vids)
+    if balance and tr:
+        tr = balance_gestures(tr)
+    va = balance_gestures(va) if va else va
+    te = balance_gestures(te) if te else te
+    classes = sorted(_unique(r["Gesture"] for r in tr))
+    return {"train": tr + va, "val": te, "test": te}, classes
 
 
 def vua_ease_window(race: str, row: Row) -> Tuple[Any, Any]:
@@ -194,7 +374,6 @@ def balance_groups(rows: Sequence[Row], meta_rows: Sequence[Row],
     """balanceGroups (prepare_dataset.py:190-213): merge surgeon/patient
     meta by (CaseID, TaskID), then within every skill class downsample each
     group value to the per-class minority count (random_state=0)."""
-    from sais_tpu_torch.data.skill import _sample
     df = _with_meta(rows, meta_rows)
     categories = next((m[group].categories for m in meta_rows
                        if isinstance(m.get(group), Category)), ())

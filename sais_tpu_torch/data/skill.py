@@ -487,12 +487,13 @@ EASE_INFERENCE_PHASES = (
     "HMH_inference", "Lab_inference", "AFB_inference", "USC_inference")
 
 
-def _sample(rows: Sequence[Row], n: int) -> List[Row]:
-    """DataFrame.sample(n, replace=False, random_state=0)."""
+def _sample(rows: Sequence[Row], n: int, random_state: int = 0
+            ) -> List[Row]:
+    """DataFrame.sample(n, replace=False, random_state)."""
     if n > len(rows):
         raise ValueError("Cannot take a larger sample than population when "
                          "'replace=False'")
-    return [rows[i] for i in np.random.RandomState(0).permutation(
+    return [rows[i] for i in np.random.RandomState(random_state).permutation(
         len(rows))[:n]]
 
 

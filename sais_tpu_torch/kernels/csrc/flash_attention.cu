@@ -59,6 +59,15 @@
 //   -inf, so their p is exactly 0 (the TPU's -1e30 pad keys give 0 on every
 //   row that has a valid key).  Rows past Lq are zero and never stored.
 // - No length ceiling: K and V stream from device memory tile by tile.
+// - Any head width up to 192 (a rep_dim of up to 768 over 4 heads): the
+//   kernel is compiled for DH = 32, 64, 96, 128 and 192 and takes a
+//   runtime width dh <= DH, a multiple of 4.  Columns dh .. DH - 1 are
+//   zero-filled in every tile and never stored, and the scale is the
+//   caller's dh^-0.5: the zero padding of the JAX package's kernel, which
+//   pads every width to 128 lanes, and the same values.  The Python
+//   wrapper packs a width that is not a multiple of 4 into an aligned
+//   buffer first.  At DH 192 the block holds 200,960 bytes (one block an
+//   SM) and P V covers a quarter of the columns at a time.
 //
 // Operands take strides (in elements) for batch, head and row; the last
 // axis must be contiguous and every row 16-byte aligned.  So the temporal
@@ -117,13 +126,14 @@ __global__ void __launch_bounds__(THREADS, 2)
                      const float* __restrict__ v,
                      const float* __restrict__ bias, float* __restrict__ o,
                      float* __restrict__ lse, int heads, int lq, int lk,
-                     Strides sq, Strides sk, Strides sv, Strides so,
+                     int dh, Strides sq, Strides sk, Strides sv, Strides so,
                      float scale, int zero_masked_rows) {
   using LY = Layout<DH>;
   constexpr int LD = LY::LD;
   constexpr int KS = DH / 8;     // k-steps of q' K^T; n-tiles of P V
   constexpr int CH = DH / 4;     // 16-byte chunks per row
-  constexpr int CG = DH > 96 ? KS / 2 : KS;   // output n-tiles a P V pass
+  // output n-tiles a P V pass
+  constexpr int CG = DH > 128 ? KS / 4 : DH > 96 ? KS / 2 : KS;
   extern __shared__ __align__(16) float smem[];
   float* Bs = smem + LY::BIAS;
 
@@ -146,10 +156,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* Vs = Ks + LY::TILE;
     for (int i = tid; i < BKEY * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
-      const bool ok = k0 + r < lk;
+      const bool ok = k0 + r < lk && c < dh;   // else zero-filled
       const long long row = ok ? k0 + r : 0;
-      cp_async16(Ks + r * LD + c, kb + row * sk.l + c, ok);
-      cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
+      const int col = ok ? c : 0;
+      cp_async16(Ks + r * LD + c, kb + row * sk.l + col, ok);
+      cp_async16(Vs + r * LD + c, vb + row * sv.l + col, ok);
     }
     cp_async_commit();
     if (tid < BKEY) {
@@ -161,11 +172,12 @@ __global__ void __launch_bounds__(THREADS, 2)
   };
   load_tile(0, 0);
 
-  // the q' tile, split (rows past lq are zero and never stored)
+  // the q' tile, split (rows past lq and columns past dh are zero and
+  // never stored)
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < lq)
+    if (q0 + r < lq && c < dh)
       x = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
     x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
     const float4 big = make_float4(rna_tf32(x.x), rna_tf32(x.y),
@@ -266,6 +278,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const float l_safe = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < KS; ++j) {
+      if (8 * j + 2 * t >= dh) continue;   // dh is even: both or neither
       float2 y = make_float2(acc[j][2 * i] / l_safe, acc[j][2 * i + 1] / l_safe);
       if (zero) y = make_float2(0.f, 0.f);
       *reinterpret_cast<float2*>(ob + r * so.l + 8 * j + 2 * t) = y;
@@ -277,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* bias, float* o, float* lse, int batch,
-                   int heads, int lq, int lk, Strides sq, Strides sk,
+                   int heads, int lq, int lk, int dh, Strides sq, Strides sk,
                    Strides sv, Strides so, float scale, int zero_masked_rows,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<DH>::bytes;
@@ -289,7 +302,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       (long long)batch * heads * ((lq + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_fwd_kernel<DH><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      q, k, v, bias, o, lse, heads, lq, lk, sq, sk, sv, so, scale,
+      q, k, v, bias, o, lse, heads, lq, lk, dh, sq, sk, sv, so, scale,
       zero_masked_rows);
   return cudaGetLastError();
 }
@@ -300,8 +313,9 @@ extern "C" {
 
 // q, k, v, o: (B, H, L, Dh) f32 with the given element strides for batch,
 // head and row (the last axis contiguous); bias: (B, Lk) f32 or null (no
-// key masked); lse: (B, H, Lq) f32.  zero_masked_rows != 0: a batch element
-// whose every bias is <= -1e30 gets zero output rows.
+// key masked); lse: (B, H, Lq) f32; dh a multiple of 4 up to 192, scale
+// dh^-0.5 or the caller's (an unpadded width's).  zero_masked_rows != 0: a
+// batch element whose every bias is <= -1e30 gets zero output rows.
 // Returns 0, a cudaError_t value after a failed launch, or
 // cudaErrorInvalidValue for shapes the kernel does not take (the Python
 // wrapper checks those first).
@@ -313,7 +327,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         long long v_sh, long long v_sl, long long o_sb,
                         long long o_sh, long long o_sl, float scale,
                         int zero_masked_rows, void* stream_ptr) {
-  if (batch < 1 || heads < 1 || lq < 1 || lk < 1)
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || dh < 4 || dh % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl},
@@ -321,17 +335,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* of = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
-  switch (dh) {
+  // the smallest instance that holds the width
 #define SAIS_FLASH_CASE(d)                                                  \
-  case d:                                                                   \
+  if (dh <= d)                                                              \
     return (int)launch<d>(f(q), f(k), f(v), f(bias), of, lf, batch, heads, \
-                          lq, lk, sq, sk, sv, so, scale, zero_masked_rows,  \
-                          stream);
-    SAIS_FLASH_CASE(64) SAIS_FLASH_CASE(96) SAIS_FLASH_CASE(128)
+                          lq, lk, dh, sq, sk, sv, so, scale,                \
+                          zero_masked_rows, stream);
+  SAIS_FLASH_CASE(32) SAIS_FLASH_CASE(64) SAIS_FLASH_CASE(96)
+  SAIS_FLASH_CASE(128) SAIS_FLASH_CASE(192)
 #undef SAIS_FLASH_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* sais_cuda_error_string(int code) {

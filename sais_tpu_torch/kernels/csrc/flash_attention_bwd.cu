@@ -90,6 +90,18 @@
 //   the -1e30 bias, so p is what the TPU computes, also for the rows of an
 //   all-masked element (there the caller zeroes dO, and ds = 0 exactly).
 //
+// - Any head width up to 192, as K2 (flash_attention.cu): instances at DH
+//   = 32, 64, 96, 128 and 192 take a runtime width dh <= DH, a multiple of
+//   4; columns dh .. DH - 1 are zero-filled in every tile and never
+//   stored, and the scale is the caller's.  At DH 192 six tiles of 64 x
+//   196 floats (301 KB) do not fit an SM's 227 KB, so both kernels keep
+//   one stage of their streaming tiles there (four tiles, 200,960 and
+//   201,216 bytes): the next tile is requested after the current one's
+//   products, not during them.  dq's temporary then covers a quarter of
+//   the columns at a time; the dk and dv launches each take half of the
+//   columns a block (blockIdx.y), recomputing p^T for it: a running sum of
+//   all 192 columns spilled.
+//
 // Operands take element strides for batch, head and row; the last axis
 // must be contiguous and every row 16-byte aligned.  So q, k, v, dO and the
 // outputs dq, dk, dv may be (B, H, L, Dh) views of the temporal encoder's
@@ -114,28 +126,55 @@ constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int HALF = 32;        // the columns a warp takes of a tile
 constexpr int NH = HALF / 8;    // its n-tiles
 
+// stages of the streaming tiles: two (double-buffered) where they fit
+template <int DH>
+constexpr int kStages = DH > 128 ? 1 : 2;
+
 template <int DH>
 struct DqLayout {
+  static constexpr int S = kStages<DH>;
   static constexpr int LD = DH + 4;     // = 4 (mod 32) banks
   static constexpr int TILE = 64 * LD;
   static constexpr int Q = 0;
   static constexpr int DO = TILE;
   static constexpr int KV = 2 * TILE;   // stage s: K at KV + 2 s TILE, V next
-  static constexpr int BIAS = 6 * TILE;   // 2 stages x BK
-  static constexpr size_t bytes = (size_t)(BIAS + 2 * BK) * sizeof(float);
+  static constexpr int BIAS = (2 + 2 * S) * TILE;   // S stages x BK
+  static constexpr size_t bytes = (size_t)(BIAS + S * BK) * sizeof(float);
 };
 
 template <int DH>
 struct DkvLayout {
+  static constexpr int S = kStages<DH>;
   static constexpr int LD = DH + 4;
   static constexpr int TILE = 64 * LD;
   static constexpr int K = 0;
   static constexpr int V = TILE;
   static constexpr int QDO = 2 * TILE;   // stage s: Q at QDO + 2 s TILE, dO next
-  static constexpr int LSE = 6 * TILE;   // 2 stages x BQ
-  static constexpr int DELTA = LSE + 2 * BQ;
-  static constexpr size_t bytes = (size_t)(DELTA + 2 * BQ) * sizeof(float);
+  static constexpr int LSE = (2 + 2 * S) * TILE;   // S stages x BQ
+  static constexpr int DELTA = LSE + S * BQ;
+  static constexpr size_t bytes = (size_t)(DELTA + S * BQ) * sizeof(float);
 };
+
+// Before tile `it`'s products: with two stages, request tile it + 1 into
+// the other stage and wait for tile it; with one, request tile it (tile 0
+// was requested before the loop) and wait for it.  Returns tile it's stage.
+template <int S, typename Load>
+__device__ __forceinline__ int next_tile(int it, int n, Load load) {
+  if constexpr (S == 2) {
+    const int cur = it & 1;
+    if (it + 1 < n) {
+      load(cur ^ 1, it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    return cur;
+  } else {
+    if (it > 0) load(0, it);
+    cp_async_wait<0>();
+    return 0;
+  }
+}
 
 struct Strides {
   long long b, h, l;
@@ -190,13 +229,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int heads, int lq, int lk,
-                        Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdq, float scale) {
+                        int dh, Strides sq, Strides sk, Strides sv,
+                        Strides sdo, Strides sdq, float scale) {
   using LY = DqLayout<DH>;
   constexpr int LD = LY::LD;
   constexpr int KS = DH / 8;   // k-steps of the score products; dq n-tiles
   constexpr int CH = DH / 4;   // 16-byte chunks per row
-  constexpr int CG = DH > 96 ? KS / 2 : KS;   // dq n-tiles a ds K pass
+  // dq n-tiles a ds K pass
+  constexpr int CG = DH > 128 ? KS / 4 : DH > 96 ? KS / 2 : KS;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + LY::Q;
   float* DOs = smem + LY::DO;
@@ -217,15 +257,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* biasb = bias ? bias + (size_t)b * lk : nullptr;
 
-  auto load_tile = [&](int stage, int k0) {
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * BK;
     float* Ks = smem + LY::KV + 2 * stage * LY::TILE;
     float* Vs = Ks + LY::TILE;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
-      const bool ok = k0 + r < lk;
+      const bool ok = k0 + r < lk && c < dh;   // else zero-filled
       const long long row = ok ? k0 + r : 0;
-      cp_async16(Ks + r * LD + c, kb + row * sk.l + c, ok);
-      cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
+      const int col = ok ? c : 0;
+      cp_async16(Ks + r * LD + c, kb + row * sk.l + col, ok);
+      cp_async16(Vs + r * LD + c, vb + row * sv.l + col, ok);
     }
     cp_async_commit();
     if (tid < BK)   // keys past lk: bias -inf, p = 0 exactly
@@ -234,11 +276,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
   load_tile(0, 0);
 
-  // q' and dO tiles, resident (rows past lq are zero and never stored)
+  // q' and dO tiles, resident (rows past lq and columns past dh are zero
+  // and never stored)
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 4;
     float4 xq = make_float4(0.f, 0.f, 0.f, 0.f), xd = xq;
-    if (q0 + r < lq) {
+    if (q0 + r < lq && c < dh) {
       xq = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.l + c);
       xd = *reinterpret_cast<const float4*>(dob + (q0 + r) * sdo.l + c);
     }
@@ -263,13 +306,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* da = DOs + (rw + g) * LD + t;
   const int nkt = (lk + BK - 1) / BK;
   for (int it = 0; it < nkt; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < nkt) {
-      load_tile(cur ^ 1, (it + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int cur = next_tile<LY::S>(it, nkt, load_tile);
     __syncthreads();   // tile it (and, the first time, q' and dO) complete
     const float* Ks = smem + LY::KV + 2 * cur * LY::TILE;
     const float* Vs = Ks + LY::TILE;
@@ -308,7 +345,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // part summed apart (accumulate_product)
     accumulate_product<NH, KS, CG, LD>(acc, s, Ks + (c0 + 2 * t) * LD + g,
                                        Add());
-    __syncthreads();   // stage cur free for tile it + 2
+    __syncthreads();   // stage cur free for the tile after next
   }
 
   if (!reduce_halves<KS>(acc, smem + LY::KV, warp, lane)) return;
@@ -319,8 +356,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (r >= lq) continue;
 #pragma unroll
     for (int j = 0; j < KS; ++j)
-      *reinterpret_cast<float2*>(dqb + r * sdq.l + 8 * j + 2 * t) =
-          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+      if (8 * j + 2 * t < dh)   // dh is even: both columns or neither
+        *reinterpret_cast<float2*>(dqb + r * sdq.l + 8 * j + 2 * t) =
+            make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
@@ -330,6 +368,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 // and dv's running sums together (128 floats a thread) leave too few
 // registers for the rest and ptxas spills.
 constexpr int kDk = 1, kDv = 2;
+
+// The column parts of a dk / dv launch's output: at DH 192 one running sum
+// of 96 floats a thread still spilled, so blockIdx.y picks one half of the
+// columns (each block recomputes p^T, and dp^T for dk, for its half).
+template <int DH>
+constexpr int kParts = DH > 128 ? 2 : 1;
 
 template <int DH, int OUT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -341,13 +385,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int heads, int lq, int lk, Strides sq, Strides sk,
-                         Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                         float scale) {
+                         int heads, int lq, int lk, int dh, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdk,
+                         Strides sdv, float scale) {
   using LY = DkvLayout<DH>;
   constexpr int LD = LY::LD;
   constexpr int KS = DH / 8;
   constexpr int CH = DH / 4;
+  constexpr int NT = KS / kParts<DH>;   // the block's output n-tiles
   constexpr int CG = 4;   // dk / dv n-tiles a pass
   constexpr bool DK = OUT & kDk, DV = OUT & kDv;
   extern __shared__ __align__(16) float smem[];
@@ -362,6 +407,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const int rw = 16 * (warp & 3);      // the warp's key rows in the tile
   const int c0 = HALF * (warp >> 2);   // its queries in each query tile
+  const int col0 = 8 * NT * blockIdx.y;   // the block's first output column
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -371,22 +417,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   // K and V tiles, resident for the whole query loop
   for (int i = tid; i < BK * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = k0 + r < lk;
+    const bool ok = k0 + r < lk && c < dh;   // else zero-filled
     const long long row = ok ? k0 + r : 0;
-    cp_async16(Ks + r * LD + c, kb + row * sk.l + c, ok);
-    cp_async16(Vs + r * LD + c, vb + row * sv.l + c, ok);
+    const int col = ok ? c : 0;
+    cp_async16(Ks + r * LD + c, kb + row * sk.l + col, ok);
+    cp_async16(Vs + r * LD + c, vb + row * sv.l + col, ok);
   }
   cp_async_commit();
 
-  auto load_tile = [&](int stage, int q0) {
+  auto load_tile = [&](int stage, int qt) {
+    const int q0 = qt * BQ;
     float* Qs = smem + LY::QDO + 2 * stage * LY::TILE;
     float* DOs = Qs + LY::TILE;
     for (int i = tid; i < BQ * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
-      const bool ok = q0 + r < lq;
+      const bool ok = q0 + r < lq && c < dh;   // else zero-filled
       const long long row = ok ? q0 + r : 0;
-      cp_async16(Qs + r * LD + c, qb + row * sq.l + c, ok);
-      cp_async16(DOs + r * LD + c, dob + row * sdo.l + c, ok);
+      const int col = ok ? c : 0;
+      cp_async16(Qs + r * LD + c, qb + row * sq.l + col, ok);
+      cp_async16(DOs + r * LD + c, dob + row * sdo.l + col, ok);
     }
     cp_async_commit();
     if (tid < BQ) {   // queries past lq: lse +inf, p = 0 exactly
@@ -406,9 +455,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     bias_r[i] = key < lk ? (bias ? bias[(size_t)b * lk + key] : 0.f)
                          : -INFINITY;   // no key at all: p = 0
   }
-  float dk_acc[DK ? KS : 1][4], dv_acc[DV ? KS : 1][4];
+  float dk_acc[DK ? NT : 1][4], dv_acc[DV ? NT : 1][4];
 #pragma unroll
-  for (int j = 0; j < KS; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if constexpr (DK) dk_acc[j][e] = 0.f;
@@ -419,13 +468,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* va = Vs + (rw + g) * LD + t;
   const int nqt = (lq + BQ - 1) / BQ;
   for (int it = 0; it < nqt; ++it) {
-    const int cur = it & 1;
-    if (it + 1 < nqt) {
-      load_tile(cur ^ 1, (it + 1) * BQ);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int cur = next_tile<LY::S>(it, nqt, load_tile);
     float* Qs = smem + LY::QDO + 2 * cur * LY::TILE;
     const float* DOs = Qs + LY::TILE;
     // q' = f32(q * scale) in place: the chunks this thread copied
@@ -479,19 +522,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     // dv += p^T dO, then dk += ds^T q': dO and q' read by column, each
     // tile's part summed apart in groups of CG n-tiles (accumulate_product)
-    const int row = (c0 + 2 * t) * LD + g;
+    const int row = (c0 + 2 * t) * LD + g + col0;
     if constexpr (DV)
-      accumulate_product<NH, KS, CG, LD>(dv_acc, st, DOs + row, Add());
+      accumulate_product<NH, NT, CG, LD>(dv_acc, st, DOs + row, Add());
     if constexpr (DK)
-      accumulate_product<NH, KS, CG, LD>(dk_acc, dpt, Qs + row, Add());
-    __syncthreads();   // stage cur free for tile it + 2
+      accumulate_product<NH, NT, CG, LD>(dk_acc, dpt, Qs + row, Add());
+    __syncthreads();   // stage cur free for the tile after next
   }
 
   bool first = true;
   if constexpr (DK)
-    first = reduce_halves<KS>(dk_acc, smem + LY::QDO, warp, lane);
+    first = reduce_halves<NT>(dk_acc, smem + LY::QDO, warp, lane);
   if constexpr (DV)
-    first = reduce_halves<KS>(dv_acc, smem + LY::QDO + LY::TILE, warp, lane);
+    first = reduce_halves<NT>(dv_acc, smem + LY::QDO + LY::TILE, warp, lane);
   if (!first) return;
   float* dkb = dk + b * sdk.b + h * sdk.h;
   float* dvb = dv + b * sdv.b + h * sdv.h;
@@ -500,8 +543,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int key = k0 + rw + g + 8 * i;
     if (key >= lk) continue;
 #pragma unroll
-    for (int j = 0; j < KS; ++j) {
-      const int c = 8 * j + 2 * t;
+    for (int j = 0; j < NT; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      if (c >= dh) continue;   // dh is even: both columns or neither
       if constexpr (DK)
         *reinterpret_cast<float2*>(dkb + key * sdk.l + c) =
             make_float2(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
@@ -517,7 +561,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* bias, const float* dout,
                        const float* lse, const float* delta, float* dk,
                        float* dv, unsigned blocks, int heads, int lq, int lk,
-                       Strides sq, Strides sk, Strides sv, Strides sdo,
+                       int dh, Strides sq, Strides sk, Strides sv, Strides sdo,
                        Strides sdk, Strides sdv, float scale,
                        cudaStream_t stream) {
   constexpr size_t smem = DkvLayout<DH>::bytes;
@@ -525,8 +569,9 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
       flash_bwd_dkv_kernel<DH, OUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<DH, OUT><<<blocks, THREADS, smem, stream>>>(
-      q, k, v, bias, dout, lse, delta, dk, dv, heads, lq, lk, sq, sk, sv,
+  flash_bwd_dkv_kernel<DH, OUT>
+      <<<dim3(blocks, kParts<DH>), THREADS, smem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dk, dv, heads, lq, lk, dh, sq, sk, sv,
       sdo, sdk, sdv, scale);
   return cudaGetLastError();
 }
@@ -535,7 +580,7 @@ template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* bias, const float* dout, const float* lse,
                    const float* delta, float* dq, float* dk, float* dv,
-                   int batch, int heads, int lq, int lk, Strides sq,
+                   int batch, int heads, int lq, int lk, int dh, Strides sq,
                    Strides sk, Strides sv, Strides sdo, Strides sdq,
                    Strides sdk, Strides sdv, float scale,
                    cudaStream_t stream) {
@@ -550,23 +595,23 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   if (dq_blocks > 0x7fffffffLL || dkv_blocks > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   flash_bwd_dq_kernel<DH><<<(unsigned)dq_blocks, THREADS, dq_smem, stream>>>(
-      q, k, v, bias, dout, lse, delta, dq, heads, lq, lk, sq, sk, sv, sdo,
+      q, k, v, bias, dout, lse, delta, dq, heads, lq, lk, dh, sq, sk, sv, sdo,
       sdq, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const unsigned nb = (unsigned)dkv_blocks;
   if constexpr (DH > 96) {   // dv, then dk, each recomputing p
     e = launch_dkv<DH, kDv>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
-                            heads, lq, lk, sq, sk, sv, sdo, sdk, sdv, scale,
-                            stream);
+                            heads, lq, lk, dh, sq, sk, sv, sdo, sdk, sdv,
+                            scale, stream);
     if (e != cudaSuccess) return e;
     return launch_dkv<DH, kDk>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
-                               heads, lq, lk, sq, sk, sv, sdo, sdk, sdv,
+                               heads, lq, lk, dh, sq, sk, sv, sdo, sdk, sdv,
                                scale, stream);
   } else {
     return launch_dkv<DH, kDk | kDv>(q, k, v, bias, dout, lse, delta, dk, dv,
-                                     nb, heads, lq, lk, sq, sk, sv, sdo, sdk,
-                                     sdv, scale, stream);
+                                     nb, heads, lq, lk, dh, sq, sk, sv, sdo,
+                                     sdk, sdv, scale, stream);
   }
 }
 
@@ -576,8 +621,9 @@ extern "C" {
 
 // q, dout, dq: (B, H, Lq, Dh); k, v, dk, dv: (B, H, Lk, Dh); all f32 with
 // the given element strides for batch, head and row (the last axis
-// contiguous).  bias: (B, Lk) f32 or null (no key masked); lse, delta:
-// (B, H, Lq) f32 contiguous.  Returns 0, a cudaError_t value after a failed
+// contiguous); dh a multiple of 4 up to 192, scale dh^-0.5 or the
+// caller's (an unpadded width's).  bias: (B, Lk) f32 or null (no key
+// masked); lse, delta: (B, H, Lq) f32 contiguous.  Returns 0, a cudaError_t value after a failed
 // launch, or cudaErrorInvalidValue for shapes the kernels do not take (the
 // Python wrapper checks those first).
 int flash_attention_bwd(
@@ -590,7 +636,7 @@ int flash_attention_bwd(
     long long dq_sh, long long dq_sl, long long dk_sb, long long dk_sh,
     long long dk_sl, long long dv_sb, long long dv_sh, long long dv_sl,
     float scale, void* stream_ptr) {
-  if (batch < 1 || heads < 1 || lq < 1 || lk < 1)
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || dh < 4 || dh % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl},
@@ -599,17 +645,17 @@ int flash_attention_bwd(
       sdv{dv_sb, dv_sh, dv_sl};
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
-  switch (dh) {
+  // the smallest instance that holds the width
 #define SAIS_FLASH_BWD_CASE(d)                                              \
-  case d:                                                                   \
+  if (dh <= d)                                                              \
     return (int)launch<d>(f(q), f(k), f(v), f(bias), f(dout), f(lse),       \
                           f(delta), w(dq), w(dk), w(dv), batch, heads, lq,  \
-                          lk, sq, sk, sv, sdo, sdq, sdk, sdv, scale, stream);
-    SAIS_FLASH_BWD_CASE(64) SAIS_FLASH_BWD_CASE(96) SAIS_FLASH_BWD_CASE(128)
+                          lk, dh, sq, sk, sv, sdo, sdq, sdk, sdv, scale,    \
+                          stream);
+  SAIS_FLASH_BWD_CASE(32) SAIS_FLASH_BWD_CASE(64) SAIS_FLASH_BWD_CASE(96)
+  SAIS_FLASH_BWD_CASE(128) SAIS_FLASH_BWD_CASE(192)
 #undef SAIS_FLASH_BWD_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* sais_cuda_error_string(int code) {

@@ -28,10 +28,17 @@ Semantics kept from the JAX kernels:
 
 The JAX package pads L to its block sizes and Dh to 128 lanes, and splits
 long K/V into VMEM-sized chunks; those are TPU tiling choices that change
-no value.  The CUDA kernels run exact shapes (ragged tiles are masked
+no value.  The CUDA kernels run exact lengths (ragged tiles are masked
 inside them) and stream from device memory, so they have no length
-ceiling.  They take strides: q, k and v may be (B, H, L, Dh) views of the
-temporal encoder's (B, L, 3 D) projection, the forward's output is written
+ceiling.  They take any head width up to `MAX_HEAD_DIM` = 192 (a rep_dim
+of up to 768 over 4 heads): compiled for 32, 64, 96, 128 and 192, each
+instance zero-fills the columns past the runtime width, JAX's zero
+padding.  A width that is not a multiple of 4, or operands whose rows
+are not 16-byte aligned, are first copied by the wrapper into zero-padded
+aligned buffers (the results are copied back); the temporal encoder's
+widths with rep_dim a multiple of 16 never need it.  They take strides:
+q, k and v may be (B, H, L, Dh) views of the temporal encoder's (B, L,
+3 D) projection, the forward's output is written
 into a (B, L, H, Dh) buffer and returned as its (B, H, L, Dh) view, and
 `PackedFlashAttention`'s backward writes dq, dk and dv into one (B, L, 3 D)
 buffer, the gradient of the projection, so the encoder transposes nothing
@@ -47,7 +54,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 _NEG_INF = -1e30
-HEAD_DIMS = (64, 96, 128)   # the head widths the CUDA kernels are built for
+MAX_HEAD_DIM = 192   # the widest instance of the CUDA kernels
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -123,20 +130,30 @@ def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"all flash-attention operands must be on q's "
                          f"device; {name} is on {t.device}")
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) \
-            or t.data_ptr() % 16:
-        raise ValueError(f"{name}: the flash kernels take a contiguous last "
-                         "axis and 16-byte aligned rows (strides in "
-                         "multiples of 4 elements)")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """The kernels' row rule: a contiguous last axis of a multiple of 4
+    elements, strides in multiples of 4 and a 16-byte aligned start."""
+    return (t.shape[-1] % 4 == 0 and t.stride(-1) == 1
+            and not any(s % 4 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """t copied into a contiguous buffer whose last axis is zero-padded to
+    a multiple of 4 (the kernels' 16-byte rows)."""
+    pad = -t.shape[-1] % 4
+    return torch.nn.functional.pad(t, (0, pad)).contiguous()
 
 
 def _check_cuda_args(q, k, v, bias):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, q.device)
     b, h, lq, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head dim {HEAD_DIMS}; "
-                         f"got {dh}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take head widths up to "
+                         f"{MAX_HEAD_DIM}; got {dh}")
     if k.shape[:2] != (b, h) or k.shape[3] != dh or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -197,8 +214,19 @@ def _require_cuda(t: torch.Tensor) -> None:
 
 
 def _launch(q, k, v, bias, zero_masked_rows: bool):
-    """One launch of K2; counted in `flash_attention.launches`."""
+    """One launch of K2; counted in `flash_attention.launches`.  Operands
+    the row rule does not take are packed first (`_padded`)."""
     _check_cuda_args(q, k, v, bias)
+    b, h, lq, dh = q.shape
+    scale = dh ** -0.5
+    if not all(_aligned(t) for t in (q, k, v)):
+        q, k, v = (_padded(t) for t in (q, k, v))
+        out, lse = _launch_aligned(q, k, v, bias, zero_masked_rows, scale)
+        return out[..., :dh], lse
+    return _launch_aligned(q, k, v, bias, zero_masked_rows, scale)
+
+
+def _launch_aligned(q, k, v, bias, zero_masked_rows: bool, scale: float):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     lib = _lib()
@@ -212,7 +240,7 @@ def _launch(q, k, v, bias, zero_masked_rows: bool):
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, lq, lk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], dh ** -0.5, int(zero_masked_rows), stream)
+            *out.stride()[:3], scale, int(zero_masked_rows), stream)
     _raise_on(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -252,7 +280,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given.  `grads`, optional: three f32 (B, H, L, Dh) tensors with the
     kernels' layout to write dq, dk and dv into (views of one buffer, for
     example).  CUDA tensor: K3, both of its kernels, counted once in
-    `flash_attention_bwd.launches`; CPU tensor:
+    `flash_attention_bwd.launches` (operands the row rule does not take
+    are packed first, the gradients copied back); CPU tensor:
     `flash_attention_bwd_reference`."""
     if q.device.type == "cpu":
         got = flash_attention_bwd_reference(q, k, v, bias, out, lse, do)
@@ -268,7 +297,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"must match q {tuple(q.shape)}")
     _check_layout("do", do, q.device)
     b, h, lq, dh = q.shape
-    lk = k.shape[2]
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, lq)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be contiguous f32 (B, H, Lq) = "
@@ -281,6 +309,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(like.shape)}")
         _check_layout(name, g, q.device)
     delta = _delta(out, do)
+    scale = dh ** -0.5
+    if not all(_aligned(t) for t in (q, k, v, do, dq, dk, dv)):
+        qp, kp, vp, dop = (_padded(t) for t in (q, k, v, do))
+        packed = _bwd_aligned(qp, kp, vp, bias, dop, lse, delta,
+                              _empty_grads(qp, kp), scale)
+        for dst, src in zip((dq, dk, dv), packed):
+            dst.copy_(src[..., :dh])
+        return dq, dk, dv
+    return _bwd_aligned(q, k, v, bias, do, lse, delta, (dq, dk, dv), scale)
+
+
+def _bwd_aligned(q, k, v, bias, do, lse, delta, grads, scale: float
+                 ) -> Grads:
+    """One launch of K3 on operands that keep the row rule."""
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    dq, dk, dv = grads
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -291,7 +336,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.data_ptr(), b, h, lq, lk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
-            *dv.stride()[:3], dh ** -0.5, stream)
+            *dv.stride()[:3], scale, stream)
     _raise_on(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -2,8 +2,10 @@
 
 - `vit_params_from_jax` / `full_model_params_from_jax`: JAX parameter
   pytrees (leaves as numpy arrays) -> state_dicts of
-  `models.vit.VisionTransformer` / `models.full_model.FullModel`.  JAX
-  stores linear weights (in, out); torch stores (out, in).
+  `models.vit.VisionTransformer` / `models.full_model.FullModel` (every
+  member: frame and clip encoders and tables, the projections, the MIL
+  modules and the optional heads).  JAX stores linear weights (in, out);
+  torch stores (out, in).
   `full_model_params_to_jax` is the inverse of the latter (the
   `params.pkl` the port's `train` writes).
 - `load_dino_weights`: DINO `.pth` (dino_deitsmall16_pretrain.pth or a
@@ -106,14 +108,10 @@ def dino_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
-    """`sais_tpu.models.full_model` params -> FullModel state_dict (the
-    parts the Prototypes path reads, and the importance and linearB heads
-    where the tree has them)."""
-    sd: StateDict = {"frame_cls": _t(tree["frame_cls"]),
-                     "frame_pos": _t(tree["frame_pos"])}
-    for i, layer in enumerate(tree["frame_encoder"]["layers"]):
-        p = f"frame_encoder.layers.{i}."
+def _encoder_from_jax(layers, prefix: str) -> StateDict:
+    sd: StateDict = {}
+    for i, layer in enumerate(layers):
+        p = f"{prefix}.layers.{i}."
         mha = layer["mha"]
         sd.update({
             p + "self_attn.in_proj_weight": _t(np.asarray(mha["in_w"]).T),
@@ -129,9 +127,37 @@ def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
             p + "norm2.weight": _t(layer["ln2_s"]),
             p + "norm2.bias": _t(layer["ln2_b"]),
         })
-    for name in ("linear", "linear2", "importance", "linearB"):
+    return sd
+
+
+# the linear members of a FullModel that a tree may hold, with the per-class
+# MIL modules under <group>.<class>
+_LINEARS = ("linear", "linear2", "importance", "linearB", "attentionA",
+            "attentionB", "cls_head")
+_CLASS_GROUPS = ("attention_modules", "final_modules")
+
+
+def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
+    """`sais_tpu.models.full_model` params -> FullModel state_dict: every
+    member the tree has (a fold the port wrote before it carried the clip
+    and MIL members has only the Prototypes path's; `load_fold` takes
+    that)."""
+    sd: StateDict = {"frame_cls": _t(tree["frame_cls"]),
+                     "frame_pos": _t(tree["frame_pos"])}
+    sd.update(_encoder_from_jax(tree["frame_encoder"]["layers"],
+                                "frame_encoder"))
+    for name in ("clip_cls", "clip_pos"):
+        if name in tree:
+            sd[name] = _t(tree[name])
+    if "clip_encoder" in tree:
+        sd.update(_encoder_from_jax(tree["clip_encoder"]["layers"],
+                                    "clip_encoder"))
+    for name in _LINEARS:
         if name in tree:
             sd.update(_linear_from_jax(tree[name], name + "."))
+    for group in _CLASS_GROUPS:
+        for c, lin in tree.get(group, {}).items():
+            sd.update(_linear_from_jax(lin, f"{group}.{c}."))
     return sd
 
 
@@ -144,17 +170,13 @@ def _npT(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(_np(t).T)
 
 
-def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
-                             ) -> Dict[str, Any]:
-    """FullModel state_dict -> `sais_tpu.models.full_model` params pytree
-    (numpy leaves), the inverse of `full_model_params_from_jax`: the
-    parameters the Prototypes path reads (with the importance and linearB
-    heads where the model has them), in the JAX package's layout."""
+def _encoder_to_jax(sd: Mapping[str, torch.Tensor], prefix: str
+                    ) -> Dict[str, Any]:
     nlayers = 1 + max(int(k.split(".")[2]) for k in sd
-                      if k.startswith("frame_encoder.layers."))
+                      if k.startswith(prefix + ".layers."))
     layers = []
     for i in range(nlayers):
-        p = f"frame_encoder.layers.{i}."
+        p = f"{prefix}.layers.{i}."
         layers.append({
             "mha": {"in_w": _npT(sd[p + "self_attn.in_proj_weight"]),
                     "in_b": _np(sd[p + "self_attn.in_proj_bias"]),
@@ -169,13 +191,33 @@ def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
             "ln2_s": _np(sd[p + "norm2.weight"]),
             "ln2_b": _np(sd[p + "norm2.bias"]),
         })
+    return {"layers": layers}
+
+
+def full_model_params_to_jax(sd: Mapping[str, torch.Tensor]
+                             ) -> Dict[str, Any]:
+    """FullModel state_dict -> `sais_tpu.models.full_model` params pytree
+    (numpy leaves), the inverse of `full_model_params_from_jax`: every
+    member the model has, in the JAX package's layout."""
     tree = {"frame_cls": _np(sd["frame_cls"]),
             "frame_pos": _np(sd["frame_pos"]),
-            "frame_encoder": {"layers": layers}}
-    for name in ("linear", "linear2", "importance", "linearB"):
+            "frame_encoder": _encoder_to_jax(sd, "frame_encoder")}
+    for name in ("clip_cls", "clip_pos"):
+        if name in sd:
+            tree[name] = _np(sd[name])
+    if any(k.startswith("clip_encoder.") for k in sd):
+        tree["clip_encoder"] = _encoder_to_jax(sd, "clip_encoder")
+    for name in _LINEARS:
         if name + ".weight" in sd:
             tree[name] = {"w": _npT(sd[name + ".weight"]),
                           "b": _np(sd[name + ".bias"])}
+    for group in _CLASS_GROUPS:
+        classes = sorted({k.split(".")[1] for k in sd
+                          if k.startswith(group + ".")}, key=int)
+        if classes:
+            tree[group] = {c: {"w": _npT(sd[f"{group}.{c}.weight"]),
+                               "b": _np(sd[f"{group}.{c}.bias"])}
+                           for c in classes}
     return tree
 
 
@@ -222,24 +264,36 @@ def _pos_table(sd: Mapping[str, Any], prefix: str) -> torch.Tensor:
     return torch.stack([_f32(sd[f"{prefix}{i}"]).reshape(-1) for i in idx])
 
 
+# reference fullModel names (prepare_model.py:47-101) -> FullModel names
+_REFERENCE_PREFIXES = (("transEncoderFrame.", "frame_encoder."),
+                       ("transEncoderClip.", "clip_encoder."),
+                       ("importance_function.", "importance."),
+                       ("attentionModules.", "attention_modules."),
+                       ("finalModules.", "final_modules."))
+
+
 def full_model_params_from_reference(sd: Mapping[str, Any]) -> StateDict:
-    """Reference fullModel state_dict (params.zip) -> FullModel state_dict.
-    The frame encoder keeps torch's TransformerEncoder names, so its keys
-    move across as they are; importance_function.* becomes importance.*,
-    and linearB.* stays (torch_port.py:199-204)."""
+    """Reference fullModel state_dict (params.zip) -> FullModel state_dict
+    (torch_port.py:170-204).  The encoders keep torch's TransformerEncoder
+    names, so their keys move across under the port's prefixes;
+    importance_function.* becomes importance.*, attentionModules.* and
+    finalModules.* attention_modules.* and final_modules.*; linear,
+    linear2, linearB, attentionA, attentionB and cls_head stay."""
     sd = strip_module_prefix(sd)
     out: StateDict = {
         "frame_cls": _f32(sd["frame_cls"]).reshape(-1),
         "frame_pos": _pos_table(sd, "frame_pos_embeddings."),
     }
-    enc = "transEncoderFrame."
+    if "clip_cls" in sd:
+        out["clip_cls"] = _f32(sd["clip_cls"]).reshape(-1)
+    if any(k.startswith("clip_pos_embeddings.") for k in sd):
+        out["clip_pos"] = _pos_table(sd, "clip_pos_embeddings.")
     for k, v in sd.items():
-        if k.startswith(enc):
-            out["frame_encoder." + k[len(enc):]] = _f32(v)
-        elif k.split(".")[0] in ("linear", "linear2", "linearB"):
+        for ref, port in _REFERENCE_PREFIXES:
+            if k.startswith(ref):
+                out[port + k[len(ref):]] = _f32(v)
+        if k.split(".")[0] in _LINEARS:
             out[k] = _f32(v)
-        elif k.startswith("importance_function."):
-            out["importance." + k[len("importance_function."):]] = _f32(v)
     return out
 
 

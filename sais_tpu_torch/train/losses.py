@@ -1,6 +1,6 @@
-"""Training losses of the skill path (reference: prepare_miscellaneous.py).
+"""Training losses (reference: prepare_miscellaneous.py).
 
-Counterpart of the importance half of `sais_tpu/train/losses.py`:
+Counterpart of `sais_tpu/train/losses.py`:
 
 - the NCE prototype loss lives in `models.heads` (shared with inference);
 - `importance_loss_reference` replicates calcImportanceLoss (:48-60)
@@ -12,8 +12,8 @@ Counterpart of the importance half of `sais_tpu/train/losses.py`:
   this objective, so it is kept verbatim; `masked_importance_loss` is the
   corrected masked BCE for new training runs.
 
-The cross-entropy, BCE, next-representation and temporal-coherence losses
-of the MIL and ClassificationHead tasks wait for the classification slice.
+- cross-entropy / BCE for the MIL and ClassificationHead tasks, the
+  next-representation MSE and the arrow-of-time pair (:62-95, :212-248).
 """
 
 from __future__ import annotations
@@ -75,3 +75,48 @@ def masked_importance_loss(output_importances: torch.Tensor,
     low = (labels == 0).to(bce.dtype)[:, None, None]
     w = valid * low
     return (bce * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """nn.CrossEntropyLoss mean reduction (prepare_miscellaneous.py:75-76)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(1, labels.long()[:, None])[:, 0].mean()
+
+
+def binary_cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor
+                                ) -> torch.Tensor:
+    """nn.BCEWithLogitsLoss mean reduction (nclasses == 1 path,
+    perform_training.py:139-141)."""
+    return _bce_with_logits(logits.reshape(-1),
+                            labels.to(logits.dtype).reshape(-1)).mean()
+
+
+def next_rep_mse(future_reps: torch.Tensor, snip_reps: torch.Tensor
+                 ) -> torch.Tensor:
+    """Self-supervised next-representation MSE (calcSSLoss,
+    prepare_miscellaneous.py:85-95)."""
+    return (snip_reps[:, :-1, :] - future_reps[:, 1:, :]).square().mean()
+
+
+def temporal_coherence_loss(logits: torch.Tensor,
+                            logits_flipped: torch.Tensor) -> torch.Tensor:
+    """Arrow-of-time pretext loss (calcTemporalCoherenceLoss,
+    prepare_miscellaneous.py:212-229): CE toward class 0 for forward clips
+    and class 1 for time-reversed clips, averaged."""
+    la = cross_entropy(logits, torch.zeros(logits.shape[0],
+                                           dtype=torch.long,
+                                           device=logits.device))
+    lb = cross_entropy(logits_flipped,
+                       torch.ones(logits_flipped.shape[0], dtype=torch.long,
+                                  device=logits.device))
+    return (la + lb) / 2.0
+
+
+def temporal_coherence_accuracy(logits: torch.Tensor,
+                                logits_flipped: torch.Tensor
+                                ) -> torch.Tensor:
+    """calcTemporalCoherenceAcc (prepare_miscellaneous.py:231-248)."""
+    a = (logits.argmax(-1) == 0).sum()
+    b = (logits_flipped.argmax(-1) == 1).sum()
+    return (a + b) / (logits.shape[0] + logits_flipped.shape[0])

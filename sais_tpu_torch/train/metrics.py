@@ -1,7 +1,6 @@
 """Epoch metrics (reference: prepare_miscellaneous.py:97-208).
 
-Own copy of the prototype half of `sais_tpu/train/metrics.py` in numpy,
-without sklearn (the card's machine has none).  The same quantities as
+Own copy of `sais_tpu/train/metrics.py` in numpy, without sklearn (the card's machine has none).  The same quantities as
 sklearn computes them there: accuracy; macro precision and recall over
 the labels present in either the truth or the predictions, with
 zero_division=0; ROC-AUC (roc_auc_score(multi_class='ovr')): binary on
@@ -83,6 +82,22 @@ def prototype_metrics(tta_probs: Sequence[np.ndarray], labels: Sequence,
     cols = labels_to_prototype_columns(labels, prototype_keys)
     return _scores(cols, np.argmax(probs, axis=1), probs,
                    len(prototype_keys))
+
+
+def logits_metrics(tta_logits: Sequence[np.ndarray], labels: np.ndarray,
+                   nclasses: int) -> Dict[str, float]:
+    """calcMetrics: mean logits over TTA augments, then sigmoid (one class)
+    or softmax probabilities and their predictions."""
+    logits = np.mean(np.stack(tta_logits, 0), 0)
+    labels = np.asarray(labels)
+    if nclasses == 1:
+        probs = 1.0 / (1.0 + np.exp(-logits))
+        preds = (probs > 0.5).astype(np.int64).reshape(-1)
+        return _scores(labels, preds,
+                       np.concatenate([1 - probs, probs], axis=-1), 2)
+    z = logits - logits.max(axis=-1, keepdims=True)
+    probs = np.exp(z) / np.exp(z).sum(axis=-1, keepdims=True)
+    return _scores(labels, np.argmax(probs, axis=1), probs, nclasses)
 
 
 def format_metrics(phase: str, metrics: Dict[str, float]) -> str:

@@ -19,7 +19,7 @@ from sais_tpu_torch.config import (ModelConfig, TemporalConfig, TrainConfig,
 from sais_tpu_torch.kernels.flash_attention import (
     FlashAttention, PackedFlashAttention, flash_attention,
     flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
-    flash_attention_reference, key_bias, split_heads)
+    flash_attention_packed, flash_attention_reference, key_bias, split_heads)
 from sais_tpu_torch.kernels.fused_mha import (fused_vit_block,
                                               vit_block_reference)
 from sais_tpu_torch.models.full_model import (full_model_init,
@@ -249,21 +249,66 @@ def test_flash_kernel_takes_projection_views(cuda):
 
 
 def test_flash_wrapper_rejects_what_it_does_not_take(cuda):
+    """f32 only, head widths up to 192, a (B, Lk) bias; operands whose rows
+    the kernels cannot read (a strided last axis, a misaligned start) are
+    packed into aligned buffers and give the contiguous operands' result."""
     q, k, v = _qkv(0, 2, 2, 40, 40, 64)
     with pytest.raises(ValueError, match="f32"):
         flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="f32"):
         flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
-    q80, k80, v80 = _qkv(1, 2, 2, 40, 40, 80)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q80, k80, v80)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    q200, k200, v200 = _qkv(1, 2, 2, 40, 40, 200)
+    with pytest.raises(ValueError, match="head widths up to 192"):
+        flash_attention(q200, k200, v200)
+    ref = flash_attention(q, k, v)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    torch.testing.assert_close(flash_attention(strided, k, v), ref, rtol=0,
+                               atol=0)
     shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention(shifted, k, v)
+    shifted.copy_(q)
+    torch.testing.assert_close(flash_attention(shifted, k, v), ref, rtol=0,
+                               atol=0)
     with pytest.raises(ValueError, match="bias"):
         flash_attention_fwd(q, k, v, torch.zeros((2, 39), device="cuda"))
+
+
+@pytest.mark.parametrize("dh", [4, 32, 50, 80, 100, 160, 192])
+def test_flash_kernels_take_every_head_width(cuda, dh):
+    """K2 and K3 at head widths up to 192 (instances at 32, 64, 96, 128 and
+    192 take any width up to theirs; widths that are not a multiple of 4
+    are packed): out, lse and dq, dk, dv within 1e-4 of the plain
+    versions' largest value, one launch each, and as (B, H, L, Dh) views
+    of a (B, L, 3 D) projection through the autograd Function."""
+    b, h, l = 3, 4, 129
+    q, k, v = _qkv(dh, b, h, l, l, dh)
+    bias = key_bias(_ragged_mask(b, l))
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(dh)
+                     ).to(cuda)
+    got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref, ref_lse = flash_attention_reference(q, k, v, bias)
+    want = flash_attention_bwd_reference(q, k, v, bias, out, lse, do)
+    ok = slice(0, b - 1)
+    for g, r in ((out[ok], ref[ok]), *zip(got, want)):
+        err = (g - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (dh, err)
+    lerr = (lse[ok] - ref_lse[ok]).abs().max().item()
+    assert lerr <= 1e-4 * max(1.0, ref_lse[ok].abs().max().item())
+    qkv = torch.randn((b, l, 3 * h * dh), device=cuda, requires_grad=True)
+    packed = flash_attention_packed(qkv, h, bias < 0)
+    packed.backward(do)
+    split = [t.detach().reshape(b, l, h, dh).transpose(1, 2).requires_grad_()
+             for t in qkv.split(h * dh, dim=-1)]
+    alone = flash_attention(*split, bias < 0)
+    alone.backward(do)
+    torch.testing.assert_close(packed, alone, rtol=0, atol=0)
+    torch.testing.assert_close(
+        qkv.grad, torch.cat([t.grad.transpose(1, 2).reshape(b, l, h * dh)
+                             for t in split], -1), rtol=0, atol=0)
 
 
 def test_auto_rule_takes_k2_at_2001_tokens(cuda):
@@ -386,17 +431,22 @@ def test_flash_bwd_wrapper_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="f32"):
         flash_attention_bwd(q.double(), k.double(), v.double(), None,
                             out, lse, do)
-    q80, k80, v80 = _qkv(3, 2, 2, 40, 40, 80)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q80, k80, v80, None, q80, lse, q80)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention_bwd(q, k, v, None, out, lse,
-                            do.transpose(2, 3).contiguous().transpose(2, 3))
+    q200, k200, v200 = _qkv(3, 2, 2, 40, 40, 200)
+    with pytest.raises(ValueError, match="head widths up to 192"):
+        flash_attention_bwd(q200, k200, v200, None, q200, lse, q200)
+    # a strided cotangent and misaligned gradient buffers are packed
+    ref = flash_attention_bwd(q, k, v, None, out, lse, do)
+    strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    for g, r in zip(flash_attention_bwd(q, k, v, None, out, lse, strided),
+                    ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_attention_bwd(q, k, v, None, out, lse, do,
-                            grads=(shifted, torch.empty_like(k),
-                                   torch.empty_like(v)))
+    got = flash_attention_bwd(q, k, v, None, out, lse, do,
+                              grads=(shifted, torch.empty_like(k),
+                                     torch.empty_like(v)))
+    assert got[0] is shifted
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, k, v, None, out, lse[:, :, :-1], do)
 

@@ -281,8 +281,7 @@ def _refuse(case, root):
 @pytest.mark.parametrize("case", [
     "extract --data-parallel 2", "steps --seq-parallel 2",
     "pretrain --data-parallel", "pretrain --use-bn-in-head",
-    "train -mod RGB-Flow", "train -mod Flow", "train --dataset vua-gestures",
-    "train --dataset dvc-ucl", "DINOTrainer(mesh)",
+    "train --data-type raw", "DINOTrainer(mesh)",
     "dino_head_init(use_bn)"])
 def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
     """Each refusal of the port raises NotImplementedError and names the

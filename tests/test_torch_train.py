@@ -385,13 +385,18 @@ def test_cli_train_on_cpu_and_refusals(tmp_path, monkeypatch, capsys):
     """`train --segments ... -bc -e 2 -bs 4 --device cpu` on a tiny H5
     store (a tiny temporal model in place of the full width): writes
     params/Fold_<k>/params.pkl, prototypes.pkl and metrics.pkl for each
-    fold, which the port's decode reads back; the paths that are not
-    ported yet are refused, each naming the slice that brings it."""
+    fold, which the port's decode reads back; `--split-policy louo`, `-t
+    MIL` and `-mod RGB-Flow` (over a flow store) run and save their fold
+    (held to the JAX CLI in tests/test_torch_classification.py, with
+    `--dataset vua-gestures` and `dvc-ucl`); `--data-type raw`, the one
+    path not ported yet, is refused, naming the slice that brings it."""
     from sais_tpu_torch.cli import main as cli
     monkeypatch.setattr(cli, "PipelineConfig", _tiny_pipeline_cfg)
     videos = [f"v{i}" for i in range(10)]
     _write_store(tmp_path, videos, 500, DIM)
     rows = _segments(5, nvideos=10, per_video=6, classes=("A", "B"))
+    for i, r in enumerate(rows):
+        r["Subject"] = f"U{i % 4}"     # the louo split's users
     segs = tmp_path / "segs.csv"
     pd.DataFrame(rows).to_csv(segs, index=False)
     base = ["train", "-p", str(tmp_path), "--segments", str(segs),
@@ -408,11 +413,15 @@ def test_cli_train_on_cpu_and_refusals(tmp_path, monkeypatch, capsys):
     cli.main(["decode", "-f", "v0", "-p", str(tmp_path), "--device", "cpu",
               "--params-dir", str(tmp_path / "params"), "--nfolds", "2"])
     assert "gesture intervals" in capsys.readouterr().out
-    for flags, match in ((["--dataset", "vua-gestures"], "dataset branches"),
-                         (["--dataset", "dvc-ucl"], "dataset branches"),
-                         (["--split-policy", "louo"], "split policies"),
-                         (["-t", "MIL"], "classification"),
-                         (["-dt", "raw"], "raw-video"),
-                         (["-mod", "RGB-Flow"], "flow")):
-        with pytest.raises(NotImplementedError, match=match):
-            cli.main(base + flags)
+    from sais_tpu_torch.io.feature_store import FeatureStore, flow_store_path
+    rng = np.random.default_rng(1)
+    with FeatureStore(flow_store_path(str(tmp_path)), "a") as fs:
+        for v in videos:
+            fs.write_video(v, rng.standard_normal((30, DIM)).astype(
+                np.float32))
+    for flags in (["--split-policy", "louo"], ["-t", "MIL"],
+                  ["-mod", "RGB-Flow"]):
+        cli.main(base + ["-e", "1", "-bs", "4", *flags])
+        assert "saved fold 0" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="raw-video"):
+        cli.main(base + ["-dt", "raw"])
