@@ -44,6 +44,13 @@ Phases, each of which fails the run:
    16-token windows stay dense); features and probabilities are checked
    against the same path through the plain version.  Extraction frames/s
    is the median of three timed runs after a warm-up at the same shapes.
+   Then host extraction (`extract --exact-preprocess --norm half`): the
+   same 300 frames cropped, resized and normalized on the host CPU, the
+   normalized frames copied to the card and the ViT on K1 (12 launches a
+   batch), against the device route under the same normalization (bitwise
+   expected; the limit, were they not, the plain version's 5e-2);
+   frames/s of both routes; whether the frame pump built (it falls back
+   to OpenCV's Python binding where OpenCV's C++ headers are missing).
 6. flow path at full width (`pipeline -mod RGB-Flow` without the video
    I/O): random RAFT 'things' weights (raft_init, 32 iterations) and the
    gesture path's ViT-S/16 and fold, 300 synthetic 480x640 frames (one
@@ -85,7 +92,10 @@ Phases, each of which fails the run:
    times of the kernel, the plain version and the backward of
    scaled_dot_product_attention (f32, additive mask; forward + backward
    minus forward); the least time the card could take (3xTF32, with the
-   f32 FFMA bound beside it).
+   f32 FFMA bound beside it).  With `--parent-csrc DIR`, the earlier
+   tree's K2 and K3 (its 3xTF32 products run into the running sums) are
+   timed beside this tree's in turns at these shapes (K2 at the first
+   two), their outputs within 1e-4 of this tree's largest value.
 9. training path at full width (`train --segments ... -bc -e 2 -bs 32
    -lr 0.1 --flash on` without the CSV and H5 I/O): a synthetic in-memory
    feature store (16 videos x 3,000 frames x 384, numpy seed 0) and
@@ -195,6 +205,27 @@ Phases, each of which fails the run:
    `pretrain --arch vits8` (ViT-S/8: 785 + 145 tokens, the globals on
    the key-tiled attention); both print the median step ms, img/s, and a
    profiled step's device busy time and idle share beside the card.
+   Then `pretrain -bs 64 --use-bn-in-head` at the ViT-S/16 defaults: the
+   student on K4-K6, the teacher on K1, the BatchNorm head and the loss
+   plain (K7 never, as in the JAX package); five steps: K4-K6 exactly 24
+   launches a step, K1 12, K7 0, losses finite, both heads' BatchNorm
+   running statistics moving; the median step ms printed beside the K7
+   step's; one step's loss and gradients, the kernels against their
+   plain versions on the card, and one step at batch 16 (drop path 0) on
+   the card against the same step on the CPU (the kernels' plain
+   versions there) from the same weights and crops, each also for a
+   control, the head without BatchNorm (the plain head and loss, the
+   same weights and draws): loss 1e-3 relative; each gradient alone,
+   the BatchNorm scales and biases included, in max|diff| / max|value|
+   (and card against CPU in ||diff|| / ||value|| too) 5e-2 under the
+   control, 1e-1 (kernels against plain) and 1.5e-1 / 1.25e-1 (card
+   against CPU) under the BatchNorm head, which reads about 10x the
+   control; the magnification of rounding by the student's first
+   BatchNorm's backward (||dx|| / ||what it leaves||) printed beside
+   them; the new running statistics 5e-2 of their largest value; the
+   three gradients that train-mode BatchNorm makes exactly 0,
+   head.mlp.0 / 1.bias and backbone.norm.bias, 5e-2 of the step's
+   largest gradient.
 15. K8 (fused_vit_block_int8), the W8A8 block, at (256, 197, 384): the
    CUDA kernel against its plain version (2e-2 of its largest value), two
    runs bitwise equal, and against K1 on the same inputs (cosine >
@@ -222,9 +253,10 @@ Phases, each of which fails the run:
    12 an eval batch: MIL reads RGB only, the clip encoder stays dense),
    dense (no launch) and on the CPU, epoch losses flash against dense and
    dense against the CPU within 1e-3; K2's signed error at the first
-   layer against the dense path, and the dense fit again with that signed
-   error (and with unbiased noise of its size) in every layer's
-   attention output, printed beside them; the MIL step's median ms and
+   layer against the dense path (and each against float64), and the
+   dense fit again with that signed
+   error (and with unbiased noise of its size, and of 1e-8) in every
+   layer's attention output, printed beside them; the MIL step's median ms and
    the device time of one step (queued behind a spin kernel); a
    Prototypes fit on `--dataset segments --split-policy per-gesture-video
    -mod RGB-Flow --flash on` (8 and 24 launches a train and an eval
@@ -238,11 +270,29 @@ Phases, each of which fails the run:
    versions (1e-4 of the largest value; three elements with masked keys
    inside the valid range; the all-masked element exactly 0), with CUDA-event times beside SDPA's, the device time a call (the
    calls queued behind a spin kernel) and the bound, and at Dh 50 (packed
-   into 52-wide buffers) against the plain version.
-18. prints the total time, the card, the kernels line (JSON) and, last,
-   the device line (JSON).  K1's launches there add the gesture and flow
-   paths' to the teacher's in both pretrain phases; K4-K7's add both
-   pretrain phases'; K2's and K3's add the skill and classification paths'
+   into 52-wide buffers) against the plain version.  The signed-error
+   line also holds K2's and the dense path's errors against the same
+   attention in float64 (signed and mean |error|).
+18. raw-video path at the published widths (`train --dataset vua-ease -d
+   NH_02 --data-type raw -e 2` through the CLI): a synthetic stitch table
+   (numpy seed 3: 6 videos x 3 stitches x the three RACE / EASE pairs)
+   written as a CSV, uint8 frames of 480x640 served from memory (a pool
+   of numpy-seeded frames) in place of the JPEG reader; --encoder R3D
+   (R3D-18 at float32 on cuDNN with TF32 off, 16 x 112 x 112 snippets,
+   batch 8, lr 1e-4) and --encoder ViT (ViT-S/16 at float32, 16 frames of
+   224 x 224 a snippet, batch 2), 3-way TTA at val / test, each on the
+   card, and its first epoch on the CPU: epoch losses within 1e-3.  The device resize of a
+   snippet's crops against numpy's half-pixel bilinear on the same input
+   (bitwise expected, limit an ulp at 1); R3D's features of 8 snippets on the card against its float32
+   CPU run (1e-4 of the largest); `r3d_profile` (the convolutions'
+   kernels); the frozen step's ms and snippets/s (median of five) and one
+   --unfreeze-encoder step with its peak memory for each encoder; one
+   -mod RGB-Flow step (R3D, raw + raw_flow features summed).  No TPU
+   kernel is on this path.
+19. prints the total time, the card, the kernels line (JSON) and, last,
+   the device line (JSON).  K1's launches there add the gesture, host
+   extraction and flow paths' to the teacher's in the three pretrain
+   runs; K4-K7's add the three pretrain runs'; K2's and K3's add the skill and classification paths'
    to the training path's.
 
 It also prints torch.profiler tables (device time per kernel, device idle
@@ -2298,29 +2348,75 @@ def _task_fit(frames, classes, stores, cfg, device, task="MIL",
     return trainer, losses, nb, time.perf_counter() - t0
 
 
+def _mha_f64(x, w, bias, heads, mask):
+    """The first layer's attention in float64 on the card, as the dense
+    path computes it (temporal.multihead_attention) up to out_proj: x (B,
+    L, D), the in-projection w (3D, D) and bias (3D,), the key padding
+    mask (B, L) True = pad.  Returns (B, L, D), out_proj's input."""
+    import torch
+    b, l, d = x.shape
+    dh = d // heads
+    qkv = torch.nn.functional.linear(x.double(), w.double(), bias.double())
+    q, k, v = (t.reshape(b, l, heads, dh).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    logits = torch.einsum("bhld,bhmd->bhlm", q * dh ** -0.5, k)
+    if mask is not None:
+        logits = logits.masked_fill(mask[:, None, None, :], float("-inf"))
+    out = torch.einsum("bhlm,bhmd->bhld", torch.softmax(logits, -1), v)
+    return out.transpose(1, 2).reshape(b, l, d)
+
+
 def k2_signed_error(frames, classes, stores, batch):
     """K2's output at the first frame-encoder layer of the MIL model (its
-    input the same on both paths, from the same weights), against the
-    dense path's attention output on the card: (mean((K2 - dense) *
-    sign(dense)), mean|K2 - dense|), each over the mean |dense|."""
+    input the same on both paths, from the same weights) against the
+    dense path's attention output on the card, and each against the same
+    attention in float64: {"shift", "noise"}: mean((K2 - dense) *
+    sign(dense)) and mean|K2 - dense|, each over the mean |dense|;
+    {path: (signed, mean |error|)} for "K2" and "dense" against float64,
+    over the mean |f64|."""
     import torch
-    got = {}
+    from sais_tpu_torch.models import temporal
+    got, inputs = {}, {}
+    orig = temporal.encoder_layer
+    heads = _cls_config(None).model.temporal.num_heads
     for mode, use_flash in (("flash", True), ("dense", None)):
         tr = _task_fit({"train": [], "val": [], "test": []}, classes, stores,
                        _cls_config(use_flash), None, nepochs=0)[0]
+        first = tr.model.frame_encoder.layers[0]
 
         def keep(module, args, mode=mode):
             got[mode] = args[0].detach().double()
 
-        tr.model.frame_encoder.layers[0].self_attn.out_proj.\
-            register_forward_pre_hook(keep)
-        with torch.no_grad():
-            tr.loss_fn(tr.model, tr._device_batch(batch))
+        def layer(x, lyr, cfg, mask, *a, mode=mode, first=first, **kw):
+            if lyr is first and mode not in inputs:
+                inputs[mode] = (x.detach(), mask)
+            return orig(x, lyr, cfg, mask, *a, **kw)
+
+        first.self_attn.out_proj.register_forward_pre_hook(keep)
+        w = (first.self_attn.in_proj_weight.detach(),
+             first.self_attn.in_proj_bias.detach())
+        temporal.encoder_layer = layer
+        try:
+            with torch.no_grad():
+                tr.loss_fn(tr.model, tr._device_batch(batch))
+        finally:
+            temporal.encoder_layer = orig
         del tr
-    d, ref = got["flash"] - got["dense"], got["dense"]
-    scale = ref.abs().mean()
-    return (((d * ref.sign()).mean() / scale).item(),
-            (d.abs().mean() / scale).item())
+    x, mask = inputs["dense"]
+    check(torch.equal(x, inputs["flash"][0]), "the first layer's input "
+          "differs between the flash and dense paths")
+    with torch.no_grad():
+        ref = _mha_f64(x, *w, heads, mask)
+    d, dense = got["flash"] - got["dense"], got["dense"]
+    scale = dense.abs().mean()
+    out = {"shift": ((d * dense.sign()).mean() / scale).item(),
+           "noise": (d.abs().mean() / scale).item()}
+    scale64 = ref.abs().mean()
+    for name, y in (("K2", got["flash"]), ("dense", got["dense"])):
+        e = y - ref
+        out[name] = (((e * ref.sign()).mean() / scale64).item(),
+                     (e.abs().mean() / scale64).item())
+    return out
 
 
 def _grad_gaps(ga, gb):
@@ -2499,11 +2595,16 @@ def phase_classification(card: str):
     # dense path's, as a signed share of its mean |value|; then the dense
     # fit again with every frame-encoder layer's attention output moved by
     # that share, and by unbiased noise of K2's mean |error|
-    shift, noise = k2_signed_error(frames, classes, stores, batch)
-    for mode in ("signed", "noise"):
-        fits[mode] = (None, _task_fit(frames, classes, stores,
-                                      _cls_config(None), None,
-                                      attn_error=(mode, shift, noise))[1])
+    errs = k2_signed_error(frames, classes, stores, batch)
+    shift, noise = errs["shift"], errs["noise"]
+    # and with unbiased noise of 1e-8: 1 + 1e-8 N(0, 1) rounds to 1 in
+    # f32 except where N < -2.98 or > 5.96, so about 0.15% of the values
+    # move by one ulp (the fit's sensitivity to any change of rounding)
+    for mode, amp in (("signed", noise), ("noise", noise), ("1e-8", 1e-8)):
+        fits[mode] = (None, _task_fit(
+            frames, classes, stores, _cls_config(None), None,
+            attn_error=("signed" if mode == "signed" else "noise", shift,
+                        amp))[1])
     # Limits 1e-3: f32 on both sides; two epochs of SGD carry the
     # differences of every step (the training phase's limit)
     print(f"MIL fit epoch losses: flash vs dense max|diff| "
@@ -2516,7 +2617,12 @@ def phase_classification(card: str):
           f"{[round(x, 6) for x in fits['signed'][1]]}, vs flash "
           f"{gap('signed', 'flash'):.3g}, vs dense "
           f"{gap('signed', 'dense'):.3g}; with unbiased noise of that size: "
-          f"vs dense {gap('noise', 'dense'):.3g}", flush=True)
+          f"vs dense {gap('noise', 'dense'):.3g}; with unbiased noise of "
+          f"1e-8: losses {[round(x, 6) for x in fits['1e-8'][1]]}, vs "
+          f"dense {gap('1e-8', 'dense'):.3g}.  Against the same "
+          f"attention in float64 (signed, mean |error|, of the mean "
+          f"|value|): K2 {errs['K2'][0]:.3g}, {errs['K2'][1]:.3g}; dense "
+          f"f32 {errs['dense'][0]:.3g}, {errs['dense'][1]:.3g}", flush=True)
     check(gap("flash", "dense") <= 1e-3,
           f"MIL fit: flash and dense losses differ {gap('flash', 'dense')}")
     check(gap("dense", "CPU") <= 1e-3,
@@ -3083,7 +3189,8 @@ class ParentKernels:
         self.tmp = tempfile.mkdtemp(prefix="parent_kernels_")
         procs = {}
         for name in ("fused_vit_block", "fused_block_bwd_attn",
-                     "dino_head_loss", "fused_vit_block_int8"):
+                     "dino_head_loss", "fused_vit_block_int8",
+                     "flash_attention", "flash_attention_bwd"):
             out = os.path.join(self.tmp, f"{name}.so")
             procs[name] = (out, subprocess.Popen(
                 [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
@@ -3110,7 +3217,51 @@ class ParentKernels:
         k6.fused_block_bwd_attn_workspace.argtypes = [i32] * 3
         k6.fused_block_bwd_attn_workspace.restype = ctypes.c_size_t
         k6.fused_block_bwd_attn.argtypes = [ptr] * 25 + [i32] * 5 + [f32, ptr]
-        print(f"parent K1, K6, K7 and K8 built from {csrc}", flush=True)
+        i64 = ctypes.c_longlong
+        k2 = self.libs["flash_attention"]
+        k2.flash_attention_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [
+            i64] * 12 + [f32, i32, ptr]
+        k3 = self.libs["flash_attention_bwd"]
+        k3.flash_attention_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [
+            i64] * 21 + [f32, ptr]
+        print(f"parent K1, K2, K3, K6, K7 and K8 built from {csrc}",
+              flush=True)
+
+    def k2(self, q, k, v, bias):
+        """The earlier K2 (flash_attention_fwd, this tree's C ABI) on
+        operands that keep its row rule; (out, lse)."""
+        import torch
+        b, h, lq, dh = q.shape
+        out = torch.empty((b, lq, h, dh), dtype=torch.float32,
+                          device=q.device).transpose(1, 2)
+        lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+        rc = self.libs["flash_attention"].flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, lq, k.shape[2], dh, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], dh ** -0.5,
+            0, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K2 launch failed ({rc})")
+        return out, lse
+
+    def k3(self, q, k, v, bias, do, lse, delta):
+        """The earlier K3 (flash_attention_bwd, the same C ABI); (dq, dk,
+        dv)."""
+        import torch
+        b, h, lq, dh = q.shape
+        grads = [torch.empty((b, t.shape[2], h, dh), dtype=torch.float32,
+                             device=q.device).transpose(1, 2)
+                 for t in (q, k, v)]
+        rc = self.libs["flash_attention_bwd"].flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), b, h, lq, k.shape[2], dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *(st for g in grads for st in g.stride()[:3]),
+            dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent K3 launch failed ({rc})")
+        return grads
 
     def k1(self, x, ws, num_heads, valid_len, eps):
         import torch
@@ -3203,6 +3354,38 @@ class ParentKernels:
               f"turns: earlier, this, this, earlier), "
               f"{(t[0] + t[3]) / (t[1] + t[2]):.2f}x", flush=True)
         return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def parent_k23(parent):
+    """K2 and K3 as the earlier tree built them beside this tree's, in
+    turns, at PERF.md's K2 / K3 shapes: K2 at (132, 301) and (8, 2001)
+    masked, K3 at those and at (2, 8193); outputs within 1e-4 of this
+    tree's largest value (both f32; the earlier tree's products carry the
+    signed error that this one repairs).  Returns {name: (earlier ms,
+    this ms)}."""
+    import torch
+    from sais_tpu_torch.kernels.flash_attention import (
+        _delta, flash_attention_bwd, flash_attention_fwd, key_bias)
+    times = {}
+    for b, l, masked in K3_SHAPES:
+        q, k, v, mask, _ = k2_inputs(b, l, seed=l + 5, masked=masked)
+        bias = key_bias(mask) if masked else None
+        shape = (b, 4, l, 96)
+        if l < 5000:
+            times[f"K2 {shape}"] = ParentKernels.compare(
+                "K2", shape, lambda: parent.k2(q, k, v, bias),
+                lambda: flash_attention_fwd(q, k, v, bias), (1e-4, 1e-4))
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        do = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            l)).cuda()
+        delta = _delta(out, do)
+        times[f"K3 {shape}"] = ParentKernels.compare(
+            "K3", shape, lambda: parent.k3(q, k, v, bias, do, lse, delta),
+            lambda: flash_attention_bwd(q, k, v, bias, out, lse, do),
+            (1e-4, 1e-4, 1e-4))
+        del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    return times
 
 
 class _Ranged:
@@ -3563,6 +3746,574 @@ def phase_pretrain(card: str, batch: int = 64, arch: str = "vits16"):
     return launches, step_s
 
 
+def phase_pretrain_bn(card: str, k7_step_s: float, batch: int = 64):
+    """`pretrain -bs 64 --use-bn-in-head` at the ViT-S/16 defaults: the
+    DINOConfig cmd_pretrain builds from those flags (out_dim 65536, 2 x
+    224 + 8 x 96 crops, adamw, drop path 0.1), the student on K4-K6, the
+    teacher on K1, the BatchNorm head and the loss plain (K7 never: the
+    JAX package refuses the fused loss with this head).  Five steps:
+    exact launches, finite losses, both BatchNorm states moving; then one
+    step's gradients, the kernels against their plain versions, and one
+    step (at batch 16, drop path 0) on the card against the same step on
+    the CPU from the same weights and crops, each beside a control
+    without BatchNorm held to the pretrain phase's limits.  Returns the
+    launches of K4, K5, K6, K1 and K7."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
+    from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                  fused_block_bwd_mlp,
+                                                  fused_block_fwd_train,
+                                                  fused_vit_block)
+    from sais_tpu_torch.models import zoo
+    from sais_tpu_torch.ops.augment import (center_border_crop,
+                                            multi_crop_batch)
+    from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
+
+    vit_cfg = zoo.config("vits16")
+    cfg = DINOConfig(out_dim=65536, batch_size=batch, n_local_crops=8,
+                     drop_path_rate=0.1, use_bn_in_head=True)
+    trainer = DINOTrainer(vit_cfg, cfg, niter_per_ep=1000,
+                          generator=torch.Generator().manual_seed(0),
+                          optimizer="adamw")
+    check(trainer.fused_blocks and not trainer.fused_loss,
+          "the BatchNorm head's trainer did not take K4-K6 / K1 with the "
+          "plain head and loss")
+    frames = np.random.default_rng(1).integers(
+        0, 256, (batch, 480, 640, 3), dtype=np.uint8)
+    images = torch.from_numpy(np.ascontiguousarray(
+        center_border_crop(frames))).cuda().float() / 255.0
+    g, l = multi_crop_batch(torch.Generator(device="cuda").manual_seed(1),
+                            images, 2, 8, 224, 96)
+    bn0 = [{k: v.clone() for k, v in st.items()}
+           for st in trainer.student_bn + trainer.teacher_bn]
+    losses = [trainer.step(g, l)]     # warm-up
+    torch.cuda.synchronize()
+    counters = (fused_block_fwd_train, fused_block_bwd_mlp,
+                fused_block_bwd_attn, fused_vit_block, fused_loss_and_grads)
+    for c in counters:
+        c.launches = 0
+    times, per_step = [], []
+    for _ in range(5):
+        before = [c.launches for c in counters]
+        t = time.perf_counter()
+        losses.append(trainer.step(g, l))
+        times.append(time.perf_counter() - t)
+        per_step.append([c.launches - b0 for c, b0 in zip(counters, before)])
+    launches = [c.launches for c in counters]
+    step_s = sorted(times)[2]
+    moved = [max((a[k] - b[k]).abs().max().item() for k in ("mean", "var"))
+             for a, b in zip(trainer.student_bn + trainer.teacher_bn, bn0)]
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"pretrain vits16 --use-bn-in-head ({card}): 5 steps "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in times)} ms (median "
+          f"{1e3 * step_s:.2f} ms, {batch / step_s:.1f} img/s) beside the "
+          f"K7 step's {1e3 * k7_step_s:.2f} ms; losses "
+          f"{[round(x, 5) for x in losses]}; launches a step (K4, K5, K6, "
+          f"K1, K7) {per_step[0]}; BatchNorm running statistics moved by "
+          f"{[round(x, 5) for x in moved]} (student 1, 2, teacher 1, 2); "
+          f"peak memory {mem:.2f} GiB", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite BatchNorm pretrain loss {losses}")
+    check(all(p == [24, 24, 24, 12, 0] for p in per_step),
+          f"BatchNorm pretrain launches a step {per_step}, expected K4, "
+          "K5, K6 24, K1 12 and K7 0")
+    check(all(m > 0 for m in moved), f"a BatchNorm state did not move: "
+          f"{moved}")
+
+    # The same two comparisons with a control: the head without BatchNorm
+    # (use_bn_in_head off; the plain head and loss, as the BatchNorm
+    # head's), the same backbone and head weights, crops and draws, read
+    # by the same measure.  One candidate cause of a larger gap under
+    # BatchNorm is printed beside them: its backward removes from the
+    # gradient of its normalized output, dx, the mean over the rows and
+    # the projection on the normalized input, and a rounding error in dx
+    # grows by ||dx|| / ||what is left|| on the way to the backbone.
+    control = DINOTrainer(vit_cfg, dataclasses.replace(
+        cfg, use_bn_in_head=False), niter_per_ep=1000,
+        generator=torch.Generator().manual_seed(0), optimizer="adamw",
+        fused_loss=False)
+    for name in ("student", "teacher"):
+        getattr(control, name).load_state_dict(
+            {k: v for k, v in getattr(trainer, name).state_dict().items()
+             if ".bn." not in k})
+    control.center = trainer.center.clone()
+    temp = float(trainer.temp_sched[0])
+    # train-mode BatchNorm makes these gradients exactly 0 (a bias that
+    # the batch mean removes): both sides hold rounding noise there, read
+    # against the step's largest gradient instead of their own
+    zero = ("head.mlp.0.bias", "head.mlp.1.bias", "backbone.norm.bias")
+
+    def kernels_vs_plain(tr):
+        # one step's loss and gradients, the kernels against their plain
+        # versions on the card, from the same weights, crops and drop-path
+        # draws (the pretrain phase's check)
+        def grads(plain):
+            gen = torch.Generator(device="cuda").manual_seed(123)
+            with _Annotated(plain=plain):
+                loss, _ = tr.loss_and_grads(g, l, temp, gen)
+            return loss.item(), {n: p.grad.detach().clone()
+                                 for n, p in tr.student.named_parameters()
+                                 if p.grad is not None}
+
+        (lk, gk), (lp, gp) = grads(False), grads(True)
+        for p in tr.student.parameters():
+            p.grad = None
+        return abs(lk - lp) / abs(lp), gk, gp
+
+    kp = {}
+    for name, tr in (("BatchNorm", trainer), ("control", control)):
+        rel, gk, gp = kernels_vs_plain(tr)
+        check(set(gk) == set(gp), f"{name}: kernel and plain paths differ "
+              "in which parameters get a gradient")
+        gaps = {n: v[0] for n, v in _grad_gaps(gk, gp).items()
+                if n not in zero}
+        kp[name] = (rel, sorted(gaps.items(), key=lambda kv: kv[1])[-3:])
+        del gk, gp
+    del control
+    torch.cuda.empty_cache()
+    print(f"pretrain --use-bn-in-head step, kernels vs plain versions on the "
+          f"card, worst max|diff| / max|plain| of each gradient: "
+          + "; ".join(f"{name}: loss rel {rel:.3g}, "
+                      + ", ".join(f"{n} {v:.3g}" for n, v in worst)
+                      for name, (rel, worst) in kp.items()), flush=True)
+    # Limits: the loss 1e-3 relative; each gradient 5e-2 of its largest
+    # value under the control (the pretrain phase's limit; it read
+    # 0.0076), 1e-1 under the BatchNorm head (it read 0.0766, 10x the
+    # control; PERF.md §6, PR 16)
+    for name, limit in (("BatchNorm", 1e-1), ("control", 5e-2)):
+        rel, worst = kp[name]
+        check(rel <= 1e-3, f"{name} pretrain loss, kernels vs plain: {rel}")
+        check(worst[-1][1] <= limit, f"{name}: gradient {worst[-1][0]}, "
+              f"kernels vs plain: {worst[-1][1]}")
+
+    # one step, card against CPU, from the same weights and crops (16
+    # images, no drop path): the fused backbone on both, K4-K6 and K1 on
+    # the card, their plain versions on the CPU; the BatchNorm head and
+    # the control
+    from sais_tpu_torch.models import dino_head
+    magnified = []
+    orig_bn = dino_head._batch_norm
+
+    def watched(h, bn, *a, **kw):
+        out, state = orig_bn(h, bn, *a, **kw)
+        if not magnified and h.device.type == "cuda" and out.requires_grad:
+            h32 = h.detach().float()
+            xhat = ((h32 - h32.mean(0))
+                    * torch.rsqrt(h32.var(0, unbiased=False) + 1e-5))
+            scale = bn.scale.detach().float()
+
+            def hook(grad):
+                dx = grad.float() * scale
+                left = dx - dx.mean(0) - xhat * (dx * xhat).mean(0)
+                magnified.append((dx.norm() / left.norm()).item())
+
+            out.register_hook(hook)
+        return out, state
+
+    nets = {}
+    for use_bn in (True, False):
+        sub = dataclasses.replace(cfg, batch_size=16, drop_path_rate=0.0,
+                                  use_bn_in_head=use_bn)
+        for dev in ("cuda", "cpu"):
+            tr = DINOTrainer(vit_cfg, sub, niter_per_ep=1000,
+                             generator=torch.Generator().manual_seed(0),
+                             fused_blocks=True, fused_loss=False, device=dev)
+            for name in ("student", "teacher"):
+                getattr(tr, name).load_state_dict(
+                    {k: v for k, v in getattr(trainer, name).state_dict()
+                     .items() if use_bn or ".bn." not in k})
+            if use_bn:
+                tr.student_bn = copy.deepcopy(_to_dev(trainer.student_bn,
+                                                      dev))
+                tr.teacher_bn = copy.deepcopy(_to_dev(trainer.teacher_bn,
+                                                      dev))
+            tr.center = trainer.center.to(dev)
+            gi, li = g[:32].to(dev), l[:128].to(dev)
+            t = time.perf_counter()
+            dino_head._batch_norm = watched
+            try:
+                loss, _ = tr.loss_and_grads(gi, li, float(tr.temp_sched[0]),
+                                            None)
+            finally:
+                dino_head._batch_norm = orig_bn
+            grads = {n: p.grad.detach().cpu().float()
+                     for n, p in tr.student.named_parameters()
+                     if p.grad is not None}
+            states = ([{k: v.cpu() for k, v in st.items()}
+                       for st in tr._next_bn[0]] if use_bn else [])
+            nets[use_bn, dev] = (loss.item(), grads, states,
+                                 time.perf_counter() - t)
+            del tr
+    readings = {}
+    for use_bn in (True, False):
+        (lk, gk, sk, _), (lc, gc, sc, cpu_s) = (nets[use_bn, "cuda"],
+                                                nets[use_bn, "cpu"])
+        check(set(gk) == set(gc), "card and CPU differ in which parameters "
+              "get a gradient")
+        top = max(x.abs().max().item() for x in gc.values())
+        noise = max(max(gk[n].abs().max().item(), gc[n].abs().max().item())
+                    for n in zero) / top if use_bn else 0.0
+        gaps = {n: v for n, v in _grad_gaps(gk, gc).items()
+                if not (use_bn and n in zero)}
+        st_gap = max((max((a[k] - b[k]).abs().max().item()
+                          / max(b[k].abs().max().item(), 1e-30)
+                          for a, b in zip(sk, sc) for k in ("mean", "var"))
+                      if sk else 0.0), 0.0)
+        readings[use_bn] = (abs(lk - lc) / abs(lc), gaps, noise, st_gap,
+                            cpu_s)
+    for use_bn in (True, False):
+        rel, gaps, noise, st_gap, cpu_s = readings[use_bn]
+        by_max = sorted(gaps.items(), key=lambda kv: kv[1][0])[-3:]
+        by_norm = sorted(gaps.items(), key=lambda kv: kv[1][1])[-3:]
+        bn_t = {n: v for n, v in gaps.items() if ".bn." in n}
+        print(f"pretrain step at batch 16, card vs CPU, "
+              f"{'--use-bn-in-head' if use_bn else 'control (no BatchNorm)'}"
+              f" (CPU {cpu_s:.1f} s): loss rel {rel:.3g}; {len(gaps)} "
+              f"gradients, worst max|diff| / max|CPU| "
+              f"{', '.join(f'{n} {v[0]:.3g}' for n, v in by_max)}; worst "
+              f"||diff|| / ||CPU|| "
+              f"{', '.join(f'{n} {v[1]:.3g}' for n, v in by_norm)}"
+              + (f"; the BatchNorm scales and biases at most "
+                 f"{max(v[0] for v in bn_t.values()):.3g} / "
+                 f"{max(v[1] for v in bn_t.values()):.3g}; the three "
+                 f"gradients BatchNorm makes 0 at most {noise:.3g} of the "
+                 f"largest gradient; student BatchNorm states {st_gap:.3g}; "
+                 f"the student's first BatchNorm's backward, ||dx|| / "
+                 f"||what it leaves|| {magnified[0]:.3g}"
+                 if use_bn else ""), flush=True)
+    # Limits: the loss 1e-3 relative (the pretrain phase's).  Each
+    # gradient alone, the BatchNorm scales and biases included, in
+    # max|diff| / max|CPU| and in ||diff|| / ||CPU||: 5e-2 under the
+    # control (it read 0.0103 and 0.0081), 1.5e-1 and 1.25e-1 under the
+    # BatchNorm head (it read 0.107 and 0.0928: 10-11x the control, as the
+    # kernels against their plain versions read 10x; why is open, PERF.md
+    # §7).  The BatchNorm arithmetic itself is held to 1e-4 against the
+    # JAX package in float32 (tests/test_torch_dino_bn.py).
+    for use_bn, lmax, lnorm in ((True, 1.5e-1, 1.25e-1),
+                                (False, 5e-2, 5e-2)):
+        rel, gaps = readings[use_bn][:2]
+        name = "BatchNorm" if use_bn else "control"
+        worst_max = max(gaps.items(), key=lambda kv: kv[1][0])
+        worst_norm = max(gaps.items(), key=lambda kv: kv[1][1])
+        check(rel <= 1e-3, f"{name} pretrain loss card vs CPU: {rel}")
+        check(worst_max[1][0] <= lmax, f"{name}: gradient {worst_max[0]} "
+              f"card vs CPU: max-relative {worst_max[1][0]}")
+        check(worst_norm[1][1] <= lnorm, f"{name}: gradient "
+              f"{worst_norm[0]} card vs CPU: norm-relative "
+              f"{worst_norm[1][1]}")
+    noise, st_gap = readings[True][2:4]
+    # the three exact zeros 5e-2 of the step's largest gradient; the new
+    # running statistics average bf16 activations, 5e-2
+    check(noise <= 5e-2, f"gradients BatchNorm makes 0 read {noise} of the "
+          "largest")
+    check(st_gap <= 5e-2, f"BatchNorm states card vs CPU: {st_gap}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _to_dev(states, dev):
+    return [{k: v.to(dev) for k, v in st.items()} for st in states]
+
+
+def phase_host_extract(nframes: int = 300):
+    """The gesture path's extraction once more with `extract
+    --exact-preprocess --norm half`: crop, resize and normalize on the host
+    CPU, the normalized frames copied to the card, the ViT on K1; against
+    the device route under the same normalization (bitwise expected: the
+    same PIL-exact integer resample and float32 normalize on both).  The
+    frame pump is built (or falls back, saying so) as `extract` would.
+    Returns K1's launches in the host route's run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import ModelConfig, PipelineConfig
+    from sais_tpu_torch.infer.pipeline import FeatureExtractor
+    from sais_tpu_torch.io import native_loader
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block
+    from sais_tpu_torch.models.vit import vit_init
+
+    if native_loader.ensure_built():
+        print("frame pump: built", flush=True)
+    else:
+        print(f"frame pump: not built ({native_loader._failed}); "
+              "extract_video falls back to OpenCV's Python binding",
+              flush=True)
+    cfg = PipelineConfig(model=ModelConfig(modalities="RGB"))
+    cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+        cfg.preprocess, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)))
+    vit = vit_init(torch.Generator().manual_seed(0), cfg.vit)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (nframes, 480, 640, 3), dtype=np.uint8)
+    host = FeatureExtractor(vit, cfg, batch_size=256, exact_preprocess=True)
+    dev = FeatureExtractor(vit, cfg, batch_size=256)
+    host.extract_array(frames[:8])       # warm-up
+    torch.cuda.synchronize()
+    fused_vit_block.launches = 0
+    t = time.perf_counter()
+    got = host.extract_array(frames)
+    host_s = time.perf_counter() - t
+    launches = fused_vit_block.launches
+    t = time.perf_counter()
+    want = dev.extract_array(frames)
+    dev_s = time.perf_counter() - t
+    diff = np.abs(got - want).max()
+    # where the two routes' normalized frames part
+    from sais_tpu_torch.ops.preprocess import preprocess_batch
+    x_host = host.preprocess_host(frames[:64])
+    x_dev = preprocess_batch(torch.from_numpy(frames[:64]).cuda(),
+                             cfg.preprocess, torch.float32).cpu()
+    x_diff = (x_host - x_dev).abs().max().item()
+    x_parts = torch.count_nonzero(x_host != x_dev).item() / x_host.numel()
+    batches = math.ceil(nframes / 256)
+    print(f"host extraction (--exact-preprocess --norm half): {nframes} "
+          f"frames of 480x640 in {host_s:.4f} s ({nframes / host_s:.1f} "
+          f"frames/s; the device route {nframes / dev_s:.1f} frames/s); K1 "
+          f"launches {launches}; features "
+          f"{'bitwise equal to' if diff == 0 else f'max|diff| {diff:.3g} from'}"
+          f" the device route's (max|feature| {np.abs(want).max():.4g}); "
+          f"normalized frames max|diff| {x_diff:.3g}, {100 * x_parts:.2f}% "
+          f"of the values differ", flush=True)
+    check(launches == 12 * batches, f"K1 launched {launches} times on the "
+          f"host route, expected {12 * batches}")
+    check(got.shape == (nframes, 384) and np.isfinite(got).all(),
+          "host-route features not finite / wrong shape")
+    # Limit: bitwise (the same resample and normalize); were they not, the
+    # gesture path's limit against the plain version (5e-2 of the largest
+    # value, 12 bf16 blocks) would hold
+    check(diff <= 5e-2 * np.abs(want).max(), f"host route differs {diff}")
+    return launches
+
+
+def _raw_table(nvideos: int = 6, stitches: int = 3):
+    """A VUA_EASE_Stitch_Paths-schema table (numpy seed 3) for the raw
+    path: nvideos x stitches x the three RACE / EASE pairs, maj in {0, 1,
+    2}, every span long enough for 16-frame snippets."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    rows = []
+    for v in range(nvideos):
+        for s_ in range(stitches):
+            start = int(rng.integers(50, 1500))
+            entry = start + int(rng.integers(40, 300))
+            wd = entry + int(rng.integers(60, 300))
+            for race, ease in SKILL_RACES:
+                rows.append({
+                    "File": v + 1, "Stitch": s_,
+                    "Path": f"C:\\EASE\\vid{v:02d}",
+                    "videoname": f"case{v:02d}", "Anatomy": "Anterior",
+                    "RACE": race, "EASE": ease,
+                    "maj": int(rng.integers(0, 3)),
+                    "Needle Handling Start Frame": start,
+                    "Needle Entry Start Frame": entry,
+                    "Needle Withdrawal Start Frame": wd,
+                    "Needle Withdrawal End Frame": wd + int(
+                        rng.integers(90, 250))})
+    return rows
+
+
+def _memory_frames(h: int = 480, w: int = 640, pool: int = 48):
+    """A frame source (video, indices, modality) -> (T, h, w, 3) uint8
+    served from memory: a pool of numpy-seeded frames, picked by video,
+    modality and frame number."""
+    import zlib
+
+    import numpy as np
+    frames = np.random.default_rng(4).integers(0, 256, (pool, h, w, 3),
+                                               dtype=np.uint8)
+
+    def load(video, indices, modality="RGB"):
+        base = zlib.crc32(f"{video}/{modality}".encode())
+        return frames[[(base + int(i)) % pool for i in indices]]
+
+    return load
+
+
+def _numpy_bilinear(x, oh, ow):
+    """Half-pixel bilinear in numpy float32 (no antialiasing, edge taps
+    clamped), columns then rows: the resize of data.raw.process_snippet."""
+    import numpy as np
+    for axis, n_out in ((2, ow), (1, oh)):
+        n_in = x.shape[axis]
+        fx = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        s_ = np.floor(fx).astype(np.int64)
+        f = fx - s_
+        f[(s_ < 0) | (s_ >= n_in - 1)] = 0
+        s_ = np.clip(s_, 0, n_in - 1)
+        shape = [1] * x.ndim
+        shape[axis] = n_out
+        x = (np.take(x, s_, axis) * (1 - f).astype(np.float32).reshape(shape)
+             + np.take(x, np.minimum(s_ + 1, n_in - 1), axis)
+             * f.astype(np.float32).reshape(shape))
+    return x
+
+
+def phase_raw(card: str):
+    """`train --dataset vua-ease --data-type raw` through the CLI at the
+    published widths: --encoder R3D (R3D-18, 16 x 112 x 112 snippets,
+    batch 8) and --encoder ViT (ViT-S/16 at float32, 16 frames of 224 x
+    224 a snippet, batch 2), 2 epochs each, 3-way TTA at val / test, on
+    the card, and the first epoch on the CPU (epoch losses within 1e-3,
+    the training phase's limit), frames of 480 x 640 served from memory; R3D's features
+    on the card against its float32 CPU run within 1e-4 of the largest
+    (COMPONENTS C4 / C9); the device resize against numpy's half-pixel
+    bilinear; one --unfreeze-encoder step for each encoder and one -mod
+    RGB-Flow step; snippets/s and the step ms of each encoder."""
+    import csv as csv_lib
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.cli import main as cli
+    from sais_tpu_torch.config import ModelConfig, TrainConfig, ViTConfig
+    from sais_tpu_torch.data import raw
+    from sais_tpu_torch.data.skill import with_video
+    from sais_tpu_torch.models.full_model import full_model_init
+    from sais_tpu_torch.models.r3d import r3d18_features, r3d18_init
+    from sais_tpu_torch.models.vit import vit_init
+    from sais_tpu_torch.train.classification import (ClassificationTrainer,
+                                                     RawClassificationTrainer)
+    src = _memory_frames()
+    rows = _raw_table()
+
+    # the device resize against numpy's, on the same float crop (the
+    # card's x / 255 is a multiply by the reciprocal, an ulp from numpy's
+    # division, so the resize is held on its own input)
+    snip = src("vid00", np.arange(16), "RGB")
+    crop = (torch.from_numpy(snip).cuda()[:, 48:48 + 384, 64:64 + 512]
+            .float() / 255.0)
+    got = raw.resize_linear(crop, 112, 112).cpu().numpy()
+    want = _numpy_bilinear(crop.cpu().numpy(), 112, 112)
+    rdiff = float(np.abs(got - want).max())
+    print(f"raw snippet resize on the card (16 x 384 x 512 crops -> 112): "
+          f"{'bitwise equal to' if rdiff == 0 else f'max|diff| {rdiff:.3g} from'}"
+          f" numpy's half-pixel bilinear", flush=True)
+    # Limit 2**-23 (an ulp at 1): both sum a0 x[s] + a1 x[s + 1] in float32
+    check(rdiff <= 2 ** -23, f"device resize differs from numpy's: {rdiff}")
+
+    orig_src = raw.jpeg_frame_source
+    orig_run = ClassificationTrainer.run_epoch
+    record = []
+
+    def run(self, batches, train):
+        loss, m = orig_run(self, batches, train)
+        record.append(loss)
+        return loss, m
+
+    raw.jpeg_frame_source = lambda root, dataset="VUA": src
+    ClassificationTrainer.run_epoch = run
+    fits = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            csv = os.path.join(tmp, "VUA_EASE_Stitch_Paths.csv")
+            with open(csv, "w", newline="") as f:
+                w = csv_lib.DictWriter(f, fieldnames=list(rows[0]))
+                w.writeheader()
+                w.writerows(rows)
+            for enc, width, bs, lr in (("R3D", 112, 8, "1e-4"),
+                                       ("ViT", 224, 2, "0.1")):
+                for dev in ("cuda", "cpu"):
+                    record.clear()
+                    t = time.perf_counter()
+                    cli.main(["train", "-p", tmp, "--segments", csv,
+                              "--dataset", "vua-ease", "-d", "NH_02",
+                              "--data-type", "raw", "--encoder", enc,
+                              "--raw-width", str(width), "-e",
+                              "2" if dev == "cuda" else "1", "-bs",
+                              str(bs), "-lr", lr, "--device", dev])
+                    fits[enc, dev] = (list(record), time.perf_counter() - t)
+    finally:
+        raw.jpeg_frame_source = orig_src
+        ClassificationTrainer.run_epoch = orig_run
+    for enc in ("R3D", "ViT"):
+        (card_l, card_s), (cpu_l, cpu_s) = fits[enc, "cuda"], fits[enc, "cpu"]
+        # the CPU fits the first epoch only (constant-lr SGD, the epoch's
+        # shuffle seeded by its index: the same epoch as the card's first)
+        gap = float(np.max(np.abs(np.subtract(card_l[:len(cpu_l)], cpu_l))))
+        print(f"raw fit --encoder {enc}: epoch losses on the card "
+              f"{[round(x, 6) for x in card_l]} ({card_s:.1f} s), on the "
+              f"CPU {[round(x, 6) for x in cpu_l]} ({cpu_s:.1f} s); "
+              f"max|diff| {gap:.3g}", flush=True)
+        check(len(card_l) >= 4 and all(math.isfinite(x) for x in card_l)
+              and 2 * len(cpu_l) == len(card_l),
+              f"raw fit {enc}: epoch losses {card_l}, on the CPU {cpu_l}")
+        # Limit 1e-3: the training phase's (f32 on both sides, two epochs)
+        check(gap <= 1e-3, f"raw fit {enc}: card and CPU differ {gap}")
+
+    # R3D's features on the card against its float32 CPU run (rows with a
+    # Video column and a maj of NH_02's classes, as the dataset gives them)
+    direct = [r for r in with_video(rows) if r["maj"] in (0, 2)][:8]
+    r3d = r3d18_init(torch.Generator().manual_seed(5))
+    batch = raw.collate_raw(direct, src, [0, 2], "NH_02", "train",
+                            device=torch.device("cuda"))
+    clips = batch["raw"][:, 0]
+    with torch.no_grad():
+        fc = r3d18_features(r3d.cuda(), clips).cpu()
+        fh = r3d18_features(r3d.cpu(), clips.cpu())
+    ferr, fscale = (fc - fh).abs().max().item(), fh.abs().max().item()
+    print(f"R3D-18 features (8 x 16 x 112 x 112) card vs CPU float32: "
+          f"max|diff| {ferr:.3g} (max|feature| {fscale:.4g})", flush=True)
+    check(ferr <= 1e-4 * fscale, f"R3D features differ: {ferr}")
+    r3d.cuda()
+    with torch.no_grad():
+        _profile(lambda: r3d18_features(r3d, clips), "r3d_profile", 1)
+
+    # step times, frozen; one unfrozen step a encoder; one RGB-Flow step
+    vcfg = ViTConfig()
+    for enc, bs, width in (("R3D", 8, 112), ("ViT", 2, 224)):
+        mcfg = ModelConfig(nclasses=2, data_type="raw", modalities="RGB",
+                           rep_dim=512 if enc == "R3D" else 384)
+        b = raw.collate_raw(direct[:bs], src, [0, 2], "NH_02", "train",
+                            width=width, encoder_type=enc,
+                            device=torch.device("cuda"))
+        for frozen in (True, False):
+            encoder = (r3d18_init(torch.Generator().manual_seed(5))
+                       if enc == "R3D" else
+                       vit_init(torch.Generator().manual_seed(5), vcfg))
+            tr = RawClassificationTrainer(
+                mcfg, TrainConfig(lr=1e-4), full_model_init(
+                    torch.Generator().manual_seed(0), mcfg), encoder,
+                encoder_type=enc, freeze_encoder=frozen)
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(5 if frozen else 3):
+                t = time.perf_counter()
+                loss, _ = tr.train_step(b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            step_s = sorted(times)[len(times) // 2]
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"raw {enc} {'frozen' if frozen else 'unfrozen'} step, "
+                  f"batch {bs} ({card}): {1e3 * step_s:.2f} ms "
+                  f"({bs / step_s:.2f} snippets/s; steps "
+                  f"{', '.join(f'{1e3 * x:.2f}' for x in times)} ms); loss "
+                  f"{loss.item():.5f}; peak memory {mem:.2f} GiB",
+                  flush=True)
+            check(math.isfinite(loss.item()), f"raw {enc} step loss {loss}")
+            del tr, encoder
+            torch.cuda.empty_cache()
+    mcfg = ModelConfig(nclasses=2, data_type="raw", rep_dim=512,
+                       modalities="RGB-Flow")
+    fb = raw.collate_raw(direct, src, [0, 2], "NH_02", "train",
+                         use_flow=True, device=torch.device("cuda"),
+                         fps_table={f"vid{v:02d}": 30.0 for v in range(6)})
+    tr = RawClassificationTrainer(
+        mcfg, TrainConfig(lr=1e-4), full_model_init(
+            torch.Generator().manual_seed(0), mcfg),
+        r3d18_init(torch.Generator().manual_seed(5)))
+    loss, _ = tr.train_step(fb)
+    print(f"raw -mod RGB-Flow R3D step (raw + raw_flow "
+          f"{tuple(fb['raw_flow'].shape)}): loss {loss.item():.5f}",
+          flush=True)
+    check(math.isfinite(loss.item()), f"raw RGB-Flow step loss {loss}")
+    del tr
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # K8: the W8A8 ViT block
 # ---------------------------------------------------------------------------
@@ -3793,7 +4544,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-csrc", metavar="DIR",
                         help="an earlier tree's kernels/csrc: time its K1, "
-                        "K6, K7 and K8 beside this tree's")
+                        "K2, K3, K6, K7 and K8 beside this tree's")
     args = parser.parse_args()
     t_start = time.time()
     card = phase_device()
@@ -3802,9 +4553,12 @@ def main():
     k1 = phase_k1(parent)
     k2 = phase_k2()
     launches, rgb_feats = phase_main_path(nframes=300)
+    host_launches = phase_host_extract(nframes=300)
     flow_launches = phase_flow(rgb_feats, card)
     phase_steps(nframes=20000)
     k3 = phase_k3()
+    if parent:
+        parent_k23(parent)
     k2_launches, k3_launches = phase_train()
     skill_k2, skill_k3 = phase_skill(card)
     k2_launches += skill_k2
@@ -3812,19 +4566,23 @@ def main():
     train_k = phase_train_kernels(parent)
     phase_long_blocks(parent)
     k7 = phase_k7(parent)
-    # launches of K4, K5, K6, K1, K7 on both pretrain paths
-    pretrain_launches = [a + b for a, b in zip(
-        phase_pretrain(card)[0], phase_pretrain(card, arch="vits8")[0])]
+    # launches of K4, K5, K6, K1, K7 on the three pretrain paths
+    vits16, vits8 = phase_pretrain(card), phase_pretrain(card, arch="vits8")
+    bn = phase_pretrain_bn(card, vits16[1])
+    pretrain_launches = [a + b + c for a, b, c in zip(vits16[0], vits8[0],
+                                                      bn)]
     k8 = phase_k8(parent)
     k8_launches = phase_int8_encoder()
     cls_k2, cls_k3 = phase_classification(card)
     k2_launches += cls_k2
     k3_launches += cls_k3
+    phase_raw(card)
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
         "replaces": "sais_tpu/kernels/fused_mha.py:117",
-        "launches": launches + flow_launches + pretrain_launches[3],
+        "launches": (launches + host_launches + flow_launches
+                     + pretrain_launches[3]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

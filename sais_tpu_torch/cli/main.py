@@ -107,6 +107,11 @@ def _pipeline_config(args) -> PipelineConfig:
         # (prepare_model.py:67), for full-length windows past the cap
         temporal = dataclasses.replace(temporal,
                                        max_positions=args.max_positions)
+    if args.norm == "half":
+        # timm ViT_Supervised_ImageNet normalization, 0.5 / 0.5 a channel
+        # (extract_representations.py:152-156)
+        cfg = dataclasses.replace(cfg, preprocess=dataclasses.replace(
+            cfg.preprocess, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)))
     return dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, modalities=args.modalities,
                                        nclasses=args.nclasses,
@@ -304,6 +309,30 @@ def _read_flow(args, cfg, required: bool):
         return fs.read_video(args.videoname)
 
 
+def cmd_frames(args):
+    """mp4 -> <root>/images/<video>/frames_%08d.jpg (video_to_frames.sh)."""
+    from sais_tpu_torch.io.video import dump_frames
+    out = os.path.join(args.path, "images", args.videoname)
+    n = dump_frames(os.path.join(args.path, "videos", args.videoname + ".mp4"),
+                    out)
+    print(f"wrote {n} frames to {out}")
+
+
+def cmd_paths(args):
+    """The reference's path manifests under <root>/paths
+    (generate_paths.py)."""
+    from sais_tpu_torch.io.manifests import write_manifests
+    write_manifests(args.path, [args.videoname])
+    print(f"wrote manifests under {os.path.join(args.path, 'paths')}")
+
+
+def cmd_unported(args):
+    """`eval`, `port`, `serve`, `request` and `attention`: registered with
+    the JAX CLI's flags, refused until their slice."""
+    raise NotImplementedError(
+        f"`{args.cmd}` is not ported yet (ROADMAP.md Queue 1, 'The rest')")
+
+
 def cmd_extract(args):
     from sais_tpu_torch.infer.pipeline import FeatureExtractor
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
@@ -314,7 +343,8 @@ def cmd_extract(args):
         print(f"{args.videoname}: reps exist, skipping (--force to redo)")
         return
     fx = FeatureExtractor(_load_vit(args, cfg), cfg,
-                          batch_size=args.batch_size, device=args.device)
+                          batch_size=args.batch_size, device=args.device,
+                          exact_preprocess=args.exact_preprocess)
     t0 = time.time()
     reps = fx.extract_video(_video_path(args))
     dt = time.time() - t0
@@ -500,14 +530,9 @@ def cmd_assess(args):
 
 
 def _check_train_ported(args):
-    """`train` runs every branch of the JAX package on stored reps; the
-    raw-video path comes with a later slice (ROADMAP.md Queue 1)."""
+    """`train` runs every branch of the JAX package; what it refuses is
+    data- and sequence-parallel training (`_check_ported`)."""
     _check_ported(args)
-    if args.data_type != "reps":
-        raise NotImplementedError(
-            f"--data-type {args.data_type}: not ported yet; raw-video "
-            "training (R3D / ViT snippets) comes with the raw-video path "
-            "(ROADMAP.md Queue 1, 'The rest')")
     if not args.segments:
         sys.exit("train needs --segments <csv> (Video, StartFrame, "
                  "EndFrame, Gesture)")
@@ -591,6 +616,47 @@ def _policy_dataset(args, segments, fold: int):
                           classes)
 
 
+def _raw_trainer(args, cfg, mcfg, tcfg, fold: int, skill_mode: bool):
+    """The raw-video branch's trainer (sais_tpu/cli/main.py:660-700):
+    `--dataset vua-ease` only; rep_dim 512 for R3D; the encoder from seed
+    5 (an R3D-18, or the pipeline's ViT at float32), frozen unless
+    --unfreeze-encoder."""
+    from sais_tpu_torch.models.full_model import full_model_init
+    from sais_tpu_torch.train.classification import RawClassificationTrainer
+    if not skill_mode:
+        sys.exit("--data-type raw requires --dataset vua-ease")
+    mcfg = dataclasses.replace(
+        mcfg, data_type="raw",
+        rep_dim=512 if args.encoder == "R3D" else cfg.model.rep_dim)
+    model = full_model_init(torch.Generator().manual_seed(2 * fold), mcfg)
+    if args.encoder == "R3D":
+        from sais_tpu_torch.models.r3d import r3d18_init
+        encoder = r3d18_init(torch.Generator().manual_seed(5))
+    else:
+        from sais_tpu_torch.models.vit import vit_init
+        encoder = vit_init(torch.Generator().manual_seed(5), cfg.vit)
+    return RawClassificationTrainer(
+        mcfg, tcfg, model, encoder, encoder_type=args.encoder,
+        freeze_encoder=not args.unfreeze_encoder, device=args.device)
+
+
+def _encoder_to_jax(encoder_type: str, sd):
+    from sais_tpu_torch.port.weights import (r3d18_params_to_jax,
+                                             vit_params_to_jax)
+    return (r3d18_params_to_jax(sd) if encoder_type == "R3D"
+            else vit_params_to_jax(sd))
+
+
+def _fit_epochs(trainer, loaders, nepochs: int) -> None:
+    """nepochs epochs over train / val / test without early stopping, the
+    metrics of each phase printed."""
+    from sais_tpu_torch.train.metrics import format_metrics
+    for epoch in range(nepochs):
+        for phase, make in loaders.items():
+            _, m = trainer.run_epoch(make(epoch), phase == "train")
+            print(format_metrics(phase, m))
+
+
 def cmd_train(args):
     """Training over domains x folds (run_experiments.py:85-116): per fold,
     the dataset's split and class balancing, then -t Prototypes:
@@ -608,6 +674,7 @@ def cmd_train(args):
                 "params_subdir": dom if len(args.domains) > 1 else None}))
         return
     from sais_tpu_torch.config import TrainConfig
+    from sais_tpu_torch.data import raw
     from sais_tpu_torch.data.collate import segment_batches
     from sais_tpu_torch.data.datasets import (build_segment_dataset,
                                               read_segments)
@@ -620,7 +687,6 @@ def cmd_train(args):
     from sais_tpu_torch.train.checkpoint import save_training_result
     from sais_tpu_torch.train.classification import ClassificationTrainer
     from sais_tpu_torch.train.loop import PrototypeTrainer
-    from sais_tpu_torch.train.metrics import format_metrics
     _check_train_ported(args)
     skill_mode = args.dataset == "vua-ease"
     stitch_mode = args.dataset == "vua-ease-stitch"
@@ -638,9 +704,11 @@ def cmd_train(args):
     cfg = _pipeline_config(args)
     segments = read_segments(args.segments)
     use_flow = cfg.model.modalities != "RGB"
-    store = FeatureStore(rgb_store_path(args.path))
-    flow_store = (FeatureStore(flow_store_path(args.path)) if use_flow
-                  else None)
+    raw_mode = args.data_type == "raw"
+    # raw mode reads JPEG frame directories, not feature stores
+    store = None if raw_mode else FeatureStore(rgb_store_path(args.path))
+    flow_store = (FeatureStore(flow_store_path(args.path))
+                  if use_flow and not raw_mode else None)
     try:
         for fold in range(args.nfolds):
             print(f"Fold: {fold}")
@@ -696,12 +764,38 @@ def cmd_train(args):
                     shuffle=train, seed=epoch, tta=not train,
                     flow_store=flow_store)
 
+            if raw_mode:
+                trainer = _raw_trainer(args, cfg, mcfg, tcfg, fold,
+                                       skill_mode)
+
+                def loader(rows, phase, device=trainer.device):
+                    # the reference loader always pairs RGB with flow
+                    # JPEGs in the dual-stream raw path
+                    train = phase == "train"
+                    src = raw.jpeg_frame_source(args.path, dataset="VUA")
+                    return lambda epoch=0: raw.raw_batches(
+                        rows, src, ds.skill_classes, args.domain, phase,
+                        args.batch_size, train, width=args.raw_width,
+                        encoder_type=args.encoder, use_flow=use_flow,
+                        seed=epoch, tta=not train, device=device)
+
             loaders = {ph: loader(ds.frames[ph], ph)
                        for ph in ("train", "val", "test") if ds.frames[ph]}
             subdir = getattr(args, "params_subdir", None)
             savepath = os.path.join(args.path, "params",
                                     *((subdir,) if subdir else ()),
                                     f"Fold_{fold}")
+            if raw_mode:
+                _fit_epochs(trainer, loaders, args.nepochs)
+                result = {"model": trainer.snapshot(), "prototypes": protos}
+                if not trainer.freeze_encoder:
+                    # the JAX package saves the joint {model, encoder}
+                    # tree of an unfrozen encoder
+                    result["encoder"] = _encoder_to_jax(
+                        args.encoder, trainer.encoder_snapshot())
+                save_training_result(savepath, result)
+                print(f"saved fold {fold} to {savepath}")
+                continue
             if args.task == "Prototypes":
                 trainer = PrototypeTrainer(mcfg, tcfg, model, keys, protos,
                                            device=args.device)
@@ -713,34 +807,27 @@ def cmd_train(args):
             trainer = ClassificationTrainer(mcfg, tcfg, model,
                                             task=args.task,
                                             device=args.device)
-            for epoch in range(args.nepochs):
-                for phase, make in loaders.items():
-                    _, m = trainer.run_epoch(make(epoch), phase == "train")
-                    print(format_metrics(phase, m))
+            _fit_epochs(trainer, loaders, args.nepochs)
             save_training_result(savepath, {"model": trainer.snapshot(),
                                             "prototypes": protos})
             print(f"saved fold {fold} to {savepath}")
     finally:
-        store.close()
+        if store is not None:
+            store.close()
         if flow_store is not None:
             flow_store.close()
 
 
 def _check_pretrain_ported(args):
     """`pretrain` runs the video or flow-image source with the fused
-    student backbone and, on the card, the fused last layer + loss (K7);
-    what it refuses is listed in ROADMAP.md with the slice that brings
-    it."""
+    student backbone and, on the card, the fused last layer + loss (K7;
+    the plain head and loss with --use-bn-in-head); what it refuses is
+    listed in ROADMAP.md with the slice that brings it."""
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel: data-parallel pre-training is not ported yet; "
             "it comes with torch.distributed DDP and K7's per-shard wrapper "
             "(ROADMAP.md Queue 1, 'Parallelism, on torch.distributed')")
-    if args.use_bn_in_head:
-        raise NotImplementedError(
-            "--use-bn-in-head: the BatchNorm DINO head is not ported yet; "
-            "it comes with its own slice (ROADMAP.md Queue 1, 'The "
-            "BatchNorm DINO head')")
 
 
 def cmd_pretrain(args):
@@ -776,7 +863,8 @@ def cmd_pretrain(args):
     dcfg = DINOConfig(out_dim=args.out_dim, epochs=args.nepochs,
                       batch_size=bs, n_local_crops=args.local_crops,
                       warmup_epochs=min(10, max(args.nepochs // 10, 0)),
-                      drop_path_rate=args.drop_path)
+                      drop_path_rate=args.drop_path,
+                      use_bn_in_head=args.use_bn_in_head)
     vit_cfg = zoo.config(args.arch)
     device = resolve_device(args.device)
 
@@ -853,15 +941,25 @@ def cmd_pipeline(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sais_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in [("extract", cmd_extract), ("flow", cmd_flow),
-                     ("decode", cmd_decode),
-                     ("pipeline", cmd_pipeline), ("steps", cmd_steps),
-                     ("assess", cmd_assess), ("train", cmd_train),
-                     ("pretrain", cmd_pretrain)]:
+    for name, fn in [("frames", cmd_frames), ("paths", cmd_paths),
+                     ("extract", cmd_extract), ("flow", cmd_flow),
+                     ("decode", cmd_decode), ("pipeline", cmd_pipeline),
+                     ("assess", cmd_assess), ("steps", cmd_steps),
+                     ("train", cmd_train), ("pretrain", cmd_pretrain),
+                     ("eval", cmd_unported), ("port", cmd_unported),
+                     ("serve", cmd_unported), ("request", cmd_unported),
+                     ("attention", cmd_unported)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
         sp.add_argument("-f", "--videoname",
-                        required=name not in ("train", "pretrain"))
+                        required=(name not in ("train", "pretrain", "eval",
+                                               "port", "serve", "request",
+                                               "attention")))
+        sp.add_argument("--socket", default="/tmp/sais.sock",
+                        help="serve / request: the daemon's Unix socket "
+                             "(not ported yet)")
+        sp.add_argument("--rpc", choices=["ping", "shutdown", "stats"],
+                        help="request: a control call (not ported yet)")
         sp.add_argument("-p", "--path", default=".")
         sp.add_argument("--dino-weights")
         sp.add_argument("--raft-weights",
@@ -880,11 +978,47 @@ def build_parser() -> argparse.ArgumentParser:
                              "flows/<video>/flows_%%08d.jpg (the reference "
                              "saveFlows layout; read by `pretrain --source "
                              "flows`)")
+        # attention visualization (visualize_attention.py /
+        # video_generation.py equivalents)
+        sp.add_argument("--image", default=None,
+                        help="attention: visualize one image instead of a "
+                             "video (per-head heatmap PNGs, reference "
+                             "visualize_attention.py --image_path)")
+        sp.add_argument("--attn-threshold", type=float, default=None,
+                        help="attention: also write the mass-threshold "
+                             "masks keeping this fraction of attention "
+                             "(visualize_attention.py --threshold, "
+                             "reference value 0.6); on videos, masks the "
+                             "heat overlay")
+        sp.add_argument("--alpha", type=float, default=0.5,
+                        help="attention video: overlay blend weight "
+                             "(video_generation.py default)")
+        sp.add_argument("--flow-warmup", default=None, metavar="HxW[,HxW...]",
+                        help="serve: pre-compile the fused dual-stream "
+                             "program for this video resolution (e.g. "
+                             "240x320) so the first flow request pays no "
+                             "compile (not ported yet)")
         sp.add_argument("--params-dir",
                         help="trained folds: Fold_<i>/params.pkl and "
                              "prototypes.pkl (either package's `train`), "
                              "or reference Fold_<i>/params.zip and "
                              "prototypes.zip")
+        sp.add_argument("--verify", default=None, metavar="CKPT",
+                        help="port: probe a real reference checkpoint "
+                             "against the committed golden digest "
+                             "(needs --kind)")
+        sp.add_argument("--record", default=None, metavar="CKPT",
+                        help="port: record the golden digest from a "
+                             "verified checkpoint (needs --kind)")
+        sp.add_argument("--record-all", default=None, metavar="DIR",
+                        help="port: discover the three published "
+                             "checkpoints under DIR by name and record "
+                             "every golden digest in one run")
+        sp.add_argument("--kind", choices=["vit", "raft", "full"],
+                        default=None,
+                        help="port --verify/--record: checkpoint family")
+        sp.add_argument("--golden-dir", default=None,
+                        help="port: override the golden digest directory")
         sp.add_argument("--random-init", action="store_true")
         sp.add_argument("--nfolds", type=int, default=1)
         sp.add_argument("--nclasses", type=int, default=2)
@@ -900,6 +1034,19 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (default) or cpu")
         sp.add_argument("--force", action="store_true",
                         help="re-extract features that already exist")
+        sp.add_argument("--exact-preprocess", action="store_true",
+                        help="extract: crop, resize and normalize on the "
+                             "host CPU (PIL-exact, as the device route), "
+                             "then copy normalized frames to the device; "
+                             "native decode off (the reference transform "
+                             "stack's parity route; slower)")
+        sp.add_argument("--norm", default="imagenet",
+                        choices=["imagenet", "half"],
+                        help="feature-extraction normalization: imagenet "
+                             "stats for ViT_SelfSupervised_* encoders, "
+                             "half = 0.5/0.5 for the timm "
+                             "ViT_Supervised_ImageNet variant "
+                             "(extract_representations.py:145-162)")
         sp.add_argument("--save-artifacts", action="store_true",
                         help="decode: also write the reps_and_labels / "
                              "attention artifacts under params/Fold_0")
@@ -1000,7 +1147,17 @@ def build_parser() -> argparse.ArgumentParser:
                              ":65-77) for --importance-loss")
         sp.add_argument("-dt", "--data-type", default="reps",
                         choices=["reps", "raw"],
-                        help="train: reps (raw is not ported yet)")
+                        help="raw: train on 16-frame JPEG snippets with a "
+                             "frozen encoder (prepare_dataset.py:1795-1990)")
+        sp.add_argument("--encoder", default="R3D", choices=["R3D", "ViT"],
+                        help="raw-path encoder (run_experiments.py -m)")
+        sp.add_argument("--raw-width", type=int, default=112,
+                        help="raw snippet resize width (R3D default 112)")
+        sp.add_argument("--unfreeze-encoder", action="store_true",
+                        help="raw path: train the R3D/ViT encoder jointly "
+                             "with the head (the reference CLI default "
+                             "without -fe; our default matches -fe = "
+                             "frozen, prepare_model.py:112-124)")
         # pretraining flags (main_dino.py argparse equivalents)
         sp.add_argument("--out-dim", type=int, default=65536)
         sp.add_argument("--local-crops", type=int, default=8)
@@ -1032,15 +1189,38 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pretrain: student stochastic-depth rate "
                              "(main_dino.py --drop_path_rate)")
         sp.add_argument("--use-bn-in-head", action="store_true",
-                        help="not ported yet (the BatchNorm DINO head)")
+                        help="BatchNorm1d after each hidden head linear "
+                             "(main_dino.py --use_bn_in_head, default off); "
+                             "runs the plain head and loss")
         sp.add_argument("--data-parallel", type=int, nargs="?", const=-1,
                         default=0, metavar="M",
                         help="not ported yet (refused)")
+        sp.add_argument("--num-slices", type=int, default=1,
+                        help="train over N TPU slices with a "
+                             "('dcn','data','model') mesh (not ported "
+                             "yet; any N > 1 is refused)")
+        sp.add_argument("--init-distributed", action="store_true",
+                        help="multi-host launch (not ported yet; refused)")
     return p
+
+
+def _check_registered(args):
+    """Flags every command takes whose work is not ported: each is
+    refused, naming the ROADMAP.md item that brings it."""
+    if args.flow_warmup:
+        raise NotImplementedError(
+            "--flow-warmup: the serve daemon's flow warm-up is not ported "
+            "yet; it comes with `serve` (ROADMAP.md Queue 1, 'The rest')")
+    if args.num_slices > 1 or args.init_distributed:
+        raise NotImplementedError(
+            "--num-slices / --init-distributed: multi-host training is not "
+            "ported yet (ROADMAP.md Queue 1, 'Parallelism, on "
+            "torch.distributed')")
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    _check_registered(args)
     args.fn(args)
 
 

@@ -19,6 +19,7 @@ import contextlib
 import copy
 import os
 import queue
+import sys
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +39,7 @@ from sais_tpu_torch.models.raft import (RAFT, pad_to_multiple_of_8,
                                         raft_forward, unpad)
 from sais_tpu_torch.models.vit import VisionTransformer, vit_features
 from sais_tpu_torch.ops.flow_viz import flow_to_rgb_device, flow_to_rgb_uint8
-from sais_tpu_torch.ops.preprocess import preprocess_batch
+from sais_tpu_torch.ops.preprocess import normalize_batch, preprocess_batch
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -66,9 +67,21 @@ class FeatureExtractor:
     351-378): PIL-exact preprocessing and the ViT, both on the device."""
 
     def __init__(self, model: VisionTransformer, cfg: PipelineConfig,
-                 batch_size: int = 256, device: DeviceLike = None):
+                 batch_size: int = 256, device: DeviceLike = None,
+                 exact_preprocess: bool = False):
         """model: the ViT; a copy is moved to `device` in the compute dtype
-        (bf16 -> the fused K1 path, float32 -> the parity path)."""
+        (bf16 -> the fused K1 path, float32 -> the parity path).
+
+        `extract_video` decodes, crops and resizes on the C++ frame pump's
+        thread (`io.native_loader`) and the device only normalizes; where
+        the pump cannot be built or opened, it decodes with OpenCV's
+        Python binding and preprocesses on the device.
+        exact_preprocess: crop, resize and normalize on the host CPU
+        (`preprocess_host`), then copy the normalized frames to the
+        device, with native decode off, as the JAX package's
+        --exact-preprocess route (there through PIL; here the same
+        PIL-exact arithmetic in torch on the CPU, and the same float32
+        normalize as the device route)."""
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
@@ -76,6 +89,13 @@ class FeatureExtractor:
                       else torch.float32)
         self.model = copy.deepcopy(model).to(device=self.device,
                                              dtype=self.dtype).eval()
+        self.exact_preprocess = exact_preprocess
+
+    def preprocess_host(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the host -> (B, S, S, 3) normalized
+        float32, computed on the host CPU (the --exact-preprocess route)."""
+        return preprocess_batch(torch.from_numpy(np.ascontiguousarray(
+            frames_u8)), self.cfg.preprocess, torch.float32)
 
     def features(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 on the device -> (B, D) float32 features."""
@@ -83,18 +103,61 @@ class FeatureExtractor:
             x = preprocess_batch(frames_u8, self.cfg.preprocess, self.dtype)
             return vit_features(self.model, x)
 
+    def features_resized(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) uint8 crops already resized (the frame pump's) on
+        the device -> (B, D) float32 features."""
+        with torch.inference_mode():
+            return vit_features(self.model, normalize_batch(
+                frames_u8, self.cfg.preprocess, self.dtype))
+
+    def features_normalized(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) normalized float32 frames on the device -> (B, D)
+        float32 features."""
+        with torch.inference_mode():
+            return vit_features(self.model, x.to(self.dtype))
+
+    def _host_batch(self, batch: np.ndarray) -> torch.Tensor:
+        """One decoded batch through the route the extractor takes, to
+        features on the device."""
+        if self.exact_preprocess:
+            return self.features_normalized(to_device(
+                self.preprocess_host(batch).numpy(), self.device))
+        return self.features(to_device(batch, self.device))
+
     def extract_array(self, frames_u8: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, D) float32 CLS features."""
-        outs = [self.features(to_device(frames_u8[i:i + self.batch_size],
-                                        self.device))
+        outs = [self._host_batch(frames_u8[i:i + self.batch_size])
                 for i in range(0, frames_u8.shape[0], self.batch_size)]
         return self._gather(outs)
 
+    def _pump(self, video_path: str):
+        """The native frame pump for the video, or None where it cannot be
+        built or opened: only building and constructing it may fall back;
+        a decode failure past that point propagates."""
+        from sais_tpu_torch.io.native_loader import NativeFramePump
+        pre = self.cfg.preprocess
+        try:
+            return NativeFramePump(video_path, out_size=pre.resize,
+                                   crop_h_frac=pre.crop_height_frac,
+                                   crop_w_frac=pre.crop_width_frac,
+                                   queue_cap=4 * self.batch_size)
+        except RuntimeError as e:
+            print(f"frame pump: {e}; decoding with OpenCV's Python binding",
+                  file=sys.stderr)
+            return None
+
     def extract_video(self, video_path: str, prefetch: int = 4) -> np.ndarray:
-        """Stream a video: a producer thread decodes batches into a bounded
-        queue while the device computes the previous ones."""
+        """Stream a video: the frame pump, or a producer thread, decodes
+        batches into a bounded queue while the device computes the
+        previous ones."""
         if not os.path.exists(video_path):
             raise FileNotFoundError(video_path)
+        pump = None if self.exact_preprocess else self._pump(video_path)
+        if pump is not None:
+            with pump:
+                return self._gather([
+                    self.features_resized(to_device(b, self.device))
+                    for b in pump.batches(self.batch_size)])
         q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(maxsize=prefetch)
         errors: List[BaseException] = []
         stop = threading.Event()
@@ -115,7 +178,7 @@ class FeatureExtractor:
         outs = []
         try:
             while (batch := q.get()) is not None:
-                outs.append(self.features(to_device(batch, self.device)))
+                outs.append(self._host_batch(batch))
         finally:
             stop.set()           # the producer abandons the rest on error
             t.join()

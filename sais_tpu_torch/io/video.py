@@ -1,6 +1,7 @@
 """Host-side video decode through OpenCV, imported at first use.
 
-Own copy of `sais_tpu/io/video.py` (`VideoReader`, `read_frame_dir`):
+Own copy of `sais_tpu/io/video.py` (`VideoReader`, `dump_frames`,
+`read_frame_dir`):
 decoded frames stream straight from the container in batches, with no JPEG
 round trip; a reference-layout image directory (the rendered flows_%08d.jpg
 of `flow --save-flows`) reads in name order.
@@ -71,6 +72,21 @@ class VideoReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def dump_frames(video_path: str, out_dir: str,
+                name_format: str = "frames_%08d.jpg") -> int:
+    """The reference's frame explosion (video_to_frames.sh:23):
+    <out_dir>/frames_%08d.jpg numbered from 1 as ffmpeg numbers them,
+    written by OpenCV; returns the number of frames."""
+    import cv2
+    os.makedirs(out_dir, exist_ok=True)
+    n = 0
+    with VideoReader(video_path) as r:
+        for n, frame in enumerate(r.frames(), start=1):
+            cv2.imwrite(os.path.join(out_dir, name_format % n),
+                        frame[:, :, ::-1])
+    return n
 
 
 def read_frame_dir(frame_dir: str) -> Iterator[np.ndarray]:

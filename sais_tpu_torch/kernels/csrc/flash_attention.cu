@@ -50,11 +50,15 @@
 //   sum with two shuffles.  P = exp(s - m) stays in those registers and is
 //   the A operand of P V as it lies (the permuted k order of
 //   flash_tf32.cuh): no trip through shared memory.
-// - The tile's P V goes into a zeroed temporary and then acc = acc * alpha
-//   + tile in f32 (accumulate_product): the tensor core truncates as it
-//   accumulates, and summed straight into acc over 8193 keys that error
-//   grew several times past f32 FFMA's.  At Dh 128 the temporary covers
-//   half the columns at a time, to stay in registers.
+// - acc = acc * alpha, then the tile's P V is added a k-step at a time,
+//   each k-step's part rounded into acc (accumulate_product, mma3): the
+//   tensor core truncates as it accumulates, and summed straight into acc
+//   over 8193 keys that error grew several times past f32 FFMA's.  So is
+//   each score's sum over the head width.  P V's parts are also unbiased
+//   (`unbias`): p >= 0, so they share v's sign column by column, and
+//   their truncations would still add up.  At Dh 192 the k-steps of q' K^T
+//   run in a loop that is not unrolled, which keeps the kernel in
+//   registers.
 // - The last key tile is zero-filled and its missing keys get a bias of
 //   -inf, so their p is exactly 0 (the TPU's -1e30 pad keys give 0 on every
 //   row that has a valid key).  Rows past Lq are zero and never stored.
@@ -67,7 +71,7 @@
 //   pads every width to 128 lanes, and the same values.  The Python
 //   wrapper packs a width that is not a multiple of 4 into an aligned
 //   buffer first.  At DH 192 the block holds 200,960 bytes (one block an
-//   SM) and P V covers a quarter of the columns at a time.
+//   SM).
 //
 // Operands take strides (in elements) for batch, head and row; the last
 // axis must be contiguous and every row 16-byte aligned.  So the temporal
@@ -132,8 +136,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   constexpr int LD = LY::LD;
   constexpr int KS = DH / 8;     // k-steps of q' K^T; n-tiles of P V
   constexpr int CH = DH / 4;     // 16-byte chunks per row
-  // output n-tiles a P V pass
-  constexpr int CG = DH > 128 ? KS / 4 : DH > 96 ? KS / 2 : KS;
   extern __shared__ __align__(16) float smem[];
   float* Bs = smem + LY::BIAS;
 
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int n = 0; n < NKT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
+#pragma unroll(DH > 128 ? 1 : DH / 8)
     for (int kk = 0; kk < KS; ++kk) {
       FragA a;
 #pragma unroll
@@ -261,10 +263,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
 
     // acc = acc * alpha + P V: P from the score registers, V read by
-    // column, the tile's part summed apart (accumulate_product)
-    accumulate_product<NKT, KS, CG, LD>(
+    // column, each k-step's part rounded in (accumulate_product)
+    accumulate_product<NKT, KS, KS, LD>(
         acc, s, Vs + 2 * t * LD + g,
-        [&](float x, float y, int e) { return x * alpha[e >> 1] + y; });
+        [&](float x, int e) { return x * alpha[e >> 1]; });
     __syncthreads();   // stage cur free for tile it + 2
   }
 

@@ -58,16 +58,19 @@
 //   permuted k order of flash_tf32.cuh); likewise ds for ds K in the dq
 //   kernel.  Nothing is transposed and nothing goes through shared memory
 //   between products.
-// - Each tile's part of dq, dk and dv is summed into a zeroed temporary
-//   and then added to the running sum in f32 (accumulate_product): the
-//   tensor core truncates as it accumulates, and summed straight into the
-//   running sums that error moved the long training step's gradients
-//   several times further from the dense path than f32 FFMA did.  The dk /
-//   dv kernel does it 4 n-tiles at a time, the dq kernel all at once (half
-//   at Dh 128), to stay in registers.  At Dh 128 the running sums of dk
-//   and dv do not fit one thread's registers beside the rest: dv and dk
-//   are then two launches of the kernel, each recomputing p^T (one product
-//   in four more; the temporal model's heads are 96 wide).
+// - Each k-step's part of dq, dk and dv, and of each score, is rounded
+//   into its running sum in f32 (mma3, accumulate_product): the tensor
+//   core truncates as it accumulates, and summed straight into the running
+//   sums that error shrank them coherently (K3's dq sat -9e-7 of its mean
+//   from float64 at the MIL fit's shapes, 20x the dense f32 path's).  The
+//   parts of the sums over keys (dq, dk, dv) are also unbiased (`unbias`
+//   in flash_tf32.cuh).  The
+//   dq kernel forms s, then dp, one product at a time, and from Dh 96
+//   the running sums of dk and dv do not fit one thread's registers beside
+//   the rest: dv and dk are then two launches of the kernel, each
+//   recomputing p^T (one product in four more), and at Dh 192 the dq
+//   kernel takes half of the columns a block (blockIdx.y), recomputing s
+//   and dp for it.
 // - Tiles in shared memory are f32 with rows of Dh + 4 floats, read by row
 //   (K in q' K^T, V in dO V^T, q' and dO in the dk / dv kernel's score
 //   products) and by column (K in ds K, dO in p^T dO, q' in ds^T q'), both
@@ -97,10 +100,9 @@
 //   196 floats (301 KB) do not fit an SM's 227 KB, so both kernels keep
 //   one stage of their streaming tiles there (four tiles, 200,960 and
 //   201,216 bytes): the next tile is requested after the current one's
-//   products, not during them.  dq's temporary then covers a quarter of
-//   the columns at a time; the dk and dv launches each take half of the
-//   columns a block (blockIdx.y), recomputing p^T for it: a running sum of
-//   all 192 columns spilled.
+//   products, not during them.  The dq, dk and dv launches each take half
+//   of the columns a block there (blockIdx.y), recomputing the scores for
+//   it: a running sum of all 192 columns spilled.
 //
 // Operands take element strides for batch, head and row; the last axis
 // must be contiguous and every row 16-byte aligned.  So q, k, v, dO and the
@@ -125,6 +127,11 @@ constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int HALF = 32;        // the columns a warp takes of a tile
 constexpr int NH = HALF / 8;    // its n-tiles
+
+// the dq kernel's column parts: at DH 192 a running sum of all 192
+// columns spills, so each block takes half of them (blockIdx.y)
+template <int DH>
+constexpr int kDqParts = DH > 128 ? 2 : 1;
 
 // stages of the streaming tiles: two (double-buffered) where they fit
 template <int DH>
@@ -180,10 +187,10 @@ struct Strides {
   long long b, h, l;
 };
 
-// accumulate_product's fold for a plain running sum
-struct Add {
-  __device__ __forceinline__ float operator()(float x, float y, int) const {
-    return x + y;
+// accumulate_product's prescale for a plain running sum
+struct Keep {
+  __device__ __forceinline__ float operator()(float x, int) const {
+    return x;
   }
 };
 
@@ -233,10 +240,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                         Strides sdo, Strides sdq, float scale) {
   using LY = DqLayout<DH>;
   constexpr int LD = LY::LD;
-  constexpr int KS = DH / 8;   // k-steps of the score products; dq n-tiles
+  constexpr int KS = DH / 8;   // k-steps of the score products
   constexpr int CH = DH / 4;   // 16-byte chunks per row
-  // dq n-tiles a ds K pass
-  constexpr int CG = DH > 128 ? KS / 4 : DH > 96 ? KS / 2 : KS;
+  constexpr int NT = KS / kDqParts<DH>;   // the block's dq n-tiles
+  constexpr int CG = 4;                   // dq n-tiles a ds K pass
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + LY::Q;
   float* DOs = smem + LY::DO;
@@ -250,6 +257,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const int rw = 16 * (warp & 3);      // the warp's query rows in the tile
   const int c0 = HALF * (warp >> 2);   // its keys in each key tile
+  const int col0 = 8 * NT * blockIdx.y;   // the block's dq columns
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
@@ -296,9 +304,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     lse_r[i] = r < lq ? lse[(size_t)bh * lq + r] : INFINITY;   // p = 0
     delta_r[i] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
   }
-  float acc[KS][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < KS; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
@@ -312,7 +320,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float* Vs = Ks + LY::TILE;
     const float* Bc = Bs + cur * BK;
 
-    // s = q' K^T and dp = dO V^T over the warp's 32 keys
+    // s = q' K^T, then dp = dO V^T, over the warp's 32 keys
     float s[NH][4], dp[NH][4];
 #pragma unroll
     for (int n = 0; n < NH; ++n)
@@ -321,11 +329,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const FragA aq = load_a<LD>(qa + 8 * kk);
-      const FragA ad = load_a<LD>(da + 8 * kk);
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
         const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
         mma3(s[n], aq, Ks[row], Ks[row + 4]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA ad = load_a<LD>(da + 8 * kk);
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
         mma3(dp[n], ad, Vs[row], Vs[row + 4]);
       }
     }
@@ -341,22 +356,22 @@ __global__ void __launch_bounds__(THREADS, 1)
         s[n][e] = p * (dp[n][e] - delta_r[i]);
       }
     }
-    // acc += ds K: K read by column in the permuted order, the tile's
-    // part summed apart (accumulate_product)
-    accumulate_product<NH, KS, CG, LD>(acc, s, Ks + (c0 + 2 * t) * LD + g,
-                                       Add());
+    // acc += ds K (the block's columns): K read by column in the
+    // permuted order, each k-step's part rounded in (accumulate_product)
+    accumulate_product<NH, NT, CG, LD>(
+        acc, s, Ks + (c0 + 2 * t) * LD + g + col0, Keep());
     __syncthreads();   // stage cur free for the tile after next
   }
 
-  if (!reduce_halves<KS>(acc, smem + LY::KV, warp, lane)) return;
-  float* dqb = dq + b * sdq.b + h * sdq.h;
+  if (!reduce_halves<NT>(acc, smem + LY::KV, warp, lane)) return;
+  float* dqb = dq + b * sdq.b + h * sdq.h + col0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + rw + g + 8 * i;
     if (r >= lq) continue;
 #pragma unroll
-    for (int j = 0; j < KS; ++j)
-      if (8 * j + 2 * t < dh)   // dh is even: both columns or neither
+    for (int j = 0; j < NT; ++j)
+      if (col0 + 8 * j + 2 * t < dh)   // dh is even: both or neither
         *reinterpret_cast<float2*>(dqb + r * sdq.l + 8 * j + 2 * t) =
             make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
@@ -364,9 +379,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------- dk, dv --
 
-// What a dk / dv launch writes: both, or at Dh 128 one of them, where dk's
-// and dv's running sums together (128 floats a thread) leave too few
-// registers for the rest and ptxas spills.
+// What a dk / dv launch writes: both, or from Dh 96 one of them, where
+// dk's and dv's running sums together (96 floats a thread and more) leave
+// too few registers for the rest and ptxas spills.
 constexpr int kDk = 1, kDv = 2;
 
 // The column parts of a dk / dv launch's output: at DH 192 one running sum
@@ -393,7 +408,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int KS = DH / 8;
   constexpr int CH = DH / 4;
   constexpr int NT = KS / kParts<DH>;   // the block's output n-tiles
-  constexpr int CG = 4;   // dk / dv n-tiles a pass
   constexpr bool DK = OUT & kDk, DV = OUT & kDv;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem + LY::K;
@@ -521,12 +535,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     // dv += p^T dO, then dk += ds^T q': dO and q' read by column, each
-    // tile's part summed apart in groups of CG n-tiles (accumulate_product)
+    // k-step's part rounded in (accumulate_product)
     const int row = (c0 + 2 * t) * LD + g + col0;
     if constexpr (DV)
-      accumulate_product<NH, NT, CG, LD>(dv_acc, st, DOs + row, Add());
+      accumulate_product<NH, NT, NT, LD>(dv_acc, st, DOs + row, Keep());
     if constexpr (DK)
-      accumulate_product<NH, NT, CG, LD>(dk_acc, dpt, Qs + row, Add());
+      accumulate_product<NH, NT, NT, LD>(dk_acc, dpt, Qs + row, Keep());
     __syncthreads();   // stage cur free for the tile after next
   }
 
@@ -594,13 +608,14 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const long long dkv_blocks = bh * ((lk + BK - 1) / BK);
   if (dq_blocks > 0x7fffffffLL || dkv_blocks > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<DH><<<(unsigned)dq_blocks, THREADS, dq_smem, stream>>>(
+  flash_bwd_dq_kernel<DH>
+      <<<dim3((unsigned)dq_blocks, kDqParts<DH>), THREADS, dq_smem, stream>>>(
       q, k, v, bias, dout, lse, delta, dq, heads, lq, lk, dh, sq, sk, sv, sdo,
       sdq, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const unsigned nb = (unsigned)dkv_blocks;
-  if constexpr (DH > 96) {   // dv, then dk, each recomputing p
+  if constexpr (DH > 64) {   // dv, then dk, each recomputing p
     e = launch_dkv<DH, kDv>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
                             heads, lq, lk, dh, sq, sk, sv, sdo, sdk, sdv,
                             scale, stream);

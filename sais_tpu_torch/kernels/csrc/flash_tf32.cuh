@@ -11,8 +11,10 @@
 //   a b    ~= a_small b_big + a_big b_small + a_big b_big
 //
 // Each TF32 product is exact in f32 (11 x 11 bits fit the 24 of f32), and
-// the three run into one f32 accumulator, small terms first, so a product
-// keeps about 22 bits of each operand: f32 FFMA's accuracy, where a single
+// the three of a k-step run into one fragment of zeros, small terms
+// first, that is then added to the running sum in f32 (mma3; in a sum
+// over keys with the tensor core's truncation made unbiased), so a
+// product keeps about 22 bits of each operand: f32 FFMA's accuracy, where a single
 // TF32 pass keeps three decimal digits.  a_small b_small (2^-22 relative)
 // is dropped, and so is what the tensor core cuts off x_small (at most
 // 2^-10 of a term at most 2^-12 of x, with x_small's random sign).
@@ -91,48 +93,76 @@ __device__ __forceinline__ FragA split_c_as_a(const float (&c)[4]) {
   return split_a(c[0], c[2], c[1], c[3]);
 }
 
-// c += a b in 3xTF32: one accumulator, small terms first.
+// t, a k-step's part as the tensor core sums it (truncated toward zero),
+// plus half an ulp of t with t's sign, rounded to nearest even: the sum is
+// a tie, so it goes up or down by t's last bit, and the truncation no
+// longer pulls every part the same way.  (Half an ulp from the sign and
+// exponent of t, 2^-24 |t| rounded down to a power of two; 0 stays 0.)
+__device__ __forceinline__ float unbias(float t) {
+  return __fmaf_rn(__uint_as_float(__float_as_uint(t) & 0xff800000u),
+                   0x1p-24f, t);
+}
+
+// c += a b in 3xTF32 for one k-step of 8: the three products run into a
+// fragment of zeros, small terms first, and the k-step's part is then
+// added to c with f32 round-to-nearest.  The tensor core truncates its
+// sum toward zero: run into c itself, every product cut c's low bits in
+// the same direction, and a sum of many k-steps shrank coherently (K2's
+// output sat -1.4e-7 of its mean |value| from the dense f32 path's at the
+// MIL fit's shapes, a signed error several times f32's).  Here the
+// truncation is relative to one k-step's part, and the running sum rounds
+// to nearest.  With Unbiased the part is also `unbias`ed: a sum over keys
+// (P V, dS K, P^T dO, dS^T q') adds parts of one sign wherever v's column
+// or the cotangent's keeps its sign, p >= 0, and there the truncation of
+// each part still pulled the sum one way (K2's output at the MIL fit's
+// first layer sat many times the dense f32 path's signed error from
+// float64 on the card).  A sum over the head width
+// (the scores s and dp) adds parts of either sign and takes the plain
+// part.  There the zeros are c * 0 (c is finite), so each k-step waits
+// for the last one's sum: without that dependency ptxas ran many k-steps'
+// parts at once and spilled.  The sums over keys start from plain zeros,
+// which ptxas keeps in registers and schedules faster than c * 0 there;
+// plain zeros at both kinds of sum spilled.
+template <bool Unbiased = false>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0,
                                      float b1) {
   const Split s0 = split(b0), s1 = split(b1);
-  mma(c, a.small, s0.big, s1.big);
-  mma(c, a.big, s0.small, s1.small);
-  mma(c, a.big, s0.big, s1.big);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  if (!Unbiased)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[e] = c[e] * 0.f;
+  mma(t, a.small, s0.big, s1.big);
+  mma(t, a.big, s0.small, s1.small);
+  mma(t, a.big, s0.big, s1.big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    c[e] = __fadd_rn(c[e], Unbiased ? unbias(t[e]) : t[e]);
 }
 
-// acc[j] = fold(acc[j], C B[:, 8j .. 8j + 7], e) for j < NT, where the A
+// acc[j] = pre(acc[j], e) + C B[:, 8j .. 8j + 7] for j < NT, where the A
 // operand is a tile of C fragments c (NK k-steps of 8 columns, in the
 // permuted k order) and B a row-major tile read by column from b =
-// &B[2t][g].  Each group of CG output n-tiles is summed into a zeroed
-// temporary first and then folded into acc with f32 rounding: the tensor
-// core truncates as it accumulates, so a running sum over a whole sequence
-// would gather that error tile after tile, while the temporary's error is
-// relative to one tile's part.
-template <int NK, int NT, int CG, int LD, typename Fold>
+// &B[2t][g], CG output n-tiles at a time.  Each k-step's part is rounded
+// into acc by mma3, unbiased, in a fixed order.
+template <int NK, int NT, int CG, int LD, typename Pre>
 __device__ __forceinline__ void accumulate_product(float (&acc)[NT][4],
                                                    const float (&c)[NK][4],
-                                                   const float* b, Fold fold) {
+                                                   const float* b, Pre pre) {
   static_assert(NT % CG == 0, "column groups must tile the output");
 #pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = pre(acc[j][e], e);
+#pragma unroll
   for (int j0 = 0; j0 < NT; j0 += CG) {
-    float tmp[CG][4];
-#pragma unroll
-    for (int jj = 0; jj < CG; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tmp[jj][e] = 0.f;
 #pragma unroll
     for (int kn = 0; kn < NK; ++kn) {
       const FragA a = split_c_as_a(c[kn]);
       const float* br = b + 8 * kn * LD + 8 * j0;
 #pragma unroll
       for (int jj = 0; jj < CG; ++jj)
-        mma3(tmp[jj], a, br[8 * jj], br[LD + 8 * jj]);
+        mma3<true>(acc[j0 + jj], a, br[8 * jj], br[LD + 8 * jj]);
     }
-#pragma unroll
-    for (int jj = 0; jj < CG; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[j0 + jj][e] = fold(acc[j0 + jj][e], tmp[jj][e], e);
   }
 }
 

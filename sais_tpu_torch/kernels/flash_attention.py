@@ -91,8 +91,12 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * out) in f32, (B, H, Lq) contiguous (flash_attention.py
-    :220-221, outside the kernels as in JAX)."""
-    return (do.float() * out.float()).sum(-1).contiguous()
+    :220-221, outside the kernels as in JAX).  The operands are made
+    contiguous first: PyTorch's CUDA sum orders its terms by the memory
+    layout, and the gradients must not depend on the cotangent's
+    strides."""
+    return (do.float().contiguous() * out.float().contiguous()).sum(
+        -1).contiguous()
 
 
 def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,

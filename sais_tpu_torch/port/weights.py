@@ -8,15 +8,22 @@
   torch stores (out, in).
   `full_model_params_to_jax` is the inverse of the latter (the
   `params.pkl` the port's `train` writes).
+- `vit_params_to_jax`, `r3d18_state_from_jax` / `r3d18_params_to_jax`:
+  the ViT and the R3D-18 encoder the other way and both ways (an
+  unfrozen raw-path encoder is saved in JAX's layout);
 - `load_dino_weights`: DINO `.pth` (dino_deitsmall16_pretrain.pth or a
   surgical pre-training checkpoint) -> VisionTransformer state_dict.
 - `full_model_params_from_reference` / `prototypes_from_reference`: the
   reference's `params.zip` / `prototypes.zip` (prepare_model.py:521-564).
-- `dino_head_params_from_jax` / `dino_state_from_jax`: the JAX package's
-  DINO head pytree and `DINOTrainer.state()` (student and teacher
-  {"backbone", "head"} trees and the center) -> state_dicts of
-  `models.dino_head.DINOHead` and of the port trainer's student / teacher
-  `nn.ModuleDict`s.
+- `dino_head_params_from_jax` / `dino_head_params_to_jax` /
+  `dino_state_from_jax`: the JAX package's DINO head pytree (BatchNorm
+  scale / bias included) and `DINOTrainer.state()` (student and teacher
+  {"backbone", "head"} trees, the center and a use_bn head's running
+  statistics) <-> state_dicts of `models.dino_head.DINOHead` and of the
+  port trainer's student / teacher `nn.ModuleDict`s;
+  `dino_head_params_from_reference` / `dino_head_bn_state_from_reference`:
+  the reference's DINOHead state_dict (mlp.0/2/4, or 0/3/6 with
+  BatchNorm1d at 1 / 4).
 """
 
 from __future__ import annotations
@@ -75,6 +82,38 @@ def vit_params_from_jax(tree: Mapping[str, Any], in_channels: int = 3
     return sd
 
 
+def vit_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """VisionTransformer state_dict -> `sais_tpu.models.vit` params
+    (numpy leaves), the inverse of `vit_params_from_jax`."""
+    pe = _np(sd["patch_embed.proj.weight"])           # (D, C, kh, kw)
+    tree: Dict[str, Any] = {
+        "cls_token": _np(sd["cls_token"]), "pos_embed": _np(sd["pos_embed"]),
+        "patch_embed": {"w": np.ascontiguousarray(
+            pe.transpose(2, 3, 1, 0).reshape(-1, pe.shape[0])),
+            "b": _np(sd["patch_embed.proj.bias"])},
+        "ln_s": _np(sd["norm.weight"]), "ln_b": _np(sd["norm.bias"]),
+        "blocks": []}
+    depth = 1 + max(int(k.split(".")[1]) for k in sd
+                    if k.startswith("blocks."))
+    for i in range(depth):
+        p = f"blocks.{i}."
+        attn = {"qkv_w": _npT(sd[p + "attn.qkv.weight"]),
+                "proj_w": _npT(sd[p + "attn.proj.weight"]),
+                "proj_b": _np(sd[p + "attn.proj.bias"])}
+        if p + "attn.qkv.bias" in sd:
+            attn["qkv_b"] = _np(sd[p + "attn.qkv.bias"])
+        tree["blocks"].append({
+            "ln1_s": _np(sd[p + "norm1.weight"]),
+            "ln1_b": _np(sd[p + "norm1.bias"]), "attn": attn,
+            "ln2_s": _np(sd[p + "norm2.weight"]),
+            "ln2_b": _np(sd[p + "norm2.bias"]),
+            "mlp": {"fc1_w": _npT(sd[p + "mlp.fc1.weight"]),
+                    "fc1_b": _np(sd[p + "mlp.fc1.bias"]),
+                    "fc2_w": _npT(sd[p + "mlp.fc2.weight"]),
+                    "fc2_b": _np(sd[p + "mlp.fc2.bias"])}})
+    return tree
+
+
 def _linear_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
     return {prefix + "weight": _t(np.asarray(p["w"]).T),
             prefix + "bias": _t(p["b"])}
@@ -82,22 +121,75 @@ def _linear_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
 
 def dino_head_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     """`sais_tpu.models.dino_head` params -> DINOHead state_dict (last_v
-    keeps the JAX (bottleneck, out_dim) layout)."""
-    if any("bn" in layer for layer in tree["mlp"]):
-        raise NotImplementedError(
-            "a use_bn DINO head is not ported yet (next slice)")
+    keeps the JAX (bottleneck, out_dim) layout; a use_bn head's BatchNorm
+    scale / bias go to bn.<i>)."""
     sd: StateDict = {"last_v": _t(tree["last_v"]),
                      "last_g": _t(tree["last_g"])}
     for i, layer in enumerate(tree["mlp"]):
         sd.update(_linear_from_jax(layer, f"mlp.{i}."))
+        if "bn" in layer:
+            sd[f"bn.{i}.scale"] = _t(layer["bn"]["scale"])
+            sd[f"bn.{i}.bias"] = _t(layer["bn"]["bias"])
     return sd
+
+
+def dino_head_params_to_jax(sd: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, Any]:
+    """The inverse of `dino_head_params_from_jax` (leaves as numpy)."""
+    mlp = []
+    for i in range(3):
+        layer = {"w": _npT(sd[f"mlp.{i}.weight"]),
+                 "b": _np(sd[f"mlp.{i}.bias"])}
+        if f"bn.{i}.scale" in sd:
+            layer["bn"] = {"scale": _np(sd[f"bn.{i}.scale"]),
+                           "bias": _np(sd[f"bn.{i}.bias"])}
+        mlp.append(layer)
+    return {"mlp": mlp, "last_v": _np(sd["last_v"]),
+            "last_g": _np(sd["last_g"])}
+
+
+def dino_head_params_from_reference(sd: Mapping[str, Any], prefix: str = ""
+                                    ) -> StateDict:
+    """The reference's DINOHead state_dict (vision_transformer.py:257-291:
+    mlp.0 / 2 / 4 linears, or 0 / 3 / 6 with BatchNorm1d at 1 and 4 for
+    --use_bn_in_head; the weight-normed last_layer as weight_g / weight_v
+    or torch's parametrization keys) -> DINOHead state_dict.  The
+    BatchNorms' running statistics come through
+    `dino_head_bn_state_from_reference`."""
+    use_bn = f"{prefix}mlp.1.running_mean" in sd
+    out: StateDict = {}
+    for j, i in enumerate((0, 3, 6) if use_bn else (0, 2, 4)):
+        out[f"mlp.{j}.weight"] = _f32(sd[f"{prefix}mlp.{i}.weight"])
+        out[f"mlp.{j}.bias"] = _f32(sd[f"{prefix}mlp.{i}.bias"])
+        if use_bn and j < 2:
+            out[f"bn.{j}.scale"] = _f32(sd[f"{prefix}mlp.{i + 1}.weight"])
+            out[f"bn.{j}.bias"] = _f32(sd[f"{prefix}mlp.{i + 1}.bias"])
+    g = sd.get(f"{prefix}last_layer.weight_g",
+               sd.get(f"{prefix}last_layer.parametrizations.weight.original0"))
+    v = sd.get(f"{prefix}last_layer.weight_v",
+               sd.get(f"{prefix}last_layer.parametrizations.weight.original1"))
+    out["last_v"] = _f32(v).t().contiguous()       # (bottleneck, out_dim)
+    out["last_g"] = _f32(g).reshape(-1)
+    return out
+
+
+def dino_head_bn_state_from_reference(sd: Mapping[str, Any],
+                                      prefix: str = ""
+                                      ) -> List[Dict[str, torch.Tensor]]:
+    """The running statistics of a use_bn reference DINOHead (mlp.1 /
+    mlp.4 running_mean / running_var), copied, in layer order."""
+    return [{"mean": _f32(sd[f"{prefix}mlp.{i}.running_mean"]).clone(),
+             "var": _f32(sd[f"{prefix}mlp.{i}.running_var"]).clone()}
+            for i in (1, 4) if f"{prefix}mlp.{i}.running_mean" in sd]
 
 
 def dino_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     """A JAX `DINOTrainer.state()` (leaves as numpy) -> {"student":
     state_dict, "teacher": state_dict, "center": tensor} for the port's
-    DINOTrainer (`trainer.student.load_state_dict(...)`).  The optimizer
-    state is not carried over: both trainers start it fresh."""
+    DINOTrainer (`trainer.student.load_state_dict(...)`), plus
+    "student_bn" / "teacher_bn" (lists of {"mean", "var"}) for a use_bn
+    head.  The optimizer state is not carried over: both trainers start
+    it fresh."""
     out: Dict[str, Any] = {"center": _t(state["center"])}
     for net in ("student", "teacher"):
         sd = {"backbone." + k: v for k, v in
@@ -105,6 +197,9 @@ def dino_state_from_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
         sd.update({"head." + k: v for k, v in
                    dino_head_params_from_jax(state[net]["head"]).items()})
         out[net] = sd
+        if state.get(f"{net}_bn") is not None:
+            out[f"{net}_bn"] = [{k: _t(v) for k, v in st.items()}
+                                for st in state[f"{net}_bn"]]
     return out
 
 
@@ -370,3 +465,57 @@ def raft_state_from_jax(params: Mapping[str, Any]) -> StateDict:
     sd.update(_conv_from_jax(upd["mask0"], u + "mask.0."))
     sd.update(_conv_from_jax(upd["mask2"], u + "mask.2."))
     return sd
+
+
+def r3d18_state_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """`sais_tpu.models.r3d` params (convolutions (D, H, W, I, O), frozen
+    BatchNorms {w, b, rm, rv}) -> `models.r3d.R3D18` state_dict."""
+    sd: StateDict = {}
+
+    def conv(p, name):
+        sd[name + ".w"] = _t(np.asarray(p["w"]).transpose(4, 3, 0, 1, 2))
+
+    def bn(p, name):
+        for k in ("w", "b", "rm", "rv"):
+            sd[f"{name}.{k}"] = _t(p[k])
+
+    conv(params["stem"], "stem")
+    bn(params["stem_bn"], "stem_bn")
+    for li, stage in enumerate(params["layers"]):
+        for bi, blk in enumerate(stage):
+            p = f"layers.{li}.{bi}"
+            conv(blk["conv1"], p + ".conv1")
+            bn(blk["bn1"], p + ".bn1")
+            conv(blk["conv2"], p + ".conv2")
+            bn(blk["bn2"], p + ".bn2")
+            if "down" in blk:
+                conv(blk["down"], p + ".down")
+                bn(blk["down_bn"], p + ".down_bn")
+    return sd
+
+
+def r3d18_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """`models.r3d.R3D18` state_dict -> `sais_tpu.models.r3d` params
+    (numpy leaves), the inverse of `r3d18_state_from_jax`."""
+
+    def conv(name):
+        return {"w": np.ascontiguousarray(
+            _np(sd[name + ".w"]).transpose(2, 3, 4, 1, 0))}
+
+    def bn(name):
+        return {k: _np(sd[f"{name}.{k}"]) for k in ("w", "b", "rm", "rv")}
+
+    layers = []
+    for li in range(4):
+        blocks = []
+        for bi in range(2):
+            p = f"layers.{li}.{bi}"
+            blk = {"conv1": conv(p + ".conv1"), "bn1": bn(p + ".bn1"),
+                   "conv2": conv(p + ".conv2"), "bn2": bn(p + ".bn2")}
+            if p + ".down.w" in sd:
+                blk["down"] = conv(p + ".down")
+                blk["down_bn"] = bn(p + ".down_bn")
+            blocks.append(blk)
+        layers.append(blocks)
+    return {"stem": conv("stem"), "stem_bn": bn("stem_bn"),
+            "layers": layers}

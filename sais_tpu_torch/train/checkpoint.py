@@ -82,9 +82,14 @@ class CheckpointManager:
 def save_training_result(savepath: str, result: Dict[str, Any]) -> None:
     """The best-val snapshot under params/Fold_<k> (train.py:105-112):
     params.pkl (the JAX pytree of `result['model']`, a FullModel
-    state_dict), prototypes.pkl and metrics.pkl."""
+    state_dict; with `result['encoder']`, a raw-path encoder already in
+    JAX's layout, the joint {"model", "encoder"} tree the JAX package
+    saves for an unfrozen encoder), prototypes.pkl and metrics.pkl."""
     os.makedirs(savepath, exist_ok=True)
-    payloads = {"params": full_model_params_to_jax(result["model"]),
+    params = full_model_params_to_jax(result["model"])
+    if result.get("encoder") is not None:
+        params = {"model": params, "encoder": result["encoder"]}
+    payloads = {"params": params,
                 "prototypes": _host(result["prototypes"]),
                 "metrics": result.get("metrics", {})}
     for name, obj in payloads.items():

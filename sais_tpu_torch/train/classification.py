@@ -15,13 +15,16 @@ Counterpart of `sais_tpu/train/classification.py` (`make_weighted_loss`,
   the per-augment logits (perform_training.py:141-149, calcMetrics
   prepare_miscellaneous.py:171-173).
 
-Eager PyTorch on one device (the card unless `device='cpu'`).  The raw
--video trainer (R3D or ViT snippets) and data-parallel training wait for
-their slices.
+`RawClassificationTrainer` trains the ClassificationHead task on raw
+video snippets through an R3D-18 or ViT encoder (`data.raw`), frozen by
+default.  Eager PyTorch on one device (the card unless `device='cpu'`).
+Data-parallel training (`mesh`) is refused (ROADMAP.md Queue 1,
+'Parallelism, on torch.distributed').
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import numpy as np
@@ -29,7 +32,7 @@ import torch
 
 from sais_tpu_torch import DeviceLike, resolve_device
 from sais_tpu_torch.config import ModelConfig, TrainConfig
-from sais_tpu_torch.models.full_model import (FullModel,
+from sais_tpu_torch.models.full_model import (FullModel, _cls_head,
                                               classification_forward,
                                               mil_forward)
 from sais_tpu_torch.train import metrics as metrics_lib
@@ -75,9 +78,8 @@ class ClassificationTrainer:
             raise ValueError(f"task {task!r} is not one of {TASKS}")
         if mesh is not None:
             raise NotImplementedError(
-                "data-parallel training (mesh) is not ported yet; it comes "
-                "with the parallelism slice (ROADMAP.md Queue 1, "
-                "'Parallelism, on torch.distributed')")
+                "data-parallel training (mesh) is not ported yet (ROADMAP.md "
+                "Queue 1, 'Parallelism, on torch.distributed')")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.task = task
@@ -153,3 +155,81 @@ class ClassificationTrainer:
         """The model's state_dict, copied to the host."""
         return {k: v.detach().cpu().clone()
                 for k, v in self.model.state_dict().items()}
+
+
+def r3d_head_logits(model: FullModel, feats: torch.Tensor) -> torch.Tensor:
+    """getR3Dreps (prepare_model.py:232-244): per-snippet features (B, S,
+    512) plus the per-snippet-index positional embedding, then
+    cls_head(relu(.)) a snippet, mean-pooled over snippets."""
+    reps = feats + model.frame_pos[:feats.shape[1]].to(feats.dtype)[None]
+    return _cls_head(model)(torch.relu(reps)).mean(dim=1)
+
+
+class RawClassificationTrainer(ClassificationTrainer):
+    """ClassificationHead training on RAW video snippets
+    (run_experiments.py '-fe', prepare_model.py:112-124; JAX
+    `RawClassificationTrainer`).
+
+    - R3D: per-snippet encoder features, `r3d_head_logits`;
+    - ViT: per-frame features (B, S, T, D) through
+      `classification_forward` with an all-False mask, the per-snippet
+      logits mean-pooled over snippets;
+    - RGB-Flow: the two streams' features summed (prepare_model.py:
+      436-440).
+
+    freeze_encoder=True (the reference's '-fe'): the encoder runs under
+    torch.no_grad and the optimizer holds only the head and temporal
+    parameters.  freeze_encoder=False (the reference CLI's default
+    without -fe): one SGD over the model and the encoder, the encoder
+    inside the gradient.  The encoder (`models.r3d.R3D18` or a float32
+    `models.vit.VisionTransformer`) is moved to the trainer's device."""
+
+    def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
+                 model: FullModel, encoder: torch.nn.Module,
+                 encoder_type: str = "R3D", mesh: Any = None,
+                 freeze_encoder: bool = True, device: DeviceLike = None):
+        super().__init__(model_cfg, train_cfg, model,
+                         task="ClassificationHead", mesh=mesh, device=device)
+        if encoder_type not in ("R3D", "ViT"):
+            raise ValueError(f"encoder_type {encoder_type!r}")
+        self.encoder_type = encoder_type
+        self.freeze_encoder = freeze_encoder
+        self.encoder = encoder.to(self.device)
+        self.encoder.requires_grad_(not freeze_encoder)
+        if not freeze_encoder:
+            self.optimizer = torch.optim.SGD(
+                [*self.model.parameters(), *self.encoder.parameters()],
+                lr=train_cfg.lr)
+
+    def encode(self, raw: torch.Tensor) -> torch.Tensor:
+        """(B, S, T, H, W, 3) normalized snippets -> (B, S, 512) for R3D,
+        (B, S, T, D) for the ViT."""
+        from sais_tpu_torch.models.r3d import r3d18_features
+        from sais_tpu_torch.models.vit import vit_features
+        b, s = raw.shape[:2]
+        if self.encoder_type == "R3D":
+            flat = raw.reshape((b * s,) + tuple(raw.shape[2:]))
+            return r3d18_features(self.encoder, flat).reshape(b, s, -1)
+        t = raw.shape[2]
+        flat = raw.reshape((b * s * t,) + tuple(raw.shape[3:]))
+        return vit_features(self.encoder, flat).reshape(b, s, t, -1)
+
+    def _logits(self, model: FullModel, b: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        grad = (contextlib.nullcontext() if not self.freeze_encoder
+                else torch.no_grad())
+        with grad:
+            feats = self.encode(b["raw"])
+            if "raw_flow" in b:
+                feats = feats + self.encode(b["raw_flow"])
+        if self.encoder_type == "R3D":
+            return r3d_head_logits(model, feats)
+        mask = torch.zeros(feats.shape[:2] + (feats.shape[2] + 1,),
+                           dtype=torch.bool, device=feats.device)
+        logits = classification_forward(model, self.model_cfg, feats, mask)
+        return logits.mean(dim=1) if logits.dim() == 3 else logits
+
+    def encoder_snapshot(self) -> Dict[str, torch.Tensor]:
+        """The encoder's state_dict, copied to the host."""
+        return {k: v.detach().cpu().clone()
+                for k, v in self.encoder.state_dict().items()}

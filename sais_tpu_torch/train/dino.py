@@ -30,9 +30,12 @@ bottleneck runs per resolution group and the weight-normed last layer and
 the loss run as K7
 (`kernels.dino_head_loss.FusedDinoLoss`), which keeps the (rows, out_dim)
 logits out of device memory; otherwise the head and loss are plain
-PyTorch.  The use_bn head and data-parallel steps (`mesh`) are not ported
-(ROADMAP.md Queue 1, 'The BatchNorm DINO head' and 'Parallelism, on
-torch.distributed').
+PyTorch.  With `use_bn_in_head` both heads run their BatchNorms in train
+mode over all their rows at once (the student's every crop, the
+teacher's globals), the plain head and loss always; the running
+statistics (`student_bn`, `teacher_bn`) leave the gradient, are never
+EMA'd, and travel in `state()`.  Data-parallel steps (`mesh`) are not
+ported (ROADMAP.md Queue 1, 'Parallelism, on torch.distributed').
 
 Crops are batched per resolution group, image-major ([img0 crop0, img0
 crop1, ...], `ops.augment.multi_crop_batch`'s layout), so the backbone runs
@@ -54,7 +57,8 @@ from sais_tpu_torch import DeviceLike, resolve_device
 from sais_tpu_torch.config import ViTConfig
 from sais_tpu_torch.kernels.dino_head_loss import (build_pair_structure,
                                                    make_fused_dino_loss)
-from sais_tpu_torch.models.dino_head import (dino_head_bottleneck,
+from sais_tpu_torch.models.dino_head import (dino_head_bn_init,
+                                             dino_head_bottleneck,
                                              dino_head_init,
                                              dino_last_layer)
 from sais_tpu_torch.models.vit import (vit_features_trainable_fused,
@@ -286,6 +290,8 @@ def _to_device(obj, device):
         return obj.to(device)
     if isinstance(obj, dict):
         return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_device(v, device) for v in obj]
     return obj
 
 
@@ -342,6 +348,13 @@ class DINOTrainer:
         self.student = student.to(self.device)
         self.teacher = copy.deepcopy(self.student).requires_grad_(False)
         self.center = torch.zeros((cfg.out_dim,), device=self.device)
+        # BatchNorm running statistics, each network's from its own
+        # forwards (None without the BatchNorm head)
+        self.student_bn = self.teacher_bn = None
+        if cfg.use_bn_in_head:
+            self.student_bn = dino_head_bn_init(self.student["head"])
+            self.teacher_bn = dino_head_bn_init(self.teacher["head"])
+        self._next_bn = None
 
         scaled_lr = cfg.lr * cfg.batch_size / 256.0
         self.lr_sched = cosine_scheduler(scaled_lr, cfg.min_lr, cfg.epochs,
@@ -391,18 +404,26 @@ class DINOTrainer:
         teacher's of the global crops (under no_grad), rows image-major,
         globals first.  The backbones run per resolution group, the
         head's MLP once on all their bf16 features, as under the
-        reference's autocast (MultiCropWrapper, utils.py:595-631)."""
+        reference's autocast (MultiCropWrapper, utils.py:595-631).  With
+        the BatchNorm head that one call is what makes the batch
+        statistics span every crop; the heads' new running statistics
+        wait in `_next_bn` for the step to take them."""
         cfg = self.cfg
         feats = [self._backbone(self.student, globals_, generator)]
         if locals_ is not None and cfg.n_local_crops:
             feats.append(self._backbone(self.student, locals_, generator))
         hs = dino_head_bottleneck(self.student["head"],
-                                  torch.cat(feats).to(torch.bfloat16))
+                                  torch.cat(feats).to(torch.bfloat16),
+                                  self.student_bn)
         with torch.no_grad():
             ht = dino_head_bottleneck(
                 self.teacher["head"],
                 self._backbone_infer(self.teacher, globals_).to(
-                    torch.bfloat16))
+                    torch.bfloat16), self.teacher_bn)
+        if self.student_bn is not None:
+            (hs, sbn), (ht, tbn) = hs, ht
+            self._next_bn = ([{k: v.detach() for k, v in st.items()}
+                              for st in sbn], tbn)
         return hs, ht
 
     def head_loss(self, hs, ht, teacher_temp):
@@ -430,17 +451,31 @@ class DINOTrainer:
     # -- checkpointable state (utils.restart_from_checkpoint) ---------------
 
     def state(self) -> Dict[str, Any]:
-        return {"student": self.student.state_dict(),
-                "teacher": self.teacher.state_dict(),
-                "center": self.center, "opt_state": self.opt_state,
-                "step_idx": self.step_idx}
+        out = {"student": self.student.state_dict(),
+               "teacher": self.teacher.state_dict(),
+               "center": self.center, "opt_state": self.opt_state,
+               "step_idx": self.step_idx}
+        if self.student_bn is not None:
+            out["student_bn"] = self.student_bn
+            out["teacher_bn"] = self.teacher_bn
+        return out
 
     def load_state(self, state: Dict[str, Any]) -> None:
+        """Takes a state of `state()`.  As in the JAX package, BatchNorm
+        running statistics in `state` replace the trainer's whether or not
+        it has the BatchNorm head, and a state without them keeps the
+        trainer's own, both without a word (reference behaviours kept
+        for parity, ROADMAP.md Queue 3)."""
         self.student.load_state_dict(state["student"])
         self.teacher.load_state_dict(state["teacher"])
         self.center = state["center"].to(self.device)
         self.opt_state = _to_device(state["opt_state"], self.device)
         self.step_idx = int(state["step_idx"])
+        if "student_bn" in state:
+            self.student_bn = _to_device(list(state["student_bn"]),
+                                         self.device)
+            self.teacher_bn = _to_device(list(state["teacher_bn"]),
+                                         self.device)
 
     # -- steps -------------------------------------------------------------
 
@@ -497,6 +532,9 @@ class DINOTrainer:
             ema_update(self.teacher, self.student, momentum)
             self.center = update_center(self.center, batch_center,
                                         cfg.center_momentum)
+        if self._next_bn is not None:
+            self.student_bn, self.teacher_bn = self._next_bn
+            self._next_bn = None
         self.step_idx += 1
         return loss.detach()
 

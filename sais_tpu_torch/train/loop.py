@@ -59,7 +59,8 @@ class PrototypeTrainer:
         if mesh is not None or seq_mesh is not None:
             raise NotImplementedError(
                 "data- and sequence-parallel training (mesh / seq_mesh) are "
-                "not ported yet; they come with the parallelism slice")
+                "not ported yet; they come with the parallelism slice "
+                "(ROADMAP.md Queue 1, 'Parallelism, on torch.distributed')")
         self.use_importance = (train_cfg.importance_loss
                                if use_importance is None else use_importance)
         self.model_cfg = model_cfg

@@ -311,6 +311,65 @@ def test_flash_kernels_take_every_head_width(cuda, dh):
                              for t in split], -1), rtol=0, atol=0)
 
 
+def _signed_error(y, ref):
+    """mean((y - ref) * sign(ref)) over the mean |ref|."""
+    return ((y.double() - ref) * ref.sign()).mean().item() / \
+        ref.abs().mean().item()
+
+
+@pytest.mark.parametrize("v_mean", [0.0, 1.0])
+def test_k2_signed_error_is_near_dense_f32(cuda, v_mean):
+    """At the shapes of the MIL fit's first layer (Dh 96, 4 heads, 17-33
+    keys a sequence, masked tails), K2's output and K3's dq against a
+    float64 evaluation carry a signed error within 2x of the dense
+    float32 path's (einsum, softmax, einsum with TF32 off), or below a
+    tenth of the dense path's mean |error|, where the dense path's signed
+    error is at the noise floor of the reading.  v of mean 1 gives every
+    key's part of P V the sign of its column, as the MIL fit's first
+    layer does, where the fault showed: truncated toward zero by the
+    tensor core, those parts shrank the sums coherently, to about half
+    the dense path's mean |error|, with each k-step's part rounded into
+    the sum but not unbiased.  At v mean 1 the dense path's own signed
+    error is at the noise floor of the reading, far under K2's, so there
+    the "within 2x of dense" criterion is missed and stays open; a tenth
+    of the dense path's mean |error| holds."""
+    g = torch.Generator().manual_seed(0)
+    b, h, l, dh = 1024, 4, 33, 96
+    q, k, v, do = (torch.randn((b, h, l, dh), generator=g).to(cuda)
+                   for _ in range(4))
+    v = v + v_mean
+    valid = torch.randint(17, l + 1, (b,), generator=g)
+    mask = (torch.arange(l)[None] >= valid[:, None]).to(cuda)
+    bias = key_bias(mask)
+    sc = dh ** -0.5
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    ref = torch.einsum("bhlm,bhmd->bhld", torch.softmax(
+        torch.einsum("bhld,bhmd->bhlm", leaves[0] * sc, leaves[1])
+        + bias.double()[:, None, None, :], -1), leaves[2])
+    ref_dq = torch.autograd.grad(ref, leaves[0], do.double())[0]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        q32 = q.clone().requires_grad_()
+        dense = torch.einsum("bhlm,bhmd->bhld", torch.softmax(
+            torch.einsum("bhld,bhmd->bhlm", q32 * sc, k)
+            + bias[:, None, None, :], -1), v)
+        dense_dq = torch.autograd.grad(dense, q32, do)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    dq = flash_attention_bwd(q, k, v, bias, out, lse, do)[0]
+    for name, got, want, plain in (("out", out, ref, dense),
+                                   ("dq", dq, ref_dq, dense_dq)):
+        want = want.detach()
+        e_kernel = _signed_error(got, want)
+        e_dense = _signed_error(plain, want)
+        floor = ((plain.double() - want).abs().mean()
+                 / want.abs().mean()).item() / 10
+        assert abs(e_kernel) <= max(2 * abs(e_dense), floor), (
+            name, e_kernel, e_dense, floor)
+
+
 def test_auto_rule_takes_k2_at_2001_tokens(cuda):
     """prototypes_forward at (2, 1, 2000, 384) in auto mode on the card:
     the window of 2001 tokens takes K2 (one launch per layer) and its

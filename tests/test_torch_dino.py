@@ -81,8 +81,15 @@ def test_head_init_and_bn_refusal():
     assert head.mlp[0].weight.shape == (2048, 384)
     assert abs(head.mlp[1].weight.std().item() - 0.02) < 1e-3
     assert all(bool((lin.bias == 0).all()) for lin in head.mlp)
-    with pytest.raises(NotImplementedError, match="use_bn"):
-        thead.dino_head_init(torch.Generator(), 384, 512, use_bn=True)
+    assert head.bn is None
+    # the BatchNorm head (no longer refused): scales 1, biases 0, the
+    # same draws for the linears
+    bn_head = thead.dino_head_init(torch.Generator().manual_seed(0), 384,
+                                   512, use_bn=True)
+    assert torch.equal(bn_head.mlp[1].weight, head.mlp[1].weight)
+    assert [tuple(b.scale.shape) for b in bn_head.bn] == [(2048,), (2048,)]
+    assert all(bool((b.scale == 1).all() and (b.bias == 0).all())
+               for b in bn_head.bn)
 
 
 def test_loss_and_center_match_jax():
@@ -455,9 +462,10 @@ def test_trainer_refusals_and_defaults():
                           fused_loss=True, **kw)
     with pytest.raises(NotImplementedError, match="data-parallel"):
         tdino.DINOTrainer(ViTConfig(**TINY), tcfg, 2, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="use_bn"):
-        tdino.DINOTrainer(ViTConfig(**TINY),
-                          tdino.DINOConfig(use_bn_in_head=True), 2, **kw)
+    # the BatchNorm head runs the plain head and loss (auto rule)
+    bn = tdino.DINOTrainer(ViTConfig(**TINY), tdino.DINOConfig(
+        **{**tcfg.__dict__, "use_bn_in_head": True}), 2, **kw)
+    assert not bn.fused_loss and len(bn.student_bn) == 2
     big = tdino.DINOConfig(out_dim=32, batch_size=64)
     tr = tdino.DINOTrainer(ViTConfig(**TINY), big, 2, **kw)
     assert not tr.fused_blocks and not tr.fused_loss   # CPU: plain path
@@ -512,7 +520,7 @@ def test_cli_pretrain_e2e_and_resume(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--data-parallel"], NotImplementedError, "data-parallel"),
-    (["--use-bn-in-head"], NotImplementedError, "BatchNorm"),
+    (["--num-slices", "2"], NotImplementedError, "Parallelism"),
     (["--source", "flows"], SystemExit, "no flow dirs")])
 def test_cli_pretrain_refusals(tmp_path, flags, error, match):
     """What pretrain refuses, and `--source flows` with an empty

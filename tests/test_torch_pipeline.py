@@ -268,9 +268,17 @@ def _refuse(case, root):
         from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
         DINOTrainer(tconfig.ViTConfig(), DINOConfig(), 1,
                     torch.Generator(), mesh=object(), device="cpu")
-    elif case == "dino_head_init(use_bn)":
-        from sais_tpu_torch.models.dino_head import dino_head_init
-        dino_head_init(torch.Generator(), 8, 16, use_bn=True)
+    elif case == "PrototypeTrainer(mesh)":
+        from sais_tpu_torch.train.loop import PrototypeTrainer
+        PrototypeTrainer(tconfig.ModelConfig(), tconfig.TrainConfig(), None,
+                         [], torch.zeros(1), mesh=object(), device="cpu")
+    elif case == "RawClassificationTrainer(mesh)":
+        from sais_tpu_torch.train.classification import \
+            RawClassificationTrainer
+        RawClassificationTrainer(tconfig.ModelConfig(),
+                                 tconfig.TrainConfig(), torch.nn.Module(),
+                                 torch.nn.Module(), mesh=object(),
+                                 device="cpu")
     else:
         cmd, *flags = case.split()
         videos = ["-f", "vid"] if cmd in ("extract", "steps") else []
@@ -280,9 +288,12 @@ def _refuse(case, root):
 
 @pytest.mark.parametrize("case", [
     "extract --data-parallel 2", "steps --seq-parallel 2",
-    "pretrain --data-parallel", "pretrain --use-bn-in-head",
-    "train --data-type raw", "DINOTrainer(mesh)",
-    "dino_head_init(use_bn)"])
+    "pretrain --data-parallel", "DINOTrainer(mesh)",
+    "PrototypeTrainer(mesh)", "RawClassificationTrainer(mesh)",
+    "eval", "port", "serve", "request", "attention",
+    "serve --flow-warmup 240x320", "extract --flow-warmup 240x320",
+    "train --num-slices 2", "train --init-distributed",
+    "pretrain --num-slices 2"])
 def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
     """Each refusal of the port raises NotImplementedError and names the
     ROADMAP.md item that brings what it refuses by its title, as

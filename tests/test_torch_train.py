@@ -388,8 +388,9 @@ def test_cli_train_on_cpu_and_refusals(tmp_path, monkeypatch, capsys):
     fold, which the port's decode reads back; `--split-policy louo`, `-t
     MIL` and `-mod RGB-Flow` (over a flow store) run and save their fold
     (held to the JAX CLI in tests/test_torch_classification.py, with
-    `--dataset vua-gestures` and `dvc-ucl`); `--data-type raw`, the one
-    path not ported yet, is refused, naming the slice that brings it."""
+    `--dataset vua-gestures` and `dvc-ucl`); `--data-type raw` without
+    `--dataset vua-ease` exits as the JAX CLI does (the raw path itself is
+    held to the JAX CLI in tests/test_torch_raw.py)."""
     from sais_tpu_torch.cli import main as cli
     monkeypatch.setattr(cli, "PipelineConfig", _tiny_pipeline_cfg)
     videos = [f"v{i}" for i in range(10)]
@@ -423,5 +424,5 @@ def test_cli_train_on_cpu_and_refusals(tmp_path, monkeypatch, capsys):
                   ["-mod", "RGB-Flow"]):
         cli.main(base + ["-e", "1", "-bs", "4", *flags])
         assert "saved fold 0" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="raw-video"):
+    with pytest.raises(SystemExit, match="requires --dataset vua-ease"):
         cli.main(base + ["-dt", "raw"])
