@@ -289,10 +289,32 @@ Phases, each of which fails the run:
    --unfreeze-encoder step with its peak memory for each encoder; one
    -mod RGB-Flow step (R3D, raw + raw_flow features summed).  No TPU
    kernel is on this path.
-19. prints the total time, the card, the kernels line (JSON) and, last,
+19. serve path at full width (`serve` / `request`, after the flow path):
+   the daemon of cli/serve.py on a Unix socket in a thread over the
+   gesture path's models (ViT-S/16 on K1, bf16, batch 256; one fold of the
+   4-layer temporal model, 3 TTA offsets) and 300 frames of 480x640 a
+   video.  The card machine has no OpenCV, so the phase replaces the
+   daemon's video reader with frames held in memory (printed; the files
+   under <tmp>/videos/ are placeholders).  One RGB daemon: warm-up, ping,
+   request A, a ping during A, request B while A is in flight (B's host
+   decode starts on the prefetch path), stats, shutdown (drains); each
+   CSV equals, as text, GestureDecoder.decode over
+   FeatureExtractor.extract_array of the same frames in this process; K1
+   launches 12 times a frame batch a request, K2 never.  One RGB-Flow
+   daemon: warmup_flow(480, 640), one flow request whose CSV equals the
+   in-process FlowExtractor -> GestureDecoder route.  Prints the warm-up
+   times, each request's seconds and frames/s, ping latency, p50 / p95
+   from stats.  Then eval / attention on the card against the same calls
+   on the CPU: the weighted k-NN over 50,000 x 384 train and 10,000 test
+   features (20 classes; top-1 / top-5 within 0.05 points, the rows whose
+   vote differs printed), the linear probe (10 epochs; weights within
+   1e-4 of their largest value), cls_attention_maps and
+   vit_intermediate_layers(n=4) at ViT-S/16, 224 px, batch 32, float32
+   (1e-4), and zoo.create("vitb8")'s forward pass.
+20. prints the total time, the card, the kernels line (JSON) and, last,
    the device line (JSON).  K1's launches there add the gesture, host
-   extraction and flow paths' to the teacher's in the three pretrain
-   runs; K4-K7's add the three pretrain runs'; K2's and K3's add the skill and classification paths'
+   extraction, flow and serve paths' to the teacher's in the three
+   pretrain runs; K4-K7's add the three pretrain runs'; K2's and K3's add the skill and classification paths'
    to the training path's.
 
 It also prints torch.profiler tables (device time per kernel, device idle
@@ -310,6 +332,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1139,6 +1162,371 @@ def phase_main_path(nframes: int):
     return launches, feats
 
 
+class _MemoryReader:
+    """Stands in for io.video.VideoReader in the serve phase: the card
+    machine has no OpenCV, so the daemon's decode reads frames kept in
+    memory under the video's path (its file a placeholder)."""
+
+    videos = {}
+
+    def __init__(self, path):
+        self._frames = self.videos[path]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    fps = 30.0
+
+    def frames(self):
+        yield from self._frames
+
+    def batches(self, batch_size):
+        for i in range(0, len(self._frames), batch_size):
+            yield self._frames[i:i + batch_size]
+
+
+def _serve_daemon(svc, sock):
+    """serve(svc) on a Unix socket in a thread, its log lines printed;
+    returns the thread once the socket is open."""
+    import threading
+    from sais_tpu_torch.cli.serve import serve
+    t = threading.Thread(target=serve, args=(svc, sock), kwargs={
+        "log": lambda line: print(f"serve daemon: {line}", flush=True)},
+        daemon=True)
+    t.start()
+    deadline = time.time() + 60
+    while not os.path.exists(sock) and time.time() < deadline:
+        time.sleep(0.05)
+    check(os.path.exists(sock), "the serve daemon did not open its socket")
+    return t
+
+
+def phase_serve(card: str, nframes: int = 300):
+    """`serve` / `request` at full width: the daemon of cli/serve.py over
+    the gesture path's models (ViT-S/16 on K1, bf16, batch 256; one fold
+    of the 4-layer temporal model, 3 TTA offsets), 300 frames of 480x640 a
+    video.  One RGB daemon answers ping, request A, request B sent while A
+    is in flight (B's host decode starts on the prefetch path), a ping
+    during A, stats and a shutdown that drains; K1 launches 12 times a
+    frame batch a request and K2 never.  One RGB-Flow daemon, after
+    warmup_flow(480, 640), answers a flow request.  Each request is held
+    against the in-process route on the same frames
+    (FeatureExtractor.extract_array, FlowExtractor.extract_video,
+    GestureDecoder.window_probs, then GestureDecoder.decode): the reps
+    that reached the daemon's decoder within 1e-3 of their max |value|,
+    its window probabilities within 1e-3, and its CSV equal as text.  The
+    randomly initialised decoder's probabilities sit near 1/2, where
+    every window's entropy passes the default 0.66 (ln 2 = 0.693), so no
+    row would be written; both routes decode with an entropy threshold of
+    1.0, which keeps every window, so each CSV has rows to compare.
+    Returns K1's launches."""
+    import threading
+
+    import numpy as np
+    import torch
+    from sais_tpu_torch.cli.serve import DecodeService, request
+    from sais_tpu_torch.config import (ModelConfig, PipelineConfig,
+                                       PostprocessConfig)
+    from sais_tpu_torch.infer import pipeline
+    from sais_tpu_torch.infer.postprocess import write_rows_csv
+    from sais_tpu_torch.kernels.flash_attention import flash_attention
+    from sais_tpu_torch.kernels.fused_mha import fused_vit_block
+    from sais_tpu_torch.models.full_model import (full_model_init,
+                                                  prototypes_init)
+    from sais_tpu_torch.models.raft import raft_init
+    from sais_tpu_torch.models.vit import vit_init
+
+    post = PostprocessConfig(entropy_threshold=1.0)
+    cfg = PipelineConfig(model=ModelConfig(modalities="RGB"),
+                         postprocess=post)
+    fcfg = PipelineConfig(model=ModelConfig(modalities="RGB-Flow"),
+                          postprocess=post)
+    vit = vit_init(torch.Generator().manual_seed(0), cfg.vit)
+    fold = (full_model_init(torch.Generator().manual_seed(1), cfg.model),
+            prototypes_init(torch.Generator().manual_seed(2), 2)[1])
+    ffold = (full_model_init(torch.Generator().manual_seed(4), fcfg.model),
+             prototypes_init(torch.Generator().manual_seed(5), 2)[1])
+    raft = raft_init(torch.Generator().manual_seed(3), fcfg.raft)
+    rng = np.random.default_rng(0)
+    frames = {"A": rng.integers(0, 256, (nframes, 480, 640, 3), np.uint8),
+              "B": rng.integers(0, 256, (nframes, 480, 640, 3), np.uint8),
+              "F": np.stack(texture_frames(nframes))}
+    batches = math.ceil(nframes / 256)
+    saved = (pipeline.VideoReader, pipeline.FeatureExtractor._pump)
+    pipeline.VideoReader = _MemoryReader
+    pipeline.FeatureExtractor._pump = lambda self, path: None
+    print("serve: the card machine has no OpenCV, so this phase replaces "
+          "the daemon's video reader (infer.pipeline.VideoReader, and the "
+          "frame pump) with frames held in memory under each video's path; "
+          "the files under <tmp>/videos/ are empty placeholders", flush=True)
+    root = tempfile.mkdtemp(prefix="serve_")
+    try:
+        os.makedirs(os.path.join(root, "videos"))
+        for name, f in frames.items():
+            path = os.path.join(root, "videos", f"{name}.mp4")
+            open(path, "wb").close()
+            _MemoryReader.videos[path] = f
+
+        seen = {}   # video -> what the daemon's decoder was given
+
+        def trace_decoder(dec):
+            decode, window_probs = dec.decode, dec.window_probs
+
+            def traced_decode(video, rgb_reps, flow_reps=None):
+                seen[video] = {"rgb": rgb_reps, "flow": flow_reps}
+                return decode(video, rgb_reps, flow_reps)
+
+            def traced_probs(video, rgb_reps, flow_reps=None):
+                probs = window_probs(video, rgb_reps, flow_reps)
+                seen.setdefault(video, {})["probs"] = probs
+                return probs
+
+            dec.decode, dec.window_probs = traced_decode, traced_probs
+
+        errs = {}
+
+        def hold_to_reference(name, dec_cfg, dec_fold, flow=None):
+            """The request's reps, probabilities and CSV against the
+            in-process route on the same frames."""
+            fx = pipeline.FeatureExtractor(vit, dec_cfg, batch_size=256)
+            rgb = fx.extract_array(frames[name])
+            dec = pipeline.GestureDecoder([dec_fold], dec_cfg)
+            got = seen.get(name, {})
+            check("probs" in got, f"serve: request {name} never reached "
+                  "the decoder")
+            pairs = [("rgb", got["rgb"], rgb)]
+            if flow is not None:
+                pairs.append(("flow", got["flow"], flow))
+            for what, a, b in pairs:
+                check(a is not None and a.shape == b.shape
+                      and np.isfinite(a).all(),
+                      f"serve: request {name}'s {what} reps "
+                      f"{None if a is None else a.shape} vs {b.shape}")
+                err = float(np.abs(a - b).max())
+                errs[f"{name} {what}"] = err
+                check(err <= 1e-3 * float(np.abs(b).max()),
+                      f"serve: request {name}'s {what} reps differ from "
+                      f"the in-process route by {err:.3g}")
+            probs = dec.window_probs(name, rgb, flow)
+            check(got["probs"].shape == probs.shape and len(probs) > 0,
+                  f"serve: request {name}'s window probabilities "
+                  f"{got['probs'].shape} vs {probs.shape}")
+            err = float(np.abs(got["probs"] - probs).max())
+            errs[f"{name} probs"] = err
+            check(err <= 1e-3, f"serve: request {name}'s window "
+                  f"probabilities differ by {err:.3g} (limit 1e-3)")
+            rows = dec.decode(name, rgb, flow)
+            check(len(rows) > 0 and res[name]["intervals"] == len(rows),
+                  f"serve: request {name} wrote {res[name]['intervals']} "
+                  f"intervals, the in-process route {len(rows)}")
+            path = os.path.join(root, f"{name}_reference.csv")
+            write_rows_csv(rows, path)
+            with open(path) as f, open(res[name]["csv"]) as g:
+                check(g.read() == f.read(),
+                      f"serve: request {name}'s CSV differs from the "
+                      "in-process route's")
+
+        # the RGB daemon
+        svc = DecodeService(root, cfg, vit, [fold], batch_size=256)
+        trace_decoder(svc.decoder)
+        t0 = time.perf_counter()
+        svc.warmup()
+        warm_s = time.perf_counter() - t0
+        b_opened, a_started = threading.Event(), threading.Event()
+        prefetched, streams = [], []
+        start_prefetch, decode_video = svc.start_prefetch, svc.decode_video
+
+        def traced_prefetch(video):
+            stream = start_prefetch(video)
+            prefetched.append((video, stream is not None))
+            b_opened.set()
+            return stream
+
+        def traced_decode(video, use_flow=False, rgb_stream=None):
+            streams.append((video, rgb_stream is not None))
+            if video == "A":   # A holds the card until B is queued
+                a_started.set()
+                b_opened.wait(60)
+            return decode_video(video, use_flow, rgb_stream=rgb_stream)
+
+        svc.start_prefetch, svc.decode_video = traced_prefetch, traced_decode
+        sock = os.path.join(root, "rgb.sock")
+        daemon = _serve_daemon(svc, sock)
+        check(request(sock, {"cmd": "ping"}, timeout=60).get("pong"),
+              "serve: no pong")
+        fused_vit_block.launches = flash_attention.launches = 0
+        res = {}
+        ta = threading.Thread(target=lambda: res.update(
+            A=request(sock, {"video": "A"}, timeout=600)))
+        ta.start()
+        check(a_started.wait(120), "serve: request A never started")
+        t0 = time.perf_counter()
+        pong = request(sock, {"cmd": "ping"}, timeout=60)
+        ping_s = time.perf_counter() - t0
+        tb = threading.Thread(target=lambda: res.update(
+            B=request(sock, {"video": "B"}, timeout=600)))
+        tb.start()
+        ta.join(600)
+        tb.join(600)
+        k1, k2 = fused_vit_block.launches, flash_attention.launches
+        stats = request(sock, {"cmd": "stats"}, timeout=60)
+        check(request(sock, {"cmd": "shutdown"}, timeout=60).get("bye"),
+              "serve: shutdown not acknowledged")
+        daemon.join(120)
+        check(not daemon.is_alive(), "serve: the daemon did not stop")
+        check(pong.get("pong"), "serve: no pong during request A")
+        for name in ("A", "B"):
+            check(res.get(name, {}).get("ok"),
+                  f"serve: request {name} failed: {res.get(name)}")
+        check(("B", True) in prefetched and ("B", True) in streams,
+              f"serve: B did not take the prefetch path ({prefetched}, "
+              f"{streams})")
+        check(k1 == 2 * 12 * batches and k2 == 0,
+              f"serve: K1 launched {k1} times (expected {2 * 12 * batches})"
+              f", K2 {k2} times (expected 0) over requests A and B")
+        for name in ("A", "B"):
+            hold_to_reference(name, cfg, fold)
+
+        # the RGB-Flow daemon
+        fsvc = DecodeService(root, fcfg, vit, [ffold], raft=raft,
+                             batch_size=256)
+        trace_decoder(fsvc.decoder)
+        fsvc.warmup()
+        t0 = time.perf_counter()
+        fsvc.warmup_flow(480, 640)
+        flow_warm_s = time.perf_counter() - t0
+        fsock = os.path.join(root, "flow.sock")
+        fdaemon = _serve_daemon(fsvc, fsock)
+        fused_vit_block.launches = 0
+        res["F"] = request(fsock, {"video": "F", "flow": True}, timeout=600)
+        fk1 = fused_vit_block.launches
+        check(request(fsock, {"cmd": "shutdown"}, timeout=60).get("bye"),
+              "serve: the flow daemon's shutdown not acknowledged")
+        fdaemon.join(120)
+        check(res["F"].get("ok"), f"serve: the flow request failed: "
+              f"{res['F']}")
+        flow_reps = pipeline.FlowExtractor(raft, vit, fcfg).extract_video(
+            None, frame_source=iter(frames["F"]))
+        hold_to_reference("F", fcfg, ffold, flow_reps)
+    finally:
+        pipeline.VideoReader, pipeline.FeatureExtractor._pump = saved
+        _MemoryReader.videos.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    line = "; ".join(
+        f"{name} {r['seconds']:.2f} s ({r['frames'] / r['seconds']:.1f} "
+        f"frames/s, {r['intervals']} intervals)" for name, r in res.items())
+    print(f"serve: warm-up {warm_s:.2f} s (RGB), flow warm-up at 480x640 "
+          f"{flow_warm_s:.2f} s; requests {line}; ping during A "
+          f"{1e3 * ping_s:.1f} ms; stats p50 {stats['p50_s']} s, p95 "
+          f"{stats['p95_s']} s over {stats['requests']} requests; K1 "
+          f"launches {k1} (A and B), {fk1} (F), K2 {k2}; max |daemon - "
+          f"in-process|: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; {card}",
+          flush=True)
+    return k1 + fk1
+
+
+def phase_eval_attention(card: str):
+    """eval / attention on the card, each reading against the same call on
+    the CPU: the weighted k-NN over 50,000 x 384 train and 10,000 test
+    features (20 classes, numpy seed 0; top-1 / top-5 within 0.05 points,
+    the rows whose vote differs printed), the linear probe for 10 epochs
+    (weights within 1e-4 of their largest value), cls_attention_maps and
+    vit_intermediate_layers(n=4) at ViT-S/16, 224 px, batch 32, float32
+    (1e-4 of the largest value), and zoo.create("vitb8")'s forward pass on
+    the card."""
+    import numpy as np
+    import torch
+    from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.eval.attention_viz import cls_attention_maps
+    from sais_tpu_torch.eval.probes import (knn_classifier, knn_votes,
+                                            train_linear_probe)
+    from sais_tpu_torch.models import zoo
+    from sais_tpu_torch.models.vit import (vit_features, vit_init,
+                                           vit_intermediate_layers)
+
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((20, 384)).astype(np.float32)
+    ytr, yte = rng.integers(0, 20, 50000), rng.integers(0, 20, 10000)
+    # class means 0.15 a dimension under unit noise: a hard vote
+    xtr = (0.15 * centers[ytr] + rng.standard_normal(
+        (50000, 384))).astype(np.float32)
+    xte = (0.15 * centers[yte] + rng.standard_normal(
+        (10000, 384))).astype(np.float32)
+    acc, secs, votes = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        acc[dev] = knn_classifier(xtr, ytr, xte, yte, k=20, device=dev)
+        secs[dev] = time.perf_counter() - t0
+        votes[dev] = knn_votes(xtr, ytr, xte, k=20, device=dev)
+    differ = int((votes["cuda"].argmax(1) != votes["cpu"].argmax(1)).sum())
+    print(f"eval: k-NN (50,000 x 384 train, 10,000 test, 20 classes, k 20) "
+          f"card top-1 {acc['cuda'][0]:.2f} top-5 {acc['cuda'][1]:.2f} in "
+          f"{secs['cuda']:.3f} s; CPU top-1 {acc['cpu'][0]:.2f} top-5 "
+          f"{acc['cpu'][1]:.2f} in {secs['cpu']:.3f} s; {differ} of 10,000 "
+          f"rows vote differently; {card}", flush=True)
+    # Limit: 0.05 points, 5 of the 10,000 rows: a vote flips where two
+    # similarities tie at float32 rounding
+    for i, name in enumerate(("top-1", "top-5")):
+        check(abs(acc["cuda"][i] - acc["cpu"][i]) <= 0.05,
+              f"k-NN {name} differs: card {acc['cuda'][i]}, CPU "
+              f"{acc['cpu'][i]}")
+    probe = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        probe[dev] = train_linear_probe(xtr, ytr, xte, yte, num_classes=20,
+                                        epochs=10, device=dev)
+        secs[dev] = time.perf_counter() - t0
+    werr = np.abs(probe["cuda"]["w"] - probe["cpu"]["w"]).max()
+    wscale = np.abs(probe["cpu"]["w"]).max()
+    print(f"eval: linear probe, 10 epochs: card top-1 "
+          f"{probe['cuda']['top1']:.2f} in {secs['cuda']:.2f} s, CPU "
+          f"{probe['cpu']['top1']:.2f} in {secs['cpu']:.2f} s; max|w card "
+          f"- w CPU| {werr:.3g} (max|w| {wscale:.3g})", flush=True)
+    # Limit: 1e-4 of the largest weight (float32 on both, 1,960 SGD steps)
+    check(werr <= 1e-4 * wscale, f"linear probe weights differ: {werr} > "
+          f"1e-4 * {wscale}")
+
+    vit = vit_init(torch.Generator().manual_seed(0), ViTConfig()).eval()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (32, 224, 224, 3)).astype(np.float32))
+    card_vit = vit_init(torch.Generator().manual_seed(0),
+                        ViTConfig()).cuda().eval()
+    xc = x.cuda()
+    t0 = time.perf_counter()
+    maps = cls_attention_maps(card_vit, xc)
+    with torch.inference_mode():
+        layers = [t.cpu() for t in vit_intermediate_layers(card_vit, xc, 4)]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    ref_maps = cls_attention_maps(vit, x)
+    with torch.inference_mode():
+        ref_layers = vit_intermediate_layers(vit, x, 4)
+    errs = [(np.abs(maps - ref_maps).max(), np.abs(ref_maps).max())] + [
+        ((a - b).abs().max().item(), b.abs().max().item())
+        for a, b in zip(layers, ref_layers)]
+    print(f"attention: ViT-S/16 at 224, batch 32, float32: CLS maps "
+          f"{maps.shape} and 4 intermediate layers on the card in "
+          f"{card_s:.3f} s; max|card - CPU| (max|CPU|): "
+          f"{', '.join(f'{e:.3g} ({m:.3g})' for e, m in errs)}", flush=True)
+    # Limit: 1e-4 of the largest value (float32 on both, TF32 off)
+    for e, m in errs:
+        check(e <= 1e-4 * m, f"attention outputs differ: {e} > 1e-4 * {m}")
+    model, zcfg = zoo.create("vitb8")
+    with torch.inference_mode():
+        feats = vit_features(model.cuda().eval(), xc[:2])
+    check(tuple(feats.shape) == (2, zcfg.embed_dim)
+          and bool(torch.isfinite(feats).all()),
+          f"zoo.create('vitb8') forward: {tuple(feats.shape)} not finite / "
+          f"wrong shape")
+    print(f"zoo: create('vitb8') ({zcfg.depth} blocks, {zcfg.embed_dim} "
+          f"wide, patch {zcfg.patch_size}) forward on the card: "
+          f"{tuple(feats.shape)}", flush=True)
+
+
 def texture_frames(nframes: int, h: int = 480, w: int = 640, step: int = 2,
                    seed: int = 0):
     """`nframes` views of one random texture of 8-pixel cells moving `step`
@@ -1554,7 +1942,11 @@ def phase_k3():
         if masked:
             do[-1] = 0.0    # flash_attention's backward zeroes this element
         got = flash_attention_bwd(q, k, v, bias, out, lse, do)
+        again = flash_attention_bwd(q, k, v, bias, out, lse, do)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K3 is not bitwise repeatable at (B*S, L) = ({b}, {l})")
+        del again
         ref = flash_attention_bwd_reference(q, k, v, bias, out, lse, do)
         exact = _bwd_f64(q, k, v, bias, out, lse, do)
         errs = []
@@ -1597,7 +1989,9 @@ def phase_k3():
         library_ms = cuda_time_ms(lib_fwd_bwd, iters=10) - lib_fwd_ms
         bound_ms, bound_by, flops, nbytes, ffma_ms = k3_bound_ms(
             b, 4, l, 96, valid)
-        print(f"K3 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''}: "
+        print(f"K3 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''} "
+              f"(two runs bitwise equal; faster than plain "
+              f"{ms < plain_ms}, than SDPA's backward {ms < library_ms}): "
               f"{', '.join(errs)}; kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
               f" TFLOP/s of the 10 Dh-a-pair work), plain {plain_ms:.4f} ms, "
               f"library (SDPA backward, f32, additive mask) {library_ms:.4f}"
@@ -4555,6 +4949,8 @@ def main():
     launches, rgb_feats = phase_main_path(nframes=300)
     host_launches = phase_host_extract(nframes=300)
     flow_launches = phase_flow(rgb_feats, card)
+    serve_launches = phase_serve(card)
+    phase_eval_attention(card)
     phase_steps(nframes=20000)
     k3 = phase_k3()
     if parent:
@@ -4582,7 +4978,7 @@ def main():
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
         "replaces": "sais_tpu/kernels/fused_mha.py:117",
         "launches": (launches + host_launches + flow_launches
-                     + pretrain_launches[3]),
+                     + serve_launches + pretrain_launches[3]),
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -4630,7 +5026,8 @@ def main():
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
-    print(f"total {time.time() - t_start:.1f} s", flush=True)
+    print(f"total {time.time() - t_start:.1f} s (the parent tree's run on "
+          f"an H100 80GB HBM3 at 700 W: 378.3 s, PERF.md §6)", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
-"""Command line of the port: `extract`, `flow`, `decode`, `pipeline`,
-`steps`, `assess`, `train` and `pretrain`, with the flags of `sais`
-(sais_tpu/cli/main.py).
+"""Command line of the port: every subcommand of `sais`
+(sais_tpu/cli/main.py) with its flags.
 
   python -m sais_tpu_torch.cli.main pipeline -f <video> -p <root> \
       -mod RGB-Flow --random-init
@@ -78,8 +77,22 @@ package (Fold_<i>/params.pkl + prototypes.pkl) or reference folds
 (Fold_<i>/params.zip + prototypes.zip).  --random-init runs freshly
 initialized models from fixed seeds.
 
-Commands and options that are not ported yet are refused, and the message
-names the ROADMAP.md item, by its title, that brings them.
+  python -m sais_tpu_torch.cli.main serve -p <root> --params-dir <dir> \
+      --dino-weights <pth> --socket /tmp/sais.sock
+  python -m sais_tpu_torch.cli.main request -f <video> --socket ...
+
+keeps the models resident on the card and answers each request with
+<root>/results/<video>_gestures.csv (`--rpc ping|stats|shutdown`: the
+control calls; `-mod RGB-Flow --flow-jump N --flow-warmup 480x640`: flow
+requests).  `eval --segments labels.csv` runs the k-NN and linear probes
+over the stored features, `attention --image <png>` / `-f <video>` the
+last block's CLS attention maps / overlay video, and `port --params-dir
+<dir>` converts folds between params.zip and params.pkl (`--verify`,
+`--record`, `--record-all`: the golden digests of real checkpoints).
+
+The parallel options (--data-parallel, --seq-parallel, --num-slices,
+--init-distributed) are refused, and the message names the ROADMAP.md
+item, by its title, that brings them.
 """
 
 from __future__ import annotations
@@ -148,21 +161,13 @@ def _load_raft(args, cfg):
     return raft_init(torch.Generator().manual_seed(3), cfg.raft)
 
 
-# the members decoding does not read (the MIL task's)
-_MIL_MEMBERS = ("clip_cls", "clip_pos", "clip_encoder", "attentionA",
-                "attentionB", "attention_modules", "final_modules")
-
-
 def load_fold(d: str, cfg):
     """(FullModel, prototypes) of one fold directory: params.pkl +
     prototypes.pkl written by `train` (either package; the JAX pytree), or
-    the reference's params.zip + prototypes.zip.  The model keeps the
-    checkpoint's own positional-table length, and has the importance and
-    linearB heads exactly when the checkpoint has them, as the JAX package
-    does.  A fold without the clip and MIL members (the port's Prototypes
-    folds before it carried them) loads with those members zero."""
-    from sais_tpu_torch.models.full_model import FullModel
-    from sais_tpu_torch.port.weights import (full_model_params_from_jax,
+    the reference's params.zip + prototypes.zip (`port.weights.
+    full_model_from_state` builds the model)."""
+    from sais_tpu_torch.port.weights import (full_model_from_state,
+                                             full_model_params_from_jax,
                                              full_model_params_from_reference,
                                              load_checkpoint,
                                              prototypes_from_reference)
@@ -176,30 +181,7 @@ def load_fold(d: str, cfg):
             load_checkpoint(os.path.join(d, "params.zip")))
         _, protos = prototypes_from_reference(
             load_checkpoint(os.path.join(d, "prototypes.zip")))
-    mcfg = dataclasses.replace(
-        cfg.model, importance_head="importance.weight" in sd,
-        multi_task="linearB.weight" in sd,
-        temporal=dataclasses.replace(
-            cfg.model.temporal, max_positions=len(sd["frame_pos"])))
-    if "cls_head.weight" in sd:
-        mcfg = dataclasses.replace(mcfg, data_type="raw",
-                                   nclasses=len(sd["cls_head.weight"]))
-    nmil = len({k.split(".")[1] for k in sd
-                if k.startswith("final_modules.")})
-    if nmil:
-        mcfg = dataclasses.replace(mcfg, n_attention_classes=nmil)
-    model = FullModel(mcfg)
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    # a fold the port wrote before it carried the clip encoder and the MIL
-    # modules has only the Prototypes path's members, which decoding reads
-    absent = [k for k in missing if k.split(".")[0] not in _MIL_MEMBERS]
-    if absent or unexpected:
-        raise RuntimeError(f"fold {d}: missing {absent}, unexpected "
-                           f"{unexpected}")
-    with torch.no_grad():
-        for name in missing:
-            model.get_parameter(name).zero_()
-    return model, protos
+    return full_model_from_state(sd, cfg.model, f"fold {d}"), protos
 
 
 def _load_folds(args, cfg):
@@ -324,13 +306,6 @@ def cmd_paths(args):
     from sais_tpu_torch.io.manifests import write_manifests
     write_manifests(args.path, [args.videoname])
     print(f"wrote manifests under {os.path.join(args.path, 'paths')}")
-
-
-def cmd_unported(args):
-    """`eval`, `port`, `serve`, `request` and `attention`: registered with
-    the JAX CLI's flags, refused until their slice."""
-    raise NotImplementedError(
-        f"`{args.cmd}` is not ported yet (ROADMAP.md Queue 1, 'The rest')")
 
 
 def cmd_extract(args):
@@ -938,6 +913,227 @@ def cmd_pipeline(args):
     print(f"total {time.time() - t0:.1f}s")
 
 
+def cmd_serve(args):
+    """Long-lived decode daemon (cli/serve.py): the models stay resident
+    on the card and {"video": name} requests are answered over a Unix
+    socket."""
+    from sais_tpu_torch.cli.serve import DecodeService, serve
+    _check_ported(args)
+    cfg = _pipeline_config(args)
+    if args.flow_jump == "auto":
+        sys.exit("serve decodes many videos with one window config; pass "
+                 "an explicit --flow-jump stride (the daemon extracts flow "
+                 "per request at that same stride, so pairing and window "
+                 "mapping always agree -- but per-video fps//2 parity "
+                 "needs one daemon per fps group)")
+    cfg = _apply_flow_jump(cfg, args)
+    vit = _load_vit(args, cfg)
+    folds = _load_folds(args, cfg)
+    raft = None if cfg.model.modalities == "RGB" else _load_raft(args, cfg)
+    svc = DecodeService(args.path, cfg, vit, folds, raft,
+                        batch_size=args.batch_size,
+                        exact_preprocess=args.exact_preprocess,
+                        pair_batch=args.flow_batch,
+                        flow_iters=args.flow_iters, device=args.device)
+    print("warming up...")
+    svc.warmup()
+    if args.flow_warmup:
+        # one or more HxW resolutions: a deployment serving several camera
+        # formats warms the flow path at each
+        for res in args.flow_warmup.split(","):
+            h, w = (int(x) for x in res.strip().split("x"))
+            print(f"warming up the flow path at {h}x{w}...")
+            svc.warmup_flow(h, w)
+    serve(svc, args.socket)
+
+
+def cmd_request(args):
+    """Client of a running `serve` daemon."""
+    import json
+    from sais_tpu_torch.cli.serve import request
+    if not args.rpc and not args.videoname:
+        sys.exit("request: -f <videoname> or --rpc <cmd> is required")
+    payload = ({"cmd": args.rpc} if args.rpc
+               else {"video": args.videoname,
+                     "flow": args.modalities != "RGB"})
+    print(json.dumps(request(args.socket, payload)))
+
+
+def cmd_eval(args):
+    """Encoder probes over stored features: weighted k-NN and a linear
+    probe (eval_knn.py / eval_linear.py).  Labels come from a CSV with
+    Video and Label columns (StartFrame / EndFrame optional), features
+    from the RGB store; train and test hold disjoint videos (fold 0 of
+    the fold-video split)."""
+    from sais_tpu_torch.data.datasets import fold_video_split, read_segments
+    from sais_tpu_torch.eval.probes import knn_classifier, train_linear_probe
+    from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
+    rows = read_segments(args.segments)
+    videos = list(dict.fromkeys(r["Video"] for r in rows))
+    train_v, val_v, _ = fold_video_split(videos, fold=0)
+    train_v = set(train_v) | set(val_v)
+    feats, labels, is_train = [], [], []
+    with FeatureStore(rgb_store_path(args.path)) as fs:
+        for row in rows:
+            reps = fs.read_video(row["Video"])
+            s = int(row.get("StartFrame", 0))
+            e = int(row.get("EndFrame", len(reps)))
+            # clamped to the stored rep count, so that a frame-count drift
+            # cannot misalign features and labels
+            s = max(0, min(s, len(reps)))
+            e = max(s, min(e, len(reps)))
+            if e == s:
+                continue
+            feats.append(reps[s:e])
+            labels.append(np.full(e - s, row["Label"]))
+            is_train.append(np.full(e - s, row["Video"] in train_v))
+    feats = np.concatenate(feats)
+    names = sorted(set(np.concatenate(labels).tolist()))
+    y = np.asarray([names.index(v) for v in np.concatenate(labels)])
+    tr = np.concatenate(is_train)
+    if tr.all() or not tr.any():
+        sys.exit("eval needs labels from at least two videos so train and "
+                 "test can hold disjoint videos")
+    top1, top5 = knn_classifier(feats[tr], y[tr], feats[~tr], y[~tr], k=20,
+                                device=args.device)
+    lin = train_linear_probe(feats[tr], y[tr], feats[~tr], y[~tr],
+                             num_classes=len(names), epochs=10,
+                             device=args.device)
+    print(f"knn top1 {top1:.2f} top5 {top5:.2f} | linear top1 "
+          f"{lin['top1']:.2f}")
+
+
+def cmd_port(args):
+    """Checkpoints between the reference's torch layout and the pickles
+    both packages read.
+
+    --params-dir with params.zip / prototypes.zip -> params.pkl /
+    prototypes.pkl (the reverse where only the .pkl files exist).
+    --verify CKPT --kind vit|raft|full: probe a real reference checkpoint
+    against its recorded digest (port/verify.py); --record CKPT writes the
+    digest; --record-all DIR records every checkpoint found there by its
+    published name."""
+    import pickle
+    from sais_tpu_torch.port import verify as verify_lib
+    if args.record_all:
+        found = verify_lib.discover_checkpoints(args.record_all)
+        if not found:
+            sys.exit(f"no checkpoints discovered under {args.record_all}; "
+                     "expected dino_deitsmall16_pretrain.pth, a "
+                     "*raft*.ckpt, and/or Fold_*/params.zip")
+        for kind in ("vit", "raft", "full"):
+            if kind in found:
+                dest = verify_lib.record(found[kind], kind,
+                                         golden_dir=args.golden_dir,
+                                         device=args.device)
+                sha = verify_lib.file_sha256(found[kind])[:16]
+                print(f"{kind}: recorded {dest} from {found[kind]} "
+                      f"(sha256 {sha}…)")
+            else:
+                print(f"{kind}: NOT FOUND — fetch from "
+                      f"{verify_lib.CHECKPOINT_URLS[kind]}")
+        print("commit the recorded .npz digests; `port --verify <ckpt> "
+              "--kind <kind>` then asserts <=1e-3 agreement anywhere")
+        return
+    if args.verify or args.record:
+        ckpt = args.verify or args.record
+        if not args.kind:
+            sys.exit("port --verify/--record needs --kind {vit,raft,full}")
+        if args.record:
+            dest = verify_lib.record(ckpt, args.kind,
+                                     golden_dir=args.golden_dir,
+                                     device=args.device)
+            print(f"recorded golden digest {dest} "
+                  f"(sha256 {verify_lib.file_sha256(ckpt)[:16]}…)")
+        else:
+            errs = verify_lib.verify(ckpt, args.kind,
+                                     golden_dir=args.golden_dir,
+                                     device=args.device)
+            for name, err in errs.items():
+                print(f"{args.kind}/{name}: max|Δ| = {err:.3e} "
+                      f"(tol {verify_lib.ATOL})")
+            print(f"port verified: {ckpt}")
+        return
+    from sais_tpu_torch.port.weights import (full_model_params_from_torch,
+                                             load_checkpoint,
+                                             prototypes_from_torch)
+    from sais_tpu_torch.train.checkpoint import (export_torch_prototypes,
+                                                 export_torch_state_dict,
+                                                 load_training_result)
+    d = args.params_dir
+    if not any(os.path.exists(os.path.join(d, f))
+               for f in ("params.zip", "params.pkl")):
+        d = os.path.join(d, "Fold_0")
+    if os.path.exists(os.path.join(d, "params.zip")):
+        params = full_model_params_from_torch(
+            load_checkpoint(os.path.join(d, "params.zip")))
+        _, protos = prototypes_from_torch(
+            load_checkpoint(os.path.join(d, "prototypes.zip")))
+        with open(os.path.join(d, "params.pkl"), "wb") as f:
+            pickle.dump(params, f)
+        with open(os.path.join(d, "prototypes.pkl"), "wb") as f:
+            pickle.dump(protos, f)
+        print(f"converted torch -> native under {d}")
+    else:
+        res = load_training_result(d)
+        protos = np.asarray(res["prototypes"])
+        sd = export_torch_state_dict(res["params"])
+        pd_ = export_torch_prototypes(
+            [str(i) for i in range(protos.shape[0])], protos)
+        torch.save({k: torch.tensor(v) for k, v in sd.items()},
+                   os.path.join(d, "params.zip"))
+        torch.save({k: torch.tensor(v) for k, v in pd_.items()},
+                   os.path.join(d, "prototypes.zip"))
+        print(f"converted native -> torch under {d}")
+
+
+def cmd_attention(args):
+    """DINO CLS-attention visualization (the reference's dino-main tools),
+    the float32 ViT on the card.
+
+    --image <path>: per-head heatmap PNGs (and mass-threshold masks with
+    --attn-threshold), as visualize_attention.py:179-213.
+    -f <videoname>: an attention-overlay mp4, as video_generation.py."""
+    from sais_tpu_torch import resolve_device
+    from sais_tpu_torch.ops.preprocess import preprocess_batch
+    cfg = _pipeline_config(args)
+    device = resolve_device(args.device)
+    model = _load_vit(args, cfg).float().to(device).eval()
+    outdir = os.path.join(args.path, "results")
+    os.makedirs(outdir, exist_ok=True)
+    if args.image:
+        from PIL import Image
+        from sais_tpu_torch.eval.attention_viz import (cls_attention_maps,
+                                                       save_attention_pngs,
+                                                       threshold_masks,
+                                                       upsample_maps)
+        img = np.array(Image.open(args.image).convert("RGB"))
+        x = preprocess_batch(torch.from_numpy(img[None]).to(device),
+                             cfg.preprocess, torch.float32)
+        maps = cls_attention_maps(model, x)
+        stem = os.path.splitext(os.path.basename(args.image))[0]
+        prefix = os.path.join(outdir, f"{stem}_attn")
+        paths = save_attention_pngs(maps, prefix, cfg.vit.patch_size)
+        if args.attn_threshold is not None:
+            masks = upsample_maps(threshold_masks(maps, args.attn_threshold),
+                                  cfg.vit.patch_size)
+            for h in range(masks.shape[1]):
+                mp = f"{prefix}_mask_th{args.attn_threshold}_head{h}.png"
+                Image.fromarray(
+                    (masks[0, h] * 255).astype(np.uint8)).save(mp)
+                paths.append(mp)
+        print(f"wrote {len(paths)} maps under {prefix}_*.png")
+        return
+    if not args.videoname:
+        sys.exit("attention: --image <path> or -f <videoname> is required")
+    from sais_tpu_torch.eval.video_generation import attention_video
+    dest = os.path.join(outdir, f"{args.videoname}_attention.mp4")
+    n = attention_video(model, _video_path(args), dest, pre=cfg.preprocess,
+                        batch_size=args.batch_size, alpha=args.alpha,
+                        threshold=args.attn_threshold)
+    print(f"wrote {n} frames to {dest}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="sais_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -946,9 +1142,9 @@ def build_parser() -> argparse.ArgumentParser:
                      ("decode", cmd_decode), ("pipeline", cmd_pipeline),
                      ("assess", cmd_assess), ("steps", cmd_steps),
                      ("train", cmd_train), ("pretrain", cmd_pretrain),
-                     ("eval", cmd_unported), ("port", cmd_unported),
-                     ("serve", cmd_unported), ("request", cmd_unported),
-                     ("attention", cmd_unported)]:
+                     ("eval", cmd_eval), ("port", cmd_port),
+                     ("serve", cmd_serve), ("request", cmd_request),
+                     ("attention", cmd_attention)]:
         sp = sub.add_parser(name)
         sp.set_defaults(fn=fn)
         sp.add_argument("-f", "--videoname",
@@ -956,10 +1152,9 @@ def build_parser() -> argparse.ArgumentParser:
                                                "port", "serve", "request",
                                                "attention")))
         sp.add_argument("--socket", default="/tmp/sais.sock",
-                        help="serve / request: the daemon's Unix socket "
-                             "(not ported yet)")
+                        help="serve / request: the daemon's Unix socket")
         sp.add_argument("--rpc", choices=["ping", "shutdown", "stats"],
-                        help="request: a control call (not ported yet)")
+                        help="request: a control call")
         sp.add_argument("-p", "--path", default=".")
         sp.add_argument("--dino-weights")
         sp.add_argument("--raft-weights",
@@ -994,10 +1189,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="attention video: overlay blend weight "
                              "(video_generation.py default)")
         sp.add_argument("--flow-warmup", default=None, metavar="HxW[,HxW...]",
-                        help="serve: pre-compile the fused dual-stream "
-                             "program for this video resolution (e.g. "
-                             "240x320) so the first flow request pays no "
-                             "compile (not ported yet)")
+                        help="serve: run the fused flow path once at "
+                             "these video resolutions (e.g. 240x320) so the "
+                             "first flow request pays no warm-up; every "
+                             "other command ignores it")
         sp.add_argument("--params-dir",
                         help="trained folds: Fold_<i>/params.pkl and "
                              "prototypes.pkl (either package's `train`), "
@@ -1207,10 +1402,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_registered(args):
     """Flags every command takes whose work is not ported: each is
     refused, naming the ROADMAP.md item that brings it."""
-    if args.flow_warmup:
-        raise NotImplementedError(
-            "--flow-warmup: the serve daemon's flow warm-up is not ported "
-            "yet; it comes with `serve` (ROADMAP.md Queue 1, 'The rest')")
     if args.num_slices > 1 or args.init_distributed:
         raise NotImplementedError(
             "--num-slices / --init-distributed: multi-host training is not "

@@ -62,6 +62,44 @@ def _put_stoppable(q: "queue.Queue", item, stop: threading.Event) -> bool:
     return False
 
 
+def _reap_producer(t: threading.Thread, q: "queue.Queue",
+                   stop: threading.Event) -> None:
+    """Stop a bounded-queue producer and join it, also where the consumer
+    stopped mid-stream or never started: the producer abandons the rest
+    of the video, a put in flight is unblocked by draining, and its
+    decoder handle is released with the thread (a long-lived daemon would
+    otherwise keep one per failed request)."""
+    stop.set()
+    while t.is_alive():
+        try:
+            q.get(timeout=0.1)
+        except queue.Empty:
+            pass
+    t.join()
+
+
+class _HostStream:
+    """A running host decode of one video: its producer (the frame pump's
+    thread, or an OpenCV thread) is already filling a bounded buffer.
+    Opening the decode apart from the device pass lets the serve daemon
+    decode request B on the host while request A holds the card.  Always
+    close() it: that joins the producer and releases its decoder."""
+
+    def __init__(self, batches, features, close,
+                 errors: Optional[List[BaseException]] = None):
+        self.batches = batches      # iterator of uint8 frame batches
+        self.features = features    # one batch -> features on the device
+        self._close = close
+        self._errors = errors       # the producer's exception, if any
+
+    def close(self) -> None:
+        self._close()
+
+    def raise_if_failed(self) -> None:
+        if self._errors:
+            raise self._errors[0]
+
+
 class FeatureExtractor:
     """Batched DINO CLS-feature extraction (extract_representations.py:
     351-378): PIL-exact preprocessing and the ViT, both on the device."""
@@ -146,18 +184,21 @@ class FeatureExtractor:
                   file=sys.stderr)
             return None
 
-    def extract_video(self, video_path: str, prefetch: int = 4) -> np.ndarray:
-        """Stream a video: the frame pump, or a producer thread, decodes
-        batches into a bounded queue while the device computes the
-        previous ones."""
+    def open_stream(self, video_path: str, prefetch: int = 4) -> _HostStream:
+        """Start the host decode of a video now and return it running: the
+        frame pump (at most 4 batches queued), or a producer thread that
+        decodes with OpenCV into a queue of `prefetch` batches.  A caller
+        that cannot use the device yet (the serve daemon holding request B
+        while A decodes) still makes progress on the host;
+        `extract_video(stream=...)` later consumes what is buffered."""
         if not os.path.exists(video_path):
             raise FileNotFoundError(video_path)
         pump = None if self.exact_preprocess else self._pump(video_path)
         if pump is not None:
-            with pump:
-                return self._gather([
-                    self.features_resized(to_device(b, self.device))
-                    for b in pump.batches(self.batch_size)])
+            return _HostStream(
+                pump.batches(self.batch_size),
+                lambda b: self.features_resized(to_device(b, self.device)),
+                pump.close)
         q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(maxsize=prefetch)
         errors: List[BaseException] = []
         stop = threading.Event()
@@ -175,15 +216,27 @@ class FeatureExtractor:
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        outs = []
-        try:
+
+        def batches():
             while (batch := q.get()) is not None:
-                outs.append(self._host_batch(batch))
+                yield batch
+
+        return _HostStream(batches(), self._host_batch,
+                           lambda: _reap_producer(t, q, stop), errors)
+
+    def extract_video(self, video_path: str, prefetch: int = 4,
+                      stream: Optional[_HostStream] = None) -> np.ndarray:
+        """Stream a video: the frame pump, or a producer thread, decodes
+        batches into a bounded queue while the device computes the
+        previous ones.  `stream`: a decode of video_path already opened
+        by `open_stream`; it is consumed and closed either way."""
+        if stream is None:
+            stream = self.open_stream(video_path, prefetch)
+        try:
+            outs = [stream.features(b) for b in stream.batches]
         finally:
-            stop.set()           # the producer abandons the rest on error
-            t.join()
-        if errors:
-            raise errors[0]
+            stream.close()   # the producer abandons the rest on error
+        stream.raise_if_failed()
         return self._gather(outs)
 
     def _gather(self, outs: List[torch.Tensor]) -> np.ndarray:

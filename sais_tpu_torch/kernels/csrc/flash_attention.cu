@@ -229,7 +229,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int n = 0; n < NKT; ++n) {
         const float* kr = Ks + (8 * n + g) * LD + 8 * kk + t;
-        mma3(s[n], a, kr[0], kr[4]);
+        mma3(s[n], a, split(kr[0]), split(kr[4]));
       }
     }
 
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 
     // acc = acc * alpha + P V: P from the score registers, V read by
     // column, each k-step's part rounded in (accumulate_product)
-    accumulate_product<NKT, KS, KS, LD>(
+    accumulate_product<NKT, KS, LD, 0, kKeysTie>(
         acc, s, Vs + 2 * t * LD + g,
         [&](float x, int e) { return x * alpha[e >> 1]; });
     __syncthreads();   // stage cur free for tile it + 2

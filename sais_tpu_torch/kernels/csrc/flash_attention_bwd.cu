@@ -64,29 +64,41 @@
 //   sums that error shrank them coherently (K3's dq sat -9e-7 of its mean
 //   from float64 at the MIL fit's shapes, 20x the dense f32 path's).  The
 //   parts of the sums over keys (dq, dk, dv) are also unbiased (`unbias`
-//   in flash_tf32.cuh).  The
-//   dq kernel forms s, then dp, one product at a time, and from Dh 96
-//   the running sums of dk and dv do not fit one thread's registers beside
-//   the rest: dv and dk are then two launches of the kernel, each
-//   recomputing p^T (one product in four more), and at Dh 192 the dq
-//   kernel takes half of the columns a block (blockIdx.y), recomputing s
-//   and dp for it.
-// - Tiles in shared memory are f32 with rows of Dh + 4 floats, read by row
-//   (K in q' K^T, V in dO V^T, q' and dO in the dk / dv kernel's score
+//   in flash_tf32.cuh, kKeysTie).  The
+//   dq kernel forms s, then dp, one product at a time.  Up to Dh 96 dk and
+//   dv are one launch; at Dh 96 its thread forms p^T and adds it into dv
+//   before it forms dp^T, so that the two running sums (96 floats) never
+//   sit beside both tiles of scores, and ptxas keeps it in registers (two
+//   launches, the second recomputing s^T, left K3 slower than SDPA's
+//   backward).  From Dh 128 the running sums of dk and dv do not fit one
+//   thread's registers beside the rest: dv and dk are two launches of the
+//   kernel, each recomputing p^T (one product in four more), and at Dh
+//   192 the dq kernel takes half of the columns a block (blockIdx.y),
+//   recomputing s and dp for it.
+// - Tiles in shared memory have rows of Dh + 4 floats, read by row (K in
+//   q' K^T, V in dO V^T, q' and dO in the dk / dv kernel's score
 //   products) and by column (K in ds K, dO in p^T dO, q' in ds^T q'), both
-//   free of bank conflicts.  The resident operands (q' and dO in the dq
-//   kernel, K and V in the dk / dv kernel) are A operands: a warp splits
-//   their 4 values a k-step again at each use, against the 8 values of the
-//   streaming B fragments it meets there, so a hi / lo copy of them would
-//   cost shared memory and save little.
+//   free of bank conflicts.  The streaming tiles (K and V in the dq
+//   kernel, q' and dO in the dk / dv kernel) are the B operands of every
+//   product that reads them, met by all 8 warps at every k-step: up to Dh
+//   96 each is split once, when it lands, into a big and a small plane
+//   (split_stream), and a k-step only loads its fragments and runs its
+//   mmas (split at each use, those splits were most of the kernels'
+//   instructions outside the tensor cores, and ran K3 slower than its
+//   plain version).  The resident tiles (q' and dO in the dq kernel, K and
+//   V in the dk / dv kernel) are A operands, 4 values a k-step a warp, and
+//   stay f32, split at each use.
 // - The streaming tiles are double-buffered with cp.async: the next key
 //   tile (K, V, bias) in the dq kernel, the next query tile (q, dO, lse,
-//   delta) in the dk / dv kernel, requested before the current tile's
-//   products.  The dk / dv kernel scales its q tile in place: each thread
-//   scales the chunks it copied once its own copies have landed.
-//   Shared memory at Dh 96: 6 tiles of 64 x 100 floats, 154,112 bytes
-//   (dq) and 154,624 (dk / dv); one block of 8 warps an SM; 203 KB at Dh
-//   128.
+//   delta) in the dk / dv kernel is requested before the current tile's
+//   products.  Up to Dh 96 it lands raw in a staging pair; when its turn
+//   comes each thread splits the chunks it copied into the planes (q'
+//   scaled first), and the next request follows.  Shared memory at Dh
+//   96: the resident pair, four planes and the staging pair, 8 tiles of
+//   64 x 100 floats, 206,080 bytes; one block of 8 warps an SM.  At Dh 128
+//   two planes a streaming tile do not fit beside double buffering (270
+//   KB), and the tiles stay f32 in two stages, split at each use: 6 tiles,
+//   203 KB; the dk / dv kernel scales its q tile in place.
 // - Exact shapes: rows past Lq or Lk are zero-filled in shared memory;
 //   missing keys get a bias of -inf and missing queries an lse of +inf, so
 //   their p is exactly 0 and they contribute nothing.  Masked keys keep
@@ -128,6 +140,7 @@ constexpr int THREADS = 256;    // 8 warps: 4 row groups x 2 column halves
 constexpr int HALF = 32;        // the columns a warp takes of a tile
 constexpr int NH = HALF / 8;    // its n-tiles
 
+
 // the dq kernel's column parts: at DH 192 a running sum of all 192
 // columns spills, so each block takes half of them (blockIdx.y)
 template <int DH>
@@ -137,29 +150,33 @@ constexpr int kDqParts = DH > 128 ? 2 : 1;
 template <int DH>
 constexpr int kStages = DH > 128 ? 1 : 2;
 
+// Up to Dh 96 the streaming tiles are split into planes when they land:
+// the raw tile of the next step lands in a staging pair while the planes
+// of this one are read, 8 tiles of 64 x (Dh + 4) floats (204,800 bytes at
+// Dh 96).  At Dh 128 and 192 that does not fit an SM's 227 KB beside
+// double buffering, and the tiles stay f32, split at each use.
 template <int DH>
-struct DqLayout {
+constexpr bool kPlanes = DH <= 96;
+
+// The resident pair (q' and dO in the dq kernel, K and V in the dk / dv
+// kernel) at 0 and TILE, then the streaming pair: with planes, their four
+// planes (first big, first small, second big, second small) at STREAM
+// and the raw staging pair at STAGE; without, S stages of the raw pair at
+// STREAM + 2 s TILE.  Then per-row values (S stages, or 2 slots with
+// planes), and the dk / dv kernel's 64 keys' bias.
+template <int DH>
+struct Layout {
+  static constexpr bool P = kPlanes<DH>;
   static constexpr int S = kStages<DH>;
+  static constexpr int SLOTS = P ? 2 : S;
   static constexpr int LD = DH + 4;     // = 4 (mod 32) banks
   static constexpr int TILE = 64 * LD;
-  static constexpr int Q = 0;
-  static constexpr int DO = TILE;
-  static constexpr int KV = 2 * TILE;   // stage s: K at KV + 2 s TILE, V next
-  static constexpr int BIAS = (2 + 2 * S) * TILE;   // S stages x BK
-  static constexpr size_t bytes = (size_t)(BIAS + S * BK) * sizeof(float);
-};
-
-template <int DH>
-struct DkvLayout {
-  static constexpr int S = kStages<DH>;
-  static constexpr int LD = DH + 4;
-  static constexpr int TILE = 64 * LD;
-  static constexpr int K = 0;
-  static constexpr int V = TILE;
-  static constexpr int QDO = 2 * TILE;   // stage s: Q at QDO + 2 s TILE, dO next
-  static constexpr int LSE = (2 + 2 * S) * TILE;   // S stages x BQ
-  static constexpr int DELTA = LSE + S * BQ;
-  static constexpr size_t bytes = (size_t)(DELTA + S * BQ) * sizeof(float);
+  static constexpr int PLANE = P ? TILE : 0;   // big to small plane (load_b)
+  static constexpr int STREAM = 2 * TILE;
+  static constexpr int STAGE = STREAM + 4 * TILE;
+  static constexpr int ROWS = P ? STAGE + 2 * TILE : STREAM + 2 * S * TILE;
+  static constexpr int KEYS = ROWS + 2 * SLOTS * 64;
+  static constexpr size_t bytes = (size_t)(KEYS + 64) * sizeof(float);
 };
 
 // Before tile `it`'s products: with two stages, request tile it + 1 into
@@ -193,6 +210,23 @@ struct Keep {
     return x;
   }
 };
+
+// Split one streaming tile's raw pair (staged at `raw`, second TILE
+// floats on; the chunks this thread copied) into its four planes at
+// `planes`, the first scaled by `scale`.
+template <int DH>
+__device__ __forceinline__ void split_stream(float* planes, const float* raw,
+                                             float scale, int tid) {
+  constexpr int LD = Layout<DH>::LD, TILE = Layout<DH>::TILE, CH = DH / 4;
+  for (int i = tid; i < 64 * CH; i += THREADS) {
+    const int at = (i / CH) * LD + (i % CH) * 4;
+    float4 x = *reinterpret_cast<const float4*>(raw + at);
+    x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    split_planes<TILE>(planes + at, x);
+    split_planes<TILE>(planes + 2 * TILE + at,
+                       *reinterpret_cast<const float4*>(raw + TILE + at));
+  }
+}
 
 // The A fragment of rows g, g + 8 at k-step columns c, c + 4 of a
 // row-major tile (p points at row g, column c).
@@ -238,16 +272,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                         float* __restrict__ dq, int heads, int lq, int lk,
                         int dh, Strides sq, Strides sk, Strides sv,
                         Strides sdo, Strides sdq, float scale) {
-  using LY = DqLayout<DH>;
+  using LY = Layout<DH>;
   constexpr int LD = LY::LD;
+  constexpr int PL = LY::PLANE;
   constexpr int KS = DH / 8;   // k-steps of the score products
   constexpr int CH = DH / 4;   // 16-byte chunks per row
   constexpr int NT = KS / kDqParts<DH>;   // the block's dq n-tiles
-  constexpr int CG = 4;                   // dq n-tiles a ds K pass
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + LY::Q;
-  float* DOs = smem + LY::DO;
-  float* Bs = smem + LY::BIAS;
+  float* Qs = smem;
+  float* DOs = smem + LY::TILE;
+  float* Bs = smem + LY::ROWS;
 
   const int nqt = (lq + BQ - 1) / BQ;
   const int bh = blockIdx.x / nqt, qt = blockIdx.x % nqt;
@@ -265,9 +299,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* biasb = bias ? bias + (size_t)b * lk : nullptr;
 
-  auto load_tile = [&](int stage, int kt) {
+  // key tile kt's K and V: into the staging pair (planes), else into
+  // stage `slot`; its bias into slot `slot`
+  auto load_tile = [&](int slot, int kt) {
     const int k0 = kt * BK;
-    float* Ks = smem + LY::KV + 2 * stage * LY::TILE;
+    float* Ks = smem + (LY::P ? LY::STAGE : LY::STREAM + 2 * slot * LY::TILE);
     float* Vs = Ks + LY::TILE;
     for (int i = tid; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
@@ -279,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     cp_async_commit();
     if (tid < BK)   // keys past lk: bias -inf, p = 0 exactly
-      Bs[stage * BK + tid] =
+      Bs[slot * BK + tid] =
           k0 + tid < lk ? (biasb ? biasb[k0 + tid] : 0.f) : -INFINITY;
   };
   load_tile(0, 0);
@@ -314,10 +350,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* da = DOs + (rw + g) * LD + t;
   const int nkt = (lk + BK - 1) / BK;
   for (int it = 0; it < nkt; ++it) {
-    const int cur = next_tile<LY::S>(it, nkt, load_tile);
-    __syncthreads();   // tile it (and, the first time, q' and dO) complete
-    const float* Ks = smem + LY::KV + 2 * cur * LY::TILE;
-    const float* Vs = Ks + LY::TILE;
+    int cur = it & 1;
+    if constexpr (LY::P) {   // split tile it, then request tile it + 1
+      cp_async_wait<0>();
+      split_stream<DH>(smem + LY::STREAM, smem + LY::STAGE, 1.f, tid);
+      __syncthreads();   // planes of tile it (and q', dO) complete
+      if (it + 1 < nkt) load_tile(cur ^ 1, it + 1);
+    } else {
+      cur = next_tile<LY::S>(it, nkt, load_tile);
+      __syncthreads();   // tile it (and, the first time, q' and dO) complete
+    }
+    // K's big plane (or raw K), V's two planes (or raw V) further on
+    const float* Ks = smem + LY::STREAM + 2 * cur * (LY::P ? 0 : LY::TILE);
+    const float* Vs = Ks + (LY::P ? 2 : 1) * LY::TILE;
     const float* Bc = Bs + cur * BK;
 
     // s = q' K^T, then dp = dO V^T, over the warp's 32 keys
@@ -331,8 +376,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const FragA aq = load_a<LD>(qa + 8 * kk);
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
-        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(s[n], aq, Ks[row], Ks[row + 4]);
+        const float* kr = Ks + (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(s[n], aq, load_b<PL>(kr), load_b<PL>(kr + 4));
       }
     }
 #pragma unroll
@@ -340,8 +385,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const FragA ad = load_a<LD>(da + 8 * kk);
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
-        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(dp[n], ad, Vs[row], Vs[row + 4]);
+        const float* vr = Vs + (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(dp[n], ad, load_b<PL>(vr), load_b<PL>(vr + 4));
       }
     }
     // ds = p (dp - delta), p = exp((s + bias) - lse), in s
@@ -356,14 +401,15 @@ __global__ void __launch_bounds__(THREADS, 1)
         s[n][e] = p * (dp[n][e] - delta_r[i]);
       }
     }
-    // acc += ds K (the block's columns): K read by column in the
-    // permuted order, each k-step's part rounded in (accumulate_product)
-    accumulate_product<NH, NT, CG, LD>(
+    // acc += ds K (the block's columns, all NT n-tiles in one pass): K
+    // read by column in the permuted order, each k-step's part rounded in
+    // (accumulate_product)
+    accumulate_product<NH, NT, LD, PL, kKeysTie>(
         acc, s, Ks + (c0 + 2 * t) * LD + g + col0, Keep());
-    __syncthreads();   // stage cur free for the tile after next
+    __syncthreads();   // the planes (or stage cur) free for the next tile
   }
 
-  if (!reduce_halves<NT>(acc, smem + LY::KV, warp, lane)) return;
+  if (!reduce_halves<NT>(acc, smem + LY::STREAM, warp, lane)) return;
   float* dqb = dq + b * sdq.b + h * sdq.h + col0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -379,8 +425,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------- dk, dv --
 
-// What a dk / dv launch writes: both, or from Dh 96 one of them, where
-// dk's and dv's running sums together (96 floats a thread and more) leave
+// What a dk / dv launch writes: both, or from Dh 128 one of them, where
+// dk's and dv's running sums together (128 floats a thread and more) leave
 // too few registers for the rest and ptxas spills.
 constexpr int kDk = 1, kDv = 2;
 
@@ -403,15 +449,25 @@ __global__ void __launch_bounds__(THREADS, 1)
                          int heads, int lq, int lk, int dh, Strides sq,
                          Strides sk, Strides sv, Strides sdo, Strides sdk,
                          Strides sdv, float scale) {
-  using LY = DkvLayout<DH>;
+  using LY = Layout<DH>;
   constexpr int LD = LY::LD;
+  constexpr int PL = LY::PLANE;
   constexpr int KS = DH / 8;
   constexpr int CH = DH / 4;
   constexpr int NT = KS / kParts<DH>;   // the block's output n-tiles
   constexpr bool DK = OUT & kDk, DV = OUT & kDv;
+  // dk and dv in one launch at Dh 96 (their running sums take 96 floats
+  // a thread): p^T and dv come before dp^T is formed, so that p^T and
+  // dp^T are not both live beside the sums, and the score products unroll
+  // 4 k-steps at a time; fully unrolled, or in the order below, ptxas
+  // spills there.
+  constexpr bool DV_FIRST = DK && DV && NT > 8;
+  constexpr int KU = DV_FIRST ? 4 : KS;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem + LY::K;
-  float* Vs = smem + LY::V;
+  float* Ks = smem;
+  float* Vs = smem + LY::TILE;
+  float* LSE = smem + LY::ROWS;
+  float* DELTA = LSE + LY::SLOTS * BQ;
 
   const int nkt = (lk + BK - 1) / BK;
   const int bh = blockIdx.x / nkt, kt = blockIdx.x % nkt;
@@ -439,9 +495,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   cp_async_commit();
 
-  auto load_tile = [&](int stage, int qt) {
+  // query tile qt's q and dO: into the staging pair (planes), else into
+  // stage `slot`; its lse and delta into slot `slot`
+  auto load_tile = [&](int slot, int qt) {
     const int q0 = qt * BQ;
-    float* Qs = smem + LY::QDO + 2 * stage * LY::TILE;
+    float* Qs = smem + (LY::P ? LY::STAGE : LY::STREAM + 2 * slot * LY::TILE);
     float* DOs = Qs + LY::TILE;
     for (int i = tid; i < BQ * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 4;
@@ -454,21 +512,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_commit();
     if (tid < BQ) {   // queries past lq: lse +inf, p = 0 exactly
       const int r = q0 + tid;
-      smem[LY::LSE + stage * BQ + tid] =
-          r < lq ? lse[(size_t)bh * lq + r] : INFINITY;
-      smem[LY::DELTA + stage * BQ + tid] =
-          r < lq ? delta[(size_t)bh * lq + r] : 0.f;
+      LSE[slot * BQ + tid] = r < lq ? lse[(size_t)bh * lq + r] : INFINITY;
+      DELTA[slot * BQ + tid] = r < lq ? delta[(size_t)bh * lq + r] : 0.f;
     }
   };
   load_tile(0, 0);
 
-  float bias_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + rw + g + 8 * i;
-    bias_r[i] = key < lk ? (bias ? bias[(size_t)b * lk + key] : 0.f)
-                         : -INFINITY;   // no key at all: p = 0
-  }
+  // the block's keys' bias, read from shared memory where p is formed:
+  // held in registers, it made the dk / dv launch at Dh 96 spill
+  float* KB = smem + LY::KEYS;
+  if (tid < BK)
+    KB[tid] = k0 + tid < lk ? (bias ? bias[(size_t)b * lk + k0 + tid] : 0.f)
+                            : -INFINITY;   // no key at all: p = 0
   float dk_acc[DK ? NT : 1][4], dv_acc[DV ? NT : 1][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -482,18 +537,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float* va = Vs + (rw + g) * LD + t;
   const int nqt = (lq + BQ - 1) / BQ;
   for (int it = 0; it < nqt; ++it) {
-    const int cur = next_tile<LY::S>(it, nqt, load_tile);
-    float* Qs = smem + LY::QDO + 2 * cur * LY::TILE;
-    const float* DOs = Qs + LY::TILE;
-    // q' = f32(q * scale) in place: the chunks this thread copied
-    for (int i = tid; i < BQ * CH; i += THREADS) {
-      float4* x = reinterpret_cast<float4*>(Qs + (i / CH) * LD + (i % CH) * 4);
-      const float4 y = *x;
-      *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+    int cur = it & 1;
+    if constexpr (LY::P) {   // split tile it (q' = q * scale), request it + 1
+      cp_async_wait<0>();
+      split_stream<DH>(smem + LY::STREAM, smem + LY::STAGE, scale, tid);
+      __syncthreads();   // planes of tile it (and K, V) complete
+      if (it + 1 < nqt) load_tile(cur ^ 1, it + 1);
+    } else {
+      cur = next_tile<LY::S>(it, nqt, load_tile);
+      // q' = f32(q * scale) in place: the chunks this thread copied
+      float* Qs = smem + LY::STREAM + 2 * cur * LY::TILE;
+      for (int i = tid; i < BQ * CH; i += THREADS) {
+        float4* x =
+            reinterpret_cast<float4*>(Qs + (i / CH) * LD + (i % CH) * 4);
+        const float4 y = *x;
+        *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+      }
+      __syncthreads();   // q', dO, lse, delta of tile it (and K, V) complete
     }
-    __syncthreads();   // q', dO, lse, delta of tile it (and K, V) complete
-    const float* LSEs = smem + LY::LSE + cur * BQ;
-    const float* DELTAs = smem + LY::DELTA + cur * BQ;
+    // q''s big plane (or raw q'), dO's two planes (or raw dO) further on
+    const float* Qs = smem + LY::STREAM + 2 * cur * (LY::P ? 0 : LY::TILE);
+    const float* DOs = Qs + (LY::P ? 2 : 1) * LY::TILE;
+    const float* LSEs = LSE + cur * BQ;
+    const float* DELTAs = DELTA + cur * BQ;
 
     // s^T = K q'^T, then dp^T = V dO^T: rows the warp's keys, columns its
     // 32 queries (one product at a time, to stay in registers)
@@ -502,22 +568,36 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int n = 0; n < NH; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
+#pragma unroll(KU)
     for (int kk = 0; kk < KS; ++kk) {
       const FragA a = load_a<LD>(ka + 8 * kk);
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
-        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(st[n], a, Qs[row], Qs[row + 4]);
+        const float* qr = Qs + (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(st[n], a, load_b<PL>(qr), load_b<PL>(qr + 4));
       }
     }
+    const int row = (c0 + 2 * t) * LD + g + col0;
+    if constexpr (DV_FIRST) {   // p^T, dv, then dp^T: fewer sums live
 #pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const float2 ls =
+            *reinterpret_cast<const float2*>(LSEs + c0 + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[n][e] = expf((st[n][e] + KB[rw + g + 4 * (e & 2)]) -
+                          ((e & 1) ? ls.y : ls.x));
+      }
+      accumulate_product<NH, NT, LD, PL, kKeysTie>(dv_acc, st, DOs + row,
+                                                   Keep());
+    }
+#pragma unroll(KU)
     for (int kk = 0; kk < (DK ? KS : 0); ++kk) {
       const FragA a = load_a<LD>(va + 8 * kk);
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
-        const int row = (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(dpt[n], a, DOs[row], DOs[row + 4]);
+        const float* dr = DOs + (c0 + 8 * n + g) * LD + 8 * kk + t;
+        mma3(dpt[n], a, load_b<PL>(dr), load_b<PL>(dr + 4));
       }
     }
     // p^T = exp((s^T + bias) - lse), ds^T = p^T (dp^T - delta)
@@ -528,27 +608,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       const float2 dl = *reinterpret_cast<const float2*>(DELTAs + col);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = expf((st[n][e] + bias_r[e >> 1]) -
-                             ((e & 1) ? ls.y : ls.x));
+        const float p =
+            DV_FIRST ? st[n][e]
+                     : expf((st[n][e] + KB[rw + g + 4 * (e & 2)]) -
+                            ((e & 1) ? ls.y : ls.x));
         st[n][e] = p;
         dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dl.y : dl.x));
       }
     }
     // dv += p^T dO, then dk += ds^T q': dO and q' read by column, each
     // k-step's part rounded in (accumulate_product)
-    const int row = (c0 + 2 * t) * LD + g + col0;
-    if constexpr (DV)
-      accumulate_product<NH, NT, NT, LD>(dv_acc, st, DOs + row, Keep());
+    if constexpr (DV && !DV_FIRST)
+      accumulate_product<NH, NT, LD, PL, kKeysTie>(dv_acc, st, DOs + row,
+                                                   Keep());
     if constexpr (DK)
-      accumulate_product<NH, NT, NT, LD>(dk_acc, dpt, Qs + row, Keep());
-    __syncthreads();   // stage cur free for the tile after next
+      accumulate_product<NH, NT, LD, PL, kKeysTie>(dk_acc, dpt, Qs + row,
+                                                   Keep());
+    __syncthreads();   // the planes (or stage cur) free for the next tile
   }
 
   bool first = true;
   if constexpr (DK)
-    first = reduce_halves<NT>(dk_acc, smem + LY::QDO, warp, lane);
+    first = reduce_halves<NT>(dk_acc, smem + LY::STREAM, warp, lane);
   if constexpr (DV)
-    first = reduce_halves<NT>(dv_acc, smem + LY::QDO + LY::TILE, warp, lane);
+    first = reduce_halves<NT>(dv_acc, smem + LY::STREAM + LY::TILE, warp,
+                              lane);
   if (!first) return;
   float* dkb = dk + b * sdk.b + h * sdk.h;
   float* dvb = dv + b * sdv.b + h * sdv.h;
@@ -578,7 +662,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        int dh, Strides sq, Strides sk, Strides sv, Strides sdo,
                        Strides sdk, Strides sdv, float scale,
                        cudaStream_t stream) {
-  constexpr size_t smem = DkvLayout<DH>::bytes;
+  constexpr size_t smem = Layout<DH>::bytes;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<DH, OUT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -598,7 +682,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    Strides sk, Strides sv, Strides sdo, Strides sdq,
                    Strides sdk, Strides sdv, float scale,
                    cudaStream_t stream) {
-  constexpr size_t dq_smem = DqLayout<DH>::bytes;
+  constexpr size_t dq_smem = Layout<DH>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem);
@@ -615,7 +699,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const unsigned nb = (unsigned)dkv_blocks;
-  if constexpr (DH > 64) {   // dv, then dk, each recomputing p
+  if constexpr (DH > 96) {   // dv, then dk, each recomputing p
     e = launch_dkv<DH, kDv>(q, k, v, bias, dout, lse, delta, dk, dv, nb,
                             heads, lq, lk, dh, sq, sk, sv, sdo, sdk, sdv,
                             scale, stream);

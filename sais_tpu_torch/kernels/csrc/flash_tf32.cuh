@@ -12,8 +12,7 @@
 //
 // Each TF32 product is exact in f32 (11 x 11 bits fit the 24 of f32), and
 // the three of a k-step run into one fragment of zeros, small terms
-// first, that is then added to the running sum in f32 (mma3; in a sum
-// over keys with the tensor core's truncation made unbiased), so a
+// first, that is then added to the running sum in f32 (mma3), so a
 // product keeps about 22 bits of each operand: f32 FFMA's accuracy, where a single
 // TF32 pass keeps three decimal digits.  a_small b_small (2^-22 relative)
 // is dropped, and so is what the tensor core cuts off x_small (at most
@@ -21,8 +20,11 @@
 // x_big is the value cvt.rna.tf32.f32 gives; it is computed with an integer
 // add and a mask, and x_small is not rounded again: a split is then three
 // integer and f32 instructions, and two cvt.rna.tf32.f32 per value ran
-// K2 and K3 markedly slower on the card.  The splits are the bulk of the
-// kernels' instructions outside the tensor cores.
+// K2 and K3 markedly slower on the card.  A tile that many warps read as
+// B operands is split once, when it lands in shared memory, into a big
+// and a small plane (split_planes, load_b): split at each use, every warp
+// re-split the same values at every k-step, and those splits were the
+// bulk of K3's instructions outside the tensor cores.
 //
 // Fragments of mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, lane = 4 g + t:
 //   A (16 x 8):  a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
@@ -103,7 +105,22 @@ __device__ __forceinline__ float unbias(float t) {
                    0x1p-24f, t);
 }
 
-// c += a b in 3xTF32 for one k-step of 8: the three products run into a
+// What a running sum adds up, which decides how mma3 treats its parts:
+//   kWidth     a sum over the head width (the scores s and dp): parts of
+//              either sign, added as they are; the part starts from c * 0
+//              (c is finite), so each k-step waits for the last one's sum:
+//              without that dependency ptxas ran many k-steps' parts at
+//              once and spilled.
+//   kKeysTie   a sum over keys whose parts may share one sign (P V in
+//              K2; dS K, P^T dO, dS^T q' in K3): p >= 0, so wherever v's
+//              column or the cotangent's keeps its sign every part has
+//              that sign, and each part is `unbias`ed; the sum starts
+//              from plain zeros, which ptxas keeps in registers and
+//              schedules faster than c * 0 there.
+enum Sum { kWidth, kKeysTie };
+
+// c += a b in 3xTF32 for one k-step of 8, b given as its split (s0 the
+// value at row t, s1 at row t + 4): the three products run into a
 // fragment of zeros, small terms first, and the k-step's part is then
 // added to c with f32 round-to-nearest.  The tensor core truncates its
 // sum toward zero: run into c itself, every product cut c's low bits in
@@ -111,24 +128,12 @@ __device__ __forceinline__ float unbias(float t) {
 // output sat -1.4e-7 of its mean |value| from the dense f32 path's at the
 // MIL fit's shapes, a signed error several times f32's).  Here the
 // truncation is relative to one k-step's part, and the running sum rounds
-// to nearest.  With Unbiased the part is also `unbias`ed: a sum over keys
-// (P V, dS K, P^T dO, dS^T q') adds parts of one sign wherever v's column
-// or the cotangent's keeps its sign, p >= 0, and there the truncation of
-// each part still pulled the sum one way (K2's output at the MIL fit's
-// first layer sat many times the dense f32 path's signed error from
-// float64 on the card).  A sum over the head width
-// (the scores s and dp) adds parts of either sign and takes the plain
-// part.  There the zeros are c * 0 (c is finite), so each k-step waits
-// for the last one's sum: without that dependency ptxas ran many k-steps'
-// parts at once and spilled.  The sums over keys start from plain zeros,
-// which ptxas keeps in registers and schedules faster than c * 0 there;
-// plain zeros at both kinds of sum spilled.
-template <bool Unbiased = false>
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0,
-                                     float b1) {
-  const Split s0 = split(b0), s1 = split(b1);
+// to nearest.
+template <Sum S = kWidth>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, Split s0,
+                                     Split s1) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  if (!Unbiased)
+  if (S == kWidth)
 #pragma unroll
     for (int e = 0; e < 4; ++e) t[e] = c[e] * 0.f;
   mma(t, a.small, s0.big, s1.big);
@@ -136,33 +141,54 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0,
   mma(t, a.big, s0.big, s1.big);
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    c[e] = __fadd_rn(c[e], Unbiased ? unbias(t[e]) : t[e]);
+    c[e] = __fadd_rn(c[e], S == kKeysTie ? unbias(t[e]) : t[e]);
+}
+
+// A B value from shared memory.  PLANE == 0: the tile holds f32 values,
+// split here at each use.  PLANE > 0: the tile was split once, when it
+// landed, into a big plane (p) and a small plane PLANE floats further on
+// (split_planes), and a use only loads the two.
+template <int PLANE>
+__device__ __forceinline__ Split load_b(const float* p) {
+  if constexpr (PLANE == 0)
+    return split(p[0]);
+  else
+    return {__float_as_uint(p[0]), __float_as_uint(p[PLANE])};
+}
+
+// Four values x split into the big plane at p and the small plane PLANE
+// floats further on (p 16-byte aligned).
+template <int PLANE>
+__device__ __forceinline__ void split_planes(float* p, float4 x) {
+  const float4 big = make_float4(rna_tf32(x.x), rna_tf32(x.y),
+                                 rna_tf32(x.z), rna_tf32(x.w));
+  *reinterpret_cast<float4*>(p) = big;
+  *reinterpret_cast<float4*>(p + PLANE) =
+      make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
 }
 
 // acc[j] = pre(acc[j], e) + C B[:, 8j .. 8j + 7] for j < NT, where the A
 // operand is a tile of C fragments c (NK k-steps of 8 columns, in the
 // permuted k order) and B a row-major tile read by column from b =
-// &B[2t][g], CG output n-tiles at a time.  Each k-step's part is rounded
-// into acc by mma3, unbiased, in a fixed order.
-template <int NK, int NT, int CG, int LD, typename Pre>
+// &B[2t][g] (raw, or split into planes PLANE floats apart), all NT output
+// n-tiles in one pass over the k-steps.  Each k-step's part is rounded
+// into acc by mma3 in a fixed order.
+template <int NK, int NT, int LD, int PLANE, Sum S, typename Pre>
 __device__ __forceinline__ void accumulate_product(float (&acc)[NT][4],
                                                    const float (&c)[NK][4],
                                                    const float* b, Pre pre) {
-  static_assert(NT % CG == 0, "column groups must tile the output");
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = pre(acc[j][e], e);
 #pragma unroll
-  for (int j0 = 0; j0 < NT; j0 += CG) {
+  for (int kn = 0; kn < NK; ++kn) {
+    const FragA a = split_c_as_a(c[kn]);
+    const float* br = b + 8 * kn * LD;
 #pragma unroll
-    for (int kn = 0; kn < NK; ++kn) {
-      const FragA a = split_c_as_a(c[kn]);
-      const float* br = b + 8 * kn * LD + 8 * j0;
-#pragma unroll
-      for (int jj = 0; jj < CG; ++jj)
-        mma3<true>(acc[j0 + jj], a, br[8 * jj], br[LD + 8 * jj]);
-    }
+    for (int j = 0; j < NT; ++j)
+      mma3<S>(acc[j], a, load_b<PLANE>(br + 8 * j),
+              load_b<PLANE>(br + LD + 8 * j));
   }
 }
 

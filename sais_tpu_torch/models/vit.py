@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -184,8 +184,10 @@ def prepare_tokens(model: VisionTransformer, images: torch.Tensor,
     return x + pe.to(x.dtype)
 
 
-def _attention(x, attn: Attention, num_heads: int):
-    """Pre-norm ViT attention, float32 scores (vision_transformer.py:80-92)."""
+def _attention(x, attn: Attention, num_heads: int,
+               return_weights: bool = False):
+    """Pre-norm ViT attention, float32 scores (vision_transformer.py:80-92);
+    with return_weights, (output, the softmax weights (B, heads, N, N))."""
     b, n, d = x.shape
     dh = d // num_heads
     qkv = attn.qkv(x)
@@ -193,7 +195,8 @@ def _attention(x, attn: Attention, num_heads: int):
     logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * dh ** -0.5
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhnm,bmhd->bnhd", weights.to(x.dtype), v)
-    return attn.proj(out.reshape(b, n, d))
+    out = attn.proj(out.reshape(b, n, d))
+    return (out, weights) if return_weights else out
 
 
 def _mlp(x, mlp: Mlp):
@@ -201,19 +204,66 @@ def _mlp(x, mlp: Mlp):
     return mlp.fc2(F.gelu(mlp.fc1(x).float()).to(x.dtype))
 
 
-def vit_forward(model: VisionTransformer, images: torch.Tensor
-                ) -> torch.Tensor:
-    """float32 path (JAX `vit_forward` off the fused path): CLS features."""
+def block(x: torch.Tensor, blk: Block, num_heads: int, eps: float,
+          return_weights: bool = False):
+    """Pre-norm transformer block (vision_transformer.py:95-113); with
+    return_weights, (output, its attention's softmax weights)."""
+    y = _attention(_layer_norm(x, blk.norm1.weight, blk.norm1.bias, eps),
+                   blk.attn, num_heads, return_weights)
+    y, w = y if return_weights else (y, None)
+    x = x + y
+    x = x + _mlp(_layer_norm(x, blk.norm2.weight, blk.norm2.bias, eps),
+                 blk.mlp)
+    return (x, w) if return_weights else x
+
+
+def vit_forward(model: VisionTransformer, images: torch.Tensor, *,
+                return_last_attention: bool = False):
+    """float32 path (JAX `vit_forward` off the fused path): CLS features
+    (B, D); with return_last_attention, (features, the last block's
+    softmax weights (B, heads, N + 1, N + 1)), get_last_selfattention
+    (vision_transformer.py:216-223)."""
     cfg = model.cfg
     eps = cfg.layernorm_eps
     x = prepare_tokens(model, images.to(model.cls_token.dtype))
-    for blk in model.blocks:
-        x = x + _attention(_layer_norm(x, blk.norm1.weight, blk.norm1.bias,
-                                       eps), blk.attn, cfg.num_heads)
-        x = x + _mlp(_layer_norm(x, blk.norm2.weight, blk.norm2.bias, eps),
-                     blk.mlp)
+    last = len(model.blocks) - 1
+    weights = None
+    for i, blk in enumerate(model.blocks):
+        if return_last_attention and i == last:
+            x, weights = block(x, blk, cfg.num_heads, eps, True)
+        else:
+            x = block(x, blk, cfg.num_heads, eps)
     x = _layer_norm(x, model.norm.weight, model.norm.bias, eps)
-    return x[:, 0].float()
+    cls = x[:, 0].float()
+    return (cls, weights) if return_last_attention else cls
+
+
+def vit_intermediate_layers(model: VisionTransformer, images: torch.Tensor,
+                            n: int = 1) -> List[torch.Tensor]:
+    """Token sequences of the n last blocks, each through the final
+    LayerNorm, earliest first: n float32 (B, 1 + N, D) tensors,
+    get_intermediate_layers(x, n) (vision_transformer.py:224-232), the
+    linear probe's feature source (eval_linear.py:166-170)."""
+    cfg = model.cfg
+    eps = cfg.layernorm_eps
+    x = prepare_tokens(model, images.to(model.cls_token.dtype))
+    depth = len(model.blocks)
+    out = []
+    for i, blk in enumerate(model.blocks):
+        x = block(x, blk, cfg.num_heads, eps)
+        if depth - i <= n:
+            out.append(_layer_norm(x, model.norm.weight, model.norm.bias,
+                                   eps).float())
+    return out
+
+
+def vit_tokens(model: VisionTransformer, images: torch.Tensor
+               ) -> torch.Tensor:
+    """The normalized token sequence (B, 1 + N, D) of the last block,
+    get_intermediate_layers(x, n=1)[0] (vision_transformer.py:225-233):
+    what the copy-detection, retrieval and video-segmentation evaluations
+    read."""
+    return vit_intermediate_layers(model, images, n=1)[-1]
 
 
 def block_weights_bf16(blk: Block) -> list:

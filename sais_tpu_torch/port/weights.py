@@ -256,6 +256,45 @@ def full_model_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     return sd
 
 
+# the members decoding does not read (the MIL task's)
+_MIL_MEMBERS = ("clip_cls", "clip_pos", "clip_encoder", "attentionA",
+                "attentionB", "attention_modules", "final_modules")
+
+
+def full_model_from_state(sd: Mapping[str, torch.Tensor], mcfg,
+                          what: str = "checkpoint"):
+    """A FullModel (float32, CPU) holding a state_dict: it keeps the
+    checkpoint's own positional-table length, and has the importance,
+    linearB and cls_head members exactly when the checkpoint has them, as
+    the JAX package does.  A fold without the clip and MIL members (the
+    port's Prototypes folds before it carried them) loads with those
+    members zero.  mcfg: the ModelConfig the rest comes from."""
+    import dataclasses
+    from sais_tpu_torch.models.full_model import FullModel
+    mcfg = dataclasses.replace(
+        mcfg, importance_head="importance.weight" in sd,
+        multi_task="linearB.weight" in sd,
+        temporal=dataclasses.replace(
+            mcfg.temporal, max_positions=len(sd["frame_pos"])))
+    if "cls_head.weight" in sd:
+        mcfg = dataclasses.replace(mcfg, data_type="raw",
+                                   nclasses=len(sd["cls_head.weight"]))
+    nmil = len({k.split(".")[1] for k in sd
+                if k.startswith("final_modules.")})
+    if nmil:
+        mcfg = dataclasses.replace(mcfg, n_attention_classes=nmil)
+    model = FullModel(mcfg)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    absent = [k for k in missing if k.split(".")[0] not in _MIL_MEMBERS]
+    if absent or unexpected:
+        raise RuntimeError(f"{what}: missing {absent}, unexpected "
+                           f"{unexpected}")
+    with torch.no_grad():
+        for name in missing:
+            model.get_parameter(name).zero_()
+    return model
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().float().numpy()
 
@@ -519,3 +558,24 @@ def r3d18_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         layers.append(blocks)
     return {"stem": conv("stem"), "stem_bn": bn("stem_bn"),
             "layers": layers}
+
+
+def full_model_params_from_torch(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Reference fullModel state_dict (params.zip) -> the JAX package's
+    full_model pytree with numpy leaves, as `sais_tpu.port.torch_port.
+    full_model_params_from_torch` gives it (the layout of params.pkl):
+    every member the checkpoint has, and the MIL groups, empty where it
+    has none."""
+    tree = full_model_params_to_jax(full_model_params_from_reference(sd))
+    for group in _CLASS_GROUPS:
+        tree.setdefault(group, {})
+    return tree
+
+
+def prototypes_from_torch(protos: Mapping[str, Any]
+                          ) -> Tuple[List[str], np.ndarray]:
+    """prototypes.zip ParameterDict -> (keys in insertion order, (P, 256)
+    float32 numpy), the layout of prototypes.pkl."""
+    keys, mat = prototypes_from_reference(protos)
+    return keys, mat.numpy()
+

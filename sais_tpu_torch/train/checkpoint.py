@@ -19,7 +19,7 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,3 +125,67 @@ def save_inference_artifacts(savepath: str, phase: str,
     for name, obj in payloads.items():
         with open(os.path.join(savepath, name + ".pkl"), "wb") as f:
             pickle.dump(_host(obj), f)
+
+
+# ---------------------------------------------------------------------------
+# The reference's torch layout (the inverse of port.weights.
+# full_model_params_from_torch; sais_tpu/train/checkpoint.py:106-166)
+# ---------------------------------------------------------------------------
+
+def export_torch_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's full_model pytree (params.pkl) -> the reference
+    fullModel state_dict's names, numpy values (torch.save them for a
+    params.zip).  Every key carries DataParallel's 'module.' prefix: the
+    reference's inference loader strips it unconditionally
+    (param_name.split('module.')[1], prepare_model.py:521-530) and raises
+    IndexError on a bare name."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(prefix: str, p: Dict[str, Any]):
+        sd[prefix + ".weight"] = np.asarray(p["w"]).T
+        sd[prefix + ".bias"] = np.asarray(p["b"])
+
+    sd["frame_cls"] = np.asarray(params["frame_cls"])[None]
+    sd["clip_cls"] = np.asarray(params["clip_cls"])[None]
+    for name, key in (("frame_pos_embeddings", "frame_pos"),
+                      ("clip_pos_embeddings", "clip_pos")):
+        table = np.asarray(params[key])
+        for i in range(table.shape[0]):
+            sd[f"{name}.{i}"] = table[i][None]
+    for enc_name, key in (("transEncoderFrame", "frame_encoder"),
+                          ("transEncoderClip", "clip_encoder")):
+        for i, layer in enumerate(params[key]["layers"]):
+            p = f"{enc_name}.layers.{i}."
+            mha = layer["mha"]
+            sd[p + "self_attn.in_proj_weight"] = np.asarray(mha["in_w"]).T
+            sd[p + "self_attn.in_proj_bias"] = np.asarray(mha["in_b"])
+            sd[p + "self_attn.out_proj.weight"] = np.asarray(mha["out_w"]).T
+            sd[p + "self_attn.out_proj.bias"] = np.asarray(mha["out_b"])
+            sd[p + "linear1.weight"] = np.asarray(layer["ff1_w"]).T
+            sd[p + "linear1.bias"] = np.asarray(layer["ff1_b"])
+            sd[p + "linear2.weight"] = np.asarray(layer["ff2_w"]).T
+            sd[p + "linear2.bias"] = np.asarray(layer["ff2_b"])
+            sd[p + "norm1.weight"] = np.asarray(layer["ln1_s"])
+            sd[p + "norm1.bias"] = np.asarray(layer["ln1_b"])
+            sd[p + "norm2.weight"] = np.asarray(layer["ln2_s"])
+            sd[p + "norm2.bias"] = np.asarray(layer["ln2_b"])
+    for name in ("linear", "linear2", "attentionA", "attentionB"):
+        lin(name, params[name])
+    for c, p in params.get("attention_modules", {}).items():
+        lin(f"attentionModules.{c}", p)
+    for c, p in params.get("final_modules", {}).items():
+        lin(f"finalModules.{c}", p)
+    for name, ref in (("importance", "importance_function"),
+                      ("cls_head", "cls_head"), ("linearB", "linearB")):
+        if name in params:
+            lin(ref, params[name])
+    return {"module." + k: v for k, v in sd.items()}
+
+
+def export_torch_prototypes(keys: Sequence[str],
+                            mat: Any) -> Dict[str, np.ndarray]:
+    """Prototype matrix -> the reference's ParameterDict layout {key: (1,
+    D)}."""
+    mat = np.asarray(mat)
+    return {k: mat[i][None] for i, k in enumerate(keys)}
+

@@ -231,8 +231,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 
 
 def test_port_imports_no_jax_and_nothing_of_sais_tpu():
-    """Every module of the port, imported in a fresh interpreter, leaves
-    jax, the JAX package and its optimizer and checkpoint libraries
+    """Every module of the port, imported in a fresh interpreter (among them
+    the serve daemon, the eval modules, port.verify and utils.profiling),
+    leaves jax, the JAX package and its optimizer and checkpoint libraries
     (optax, orbax), the host libraries the port loads lazily (cv2, h5py,
     PIL) and the ones it does without (pandas, sklearn) out of
     sys.modules."""
@@ -245,6 +246,11 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'sais_tpu', 'optax', 'orbax', 'cv2', 'h5py',"
         " 'PIL', 'pandas', 'sklearn'))\n"
+        "need = ['sais_tpu_torch.cli.serve', 'sais_tpu_torch.port.verify',"
+        " 'sais_tpu_torch.utils.profiling'] + ['sais_tpu_torch.eval.' + m"
+        " for m in ('attention_viz', 'video_generation', 'probes',"
+        " 'retrieval', 'copy_detection', 'video_segmentation')]\n"
+        "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('sais_tpu_torch.')]), bad)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -253,7 +259,7 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
-    assert int(count) >= 25 and bad.strip() == "[]", res.stdout
+    assert int(count) >= 35 and bad.strip() == "[]", res.stdout
 
 
 ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
@@ -290,9 +296,8 @@ def _refuse(case, root):
     "extract --data-parallel 2", "steps --seq-parallel 2",
     "pretrain --data-parallel", "DINOTrainer(mesh)",
     "PrototypeTrainer(mesh)", "RawClassificationTrainer(mesh)",
-    "eval", "port", "serve", "request", "attention",
-    "serve --flow-warmup 240x320", "extract --flow-warmup 240x320",
-    "train --num-slices 2", "train --init-distributed",
+    "serve --data-parallel 2", "train --num-slices 2",
+    "train --init-distributed",
     "pretrain --num-slices 2"])
 def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
     """Each refusal of the port raises NotImplementedError and names the
