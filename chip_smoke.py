@@ -272,7 +272,14 @@ Phases, each of which fails the run:
    calls queued behind a spin kernel) and the bound, and at Dh 50 (packed
    into 52-wide buffers) against the plain version.  The signed-error
    line also holds K2's and the dense path's errors against the same
-   attention in float64 (signed and mean |error|).
+   attention in float64 (signed and mean |error|); K2's signed error must
+   be within 2x of the dense path's.  Beside it K3's dq, dk and dv at the
+   same layer against float64, with the dense path's autograd, and the
+   3xTF32 sums alone in the tf32_sum_probe micro-kernel (P V's sum over
+   128 keys with p in [0, 1) and v of one sign, as K2 ran it, with p or v
+   exact in TF32, with the three products apart, without the tie and on
+   FFMA; q' K^T's sum over a width of 96 with and without the tie and on
+   FFMA), each's signed error against float64.
 18. raw-video path at the published widths (`train --dataset vua-ease -d
    NH_02 --data-type raw -e 2` through the CLI): a synthetic stitch table
    (numpy seed 3: 6 videos x 3 stitches x the three RACE / EASE pairs)
@@ -311,11 +318,26 @@ Phases, each of which fails the run:
    1e-4 of their largest value), cls_attention_maps and
    vit_intermediate_layers(n=4) at ViT-S/16, 224 px, batch 32, float32
    (1e-4), and zoo.create("vitb8")'s forward pass.
-20. prints the total time, the card, the kernels line (JSON) and, last,
+20. parallel: `extract --data-parallel` (300 frames through
+   FeatureExtractor.extract_video, the video reader, frame pump and
+   feature store replaced by in-memory stand-ins), `pretrain --data-parallel` (2 steps of batch
+   64, ViT-S/16 + out_dim 65536) and `train --seq-parallel 1` (2 epochs
+   of -bs 32 over 16 in-memory videos) through the port's CLI, each a
+   group of one NCCL rank, against the same command without the flag:
+   extract bitwise, pretrain's parameters 5e-2 of their largest value,
+   train's epoch losses 1e-3; the launches of each (K1 24; K4-K6 48, K1
+   24, K7 2; K2 and K3).  Two NCCL ranks on the one card (what NCCL
+   says, printed).  The 4-rank ring in one process at (2, 4, 8193, 96)
+   (`ring_in_one_process`: every rank's K2 / K3 step in turn) against
+   whole-sequence K2 / K3, 1e-4 of the largest value; K7 on two shards
+   of batch 32 summed against K7 at batch 64 (the K7 phase's limits);
+   the time of one NCCL all-reduce of the ViT-S/16 DINO student's flat
+   gradient buffer at world size 1.
+21. prints the total time, the card, the kernels line (JSON) and, last,
    the device line (JSON).  K1's launches there add the gesture, host
    extraction, flow and serve paths' to the teacher's in the three
    pretrain runs; K4-K7's add the three pretrain runs'; K2's and K3's add the skill and classification paths'
-   to the training path's.
+   to the training path's; each adds the parallel phase's CLI runs'.
 
 It also prints torch.profiler tables (device time per kernel, device idle
 share) of K1 calls, K2 calls, one extraction, one decode, one steps run,
@@ -513,7 +535,8 @@ def check_wgmma_sass(name, fragments, log):
 def phase_build():
     from sais_tpu_torch.kernels import _build
     t0 = time.time()
-    logs = _build.build()
+    # with the classification phase's probe of the 3xTF32 sums
+    logs = _build.build(_build.SOURCES + ("tf32_sum_probe",))
     print(f"build: {len(logs)} source(s) compiled in "
           f"{time.time() - t0:.1f} s", flush=True)
     spilled = []
@@ -782,12 +805,17 @@ def flash_bound_ms(flops, nbytes):
 
 def k2_bound_ms(b, h, l, dh, valid):
     """Least time for K2 on this data: 4 Dh flops for each (query, valid
-    key) pair, against q, k, v, the bias read once and out, lse written
-    once.  -> (bound ms, bound by, flops, bytes, f32 FFMA bound ms)."""
+    key) pair at the card's f32-accurate rate, both products in 3xTF32
+    (three TF32 products at the TF32 peak), against q, k, v, the bias read
+    once and out, lse written once.  -> (bound ms, bound by, flops, bytes,
+    f32 FFMA bound ms, bound ms of the route K2 takes: q' K^T in 3xTF32,
+    P V on f32 FFMA).  The last two are for information only."""
     flops = 4 * h * l * dh * sum(valid)
     nbytes = 4 * (4 * b * h * l * dh + b * l + b * h * l)
     bound, by, ffma = flash_bound_ms(flops, nbytes)
-    return bound, by, flops, nbytes, ffma
+    t_route = max(1.5 * flops / PEAK_TF32_FLOPS + 0.5 * flops
+                  / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    return bound, by, flops, nbytes, ffma, 1e3 * t_route
 
 
 def _fwd_f64(q, k, v, bias):
@@ -871,16 +899,18 @@ def phase_k2():
         lib_err = (F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask)[:b - 1]
             - flash_attention(q, k, v, mask)[:b - 1]).abs().max().item()
-        bound_ms, bound_by, flops, nbytes, ffma_ms = k2_bound_ms(
+        bound_ms, bound_by, flops, nbytes, ffma_ms, route_ms = k2_bound_ms(
             b, 4, l, 96, valid)
         print(f"K2 B*S={b} H=4 L={l} Dh=96{' masked' if masked else ''}: "
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, library (SDPA, f32 additive mask) "
               f"{library_ms:.4f} ms (max|lib-kernel| {lib_err:.3g}); bound "
-              f"{bound_ms:.4f} ms by {bound_by} in 3xTF32 ({flops / 1e9:.2f}"
-              f" GFLOP, {nbytes / 1e6:.1f} MB; f32 FFMA bound "
-              f"{ffma_ms:.4f} ms), kernel at {100 * bound_ms / ms:.1f}% of "
-              f"the bound", flush=True)
+              f"{bound_ms:.4f} ms by {bound_by}, both products in 3xTF32 "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of the bound; for information: "
+              f"K2's route (q' K^T in 3xTF32, P V on f32 FFMA) "
+              f"{route_ms:.4f} ms, both on f32 FFMA {ffma_ms:.4f} ms",
+              flush=True)
         if not result:
             result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
@@ -2810,7 +2840,113 @@ def k2_signed_error(frames, classes, stores, batch):
         e = y - ref
         out[name] = (((e * ref.sign()).mean() / scale64).item(),
                      (e.abs().mean() / scale64).item())
+    out["inputs"] = (x, w, mask, heads)
     return out
+
+
+def _signed(y, ref):
+    """(mean((y - ref) sign(ref)), mean|y - ref|), each over mean|ref|."""
+    scale = ref.abs().mean()
+    e = y.double() - ref
+    return (((e * ref.sign()).mean() / scale).item(),
+            (e.abs().mean() / scale).item())
+
+
+def k3_signed_error(x, w, mask, heads):
+    """K3's dq, dk and dv at the MIL fit's first layer (its q, k, v from
+    the in-projection of that layer's input, out and lse from K2, a
+    cotangent from seed 11) and the dense f32 path's (autograd of the
+    plain attention on the card), each against float64 from the float64
+    forward: {name: {path: (signed, mean |error|) of the mean |f64|}}."""
+    import torch
+    from sais_tpu_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                        flash_attention_fwd,
+                                                        key_bias)
+    b, l, d = x.shape
+    dh = d // heads
+    with torch.no_grad():
+        qkv = torch.nn.functional.linear(x, *w)
+    q, k, v = (t.reshape(b, l, heads, dh).transpose(1, 2).contiguous()
+               for t in qkv.split(d, dim=-1))
+    bias = key_bias(mask)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(11)
+                     ).cuda()
+    got = {"K3": flash_attention_bwd(q, k, v, bias, out, lse, do)}
+    qd, kd, vd = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    s = torch.einsum("bhld,bhmd->bhlm", qd * dh ** -0.5, kd)
+    y = torch.einsum("bhlm,bhmd->bhld",
+                     torch.softmax(s + bias[:, None, None, :], -1), vd)
+    got["dense"] = torch.autograd.grad(y, (qd, kd, vd), do)
+    with torch.no_grad():
+        o64, l64 = _fwd_f64(q, k, v, bias)
+        ref = _bwd_f64(q, k, v, bias, o64, l64, do)
+    return {name: {path: _signed(g[i], ref[i]) for path, g in got.items()}
+            for i, name in enumerate(("dq", "dk", "dv"))}
+
+
+def _rna_tf32(x):
+    """x rounded to TF32, ties away (flash_tf32.cuh rna_tf32)."""
+    import torch
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+# The probe's cases (kernels/csrc/tf32_sum_probe.cu): name, probe mode,
+# and which operand is rounded to TF32 before the call.  P V's operands
+# are p in [0, 1) and v of one sign, q' K^T's both of either sign.
+PV_CASES = (("K2's earlier P V, mma3<kKeysTie>", 0, None),
+            ("p exact in TF32", 0, "a"), ("v exact in TF32", 0, "b"),
+            ("three products apart, summed in f32 RN", 1, None),
+            ("no unbias", 2, None), ("f32 FFMA", 3, None))
+QK_CASES = (("K2's q' K^T, mma3<kWidth>", 2, None),
+            ("with unbias (kWidthTie)", 0, None), ("f32 FFMA", 3, None))
+
+
+def tf32_sum_bias(card, tiles=8192):
+    """The 3xTF32 sums of K2 alone, in the tf32_sum_probe micro-kernel
+    (16 x K by K x 8 a warp): P V's over 128 keys (16 k-steps), p uniform
+    in [0, 1), v = +|N(0, 1)| and -|N(0, 1)|, in each of PV_CASES; q' K^T's
+    over a head width of 96 (12 k-steps), both N(0, 1), in each of
+    QK_CASES.  Each against float64 on the same (rounded) inputs: the mean
+    signed error over the mean |value| (its sign the value's), also per
+    k-step, and the share of the first case's signed error that a case
+    removes.  -> {(sum, sign, case): signed error}."""
+    import ctypes
+    import torch
+    from sais_tpu_torch.kernels import _build
+    lib = _build.load("tf32_sum_probe")
+    lib.tf32_sum_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    g = torch.Generator().manual_seed(17)
+    p = torch.rand((tiles, 16, 128), generator=g).cuda()
+    mag = torch.randn((tiles, 128, 8), generator=g).abs().cuda()
+    qs = torch.randn((tiles, 16, 96), generator=g).cuda()
+    ks = torch.randn((tiles, 96, 8), generator=g).cuda()
+    runs = [("P V", "+", p, mag, PV_CASES), ("P V", "-", p, -mag, PV_CASES),
+            ("q' K^T", "+-", qs, ks, QK_CASES)]
+    result = {}
+    for what, sign, a0, b0, cases in runs:
+        kdim = a0.shape[-1]
+        base = None
+        for name, mode, exact in cases:
+            a = _rna_tf32(a0) if exact == "a" else a0
+            b = _rna_tf32(b0) if exact == "b" else b0
+            c = torch.empty((tiles, 16, 8), device="cuda")
+            rc = lib.tf32_sum_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    tiles, kdim, mode,
+                                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"tf32_sum_probe mode {mode} failed: {rc}")
+            torch.cuda.synchronize()
+            signed, mean_abs = _signed(c, torch.einsum(
+                "tik,tkj->tij", a.double(), b.double()))
+            base = signed if base is None else base
+            print(f"3xTF32 sum probe, {what} ({sign}), {kdim // 8} k-steps, "
+                  f"{name}: signed error {signed:.4g} of the mean |value| "
+                  f"({signed / (kdim // 8):.4g} a k-step), mean |error| "
+                  f"{mean_abs:.4g}; share of the first case's signed error "
+                  f"removed {1 - signed / base:.3f}; {card}", flush=True)
+            result[(what, sign, name)] = signed
+    return result
 
 
 def _grad_gaps(ga, gb):
@@ -2991,6 +3127,14 @@ def phase_classification(card: str):
     # that share, and by unbiased noise of K2's mean |error|
     errs = k2_signed_error(frames, classes, stores, batch)
     shift, noise = errs["shift"], errs["noise"]
+    k3errs = k3_signed_error(*errs.pop("inputs"))
+    print("K3 at the MIL fit's first layer against float64 (signed, mean "
+          "|error|, of the mean |value|): " + "; ".join(
+              f"{n} K3 {e['K3'][0]:.3g}, {e['K3'][1]:.3g}, dense f32 "
+              f"{e['dense'][0]:.3g}, {e['dense'][1]:.3g} (K3 "
+              f"{abs(e['K3'][0]) / max(abs(e['dense'][0]), 1e-300):.3g}x)"
+              for n, e in k3errs.items()) + f"; {card}", flush=True)
+    tf32_sum_bias(card)
     # and with unbiased noise of 1e-8: 1 + 1e-8 N(0, 1) rounds to 1 in
     # f32 except where N < -2.98 or > 5.96, so about 0.15% of the values
     # move by one ulp (the fit's sensitivity to any change of rounding)
@@ -3017,6 +3161,10 @@ def phase_classification(card: str):
           f"attention in float64 (signed, mean |error|, of the mean "
           f"|value|): K2 {errs['K2'][0]:.3g}, {errs['K2'][1]:.3g}; dense "
           f"f32 {errs['dense'][0]:.3g}, {errs['dense'][1]:.3g}", flush=True)
+    # K2's signed error against float64 within 2x of the dense path's
+    check(abs(errs["K2"][0]) <= 2 * abs(errs["dense"][0]),
+          f"K2's signed error {errs['K2'][0]:.3g} is more than 2x the dense "
+          f"path's {errs['dense'][0]:.3g}")
     check(gap("flash", "dense") <= 1e-3,
           f"MIL fit: flash and dense losses differ {gap('flash', 'dense')}")
     check(gap("dense", "CPU") <= 1e-3,
@@ -4923,6 +5071,378 @@ def phase_int8_encoder(nframes: int = 256):
     return k8
 
 
+class _MemStore:
+    """In-memory stand-in for io.feature_store.FeatureStore (the card
+    machine has no h5py): one dict of videos per store path."""
+
+    files = {}
+
+    def __init__(self, path, mode="r"):
+        self.videos = _MemStore.files.setdefault(path, {})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self):
+        pass
+
+    def __contains__(self, name):
+        return name in self.videos
+
+    def write_video(self, video, reps, attrs=None):
+        self.videos[video] = reps
+
+    def read_video(self, video):
+        return self.videos[video]
+
+
+class _MemVideo:
+    """In-memory stand-in for io.video.VideoReader over `frames` (the card
+    machine has no OpenCV)."""
+
+    frames_u8 = None
+
+    def __init__(self, path):
+        self.frame_count = len(_MemVideo.frames_u8)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+    def frames(self):
+        yield from _MemVideo.frames_u8
+
+    def batches(self, batch_size):
+        f = _MemVideo.frames_u8
+        for i in range(0, len(f), batch_size):
+            yield f[i:i + batch_size]
+
+
+def _nccl_two_ranks_one_card():
+    """Two NCCL ranks on cuda:0 in two processes (a FileStore rendezvous),
+    one all-reduce; returns what happened, in one line.  NCCL refuses a
+    second rank on a card that holds one."""
+    script = (
+        "import os, sys, tempfile, torch, torch.distributed as dist\n"
+        "import torch.multiprocessing as mp\n"
+        "def run(rank, path):\n"
+        "    torch.cuda.set_device(0)\n"
+        "    dist.init_process_group('nccl', store=dist.FileStore(path, 2),"
+        " rank=rank, world_size=2)\n"
+        "    x = torch.ones(4, device='cuda')\n"
+        "    dist.all_reduce(x)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('rank', rank, 'all-reduce gave', x[0].item(), flush=True)\n"
+        "    dist.destroy_process_group()\n"
+        "if __name__ == '__main__':\n"
+        "    mp.spawn(run, nprocs=2, args=(os.path.join(tempfile.mkdtemp(),"
+        " 's'),))\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "two_ranks.py")   # spawn re-imports it
+        with open(path, "w") as f:
+            f.write(script)
+        try:
+            out = subprocess.run([sys.executable, path], capture_output=True,
+                                 text=True, timeout=120)
+        except subprocess.TimeoutExpired:
+            return "no answer in 120 s (killed)"
+    text = (out.stdout + out.stderr).splitlines()
+    keep = [line.strip() for line in text
+            if "Duplicate GPU" in line or "ncclInvalidUsage" in line
+            or "all-reduce gave" in line or "Error" in line][:3]
+    return f"exit {out.returncode}: " + " | ".join(keep or text[-2:])
+
+
+def _ring_check(card):
+    """The 4-rank ring in one process (`ring_in_one_process`: every rank's
+    step in turn, the chunks handed on in a list) at the long training
+    step's (2, 4, 8193, 96), against whole-sequence K2 and K3 on the same
+    inputs: out, lse, dq, dk and dv within 1e-4 of their largest value
+    (the K2 / K3 phases' limit).  -> (K2, K3) launches of the check."""
+    import torch
+    from sais_tpu_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd, key_bias)
+    from sais_tpu_torch.parallel.sequence import ring_in_one_process
+    b, l = 2, LONG_FRAMES + 1
+    q, k, v, mask, _ = k2_inputs(b, l, seed=29, masked=False)
+    mask[1, l - 700:] = True    # a ragged element as well
+    bias = key_bias(mask)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(31)
+                     ).cuda()
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    ring = ring_in_one_process(q, k, v, bias, 4, do)
+    torch.cuda.synchronize()
+    launches = (flash_attention.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    whole = (out, lse) + tuple(flash_attention_bwd(q, k, v, bias, out, lse,
+                                                   do))
+    errs = {}
+    for name, x, y in zip(("out", "lse", "dq", "dk", "dv"), ring, whole):
+        errs[name] = ((x - y).abs().max().item(), y.abs().max().item())
+    print(f"4-rank ring in one process at (2, 4, {l}, 96) (element 1's "
+          f"last 700 keys masked): K2 {launches[0]} and K3 {launches[1]} "
+          f"launches (16 each); against whole-sequence K2 / K3: "
+          + ", ".join(f"{n} max|diff| {e:.3g} (max {s:.3g})"
+                      for n, (e, s) in errs.items()) + f"; {card}",
+          flush=True)
+    check(launches == (16, 16), f"ring launches {launches}")
+    for name, (err, scale) in errs.items():
+        check(math.isfinite(err) and err <= 1e-4 * scale,
+              f"4-rank ring {name} differs: {err} > 1e-4 * {scale}")
+    del q, k, v, do, ring, whole
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _k7_two_shards(card):
+    """K7 on two shards of batch 32 (the pretrain step's crops, out_dim
+    65536), normalized by the global batch as make_fused_dino_loss_dp does
+    it, summed as the all-reduce sums them (loss, dv, dg; the center's
+    mean of the shards; dh_s concatenated in the image-major order),
+    against K7 at batch 64: the K7 phase's limits (loss and center 1e-4
+    relative; dhs, dvs, dgs 1e-2 of the batch-64 largest value)."""
+    import torch
+    from sais_tpu_torch.kernels.dino_head_loss import (build_pair_structure,
+                                                       fused_loss_and_grads)
+    ng, nl, db, k = 2, 8, 256, 65536
+    hs, ht, vs, vt, gs, gt, center, sel, c = k7_inputs(64, ng, nl, db, k, 37)
+    n_terms = ng * (ng + nl - 1)
+    kw = dict(student_temp=0.1, inv_norm=1.0 / (64 * n_terms), use_g=True)
+    whole = fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, 0.04, sel,
+                                 c, **kw)
+    sel32, c32 = (torch.from_numpy(t).cuda()
+                  for t in build_pair_structure(32, ng, nl))
+    parts = []
+    for s in range(2):
+        hs_s = torch.cat([hs[s * 32 * ng:(s + 1) * 32 * ng],
+                          hs[64 * ng + s * 32 * nl:64 * ng
+                             + (s + 1) * 32 * nl]])
+        ht_s = ht[s * 32 * ng:(s + 1) * 32 * ng]
+        parts.append(fused_loss_and_grads(hs_s, ht_s, vs, vt, gs, gt, center,
+                                          0.04, sel32, c32, **kw))
+    (l0, b0, h0, v0, g0), (l1, b1, h1, v1, g1) = parts
+    dh = torch.cat([h0[:32 * ng], h1[:32 * ng], h0[32 * ng:],
+                    h1[32 * ng:]])
+    got = (l0 + l1, (b0 + b1) / 2, dh, v0 + v1, g0 + g1)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, y in zip(("loss", "center", "dhs", "dvs", "dgs"), got,
+                          whole):
+        diff = (x.float() - y.float()).abs().max().item()
+        errs[name] = (diff, y.float().abs().max().item())
+    print("K7 on two shards of batch 32, summed, against K7 at batch 64: "
+          + ", ".join(f"{n} max|diff| {e:.3g} (max {s:.3g})"
+                      for n, (e, s) in errs.items()) + f"; {card}",
+          flush=True)
+    for name in ("loss", "center"):
+        e, s = errs[name]
+        check(e <= 1e-4 * s, f"K7 shards {name}: {e} > 1e-4 * {s}")
+    for name in ("dhs", "dvs", "dgs"):
+        e, s = errs[name]
+        check(e <= 1e-2 * s, f"K7 shards {name}: {e} > 1e-2 * {s}")
+
+
+def _allreduce_ms(card):
+    """One NCCL all-reduce (SUM) of the ViT-S/16 DINO student's flat f32
+    gradient buffer (backbone + head, out_dim 65536), world size 1, by
+    CUDA events (median of 20 after warm-up)."""
+    import torch
+    import torch.distributed as dist
+    from sais_tpu_torch.config import ViTConfig
+    from sais_tpu_torch.models.dino_head import DINOHead
+    from sais_tpu_torch.models.vit import VisionTransformer
+    n = sum(p.numel() for p in VisionTransformer(ViTConfig()).parameters())
+    n += sum(p.numel() for p in DINOHead(384, 65536).parameters())
+    flat = torch.ones(n, device="cuda")
+    ms = cuda_time_ms(lambda: dist.all_reduce(flat))
+    print(f"NCCL all-reduce of the ViT-S/16 student's flat gradient buffer "
+          f"({n} floats, {4 * n / 1e6:.1f} MB), world size "
+          f"{dist.get_world_size()}: {ms:.4f} ms; {card}", flush=True)
+    return ms
+
+
+def phase_parallel(card: str):
+    """The parallel flags on the card, world size 1 over NCCL (one H100),
+    and the multi-rank arithmetic in one process; returns the launches of
+    the driven runs {K1, K2, K3, K4, K5, K6, K7}."""
+    import dataclasses
+    import glob as glob_lib
+    import numpy as np
+    import torch
+    from sais_tpu_torch.cli import main as cli
+    from sais_tpu_torch.infer import pipeline
+    from sais_tpu_torch.io import feature_store, video as video_io
+    from sais_tpu_torch.kernels.dino_head_loss import fused_loss_and_grads
+    from sais_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                        flash_attention_bwd)
+    from sais_tpu_torch.kernels.fused_mha import (fused_block_bwd_attn,
+                                                  fused_block_bwd_mlp,
+                                                  fused_block_fwd_train,
+                                                  fused_vit_block)
+    from sais_tpu_torch.parallel import distributed
+    from sais_tpu_torch.train.loop import PrototypeTrainer
+    counters = {"K1": fused_vit_block, "K2": flash_attention,
+                "K3": flash_attention_bwd, "K4": fused_block_fwd_train,
+                "K5": fused_block_bwd_mlp, "K6": fused_block_bwd_attn,
+                "K7": fused_loss_and_grads}
+    total = dict.fromkeys(counters, 0)
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        got = {n: f.launches for n, f in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return got
+
+    print(f"two NCCL ranks on one card: {_nccl_two_ranks_one_card()}",
+          flush=True)
+
+    frames = np.random.default_rng(0).integers(0, 256, (300, 480, 640, 3),
+                                               dtype=np.uint8)
+    # the card machine has no h5py and no OpenCV: the feature store, the
+    # video readers and the frame pump are replaced by in-memory stand-ins
+    # (the video file an empty placeholder); extract_video itself runs
+    saved = (feature_store.FeatureStore, video_io.VideoReader,
+             pipeline.VideoReader, pipeline.FeatureExtractor._pump)
+    feature_store.FeatureStore = _MemStore
+    video_io.VideoReader = pipeline.VideoReader = _MemVideo
+    pipeline.FeatureExtractor._pump = lambda self, path: None
+    _MemVideo.frames_u8 = frames
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) extract --data-parallel (every card: one) against extract
+            os.makedirs(os.path.join(tmp, "videos"), exist_ok=True)
+            open(os.path.join(tmp, "videos", "smoke.mp4"), "w").close()
+            base = ["extract", "-f", "smoke", "-p", tmp, "--random-init",
+                    "--force"]
+            reps = {}
+            for flags in ([], ["--data-parallel"]):
+                zero()
+                t = time.perf_counter()
+                cli.main(base + flags)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                got = read()
+                reps[bool(flags)] = _MemStore.files[
+                    feature_store.rgb_store_path(tmp)]["smoke"].copy()
+                print(f"extract {' '.join(flags) or '(one card)'}: 300 "
+                      f"frames of 480x640, {dt:.2f} s with the build and "
+                      f"cuBLAS set-up; K1 launches {got['K1']}; {card}",
+                      flush=True)
+                check(got["K1"] == 12 * 2, f"extract launched K1 "
+                      f"{got['K1']} times, expected 12 x 2 batches")
+            diff = float(np.abs(reps[True] - reps[False]).max())
+            print(f"extract --data-parallel (NCCL, world size 1) against "
+                  f"the one-card path: max|diff| {diff:.3g} (bitwise "
+                  f"expected)", flush=True)
+            check(diff == 0.0, f"extract --data-parallel differs: {diff}")
+
+            # (b) pretrain --data-parallel: 2 steps of batch 64 at ViT-S/16
+            # + out_dim 65536 (K4-K6, K1 the teacher, K7) against pretrain
+            os.replace(os.path.join(tmp, "videos", "smoke.mp4"),
+                       os.path.join(tmp, "videos", "v.mp4"))
+            _MemVideo.frames_u8 = frames[:128]
+            ckpt = {}
+            for flags in ([], ["--data-parallel"]):
+                for old in glob_lib.glob(os.path.join(tmp, "pretrain",
+                                                      "ckpt", "*")):
+                    os.unlink(old)
+                zero()
+                t = time.perf_counter()
+                cli.main(["pretrain", "-p", tmp, "-bs", "64", "-e", "1",
+                          "--loader-threads", "2"] + flags)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                got = read()
+                ckpt[bool(flags)] = torch.load(
+                    os.path.join(tmp, "pretrain", "ckpt", "1.pt"),
+                    map_location="cpu", weights_only=False)
+                print(f"pretrain {' '.join(flags) or '(one card)'}: 2 steps "
+                      f"of batch 64, {dt:.2f} s; launches " + ", ".join(
+                          f"{n} {v}" for n, v in got.items()) + f"; {card}",
+                      flush=True)
+                check(all(got[n] == 48 for n in ("K4", "K5", "K6"))
+                      and got["K1"] == 24 and got["K7"] == 2,
+                      f"pretrain {flags} launches {got}")
+            worst = max(
+                (ckpt[True]["student"][n].float()
+                 - w.float()).abs().max().item()
+                / max(w.float().abs().max().item(), 1e-30)
+                for n, w in ckpt[False]["student"].items())
+            print(f"pretrain --data-parallel (NCCL, world size 1) against "
+                  f"the one-card path: worst parameter max|diff| / max|value| "
+                  f"after 2 steps {worst:.3g}", flush=True)
+            # limit: the pretrain phase's 5e-2 of a gradient's largest
+            # value, on the parameters after two steps
+            check(worst <= 5e-2, f"pretrain --data-parallel differs: {worst}")
+
+            # (c) train --seq-parallel 1 (the ring on K2 / K3) against
+            # train --flash on, 2 epochs of -bs 32 over 16 videos
+            store, segments = _synthetic_training_data()
+            _MemStore.files[feature_store.rgb_store_path(tmp)] = \
+                store.videos
+            import csv as csv_lib
+            seg_csv = os.path.join(tmp, "segments.csv")
+            with open(seg_csv, "w", newline="") as f:
+                w = csv_lib.DictWriter(f, fieldnames=list(segments[0]))
+                w.writeheader()
+                w.writerows(segments)
+            orig_run = PrototypeTrainer.run_epoch
+            record = []
+
+            def run(self, batches, train):
+                loss, m = orig_run(self, batches, train)
+                record.append(loss)
+                return loss, m
+
+            PrototypeTrainer.run_epoch = run
+            fits = {}
+            try:
+                for flags in (["--flash", "on"], ["--seq-parallel", "1"]):
+                    record.clear()
+                    zero()
+                    cli.main(["train", "-p", tmp, "--segments", seg_csv,
+                              "-bc", "-e", "2", "-bs", "32", "-lr", "0.1",
+                              "--nfolds", "1"] + flags)
+                    torch.cuda.synchronize()
+                    got = read()
+                    fits[flags[0]] = list(record)
+                    print(f"train {' '.join(flags)}: epoch losses "
+                          f"{[round(x, 6) for x in record]}; K2 launches "
+                          f"{got['K2']}, K3 {got['K3']}; {card}", flush=True)
+                    check(got["K2"] > 0 and got["K3"] > 0,
+                          f"train {flags} launched K2 {got['K2']}, K3 "
+                          f"{got['K3']} times")
+            finally:
+                PrototypeTrainer.run_epoch = orig_run
+            gap = float(np.max(np.abs(np.subtract(fits["--flash"],
+                                                  fits["--seq-parallel"]))))
+            print(f"train --seq-parallel 1 (NCCL) against --flash on: "
+                  f"max|epoch loss diff| {gap:.3g}", flush=True)
+            # limit: the training phase's 1e-3 for f32 fits
+            check(gap <= 1e-3, f"train --seq-parallel 1 differs: {gap}")
+    finally:
+        (feature_store.FeatureStore, video_io.VideoReader,
+         pipeline.VideoReader, pipeline.FeatureExtractor._pump) = saved
+
+    # (d) the ring of 4 ranks in one process; K7 on two shards; the time
+    # of one all-reduce of the student's gradients (world size 1)
+    _ring_check(card)
+    _k7_two_shards(card)
+    box = []
+    distributed.run_ranks(lambda: box.append(_allreduce_ms(card)), 1,
+                          "cuda")
+    return total
+
+
 def main():
     try:
         import torch
@@ -4973,6 +5493,11 @@ def main():
     k2_launches += cls_k2
     k3_launches += cls_k3
     phase_raw(card)
+    par = phase_parallel(card)
+    k2_launches += par["K2"]
+    k3_launches += par["K3"]
+    pretrain_launches = [a + par[k] for a, k in zip(
+        pretrain_launches, ("K4", "K5", "K6", "K1", "K7"))]
     kernels = [{
         "name": "fused_vit_block", "route": "cuda",
         "source": "sais_tpu_torch/kernels/csrc/fused_vit_block.cu",
@@ -5026,8 +5551,9 @@ def main():
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
-    print(f"total {time.time() - t_start:.1f} s (the parent tree's run on "
-          f"an H100 80GB HBM3 at 700 W: 378.3 s, PERF.md §6)", flush=True)
+    print(f"total {time.time() - t_start:.1f} s (the parent tree's final "
+          f"run on an H100 80GB HBM3 at 700 W: 495.4 s, PERF.md §6)",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -90,9 +90,25 @@ last block's CLS attention maps / overlay video, and `port --params-dir
 <dir>` converts folds between params.zip and params.pkl (`--verify`,
 `--record`, `--record-all`: the golden digests of real checkpoints).
 
-The parallel options (--data-parallel, --seq-parallel, --num-slices,
---init-distributed) are refused, and the message names the ROADMAP.md
-item, by its title, that brings them.
+The parallel options keep the JAX package's meaning on torch.distributed,
+one process per device:
+
+- `--data-parallel [N]` (extract, flow, pipeline, serve, train, pretrain):
+  N devices of this host (bare: all of them; on `--device cpu`, N gloo
+  processes, bare one).  The command runs in N spawned ranks (cuda:i over
+  NCCL) that meet through a FileStore in a temporary directory; each
+  batch is split over them and rank 0 writes the H5, CSV, checkpoints and
+  logs.  serve: rank 0 owns the socket and sends each batch to the others.
+- `--seq-parallel N` (decode, steps, pipeline's decode, train): ring
+  attention over N ranks; with train `--data-parallel M` the two make one
+  (M, N) ('data', 'seq') mesh.
+- `--num-slices S` (train): a ('dcn', 'data', 'model') mesh, the ranks
+  split in S blocks in order (hosts, as torchrun numbers them).
+- `--init-distributed` (train): join the group a launcher set up through
+  env:// (torchrun: MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE,
+  LOCAL_RANK) instead of spawning, e.g.
+  `torchrun --nnodes 2 --nproc-per-node 8 ... -m sais_tpu_torch.cli.main
+  train ... --init-distributed --num-slices 2`.
 """
 
 from __future__ import annotations
@@ -100,7 +116,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import shutil
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -198,19 +216,52 @@ def _load_folds(args, cfg):
             for fold in range(args.nfolds)]
 
 
-def _check_ported(args):
+def _writer() -> bool:
+    """Whether this process writes the command's files and prints its
+    results: the only one, or rank 0 of a parallel run."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _say(*a, **kw) -> None:
+    if _writer():
+        print(*a, **kw)
+
+
+def _extract_mesh(args):
+    """The data mesh over every rank (--data-parallel on extract, flow,
+    pipeline and serve shards frame / pair batches over the ranks)."""
+    if not args.data_parallel:
+        return None
+    from sais_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh()
+
+
+def _seq_mesh_from_args(args, with_data: bool = False):
+    """--seq-parallel N -> a ('data', 'seq') mesh over every rank, or None;
+    with_data (train): --data-parallel M folds into its 'data' axis."""
+    n = args.seq_parallel or 0
+    if n <= 0:
+        return None
+    import torch.distributed as dist
+    from sais_tpu_torch.parallel.sequence import seq_mesh
+    return seq_mesh(n, n_data=dist.get_world_size() // n if with_data
+                    else 1)
+
+
+def _train_meshes(args):
+    """(data mesh, seq mesh) of `train` (JAX cli/main.py:525-540):
+    --seq-parallel (with --data-parallel folded in), else --num-slices
+    over hosts, else --data-parallel."""
     if args.seq_parallel:
-        raise NotImplementedError(
-            f"--seq-parallel {args.seq_parallel}: sequence-parallel ring "
-            "attention is not ported yet (ROADMAP.md Queue 1, "
-            "'Parallelism, on torch.distributed'); one card runs "
-            "full-length windows on K2 (--flash on)")
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel: data-parallel extraction and training are not "
-            "ported yet; they come with torch.distributed DDP (ROADMAP.md "
-            "Queue 1, 'Parallelism, on torch.distributed'); one card runs "
-            "without it")
+        return None, _seq_mesh_from_args(args, with_data=True)
+    if args.num_slices > 1:
+        from sais_tpu_torch.parallel.distributed import multislice_mesh
+        return multislice_mesh(args.num_slices), None
+    if args.data_parallel or args.init_distributed:
+        from sais_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh(), None
+    return None, None
 
 
 def _apply_flow_jump(cfg, args, video_path: Optional[str] = None):
@@ -311,7 +362,6 @@ def cmd_paths(args):
 def cmd_extract(args):
     from sais_tpu_torch.infer.pipeline import FeatureExtractor
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
-    _check_ported(args)
     cfg = _pipeline_config(args)
     store = rgb_store_path(args.path)
     if not args.force and _already_extracted(store, args.videoname):
@@ -319,14 +369,16 @@ def cmd_extract(args):
         return
     fx = FeatureExtractor(_load_vit(args, cfg), cfg,
                           batch_size=args.batch_size, device=args.device,
-                          exact_preprocess=args.exact_preprocess)
+                          exact_preprocess=args.exact_preprocess,
+                          mesh=_extract_mesh(args))
     t0 = time.time()
     reps = fx.extract_video(_video_path(args))
     dt = time.time() - t0
-    with FeatureStore(store, "a") as fs:
-        fs.write_video(args.videoname, reps)
-    print(f"extracted {reps.shape} in {dt:.1f}s "
-          f"({reps.shape[0] / dt:.0f} frames/s)")
+    if _writer():
+        with FeatureStore(store, "a") as fs:
+            fs.write_video(args.videoname, reps)
+    _say(f"extracted {reps.shape} in {dt:.1f}s "
+         f"({reps.shape[0] / dt:.0f} frames/s)")
 
 
 def cmd_flow(args):
@@ -334,7 +386,6 @@ def cmd_flow(args):
     streamed from the video; the pair stride is kept in the store."""
     from sais_tpu_torch.infer.pipeline import FlowExtractor
     from sais_tpu_torch.io.feature_store import FeatureStore, flow_store_path
-    _check_ported(args)
     cfg = _pipeline_config(args)
     store = flow_store_path(args.path)
     if not args.force and _already_extracted(store, args.videoname):
@@ -345,23 +396,32 @@ def cmd_flow(args):
     vit = _load_vit(args, cfg)
     cfg = _apply_flow_jump(cfg, args, _video_path(args))
     fx = FlowExtractor(raft, vit, cfg, pair_batch=args.flow_batch,
-                       iters=args.flow_iters, device=args.device)
-    save_dir = (os.path.join(args.path, "flows", args.videoname)
-                if args.save_flows else None)
+                       iters=args.flow_iters, device=args.device,
+                       mesh=_extract_mesh(args))
+    save_dir = None
+    if args.save_flows:
+        # every rank takes the staged route that saving needs (their
+        # collectives must match); only rank 0 saves where it was asked
+        save_dir = (os.path.join(args.path, "flows", args.videoname)
+                    if _writer() else tempfile.mkdtemp(prefix="sais_flows_"))
     t0 = time.time()
-    reps = fx.extract_video(_video_path(args), save_flow_dir=save_dir)
+    try:
+        reps = fx.extract_video(_video_path(args), save_flow_dir=save_dir)
+    finally:
+        if save_dir is not None and not _writer():
+            shutil.rmtree(save_dir, ignore_errors=True)
     dt = time.time() - t0
-    with FeatureStore(store, "a") as fs:
-        fs.write_video(args.videoname, reps,
-                       attrs={"flow_jump": cfg.window.flow_jump_factor})
-    print(f"extracted flow reps {reps.shape} in {dt:.1f}s")
+    if _writer():
+        with FeatureStore(store, "a") as fs:
+            fs.write_video(args.videoname, reps,
+                           attrs={"flow_jump": cfg.window.flow_jump_factor})
+    _say(f"extracted flow reps {reps.shape} in {dt:.1f}s")
 
 
 def cmd_decode(args):
     from sais_tpu_torch.infer.pipeline import GestureDecoder
     from sais_tpu_torch.infer.postprocess import write_rows_csv
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
-    _check_ported(args)
     cfg = _apply_flow_jump(_pipeline_config(args), args, _video_path(args))
     cfg = _reconcile_flow_jump(cfg, args, args.videoname)
     folds = _load_folds(args, cfg)
@@ -369,8 +429,13 @@ def cmd_decode(args):
         rgb = fs.read_video(args.videoname)
     flow = _read_flow(args, cfg, required=False)
     dec = GestureDecoder(folds, cfg, device_batch=args.batch_size,
-                         device=args.device)
+                         device=args.device,
+                         seq_mesh=_seq_mesh_from_args(args))
     rows = dec.decode(args.videoname, rgb, flow)
+    if args.save_artifacts:
+        art = dec.inference_artifacts(args.videoname, rgb, flow)
+    if not _writer():
+        return
     out = os.path.join(args.path, "results")
     os.makedirs(out, exist_ok=True)
     dest = os.path.join(out, "Custom_inference_gestures.csv")
@@ -379,7 +444,6 @@ def cmd_decode(args):
     if args.save_artifacts:
         # reps_and_labels_<phase> / attention_<phase> (train.py:113-119)
         from sais_tpu_torch.train.checkpoint import save_inference_artifacts
-        art = dec.inference_artifacts(args.videoname, rgb, flow)
         save_inference_artifacts(
             os.path.join(args.path, "params", "Fold_0"), "Custom_inference",
             {"reps": art["reps"], "probs": art["probs"],
@@ -396,7 +460,6 @@ def cmd_steps(args):
     from sais_tpu_torch.infer.postprocess import write_rows_csv
     from sais_tpu_torch.infer.skill import StepRecognizer
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
-    _check_ported(args)
     args.nclasses = 3    # the step classes NH / ND / NW
     cfg = _pipeline_config(args)
     window = step_window_config(args.fps)
@@ -410,9 +473,12 @@ def cmd_steps(args):
     with FeatureStore(rgb_store_path(args.path)) as fs:
         rgb = fs.read_video(args.videoname)
     flow = _read_flow(args, cfg, required=True)
-    rec = StepRecognizer(GestureDecoder(folds, cfg, device=args.device),
-                         fps=args.fps)
+    rec = StepRecognizer(GestureDecoder(
+        folds, cfg, device=args.device,
+        seq_mesh=_seq_mesh_from_args(args)), fps=args.fps)
     rows = rec.recognize(args.videoname, rgb, flow)
+    if not _writer():
+        return
     dest = os.path.join(args.path, "results", f"{args.videoname}_steps.csv")
     os.makedirs(os.path.dirname(dest), exist_ok=True)
     write_rows_csv(rows, dest, rec.columns)
@@ -435,7 +501,6 @@ def cmd_assess(args):
     from sais_tpu_torch.infer.skill import SkillAssessor
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
     from sais_tpu_torch.train.checkpoint import save_inference_artifacts
-    _check_ported(args)
     if not args.segments:
         sys.exit("assess needs --segments <csv> (stitch rows, or StartFrame "
                  "/ EndFrame / RACE)")
@@ -504,10 +569,7 @@ def cmd_assess(args):
         print(f"fold {fold}: wrote {dest} + artifacts under {savepath}")
 
 
-def _check_train_ported(args):
-    """`train` runs every branch of the JAX package; what it refuses is
-    data- and sequence-parallel training (`_check_ported`)."""
-    _check_ported(args)
+def _check_train_args(args):
     if not args.segments:
         sys.exit("train needs --segments <csv> (Video, StartFrame, "
                  "EndFrame, Gesture)")
@@ -591,7 +653,8 @@ def _policy_dataset(args, segments, fold: int):
                           classes)
 
 
-def _raw_trainer(args, cfg, mcfg, tcfg, fold: int, skill_mode: bool):
+def _raw_trainer(args, cfg, mcfg, tcfg, fold: int, skill_mode: bool,
+                 mesh=None):
     """The raw-video branch's trainer (sais_tpu/cli/main.py:660-700):
     `--dataset vua-ease` only; rep_dim 512 for R3D; the encoder from seed
     5 (an R3D-18, or the pipeline's ViT at float32), frozen unless
@@ -612,7 +675,8 @@ def _raw_trainer(args, cfg, mcfg, tcfg, fold: int, skill_mode: bool):
         encoder = vit_init(torch.Generator().manual_seed(5), cfg.vit)
     return RawClassificationTrainer(
         mcfg, tcfg, model, encoder, encoder_type=args.encoder,
-        freeze_encoder=not args.unfreeze_encoder, device=args.device)
+        freeze_encoder=not args.unfreeze_encoder, device=args.device,
+        mesh=mesh)
 
 
 def _encoder_to_jax(encoder_type: str, sd):
@@ -629,7 +693,14 @@ def _fit_epochs(trainer, loaders, nepochs: int) -> None:
     for epoch in range(nepochs):
         for phase, make in loaders.items():
             _, m = trainer.run_epoch(make(epoch), phase == "train")
-            print(format_metrics(phase, m))
+            _say(format_metrics(phase, m))
+
+
+def _save_fold(savepath: str, result) -> None:
+    """A fold's params.pkl / prototypes.pkl / metrics.pkl, from rank 0."""
+    from sais_tpu_torch.train.checkpoint import save_training_result
+    if _writer():
+        save_training_result(savepath, result)
 
 
 def cmd_train(args):
@@ -643,7 +714,7 @@ def cmd_train(args):
         # reference -domains loop (run_experiments.py:44,85-90): one
         # invocation trains every domain; artifacts nest per domain
         for dom in args.domains:
-            print(f"Domain: {dom}")
+            _say(f"Domain: {dom}")
             cmd_train(argparse.Namespace(**{
                 **vars(args), "domains": None, "domain": dom,
                 "params_subdir": dom if len(args.domains) > 1 else None}))
@@ -659,10 +730,10 @@ def cmd_train(args):
                                                  rgb_store_path)
     from sais_tpu_torch.models.full_model import (full_model_init,
                                                   prototypes_init)
-    from sais_tpu_torch.train.checkpoint import save_training_result
     from sais_tpu_torch.train.classification import ClassificationTrainer
     from sais_tpu_torch.train.loop import PrototypeTrainer
-    _check_train_ported(args)
+    _check_train_args(args)
+    mesh, smesh = _train_meshes(args)
     skill_mode = args.dataset == "vua-ease"
     stitch_mode = args.dataset == "vua-ease-stitch"
     if args.training_fraction < 1 and not stitch_mode:
@@ -686,7 +757,7 @@ def cmd_train(args):
                   if use_flow and not raw_mode else None)
     try:
         for fold in range(args.nfolds):
-            print(f"Fold: {fold}")
+            _say(f"Fold: {fold}")
             if skill_mode or stitch_mode:
                 ds = _skill_dataset(args, segments, fold)
             elif args.dataset in ("vua-gestures", "dvc-ucl"):
@@ -741,7 +812,7 @@ def cmd_train(args):
 
             if raw_mode:
                 trainer = _raw_trainer(args, cfg, mcfg, tcfg, fold,
-                                       skill_mode)
+                                       skill_mode, mesh)
 
                 def loader(rows, phase, device=trainer.device):
                     # the reference loader always pairs RGB with flow
@@ -768,41 +839,30 @@ def cmd_train(args):
                     # tree of an unfrozen encoder
                     result["encoder"] = _encoder_to_jax(
                         args.encoder, trainer.encoder_snapshot())
-                save_training_result(savepath, result)
-                print(f"saved fold {fold} to {savepath}")
+                _save_fold(savepath, result)
+                _say(f"saved fold {fold} to {savepath}")
                 continue
             if args.task == "Prototypes":
                 trainer = PrototypeTrainer(mcfg, tcfg, model, keys, protos,
+                                           mesh=mesh, seq_mesh=smesh,
                                            device=args.device)
-                result = trainer.fit(loaders, nepochs=args.nepochs)
-                save_training_result(savepath, result)
-                print(f"saved fold {fold} (best epoch "
-                      f"{result['best_epoch']}) to {savepath}")
+                result = trainer.fit(loaders, nepochs=args.nepochs, log=_say)
+                _save_fold(savepath, result)
+                _say(f"saved fold {fold} (best epoch "
+                     f"{result['best_epoch']}) to {savepath}")
                 continue
             trainer = ClassificationTrainer(mcfg, tcfg, model,
-                                            task=args.task,
+                                            task=args.task, mesh=mesh,
                                             device=args.device)
             _fit_epochs(trainer, loaders, args.nepochs)
-            save_training_result(savepath, {"model": trainer.snapshot(),
-                                            "prototypes": protos})
-            print(f"saved fold {fold} to {savepath}")
+            _save_fold(savepath, {"model": trainer.snapshot(),
+                                  "prototypes": protos})
+            _say(f"saved fold {fold} to {savepath}")
     finally:
         if store is not None:
             store.close()
         if flow_store is not None:
             flow_store.close()
-
-
-def _check_pretrain_ported(args):
-    """`pretrain` runs the video or flow-image source with the fused
-    student backbone and, on the card, the fused last layer + loss (K7;
-    the plain head and loss with --use-bn-in-head); what it refuses is
-    listed in ROADMAP.md with the slice that brings it."""
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel: data-parallel pre-training is not ported yet; "
-            "it comes with torch.distributed DDP and K7's per-shard wrapper "
-            "(ROADMAP.md Queue 1, 'Parallelism, on torch.distributed')")
 
 
 def cmd_pretrain(args):
@@ -823,7 +883,6 @@ def cmd_pretrain(args):
     from sais_tpu_torch.train.checkpoint import CheckpointManager
     from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
     from sais_tpu_torch.utils.logging import MetricLogger
-    _check_pretrain_ported(args)
     if args.source == "flows":
         videos = sorted(d for d in glob.glob(
             os.path.join(args.path, "flows", "*")) if os.path.isdir(d))
@@ -860,15 +919,19 @@ def cmd_pretrain(args):
 
     # steps an epoch from the total frame count
     niter = max(sum(_frame_count(v) for v in videos) // bs, 1)
+    mesh = None
+    if args.data_parallel:
+        from sais_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh()
     trainer = DINOTrainer(vit_cfg, dcfg, niter_per_ep=niter,
                           generator=torch.Generator().manual_seed(0),
-                          optimizer=args.optimizer, device=device)
+                          optimizer=args.optimizer, mesh=mesh, device=device)
     outdir = os.path.join(args.path, "pretrain")
     mgr = CheckpointManager(os.path.join(outdir, "ckpt"))
     start_epoch, state = mgr.restore_latest(trainer.state())
     if start_epoch is not None:
         trainer.load_state(state)
-        print(f"resumed from epoch {start_epoch}")
+        _say(f"resumed from epoch {start_epoch}")
     log_path = os.path.join(outdir, "log.txt")
     hf, wf = (0.8, 0.7) if args.crop_policy == "gronau" else (0.8, 0.8)
 
@@ -877,7 +940,9 @@ def cmd_pretrain(args):
         return center_border_crop(frame[None], hf, wf, args.trim_right)[0]
 
     for epoch in range(start_epoch or 0, args.nepochs):
-        logger = MetricLogger(jsonl_path=log_path)
+        # every rank runs the same stream and crops; each steps on its
+        # block of them (DINOTrainer), rank 0 keeps the log and checkpoints
+        logger = MetricLogger(jsonl_path=log_path if _writer() else None)
         pending = None   # one step in flight: step k's loss is fetched
         # after step k + 1 is enqueued
         stream = FrameShuffleStream(
@@ -898,10 +963,11 @@ def cmd_pretrain(args):
                 pending = loss_dev
         if pending is not None:
             logger.update(loss=trainer.check_loss(pending))
-        mgr.save(epoch + 1, trainer.state())
-        logger.write_epoch(epoch)
-        print(f"epoch {epoch}: loss {logger.meters['loss'].global_avg:.4f}")
-    print(f"pretraining done; checkpoints in {outdir}")
+        if _writer():
+            mgr.save(epoch + 1, trainer.state())
+            logger.write_epoch(epoch)
+        _say(f"epoch {epoch}: loss {logger.meters['loss'].global_avg:.4f}")
+    _say(f"pretraining done; checkpoints in {outdir}")
 
 
 def cmd_pipeline(args):
@@ -917,8 +983,7 @@ def cmd_serve(args):
     """Long-lived decode daemon (cli/serve.py): the models stay resident
     on the card and {"video": name} requests are answered over a Unix
     socket."""
-    from sais_tpu_torch.cli.serve import DecodeService, serve
-    _check_ported(args)
+    from sais_tpu_torch.cli import serve as serve_lib
     cfg = _pipeline_config(args)
     if args.flow_jump == "auto":
         sys.exit("serve decodes many videos with one window config; pass "
@@ -930,21 +995,32 @@ def cmd_serve(args):
     vit = _load_vit(args, cfg)
     folds = _load_folds(args, cfg)
     raft = None if cfg.model.modalities == "RGB" else _load_raft(args, cfg)
-    svc = DecodeService(args.path, cfg, vit, folds, raft,
-                        batch_size=args.batch_size,
-                        exact_preprocess=args.exact_preprocess,
-                        pair_batch=args.flow_batch,
-                        flow_iters=args.flow_iters, device=args.device)
-    print("warming up...")
-    svc.warmup()
-    if args.flow_warmup:
-        # one or more HxW resolutions: a deployment serving several camera
-        # formats warms the flow path at each
-        for res in args.flow_warmup.split(","):
-            h, w = (int(x) for x in res.strip().split("x"))
-            print(f"warming up the flow path at {h}x{w}...")
-            svc.warmup_flow(h, w)
-    serve(svc, args.socket)
+    mesh = _extract_mesh(args)
+    svc = serve_lib.DecodeService(
+        args.path, cfg, vit, folds, raft, batch_size=args.batch_size,
+        exact_preprocess=args.exact_preprocess, pair_batch=args.flow_batch,
+        flow_iters=args.flow_iters, device=args.device, mesh=mesh)
+    if mesh is not None and not _writer():
+        # --data-parallel: rank 0 owns the socket and sends each rank its
+        # block of every batch
+        svc.follow()
+        return
+    if mesh is not None:
+        svc.lead()
+    try:
+        print("warming up...")
+        svc.warmup()
+        if args.flow_warmup:
+            # one or more HxW resolutions: a deployment serving several
+            # camera formats warms the flow path at each
+            for res in args.flow_warmup.split(","):
+                h, w = (int(x) for x in res.strip().split("x"))
+                print(f"warming up the flow path at {h}x{w}...")
+                svc.warmup_flow(h, w)
+        serve_lib.serve(svc, args.socket)
+    finally:
+        if mesh is not None:
+            svc.release()
 
 
 def cmd_request(args):
@@ -1253,8 +1329,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "artifacts hold the CLS-query row instead of "
                              "the full (L, L) matrix")
         sp.add_argument("--seq-parallel", type=int, default=0, metavar="N",
-                        help="not ported yet (sequence-parallel ring "
-                             "attention); any N > 0 is refused")
+                        help="decode / steps / train: ring attention over "
+                             "an N-rank 'seq' mesh (one process a device); "
+                             "each window's time axis split over the ranks")
         sp.add_argument("--stride-divisor", type=int, default=None,
                         help="steps: per-window frame subsampling divisor "
                              "(reference span // 10); 4096 gives stride 1, "
@@ -1389,30 +1466,104 @@ def build_parser() -> argparse.ArgumentParser:
                              "runs the plain head and loss")
         sp.add_argument("--data-parallel", type=int, nargs="?", const=-1,
                         default=0, metavar="M",
-                        help="not ported yet (refused)")
+                        help="extract / flow / pipeline / serve / train / "
+                             "pretrain: split batches over M devices of "
+                             "this host, one process each (bare: all; "
+                             "--device cpu: M gloo processes, bare 1); with "
+                             "train --seq-parallel N the two make one (M, "
+                             "N) ('data', 'seq') mesh")
         sp.add_argument("--num-slices", type=int, default=1,
-                        help="train over N TPU slices with a "
-                             "('dcn','data','model') mesh (not ported "
-                             "yet; any N > 1 is refused)")
+                        help="train over S hosts with a ('dcn', 'data', "
+                             "'model') mesh: the ranks split in S blocks "
+                             "in order")
         sp.add_argument("--init-distributed", action="store_true",
-                        help="multi-host launch (not ported yet; refused)")
+                        help="train: join the process group a launcher "
+                             "(torchrun) describes in the environment, "
+                             "instead of spawning one process a device")
     return p
 
 
-def _check_registered(args):
-    """Flags every command takes whose work is not ported: each is
-    refused, naming the ROADMAP.md item that brings it."""
-    if args.num_slices > 1 or args.init_distributed:
-        raise NotImplementedError(
-            "--num-slices / --init-distributed: multi-host training is not "
-            "ported yet (ROADMAP.md Queue 1, 'Parallelism, on "
-            "torch.distributed')")
+def _devices(args) -> Optional[int]:
+    """Devices of this host for the parallel flags: the card count, or
+    None on the CPU (any number of gloo processes)."""
+    return None if args.device == "cpu" else torch.cuda.device_count()
+
+
+def _dp_count(args) -> int:
+    """--data-parallel -> ranks: bare = every device (one on the CPU), N
+    = N, with JAX's refusal past the devices there are."""
+    dp, avail = args.data_parallel, _devices(args)
+    if dp < 0:
+        return avail or 1
+    if avail is not None and dp > avail:
+        raise SystemExit(f"--data-parallel {dp} exceeds the {avail} "
+                         "available devices")
+    return dp
+
+
+def _ranks(args) -> int:
+    """How many ranks the command runs in; 0: no process group."""
+    cmd = args.fn.__name__
+    seq, dp = args.seq_parallel or 0, args.data_parallel or 0
+    if cmd == "cmd_train":
+        if seq > 0:
+            avail = _devices(args)
+            n_data = 1
+            if dp:
+                n_data = dp if dp > 0 else max((avail or seq) // seq, 1)
+            if avail is not None and seq * n_data > avail:
+                raise SystemExit(
+                    f"--seq-parallel {seq} x --data-parallel {n_data} "
+                    f"exceeds the {avail} available devices")
+            return seq * n_data
+        if args.num_slices > 1:
+            return _dp_count(args) if dp else (_devices(args) or 1)
+        return _dp_count(args) if dp else 0
+    if cmd in ("cmd_decode", "cmd_steps"):
+        return seq
+    if cmd == "cmd_pipeline" and dp and seq:
+        n = _dp_count(args)
+        if n != seq:
+            raise SystemExit(f"pipeline runs extract and decode in one "
+                             f"group: --data-parallel {n} and --seq-parallel "
+                             f"{seq} must agree")
+        return n
+    if cmd == "cmd_pipeline" and seq:
+        return seq
+    if cmd in ("cmd_extract", "cmd_flow", "cmd_pipeline", "cmd_serve",
+               "cmd_pretrain") and dp:
+        n = _dp_count(args)
+        if cmd == "cmd_pretrain" and args.batch_size % n:
+            # at the CLI, not mid-epoch: every loader batch is -bs frames
+            sys.exit(f"-bs {args.batch_size} does not divide over the "
+                     f"{n}-device mesh; use a multiple of {n}")
+        return n
+    return 0
+
+
+def _rank_entry(args) -> None:
+    """A spawned rank: the command, with the host's CPU threads shared
+    out over the ranks (never more than the process already has)."""
+    import torch.distributed as dist
+    if args.device == "cpu":
+        share = (os.cpu_count() or 1) // dist.get_world_size()
+        torch.set_num_threads(max(1, min(torch.get_num_threads(), share)))
+    args.fn(args)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_registered(args)
-    args.fn(args)
+    from sais_tpu_torch.parallel import distributed
+    device_type = "cpu" if args.device == "cpu" else "cuda"
+    if args.init_distributed:
+        distributed.initialize(device_type)
+        args.fn(args)
+        return
+    n = _ranks(args)
+    if n:
+        distributed.run_ranks(_rank_entry, n, device_type, args)
+    else:
+        args.fn(args)
 
 
 if __name__ == "__main__":

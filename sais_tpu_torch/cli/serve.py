@@ -39,7 +39,11 @@ class DecodeService:
                  batch_size: int = 256, exact_preprocess: bool = False,
                  pair_batch: Optional[int] = None,
                  flow_iters: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        """mesh (`serve --data-parallel`): the extractors split each batch
+        over the mesh's ranks; rank 0 runs the daemon (`lead`) and sends
+        each other rank its block of every batch, on which that rank, in
+        `follow`, makes the same call."""
         from sais_tpu_torch.infer.pipeline import (FeatureExtractor,
                                                    FlowExtractor,
                                                    GestureDecoder)
@@ -47,12 +51,61 @@ class DecodeService:
         self.cfg = cfg
         self.extractor = FeatureExtractor(vit, cfg, batch_size=batch_size,
                                           device=device,
-                                          exact_preprocess=exact_preprocess)
+                                          exact_preprocess=exact_preprocess,
+                                          mesh=mesh)
         self.flow = (FlowExtractor(raft, vit, cfg, pair_batch=pair_batch,
-                                   iters=flow_iters, device=device)
+                                   iters=flow_iters, device=device,
+                                   mesh=mesh)
                      if raft is not None else None)
         self.decoder = GestureDecoder(folds, cfg, device_batch=512,
                                       device=device)
+        # what a sharded call runs on: the owner (the extractor, or the
+        # flow extractor) and the FeatureExtractor that shards for it
+        self._owners = [(self.extractor, self.extractor)]
+        if self.flow is not None:
+            self._owners.append((self.flow, self.flow._features))
+
+    # -- serve --data-parallel ----------------------------------------------
+
+    def lead(self) -> None:
+        """On rank 0: every sharded call first sends each other rank its
+        block (`_scatter`)."""
+        for _, sharder in self._owners:
+            sharder.scatter = self._scatter
+
+    def _scatter(self, owner, method: str, blocks, rows: int) -> None:
+        import torch.distributed as dist
+        from sais_tpu_torch.parallel.mesh import broadcast_object
+        which = [o for o, _ in self._owners].index(owner)
+        sharder = self._owners[which][1]
+        broadcast_object((which, method, rows, [(tuple(x.shape), x.dtype)
+                                                for x in blocks[0]]))
+        ranks = sharder.mesh.mesh.reshape(-1).tolist()
+        for rank, block in zip(ranks[1:], blocks[1:]):
+            for x in block:   # one rank's block on this card at a time
+                dist.send(sharder._to_device(x).contiguous(), rank)
+
+    def follow(self) -> None:
+        """On the other ranks: receive this rank's block of each call rank
+        0 makes, and make it, until rank 0 sends None (`release`)."""
+        import torch.distributed as dist
+        from sais_tpu_torch.parallel.mesh import broadcast_object
+        while (msg := broadcast_object(None)) is not None:
+            which, method, rows, specs = msg
+            owner, sharder = self._owners[which]
+            block = [torch.empty(shape, dtype=dtype, device=sharder.device)
+                     for shape, dtype in specs]
+            src = int(sharder.mesh.mesh.reshape(-1)[0])
+            for x in block:
+                dist.recv(x, src)
+            sharder.run_block(owner, method, block, rows)
+
+    def release(self) -> None:
+        """On rank 0, after the daemon stops: let the followers return."""
+        from sais_tpu_torch.parallel.mesh import broadcast_object
+        for _, sharder in self._owners:
+            sharder.scatter = None
+        broadcast_object(None)
 
     def warmup(self) -> None:
         """Run, against zeros, every shape a request runs, so that the

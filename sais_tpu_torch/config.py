@@ -45,6 +45,10 @@ class ViTConfig:
     def mlp_dim(self) -> int:
         return int(self.embed_dim * self.mlp_ratio)
 
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
 
 @dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
@@ -185,6 +189,16 @@ class RAFTConfig:
     iters: int = 32              # RAFT 'things' eval default
     small: bool = False
     corr_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (`parallel.mesh.make_mesh`): one process per
+    device in a torch.distributed group; its axes are named
+    ("data", "model")."""
+
+    data_parallel: int = -1      # -1 -> every rank of the group
+    model_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

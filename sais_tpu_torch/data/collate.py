@@ -14,7 +14,7 @@ the CLS slot; a segment with none gets one zero row, masked.  The skill path's c
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -35,14 +35,20 @@ def bucket_for(n: int, buckets: Sequence[int] = BUCKETS) -> int:
 
 def collate_segments(rows: Sequence[Row], rgb_store,
                      label_to_col: Dict[Any, int], wcfg: WindowConfig,
-                     tta_offset: int = 0, flow_store=None
+                     tta_offset: int = 0, flow_store=None,
+                     fixed_stride: Optional[int] = None,
+                     cap: Optional[int] = None,
+                     label_fn: Optional[Callable[[Row], int]] = None,
+                     buckets: Sequence[int] = BUCKETS
                      ) -> Dict[str, np.ndarray]:
     """One batch from segment rows (Video / StartFrame / EndFrame /
     Gesture); the stores have read_video(name) -> (N, D).  Returns the
     batch dict the trainers consume: rgb (B, 1, F, D) f32, rgb_mask
     (B, 1, F + 1) bool, label_cols and labels (B,) int32 (the Gesture's
-    column), and, with a flow store, flow (B, 1, Ff, D) and flow_mask
-    (B, 1, Ff + 1).  RGB is always gathered, as in the JAX package."""
+    column, or label_fn(row)), and, with a flow store, flow (B, 1, Ff, D)
+    and flow_mask (B, 1, Ff + 1).  RGB is always gathered, as in the JAX
+    package.  fixed_stride / cap go to `segment_frame_indices`; F is the
+    first of `buckets` that holds the longest segment."""
     feats: List[np.ndarray] = []
     flows: List[np.ndarray] = []
     flow_valid: List[np.ndarray] = []
@@ -50,16 +56,18 @@ def collate_segments(rows: Sequence[Row], rgb_store,
     for row in rows:
         reps = rgb_store.read_video(row["Video"])
         idx = segment_frame_indices(int(row["StartFrame"]),
-                                    int(row["EndFrame"]), wcfg, tta_offset)
+                                    int(row["EndFrame"]), wcfg, tta_offset,
+                                    fixed_stride=fixed_stride, cap=cap)
         feats.append(reps[idx])
         if flow_store is not None:
             freps = flow_store.read_video(row["Video"])
             fidx, fvalid = flow_indices_for(idx[None], len(freps), wcfg)
             flows.append(freps[fidx[0]] * fvalid[0][:, None])
             flow_valid.append(fvalid[0])
-        cols.append(label_to_col[row["Gesture"]])
+        cols.append(label_fn(row) if label_fn is not None
+                    else label_to_col[row["Gesture"]])
     b, d = len(feats), feats[0].shape[1]
-    fb = bucket_for(max(len(x) for x in feats))
+    fb = bucket_for(max(len(x) for x in feats), buckets)
     rgb = np.zeros((b, 1, fb, d), np.float32)
     rgb_mask = np.zeros((b, 1, fb + 1), bool)
     for i, x in enumerate(feats):
@@ -69,7 +77,7 @@ def collate_segments(rows: Sequence[Row], rgb_store,
              "label_cols": np.asarray(cols, np.int32),
              "labels": np.asarray(cols, np.int32)}
     if flows:
-        ff = bucket_for(max(len(x) for x in flows), [2, 4, 8, 16, *BUCKETS])
+        ff = bucket_for(max(len(x) for x in flows), [2, 4, 8, 16, *buckets])
         flow = np.zeros((b, 1, ff, flows[0].shape[1]), np.float32)
         flow_mask = np.zeros((b, 1, ff + 1), bool)
         for i, (x, valid) in enumerate(zip(flows, flow_valid)):
@@ -83,7 +91,11 @@ def collate_segments(rows: Sequence[Row], rgb_store,
 
 def segment_batches(rows: Sequence[Row], rgb_store, classes: Sequence,
                     wcfg: WindowConfig, batch_size: int, shuffle: bool,
-                    seed: int = 0, tta: bool = False, flow_store=None
+                    seed: int = 0, tta: bool = False, flow_store=None,
+                    fixed_stride: Optional[int] = None,
+                    cap: Optional[int] = None,
+                    label_fn: Optional[Callable[[Row], int]] = None,
+                    buckets: Sequence[int] = BUCKETS
                     ) -> Iterator[Dict[str, Any]]:
     """Collated batches over a phase's segment rows.  tta=True (val / test)
     attaches the reference's 3-way TTA variants (offsets +0 / +3 / +6,
@@ -100,7 +112,8 @@ def segment_batches(rows: Sequence[Row], rgb_store, classes: Sequence,
         picked = [rows[i] for i in idx]
         variants = [collate_segments(
             picked, store, label_to_col, wcfg, tta_offset=off,
-            flow_store=flows) for off in offsets]
+            flow_store=flows, fixed_stride=fixed_stride, cap=cap,
+            label_fn=label_fn, buckets=buckets) for off in offsets]
         out = dict(variants[0])
         if tta:
             out["tta"] = variants

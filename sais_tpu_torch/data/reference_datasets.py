@@ -397,3 +397,243 @@ def single_group(rows: Sequence[Row], meta_rows: Sequence[Row], group: str,
     """getSingleGroup (prepare_dataset.py:215-236): keep only rows whose
     merged meta matches one group value (e.g. prostate volume > 60 ml)."""
     return [r for r in _with_meta(rows, meta_rows) if r[group] == group_val]
+
+
+# ---------------------------------------------------------------------------
+# Library-only tables: no command of either package reaches them
+# ---------------------------------------------------------------------------
+
+JIGSAWS_GESTURES = ["G2", "G3", "G6", "G4", "G8", "G11", "G5", "G1", "G9",
+                    "G10"]
+DART_DOMAINS = ("GS", "IVA", "RTP", "TH", "TR", "E")
+NS_TOP6_GESTURES = ["p", "h", "c", "r", "m", "k"]  # prepare_dataset.py:856
+
+
+def jigsaws_phase_tables(rows: Sequence[Row], fold: int,
+                         balance: bool = True) -> Dict[str, List[Row]]:
+    """The JIGSAWS branch trains on train + val merged and uses the
+    held-out user for both val and test (prepare_dataset.py:1619-1622)."""
+    rows = _isin(rows, "Gesture", JIGSAWS_GESTURES)
+    train, val, test = leave_one_user_out_split(rows, fold)
+    if balance:
+        train = balance_gestures(train)
+        val = balance_gestures(val) if val else val
+        test = balance_gestures(test) if test else test
+    return {"train": train + val, "val": test, "test": test}
+
+
+def dart_band(score: float) -> float:
+    """group_dart banding (prepare_dataset.py:949-956): <= 2.6 -> 0,
+    <= 2.8 -> 1, <= 3.0 -> 2, above 3.0 (and NaN) unchanged."""
+    if score <= 2.6:
+        return 0
+    if score <= 2.8:
+        return 1
+    if score <= 3.0:
+        return 2
+    return score
+
+
+def _rater_majority(values: Sequence[Any]) -> Any:
+    """The majority of the non-NaN scores; of tied counts the one counted
+    last in first-seen order (a stable sort by count)."""
+    counts = {}
+    for v in values:
+        if not isna(v):
+            counts[v] = counts.get(v, 0) + 1
+    return sorted(counts.items(), key=lambda el: el[1])[-1][0]
+
+
+def aggregate_dart_scores(rows: Sequence[Row], domain: str = "TR",
+                          style: str = "mean",
+                          keep_extremes: bool = True) -> List[Row]:
+    """NS_DART rater aggregation (prepare_dataset.py:929-961): per domain
+    AVE_<d> over raters 1-5 (the mean of the non-NaN scores, or their
+    majority), the chosen domain's banded (`dart_band`), and optionally
+    only bands {0, 2} kept."""
+    out = []
+    for r in rows:
+        r = dict(r)
+        for d in DART_DOMAINS:
+            vals = [r[f"{d}{i}"] for i in range(1, 6)]
+            if style == "mean":
+                kept = [float(v) for v in vals if not isna(v)]
+                r[f"AVE_{d}"] = sum(kept) / len(kept) if kept else NAN
+            else:
+                # a row of pandas' apply is one float Series
+                r[f"AVE_{d}"] = float(_rater_majority(vals))
+        out.append(r)
+    col = f"AVE_{domain}"
+    bands = [dart_band(r[col]) for r in out]
+    if any(isinstance(b, float) for b in bands):
+        bands = [float(b) for b in bands]   # pandas' one column dtype
+    for r, b in zip(out, bands):
+        r[col] = b
+    if keep_extremes:
+        out = [r for r in out if r[col] in (0, 2)]
+    return out
+
+
+def dart_video_split(rows: Sequence[Row], fold: int,
+                     video_col: str = "Video"
+                     ) -> Tuple[List[Row], List[Row], List[Row]]:
+    """NS_DART 90/10 split (prepare_dataset.py:997-1006): val is 10% OF
+    ALL CASES, sampled from the train pool."""
+    cases = _unique(r[video_col] for r in rows)
+    rng = random.Random(fold)
+    train_cases = rng.sample(cases, int(0.9 * len(cases)))
+    val_cases = rng.sample(train_cases, int(0.1 * len(cases)))
+    train_cases = list(set(train_cases) - set(val_cases))
+    test_cases = list(set(cases) - set(train_cases) - set(val_cases))
+    return tuple(_isin(rows, video_col, chosen)
+                 for chosen in (train_cases, val_cases, test_cases))
+
+
+def ns_vs_vua_tables(vua_stitch: Sequence[Row],
+                     ns_timestamps: Sequence[Row], fold: int,
+                     balance: bool = True, training_fraction: float = 1.0
+                     ) -> Tuple[Dict[str, List[Row]], List[str]]:
+    """The combined NS-vs-VUA activity-discrimination dataset
+    (prepare_dataset.py:569-888, training path).
+
+    VUA part: EASE stitch rows filtered by duration and the three RACE /
+    EASE pairings, maj in {0, 1, 2}, windows from `vua_ease_window`, a
+    0.9 / 0.1 video split (val = 10% of TRAIN here, :698-701), -tf
+    subsampling of its train rows; NS part: gesture timestamps without
+    P-129, > 10 frames, gestures with > 100 rows, Note-free rows, the Top6
+    gestures, the per-gesture split; each phase's domains balanced to the
+    minority count (random_state=1, :879-881).  Rows keep StartFrame,
+    EndFrame, Domain and Video."""
+    from sais_tpu_torch.data.skill import duration_filter
+    vua = [r for r in vua_stitch if r["File"] not in (102, 372)]
+    if vua and "Video" not in vua[0]:
+        vua = [dict(r, Video=r["Path"].split("\\")[-1]) for r in vua]
+    vua = duration_filter(vua)
+    vua = [r for r in vua if any(r["RACE"] == race and r["EASE"] == ease
+                                 for race, ease in STITCH_PAIRS)
+           and r["maj"] in (0, 1, 2)]
+    spans = [vua_ease_window(r["RACE"], r) for r in vua]
+    if any(isinstance(v, float) for span in spans for v in span):
+        # pandas takes both columns at one dtype (to_numpy)
+        spans = [tuple(float(v) for v in span) for span in spans]
+    cols = ("StartFrame", "EndFrame", "Domain", "Video")
+    vua = [{"StartFrame": s, "EndFrame": e, "Domain": "VUA",
+            "Video": r["Video"]} for r, (s, e) in zip(vua, spans)]
+    cases = _unique(r["Video"] for r in vua)
+    rng = random.Random(fold)
+    train_cases = rng.sample(cases, int(0.9 * len(cases)))
+    val_cases = rng.sample(train_cases, int(0.1 * len(train_cases)))
+    train_cases = list(set(train_cases) - set(val_cases))
+    vua_tr = _isin(vua, "Video", train_cases)
+    vua_va = _isin(vua, "Video", val_cases)
+    held = set(train_cases) | set(val_cases)
+    vua_te = [r for r in vua if r["Video"] not in held]
+    if training_fraction < 1 and vua_tr:
+        # -tf subsample of the VUA train rows (prepare_dataset.py:703-705)
+        vua_tr = _sample(vua_tr, int(len(vua_tr) * training_fraction), 0)
+
+    ns = clean_gesture_timestamps(ns_timestamps, int_labels=False)
+    ns = [dict(r, Domain="NS") for r in ns if "P-129" not in r["Video"]]
+    ns = filter_min_frames(ns)
+    counts: Dict[Any, int] = {}
+    for r in ns:
+        counts[r["Gesture"]] = counts.get(r["Gesture"], 0) + 1
+    ns = [r for r in ns if counts[r["Gesture"]] > 100]
+    if ns and "Note" in ns[0]:
+        ns = [r for r in ns if isna(r["Note"])]
+    ns = _isin(ns, "Gesture", NS_TOP6_GESTURES)
+    ns_parts = per_gesture_video_split(ns, fold, balance=balance)
+
+    out = {}
+    for phase, v_part, n_part in zip(("train", "val", "test"),
+                                     (vua_tr, vua_va, vua_te), ns_parts):
+        comb = v_part + [{c: r[c] for c in cols} for r in n_part]
+        out[phase] = (balance_gestures(comb, label_col="Domain") if comb
+                      else comb)
+    return out, ["NS", "VUA"]
+
+
+class DomainKeyedStore:
+    """read_video dispatch over per-domain stores (the reference opens one
+    h5 per domain for NS_vs_VUA, hf_rgb[domain], prepare_dataset.py:2439);
+    rows must carry video names unique across the domains."""
+
+    def __init__(self, stores: Dict[str, Any],
+                 video_to_domain: Dict[str, str]):
+        self.stores = stores
+        self.video_to_domain = video_to_domain
+
+    def read_video(self, name: str):
+        return self.stores[self.video_to_domain[str(name)]].read_video(name)
+
+
+def ns_vs_vua_batches(phase_rows: Sequence[Row], rgb_store, flow_store,
+                      wcfg, batch_size: int, shuffle: bool, seed: int = 0,
+                      tta: bool = False, use_flow: bool = False):
+    """Collated NS_vs_VUA batches: fixed stride 10, the 2000-frame cap,
+    label 0 = NS / 1 = VUA (prepare_dataset.py:2405-2438); rgb_store may
+    be a DomainKeyedStore over the two domains' feature stores."""
+    from sais_tpu_torch.data.collate import segment_batches
+    return segment_batches(
+        phase_rows, rgb_store, ["NS", "VUA"], wcfg, batch_size, shuffle,
+        seed=seed, tta=tta, flow_store=flow_store if use_flow else None,
+        fixed_stride=10, cap=2000,
+        label_fn=lambda row: 0 if row["Domain"] == "NS" else 1,
+        # segments run up to the 2000 cap, far past the skill buckets
+        buckets=(16, 32, 64, 128, 256, 512, 1024, 2000))
+
+
+def frame_cap(indices: np.ndarray, cap: int = 2000) -> np.ndarray:
+    """The reference's hard cap of a sequence at 2000 frames
+    (prepare_dataset.py:2437), the learned positional table's length."""
+    return indices[:cap]
+
+
+def gronau_gesture_inference_table(rows: Sequence[Row],
+                                   gestures: Sequence[str] = tuple(
+                                       NS_TOP6_GESTURES),
+                                   random_state: int = 1) -> List[Row]:
+    """Per-(PID, gesture) breadth-sampling inference table: of every pair
+    with >= 3 examples, exactly 3 sampled.  The reference uses
+    random_state=1 for Gronau_inference (prepare_dataset.py:794-827,
+    :1150-1166) and 0 for RAPN_inference (:1180-1198)."""
+    rows = clean_gesture_timestamps(rows, int_labels=False)
+    rows = _isin(filter_min_frames(rows), "Gesture", gestures)
+    out: List[Row] = []
+    for pid in sorted(_unique(r["PID"] for r in rows)):
+        for gesture in sorted(_unique(r["Gesture"] for r in rows)):
+            cur = [r for r in rows
+                   if r["PID"] == pid and r["Gesture"] == gesture]
+            if len(cur) >= 3:
+                out += _sample(cur, 3, random_state)
+    return out
+
+
+def rapn_gesture_inference_table(rows: Sequence[Row],
+                                 gestures: Sequence[str] = tuple(
+                                     NS_TOP6_GESTURES)) -> List[Row]:
+    """The RAPN_inference variant (prepare_dataset.py:1180-1198)."""
+    return gronau_gesture_inference_table(rows, gestures, random_state=0)
+
+
+def cinvivo_inference_table(paths_rows: Sequence[Row], fps: int = 30,
+                            duration_s: float = 0.5,
+                            hop_s: float = 0.5) -> List[Row]:
+    """CinVivo_inference windows (prepare_dataset.py:1199-1226): frames
+    counted per (category, label) group of CinVivo_Paths.csv, groups in
+    sorted order (pandas' groupby), and duration = hop = 0.5 s windows at
+    30 fps laid over each: nsamples = (count - 15) // 15 + 1, StartFrame =
+    n * 15, EndFrame = StartFrame + 15, Video = label, Domain = 'Gesture'.
+    A group shorter than one window gives no rows."""
+    dur, hop = int(duration_s * fps), int(hop_s * fps)
+    counts: Dict[Tuple[Any, Any], int] = {}
+    for r in paths_rows:
+        key = (r["category"], r["label"])
+        counts[key] = counts.get(key, 0) + 1
+    out: List[Row] = []
+    for (category, label), count in sorted(counts.items()):
+        for n in range(max((count - dur) // hop + 1, 0)):
+            out.append({"StartFrame": n * hop, "EndFrame": n * hop + dur,
+                        "category": category, "label": label,
+                        "Video": label, "Domain": "Gesture"})
+    return out

@@ -20,7 +20,7 @@ All index math is host-side numpy.  Own copy of `sais_tpu/data/windows.py`
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -137,11 +137,17 @@ def build_tta_batches(video_reps: np.ndarray, flow_reps: np.ndarray,
 
 
 def segment_frame_indices(start_frame: int, end_frame: int,
-                          cfg: WindowConfig, tta_offset: int = 0
-                          ) -> np.ndarray:
+                          cfg: WindowConfig, tta_offset: int = 0,
+                          fixed_stride: Optional[int] = None,
+                          cap: Optional[int] = None) -> np.ndarray:
     """Frame indices of one labeled segment on the reps path (train time):
     both ends minus 1 (prepare_dataset.py:2642-2643), stride span //
-    stride_divisor (at least 1), start shifted by the TTA offset."""
+    stride_divisor (at least 1), start shifted by the TTA offset.
+    fixed_stride / cap override the stride and keep the first `cap`
+    indices (NS_vs_VUA: jump_size=10 and indices[:2000],
+    prepare_dataset.py:2424-2438)."""
     s, e = start_frame - 1, end_frame - 1
-    stride = max((e - s) // cfg.stride_divisor, 1)
-    return np.arange(s + tta_offset, e, stride)
+    stride = (fixed_stride if fixed_stride is not None
+              else max((e - s) // cfg.stride_divisor, 1))
+    idx = np.arange(s + tta_offset, e, stride)
+    return idx[:cap] if cap else idx

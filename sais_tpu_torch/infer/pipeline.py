@@ -21,7 +21,7 @@ import os
 import queue
 import sys
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,7 +106,7 @@ class FeatureExtractor:
 
     def __init__(self, model: VisionTransformer, cfg: PipelineConfig,
                  batch_size: int = 256, device: DeviceLike = None,
-                 exact_preprocess: bool = False):
+                 exact_preprocess: bool = False, mesh: Any = None):
         """model: the ViT; a copy is moved to `device` in the compute dtype
         (bf16 -> the fused K1 path, float32 -> the parity path).
 
@@ -119,8 +119,20 @@ class FeatureExtractor:
         device, with native decode off, as the JAX package's
         --exact-preprocess route (there through PIL; here the same
         PIL-exact arithmetic in torch on the CPU, and the same float32
-        normalize as the device route)."""
+        normalize as the device route).
+
+        mesh: frame batches are split over the mesh's ranks (data
+        parallelism, JAX's shard_map over every mesh axis): every rank
+        decodes the same frames, runs the ViT on its block of each batch,
+        and the features are gathered in order on every rank (the caller's
+        rank 0 writes them).  The batch rounds down to a multiple of the
+        ranks, at least one each, as in JAX (pipeline.py:136-140)."""
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            from sais_tpu_torch.parallel.mesh import mesh_size
+            ndev = mesh_size(mesh)
+            batch_size = max(ndev, batch_size - batch_size % ndev)
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -128,6 +140,7 @@ class FeatureExtractor:
         self.model = copy.deepcopy(model).to(device=self.device,
                                              dtype=self.dtype).eval()
         self.exact_preprocess = exact_preprocess
+        self.scatter = None   # see _sharded
 
     def preprocess_host(self, frames_u8: np.ndarray) -> torch.Tensor:
         """(B, H, W, 3) uint8 on the host -> (B, S, S, 3) normalized
@@ -135,32 +148,78 @@ class FeatureExtractor:
         return preprocess_batch(torch.from_numpy(np.ascontiguousarray(
             frames_u8)), self.cfg.preprocess, torch.float32)
 
-    def features(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 on the device -> (B, D) float32 features."""
+    def _to_device(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu" and self.device.type == "cuda":
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device)
+
+    def _sharded(self, owner, method: str, *xs: torch.Tensor
+                 ) -> torch.Tensor:
+        """owner._block_<method> over the batch (host or device tensors),
+        or over this rank's block of it under a mesh, the outputs gathered
+        in order (`parallel.mesh.row_blocks`, `gather_rows`).  Host rows
+        are copied to the device after the split, so a rank copies its
+        block only.
+        With `scatter` set (the serve daemon's rank 0, which alone holds
+        the batch), scatter(owner, method, blocks, rows) first hands the
+        other ranks their blocks, and each of them makes the same call
+        through `run_block`."""
         with torch.inference_mode():
-            x = preprocess_batch(frames_u8, self.cfg.preprocess, self.dtype)
-            return vit_features(self.model, x)
+            if self.mesh is None:
+                return self._run(owner, method, xs)
+            from sais_tpu_torch.parallel.mesh import (gather_rows, mesh_rank,
+                                                      row_blocks)
+            blocks, rows = row_blocks(xs, self.mesh)
+            if self.scatter is not None:
+                self.scatter(owner, method, blocks, rows)
+            return gather_rows(self._run(owner, method,
+                                         blocks[mesh_rank(self.mesh)]),
+                               self.mesh, rows)
+
+    def _run(self, owner, method: str, xs) -> torch.Tensor:
+        return getattr(owner, "_block_" + method)(
+            *(self._to_device(x) for x in xs))
+
+    def run_block(self, owner, method: str, block, rows: int) -> None:
+        """This rank's part of a sharded call whose batch another rank
+        holds (`scatter`): owner._block_<method> over `block`, then the
+        gather of every rank's outputs."""
+        from sais_tpu_torch.parallel.mesh import gather_rows
+        with torch.inference_mode():
+            gather_rows(self._run(owner, method, block), self.mesh, rows)
+
+    def features(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 on the host or the device -> (B, D) float32
+        features on the device."""
+        return self._sharded(self, "features", frames_u8)
+
+    def _block_features(self, f: torch.Tensor) -> torch.Tensor:
+        return vit_features(self.model, preprocess_batch(
+            f, self.cfg.preprocess, self.dtype))
 
     def features_resized(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) uint8 crops already resized (the frame pump's) on
-        the device -> (B, D) float32 features."""
-        with torch.inference_mode():
-            return vit_features(self.model, normalize_batch(
-                frames_u8, self.cfg.preprocess, self.dtype))
+        """(B, S, S, 3) uint8 crops already resized (the frame pump's), on
+        the host or the device -> (B, D) float32 features."""
+        return self._sharded(self, "features_resized", frames_u8)
+
+    def _block_features_resized(self, f: torch.Tensor) -> torch.Tensor:
+        return vit_features(self.model, normalize_batch(
+            f, self.cfg.preprocess, self.dtype))
 
     def features_normalized(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) normalized float32 frames on the device -> (B, D)
-        float32 features."""
-        with torch.inference_mode():
-            return vit_features(self.model, x.to(self.dtype))
+        """(B, S, S, 3) normalized float32 frames on the host or the
+        device -> (B, D) float32 features."""
+        return self._sharded(self, "features_normalized", x)
+
+    def _block_features_normalized(self, f: torch.Tensor) -> torch.Tensor:
+        return vit_features(self.model, f.to(self.dtype))
 
     def _host_batch(self, batch: np.ndarray) -> torch.Tensor:
         """One decoded batch through the route the extractor takes, to
         features on the device."""
         if self.exact_preprocess:
-            return self.features_normalized(to_device(
-                self.preprocess_host(batch).numpy(), self.device))
-        return self.features(to_device(batch, self.device))
+            return self.features_normalized(self.preprocess_host(batch))
+        return self.features(torch.from_numpy(np.ascontiguousarray(batch)))
 
     def extract_array(self, frames_u8: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (N, D) float32 CLS features."""
@@ -197,7 +256,8 @@ class FeatureExtractor:
         if pump is not None:
             return _HostStream(
                 pump.batches(self.batch_size),
-                lambda b: self.features_resized(to_device(b, self.device)),
+                lambda b: self.features_resized(
+                    torch.from_numpy(np.ascontiguousarray(b))),
                 pump.close)
         q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue(maxsize=prefetch)
         errors: List[BaseException] = []
@@ -267,14 +327,24 @@ class FlowExtractor:
                  cfg: PipelineConfig, pair_batch: Optional[int] = None,
                  iters: Optional[int] = None,
                  flow_resize: Optional[Tuple[int, int]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Any = None):
         """pair_batch: RAFT pairs per call (None: `auto_pair_batch`).
         iters: RAFT refinements (default cfg.raft.iters).  flow_resize:
         (H, W) to resize frames to before RAFT, the reference's policy for
         oversized inputs (extract_representations.py:122-123).  The RAFT
         encoders run in bf16 when cfg.compute_dtype is bf16, the rest of
-        RAFT in float32 (`models.raft`)."""
+        RAFT in float32 (`models.raft`).  mesh: pair batches split over
+        the mesh's ranks, RAFT and the flow ViT on each rank's block (the
+        pair batch a multiple of the ranks, JAX's pipeline.py:328)."""
         self.cfg = cfg
+        self.mesh = mesh
+        self._ndev = 1
+        if mesh is not None:
+            from sais_tpu_torch.parallel.mesh import mesh_size
+            self._ndev = mesh_size(mesh)
+            if pair_batch is not None:
+                pair_batch = max(self._ndev,
+                                 pair_batch - pair_batch % self._ndev)
         self.pair_batch = pair_batch
         self.iters = cfg.raft.iters if iters is None else iters
         self.flow_resize = flow_resize
@@ -283,18 +353,18 @@ class FlowExtractor:
         self.raft_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                            else torch.float32)
         self._features = FeatureExtractor(vit, cfg, batch_size=64,
-                                          device=self.device)
+                                          device=self.device, mesh=mesh)
         self.peak_buffered_pairs = 0
 
     def auto_pair_batch(self, height: int, width: int) -> int:
         """The caller's pair_batch, else the JAX package's rule: as many
         pairs as keep the float32 level-0 correlation volume under about
-        2 GB, at most 8.  The cap and the limit were measured on a TPU;
-        they stay so that both packages batch alike."""
+        2 GB, at most 8, per rank of a mesh.  The cap and the limit were
+        measured on a TPU; they stay so that both packages batch alike."""
         if self.pair_batch is not None:
             return self.pair_batch
         hw8 = (height // 8) * (width // 8)
-        return max(1, min(8, int(2e9 / max(hw8 * hw8 * 4, 1))))
+        return max(1, min(8, int(2e9 / max(hw8 * hw8 * 4, 1)))) * self._ndev
 
     def _resize(self, frame: np.ndarray) -> np.ndarray:
         if self.flow_resize is None:
@@ -305,17 +375,27 @@ class FlowExtractor:
 
     def flow(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 frame pairs on the device -> (B, H, W, 2)
-        float32 flow (padded to multiples of 8 for RAFT, cut back)."""
-        with torch.inference_mode():
-            p1, pads = pad_to_multiple_of_8(a.float())
-            p2, _ = pad_to_multiple_of_8(b.float())
-            return unpad(raft_forward(self.raft, p1, p2, self.cfg.raft,
-                                      self.iters, self.raft_dtype), pads)
+        float32 flow (padded to multiples of 8 for RAFT, cut back); under a
+        mesh each rank runs its block of the pairs."""
+        return self._features._sharded(self, "flow", a, b)
+
+    def _block_flow(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        p1, pads = pad_to_multiple_of_8(a.float())
+        p2, _ = pad_to_multiple_of_8(b.float())
+        return unpad(raft_forward(self.raft, p1, p2, self.cfg.raft,
+                                  self.iters, self.raft_dtype), pads)
 
     def fused(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """RAFT, the device renderer, the PIL-exact preprocess and the ViT,
-        all on the device: (B, D) float32 flow reps."""
-        return self._features.features(flow_to_rgb_device(self.flow(a, b)))
+        all on the device: (B, D) float32 flow reps (each rank's block of
+        the pairs under a mesh)."""
+        return self._features._sharded(self, "fused", a, b)
+
+    def _block_fused(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        feats = self._features
+        return vit_features(feats.model, preprocess_batch(
+            flow_to_rgb_device(self._block_flow(a, b)), self.cfg.preprocess,
+            feats.dtype))
 
     def _pad_tail(self, a: np.ndarray, b: np.ndarray, size: int):
         """Pad a short chunk to `size` pairs with its last pair, so that a
@@ -324,7 +404,8 @@ class FlowExtractor:
         if n < size:
             a = np.concatenate([a, np.repeat(a[-1:], size - n, axis=0)])
             b = np.concatenate([b, np.repeat(b[-1:], size - n, axis=0)])
-        return to_device(a, self.device), to_device(b, self.device), n
+        return (torch.from_numpy(np.ascontiguousarray(a)),
+                torch.from_numpy(np.ascontiguousarray(b)), n)
 
     def flow_fields(self, frames: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 -> (P, H, W, 2) flow of the pairs (i, i +
@@ -447,9 +528,26 @@ class GestureDecoder:
 
     def __init__(self, fold_params: Sequence[Tuple[FullModel, torch.Tensor]],
                  cfg: PipelineConfig, device_batch: int = 512,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, seq_mesh: Any = None):
         """fold_params: per fold, (temporal model, (P, 256) prototypes).
-        Copies of both move to `device` in float32."""
+        Copies of both move to `device` in float32.
+
+        seq_mesh: a mesh with a 'seq' axis: the temporal encoder runs as
+        ring attention over it (`parallel.sequence`), each window's time
+        axis split over its ranks; the attention artifact is then the CLS
+        row, as on the flash path."""
+        self.encoder_fn = None
+        if seq_mesh is not None:
+            if cfg.model.temporal.use_flash is False:
+                # --flash off promises the reference's full (L, L)
+                # attention artifact, which the ring never forms
+                raise ValueError(
+                    "seq_mesh with use_flash=False (--flash off): "
+                    "sequence parallelism only exports the CLS-row "
+                    "attention artifact, which --flash off promises not "
+                    "to do; drop --flash off or --seq-parallel")
+            from sais_tpu_torch.parallel.sequence import ring_encoder_fn
+            self.encoder_fn = ring_encoder_fn(seq_mesh, cfg.model.temporal)
         self.cfg = cfg
         self.device_batch = device_batch
         self.device = resolve_device(device)
@@ -476,7 +574,8 @@ class GestureDecoder:
                 out = prototypes_forward(
                     model, mcfg, dev(tta.rgb, use_rgb),
                     dev(tta.rgb_mask, use_rgb), dev(tta.flow, use_flow),
-                    dev(tta.flow_mask, use_flow))
+                    dev(tta.flow_mask, use_flow),
+                    encoder_fn=self.encoder_fn)
                 yield out, prototype_probs(out.video_rep, protos)
 
     def _run_batch(self, model: FullModel, protos: torch.Tensor,

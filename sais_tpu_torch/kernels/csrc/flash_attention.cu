@@ -1,5 +1,5 @@
-// K2: masked flash-attention forward in f32, for Hopper (sm_90a), its
-// products on the tensor cores in 3xTF32.
+// K2: masked flash-attention forward in f32, for Hopper (sm_90a): q' K^T
+// on the tensor cores in 3xTF32, P V on f32 FFMA.
 //
 // Replaces sais_tpu/kernels/flash_attention.py::_flash_fwd_kernel (reached
 // through flash_attention -> _run_fwd), the Pallas kernel that streams key
@@ -17,20 +17,31 @@
 // row of a batch element whose keys are all masked (flash_attention.py:496).
 //
 // Products: the JAX kernel rounds nowhere below f32, and a single TF32
-// pass keeps about three decimal digits, so each f32 product runs as three
-// TF32 products of a big / small split (flash_tf32.cuh): f32 FFMA's
-// accuracy on the tensor cores.  q' is split after the scaling; the bias is
-// added after the product and never split, so a masked score is exactly
-// -1e30 and an all-masked element's lse exactly -1e30, as before.
+// pass keeps about three decimal digits.  q' K^T runs as three TF32
+// products of a big / small split (flash_tf32.cuh): f32 FFMA's accuracy
+// on the tensor cores.  q' is split after the scaling; the bias is added
+// after the product and never split, so a masked score is exactly -1e30
+// and an all-masked element's lse exactly -1e30.  P V runs on f32 FFMA
+// with round-to-nearest sums (below).
+//
+// Where the signed error came from (chip_smoke.py's classification
+// phase, the tf32_sum_probe micro-kernel): the tensor core truncates each
+// k-step's part of a score toward zero, so every score's magnitude shrank
+// (-3.8e-8 of the mean |score| over a head width of 96) and the softmax
+// came out flatter; at the MIL fit's first layer K2's output sat 18.6x the
+// dense f32 path's signed error from float64.  Each score's k-step parts
+// now get `unbias` (mma3<kWidthTie>).  P V's sums over keys in 3xTF32
+// with the same tie erred the other way as much, so together they read
+// 34.5x; P V on FFMA and the tied scores read 1.42x.
 //
 // What bounds it on an H100 (SXM data-sheet peaks at 700 W): two chained
-// products of 2 Dh flops per (query, valid key) pair, three TF32 products
-// each, at 494.7 TFLOP/s dense TF32, against reading q, k, v and the bias
-// and writing out and lse once at 3.35 TB/s.  At the steps path's (B*S =
-// 132, H = 4, L = 301, Dh = 96) that is 18.4 GFLOP (55.1 of TF32) against
-// 245 MB: 0.111 ms against 0.073 ms, bound by operations (the same work
-// on f32 FFMA, 67 TFLOP/s, would take 0.274 ms).  At (8, 4, 2001, 96)
-// masked, 40.7 GFLOP against 99 MB: 0.247 ms.
+// products of 2 Dh flops per (query, valid key) pair, q' K^T's three TF32
+// products at 494.7 TFLOP/s dense TF32 and P V's one at 67 TFLOP/s f32,
+// against reading q, k, v and the bias and writing out and lse once at
+// 3.35 TB/s.  At the steps path's (B*S = 132, H = 4, L = 301, Dh = 96)
+// that is 18.4 GFLOP against 245 MB: 0.193 ms against 0.073 ms, bound by
+// operations.  At (8, 4, 2001, 96) masked, 40.7 GFLOP against 99 MB:
+// 0.427 ms.
 //
 // Design:
 //
@@ -43,22 +54,18 @@
 //   are requested with cp.async before tile i's products.  Tiles of 32
 //   keep the block at 102,656 bytes at Dh 96 (the two q' planes, two
 //   stages of K and V), so two blocks share an SM.  Rows are padded to
-//   Dh + 4 floats; q' and K are read by row (s = q' K^T), V by column in
-//   the permuted order (P V), all free of bank conflicts.
+//   Dh + 4 floats; q' and K are read by row (s = q' K^T), V by row (P V),
+//   all free of bank conflicts.
 // - s = q' K^T, 16 x 32 a warp, lands in the m16n8 C fragments: each row's
 //   32 scores lie in the 4 threads of a quad, which reduce the row max and
-//   sum with two shuffles.  P = exp(s - m) stays in those registers and is
-//   the A operand of P V as it lies (the permuted k order of
-//   flash_tf32.cuh): no trip through shared memory.
-// - acc = acc * alpha, then the tile's P V is added a k-step at a time,
-//   each k-step's part rounded into acc (accumulate_product, mma3): the
-//   tensor core truncates as it accumulates, and summed straight into acc
-//   over 8193 keys that error grew several times past f32 FFMA's.  So is
-//   each score's sum over the head width.  P V's parts are also unbiased
-//   (`unbias`): p >= 0, so they share v's sign column by column, and
-//   their truncations would still add up.  At Dh 192 the k-steps of q' K^T
-//   run in a loop that is not unrolled, which keeps the kernel in
-//   registers.
+//   sum with two shuffles.  Each k-step's part of a score is rounded into
+//   the score with `unbias` (mma3<kWidthTie>).  P = exp(s - m) stays in
+//   those registers.  At Dh 192 the k-steps of q' K^T run in a loop that
+//   is not unrolled, which keeps the kernel in registers.
+// - acc = acc * alpha, then P V on FFMA, keys in order: each p of the
+//   thread's two rows comes from the quad lane that holds it (a shuffle),
+//   and V's row is read from shared memory as float2 at the thread's
+//   output columns, the same row for the whole warp (a broadcast).
 // - The last key tile is zero-filled and its missing keys get a bias of
 //   -inf, so their p is exactly 0 (the TPU's -1e30 pad keys give 0 on every
 //   row that has a valid key).  Rows past Lq are zero and never stored.
@@ -229,7 +236,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int n = 0; n < NKT; ++n) {
         const float* kr = Ks + (8 * n + g) * LD + 8 * kk + t;
-        mma3(s[n], a, split(kr[0]), split(kr[4]));
+        mma3<kWidthTie>(s[n], a, split(kr[0]), split(kr[4]));
       }
     }
 
@@ -262,11 +269,33 @@ __global__ void __launch_bounds__(THREADS, 2)
       m[i] = m_new;
     }
 
-    // acc = acc * alpha + P V: P from the score registers, V read by
-    // column, each k-step's part rounded in (accumulate_product)
-    accumulate_product<NKT, KS, LD, 0, kKeysTie>(
-        acc, s, Vs + 2 * t * LD + g,
-        [&](float x, int e) { return x * alpha[e >> 1]; });
+    // acc = acc * alpha + P V on f32 FFMA, keys in order: each p of the
+    // thread's two rows comes from the quad lane that holds it, V's row
+    // is read as float2 at the thread's columns 8 j + 2 t (+1), one row
+    // for the whole warp (a broadcast, no bank conflict)
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    const int quad = lane & ~3;
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int src = 0; src < 4; ++src)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p0 = __shfl_sync(0xffffffffu, s[n][c], quad | src);
+          const float p1 = __shfl_sync(0xffffffffu, s[n][2 + c], quad | src);
+          const float* vr = Vs + (8 * n + 2 * src + c) * LD + 2 * t;
+#pragma unroll
+          for (int j = 0; j < KS; ++j) {
+            const float2 vv = *reinterpret_cast<const float2*>(vr + 8 * j);
+            acc[j][0] = __fmaf_rn(p0, vv.x, acc[j][0]);
+            acc[j][1] = __fmaf_rn(p0, vv.y, acc[j][1]);
+            acc[j][2] = __fmaf_rn(p1, vv.x, acc[j][2]);
+            acc[j][3] = __fmaf_rn(p1, vv.y, acc[j][3]);
+          }
+        }
     __syncthreads();   // stage cur free for tile it + 2
   }
 

@@ -64,7 +64,10 @@
 //   sums that error shrank them coherently (K3's dq sat -9e-7 of its mean
 //   from float64 at the MIL fit's shapes, 20x the dense f32 path's).  The
 //   parts of the sums over keys (dq, dk, dv) are also unbiased (`unbias`
-//   in flash_tf32.cuh, kKeysTie).  The
+//   in flash_tf32.cuh, kKeysTie), and so are the parts of each recomputed
+//   score (kWidthTie), as K2 forms them: p = exp(s - lse) must see the
+//   scores whose lse K2 saved (with untied scores here, each p came out
+//   low and dv read 4.7x the dense path's signed error).  The
 //   dq kernel forms s, then dp, one product at a time.  Up to Dh 96 dk and
 //   dv are one launch; at Dh 96 its thread forms p^T and adds it into dv
 //   before it forms dp^T, so that the two running sums (96 floats) never
@@ -377,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
         const float* kr = Ks + (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(s[n], aq, load_b<PL>(kr), load_b<PL>(kr + 4));
+        mma3<kWidthTie>(s[n], aq, load_b<PL>(kr), load_b<PL>(kr + 4));
       }
     }
 #pragma unroll
@@ -574,7 +577,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
         const float* qr = Qs + (c0 + 8 * n + g) * LD + 8 * kk + t;
-        mma3(st[n], a, load_b<PL>(qr), load_b<PL>(qr + 4));
+        mma3<kWidthTie>(st[n], a, load_b<PL>(qr), load_b<PL>(qr + 4));
       }
     }
     const int row = (c0 + 2 * t) * LD + g + col0;

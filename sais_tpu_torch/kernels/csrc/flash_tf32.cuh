@@ -1,6 +1,6 @@
-// Shared by K2 (flash_attention.cu) and K3 (flash_attention_bwd.cu): f32
-// products on Hopper's tensor cores through a 3xTF32 split, and the
-// cp.async copies that stage their tiles.
+// Shared by K2 (flash_attention.cu, its q' K^T) and K3
+// (flash_attention_bwd.cu): f32 products on Hopper's tensor cores through a
+// 3xTF32 split, and the cp.async copies that stage their tiles.
 //
 // The split (the "3xTF32" of CUTLASS's fast-accurate f32 GEMM):
 //
@@ -106,18 +106,23 @@ __device__ __forceinline__ float unbias(float t) {
 }
 
 // What a running sum adds up, which decides how mma3 treats its parts:
-//   kWidth     a sum over the head width (the scores s and dp): parts of
+//   kWidth     a sum over the head width (K3's scores s and dp): parts of
 //              either sign, added as they are; the part starts from c * 0
 //              (c is finite), so each k-step waits for the last one's sum:
 //              without that dependency ptxas ran many k-steps' parts at
 //              once and spilled.
-//   kKeysTie   a sum over keys whose parts may share one sign (P V in
-//              K2; dS K, P^T dO, dS^T q' in K3): p >= 0, so wherever v's
-//              column or the cotangent's keeps its sign every part has
-//              that sign, and each part is `unbias`ed; the sum starts
-//              from plain zeros, which ptxas keeps in registers and
-//              schedules faster than c * 0 there.
-enum Sum { kWidth, kKeysTie };
+//   kWidthTie  as kWidth, each part `unbias`ed (K2's scores): the parts'
+//              truncations are of either sign, but each one shrinks the
+//              part's magnitude, and the part's sign leans to the sum's,
+//              so the sum's magnitude shrank (-3.8e-8 of the mean |s| over
+//              a width of 96; tf32_sum_probe.cu) and the softmax flattened.
+//   kKeysTie   a sum over keys whose parts may share one sign (dS K, P^T
+//              dO, dS^T q' in K3): p >= 0, so wherever v's column or the
+//              cotangent's keeps its sign every part has that sign, and
+//              each part is `unbias`ed; the sum starts from plain zeros,
+//              which ptxas keeps in registers and schedules faster than
+//              c * 0 there.
+enum Sum { kWidth, kKeysTie, kWidthTie };
 
 // c += a b in 3xTF32 for one k-step of 8, b given as its split (s0 the
 // value at row t, s1 at row t + 4): the three products run into a
@@ -133,7 +138,7 @@ template <Sum S = kWidth>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, Split s0,
                                      Split s1) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  if (S == kWidth)
+  if (S != kKeysTie)
 #pragma unroll
     for (int e = 0; e < 4; ++e) t[e] = c[e] * 0.f;
   mma(t, a.small, s0.big, s1.big);
@@ -141,7 +146,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, Split s0,
   mma(t, a.big, s0.big, s1.big);
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    c[e] = __fadd_rn(c[e], S == kKeysTie ? unbias(t[e]) : t[e]);
+    c[e] = __fadd_rn(c[e], S == kWidth ? t[e] : unbias(t[e]));
 }
 
 // A B value from shared memory.  PLANE == 0: the tile holds f32 values,

@@ -326,3 +326,31 @@ def make_fused_dino_loss(student_temp: float, batch: int, n_global: int,
                                    ht, vt, gt, center, temp_t, sel, c)
 
     return op
+
+
+def make_fused_dino_loss_dp(student_temp: float, local_batch: int,
+                            n_global: int, n_crops: int, total, n_shards: int,
+                            norm_last_layer: bool = True):
+    """The data-parallel fused last layer + loss (JAX
+    `make_fused_dino_loss_dp`, dino_head_loss.py:333-400): K7 runs on this
+    rank's images (whole images, image-major, the pair structure of
+    `local_batch` images), normalized by the global batch, and
+
+      loss   = total(local pair-CE sums) / (global_B * n_terms)
+      center = total(local teacher-row means) / n_shards
+
+    with `total` a sum over the batch's shards (`DataParallel.total`),
+    whose backward all-reduces the cotangent: K7's dh_s stays local, its
+    dv and dg are this rank's shares, summed with the other gradients by
+    `all_reduce_grads`.  No kernel of its own.  Same signature as
+    `make_fused_dino_loss`'s op."""
+    inv_norm = 1.0 / (local_batch * n_shards * n_global * (n_crops - 1))
+    use_g = not norm_last_layer
+
+    def op(hs, vs, gs, ht, vt, gt, center, temp_t, sel, c):
+        loss, batch_center = FusedDinoLoss.apply(
+            student_temp, inv_norm, use_g, hs, vs, gs, ht, vt, gt, center,
+            temp_t, sel, c)
+        return total(loss), total(batch_center.detach()) / n_shards
+
+    return op

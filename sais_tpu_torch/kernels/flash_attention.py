@@ -9,9 +9,11 @@ launch the hand-written kernels of `csrc/flash_attention.cu` (K2) and
 `csrc/flash_attention_bwd.cu` (K3); for a CPU tensor they run the plain
 PyTorch versions `flash_attention_reference` and
 `flash_attention_bwd_reference`.  Neither falls back from one to the
-other.  The kernels run each f32 product on the tensor cores as three TF32
-products of a big / small split of its operands (3xTF32,
-`csrc/flash_tf32.cuh`), which keeps f32 accuracy.
+other.  The kernels run their f32 products on the tensor cores as three
+TF32 products of a big / small split of the operands (3xTF32,
+`csrc/flash_tf32.cuh`), which keeps f32 accuracy; K2's P V runs on f32
+FFMA, whose round-to-nearest sums keep its signed error at the dense f32
+path's (`csrc/flash_attention.cu`).
 
 Semantics kept from the JAX kernels:
 

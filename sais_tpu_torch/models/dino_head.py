@@ -29,7 +29,7 @@ head and loss, never K7 (JAX refuses the fused loss with it).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -70,7 +70,8 @@ class DINOHead(nn.Module):
 
 
 def _batch_norm(h: torch.Tensor, bn: BatchNormAffine,
-                state: Dict[str, torch.Tensor], train: bool
+                state: Dict[str, torch.Tensor], train: bool,
+                total: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """BatchNorm1d over rows: (normalized at h's dtype, new state).
 
@@ -79,12 +80,21 @@ def _batch_norm(h: torch.Tensor, bn: BatchNormAffine,
     semantics, momentum 0.1, eps 1e-5); gradients flow through the batch
     statistics.  A batch of one uses n / max(n - 1, 1), as the JAX
     package does (torch raises there).  Eval mode uses the running
-    statistics.  The arithmetic is float32."""
+    statistics.  The arithmetic is float32.  total: turns a sum over
+    these rows into one over the whole batch (a data-parallel rank's
+    `DataParallel.total`): the statistics then span every rank's rows, as
+    under JAX's sharded jit (train/dino.py:374-379)."""
     h32 = h.float()
-    if train:
+    if train and total is not None:
+        n = int(total(torch.tensor(float(h.shape[0]),
+                                   device=h.device)).item())
+        mean = total(h32.sum(0)) / n
+        var = total((h32 - mean).square().sum(0)) / n
+    elif train:
         mean = h32.mean(0)
         var = (h32 - mean).square().mean(0)
         n = h.shape[0]
+    if train:
         unbiased = var.detach() * (n / max(n - 1, 1))
         new_state = {
             "mean": (1 - _BN_MOMENTUM) * state["mean"]
@@ -131,7 +141,8 @@ def dino_head_bn_init(head: DINOHead, device=None) -> BNState:
 
 def dino_head_bottleneck(head: DINOHead, x: torch.Tensor,
                          bn_state: Optional[BNState] = None,
-                         train: bool = True):
+                         train: bool = True,
+                         total: Optional[Callable] = None):
     """MLP + L2 row normalization (vision_transformer.py:283-287).  The
     products run at x's dtype with the parameters cast at use, GELU in
     float32; the normalization divides by a float32 norm, so the result is
@@ -140,7 +151,9 @@ def dino_head_bottleneck(head: DINOHead, x: torch.Tensor,
 
     A BatchNorm head needs `bn_state` (`dino_head_bn_init`).  Given a
     `bn_state`, the return is (h, new_bn_state), as in the JAX package
-    also for a head without BatchNorm (whose new state is then [])."""
+    also for a head without BatchNorm (whose new state is then []).
+    total: the BatchNorm statistics over every data-parallel rank's rows
+    (`_batch_norm`)."""
     h = x
     new_state = [] if bn_state is not None else None
     for i, lin in enumerate(head.mlp):
@@ -150,7 +163,7 @@ def dino_head_bottleneck(head: DINOHead, x: torch.Tensor,
                 raise ValueError(
                     "use_bn head needs bn_state (dino_head_bn_init)")
             h, st = _batch_norm(h, head.bn[i], bn_state[len(new_state)],
-                                train)
+                                train, total)
             new_state.append(st)
         if i < len(head.mlp) - 1:
             h = F.gelu(h.float()).to(x.dtype)

@@ -31,7 +31,7 @@ padding; slot 0 (CLS) is never padded.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -114,14 +114,20 @@ def resolve_flash(cfg: ModelConfig, seq_len: int, device: torch.device
 
 def temporal_features(model: FullModel, reps: torch.Tensor,
                       pad_mask: Optional[torch.Tensor],
-                      cfg: ModelConfig) -> TemporalOutput:
+                      cfg: ModelConfig,
+                      encoder_fn: Optional[Callable] = None
+                      ) -> TemporalOutput:
     """prepareInputForTransformer + aggregateInputs (prepare_model.py:179-221).
 
     With cfg.self_attention=False (the reference CLI without -sa,
     prepare_model.py:296-301, 352-355) the encoder, positional embeddings
     and CLS token are skipped: the snippet track is a plain mean over the
     padded frame axis, pad rows included (the reference's torch.mean(x,
-    2)), and the attention is the reference's ones((1, 1))."""
+    2)), and the attention is the reference's ones((1, 1)).
+
+    encoder_fn(encoder, x, mask) -> (out, attn), optional: runs the frame
+    encoder in place of `encoder_forward` (the ring of
+    `parallel.sequence`)."""
     if not cfg.self_attention:
         return TemporalOutput(None, reps.mean(dim=2),
                               torch.ones((1, 1), dtype=reps.dtype,
@@ -135,9 +141,12 @@ def temporal_features(model: FullModel, reps: torch.Tensor,
     cls = model.frame_cls.to(reps.dtype).expand(b, s, 1, d)
     x = torch.cat([cls, x], dim=2).reshape(b * s, f + 1, d)
     mask = pad_mask.reshape(b * s, f + 1) if pad_mask is not None else None
-    out, attn = encoder_forward(model.frame_encoder, x, cfg.temporal, mask,
-                                use_flash=resolve_flash(cfg, f + 1,
-                                                        reps.device))
+    if encoder_fn is not None:
+        out, attn = encoder_fn(model.frame_encoder, x, mask)
+    else:
+        out, attn = encoder_forward(model.frame_encoder, x, cfg.temporal,
+                                    mask, use_flash=resolve_flash(
+                                        cfg, f + 1, reps.device))
     full_seq = torch.relu(out).reshape(b, s, f + 1, d)
     return TemporalOutput(full_seq, full_seq[:, :, 0, :], attn)
 
@@ -147,7 +156,8 @@ def prototypes_forward(model: FullModel, cfg: ModelConfig,
                        rgb_mask: Optional[torch.Tensor] = None,
                        flow: Optional[torch.Tensor] = None,
                        flow_mask: Optional[torch.Tensor] = None,
-                       primary_domain: Optional[torch.Tensor] = None
+                       primary_domain: Optional[torch.Tensor] = None,
+                       encoder_fn: Optional[Callable] = None
                        ) -> PrototypesOutput:
     """Prototypes-task forward for one TTA version of the inputs
     (prepare_model.py:304-421): each modality runs the shared frame
@@ -158,13 +168,14 @@ def prototypes_forward(model: FullModel, cfg: ModelConfig,
 
     primary_domain: optional (B,) bool for the multi-task setting ('+' in
     domain, prepare_model.py:406-416): True rows project through `linear`
-    (the NH_02 head), False rows through `linearB`."""
+    (the NH_02 head), False rows through `linearB`.  encoder_fn: as in
+    `temporal_features`."""
     pooled = attn = full_seq = None
     if cfg.modalities in ("RGB", "RGB-Flow"):
-        t = temporal_features(model, rgb, rgb_mask, cfg)
+        t = temporal_features(model, rgb, rgb_mask, cfg, encoder_fn)
         pooled, attn, full_seq = t.cls_seq.mean(dim=1), t.attn, t.full_seq
     if cfg.modalities in ("Flow", "RGB-Flow"):
-        tf = temporal_features(model, flow, flow_mask, cfg)
+        tf = temporal_features(model, flow, flow_mask, cfg, encoder_fn)
         fpooled = tf.cls_seq.mean(dim=1)
         pooled = fpooled if pooled is None else pooled + fpooled
         if attn is None:

@@ -17,15 +17,18 @@ Counterpart of `sais_tpu/train/classification.py` (`make_weighted_loss`,
 
 `RawClassificationTrainer` trains the ClassificationHead task on raw
 video snippets through an R3D-18 or ViT encoder (`data.raw`), frozen by
-default.  Eager PyTorch on one device (the card unless `device='cpu'`).
-Data-parallel training (`mesh`) is refused (ROADMAP.md Queue 1,
-'Parallelism, on torch.distributed').
+default.  Eager PyTorch, one device a process (the card unless
+`device='cpu'`).  With a `mesh` each rank takes its block of the batch
+padded with 'weight' rows, the loss is the masked mean over the whole
+padded batch from sums over the ranks, and the gradients are summed in
+one flat buffer (`parallel.mesh.DataParallel`; JAX's jit over the mesh,
+classification.py:122).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +46,14 @@ TASKS = ("MIL", "ClassificationHead")
 
 
 def make_weighted_loss(logits_fn: Callable[[FullModel, Dict], torch.Tensor],
-                       nclasses: int):
+                       nclasses: int, total: Optional[Callable] = None):
     """loss_fn(model, batch) -> (loss, logits): CE (or BCEWithLogits when
     nclasses == 1) of logits_fn's logits against batch['labels'], with an
     optional batch['weight'] (B,) 0 / 1 that drops padded rows from the
-    loss and its gradients (sum(per * weight) / max(sum(weight), 1))."""
+    loss and its gradients (sum(per * weight) / max(sum(weight), 1)).
+    total: turns a sum over these rows into one over the whole batch (a
+    data-parallel rank's `DataParallel.total`)."""
+    total = total or (lambda x: x)
 
     def loss_fn(model: FullModel, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,7 +69,8 @@ def make_weighted_loss(logits_fn: Callable[[FullModel, Dict], torch.Tensor],
         if weight is None:
             return per.mean(), logits
         weight = weight.to(per.dtype)
-        return (per * weight).sum() / weight.sum().clamp(min=1.0), logits
+        return (total((per * weight).sum())
+                / total(weight.sum()).clamp(min=1.0), logits)
 
     return loss_fn
 
@@ -76,10 +83,6 @@ class ClassificationTrainer:
                  device: DeviceLike = None):
         if task not in TASKS:
             raise ValueError(f"task {task!r} is not one of {TASKS}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training (mesh) is not ported yet (ROADMAP.md "
-                "Queue 1, 'Parallelism, on torch.distributed')")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.task = task
@@ -87,7 +90,15 @@ class ClassificationTrainer:
         self.model = model.to(self.device)
         self.optimizer = torch.optim.SGD(self.model.parameters(),
                                          lr=train_cfg.lr)
-        self.loss_fn = make_weighted_loss(self._logits, model_cfg.nclasses)
+        self.mesh = mesh
+        self.dp = None
+        if mesh is not None:
+            from sais_tpu_torch.parallel import mesh as mesh_lib
+            self.dp = mesh_lib.DataParallel(mesh, mesh)
+            mesh_lib.replicate(self.model, mesh)
+        self.loss_fn = make_weighted_loss(
+            self._logits, model_cfg.nclasses,
+            None if self.dp is None else self.dp.total)
 
     def _logits(self, model: FullModel, b: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
@@ -103,20 +114,34 @@ class ClassificationTrainer:
         return logits.mean(dim=1) if logits.dim() == 3 else logits
 
     def _device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        batch = {k: v for k, v in batch.items() if k != "tta"}
+        if self.dp is not None:
+            batch = self.dp.shard(batch)
         return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items() if k != "tta"}
+                for k, v in batch.items()}
+
+    def _params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def _rows(self, logits: torch.Tensor) -> torch.Tensor:
+        return logits if self.dp is None else self.dp.rows(logits)
 
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One SGD step; returns (loss, pre-update logits), detached."""
+        """One SGD step; returns (loss, pre-update logits of the padded
+        batch's rows), detached."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, logits = self.loss_fn(self.model, self._device_batch(batch))
-        loss.backward()
+        if self.dp is None:
+            loss.backward()
+        else:
+            self.dp.backward(loss, self._params())
         self.optimizer.step()
-        return loss.detach(), logits.detach()
+        return loss.detach(), self._rows(logits.detach())
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.loss_fn(self.model, self._device_batch(batch))
+        loss, logits = self.loss_fn(self.model, self._device_batch(batch))
+        return loss, self._rows(logits)
 
     def run_epoch(self, batches: Iterable[Batch], train: bool
                   ) -> Tuple[float, Dict[str, float]]:
@@ -196,6 +221,9 @@ class RawClassificationTrainer(ClassificationTrainer):
         self.freeze_encoder = freeze_encoder
         self.encoder = encoder.to(self.device)
         self.encoder.requires_grad_(not freeze_encoder)
+        if mesh is not None:
+            from sais_tpu_torch.parallel.mesh import replicate
+            replicate(self.encoder, mesh)
         if not freeze_encoder:
             self.optimizer = torch.optim.SGD(
                 [*self.model.parameters(), *self.encoder.parameters()],

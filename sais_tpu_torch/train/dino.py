@@ -34,8 +34,16 @@ PyTorch.  With `use_bn_in_head` both heads run their BatchNorms in train
 mode over all their rows at once (the student's every crop, the
 teacher's globals), the plain head and loss always; the running
 statistics (`student_bn`, `teacher_bn`) leave the gradient, are never
-EMA'd, and travel in `state()`.  Data-parallel steps (`mesh`) are not
-ported (ROADMAP.md Queue 1, 'Parallelism, on torch.distributed').
+EMA'd, and travel in `state()`.
+
+With a `mesh` (data parallel, JAX's sharded jit step) each rank takes
+its block of the crops (whole images, image-major) and runs the
+backbones on them; K7 runs on its rows under `make_fused_dino_loss_dp`
+(the loss and the batch center summed over the ranks, dh_s local), the
+plain loss and a BatchNorm head take their sums over every rank's rows,
+and the gradients are summed in one flat buffer before the clipping
+(`parallel.mesh.DataParallel`).  Every rank applies the same update and
+the same teacher EMA.  The batch must divide over the shards.
 
 Crops are batched per resolution group, image-major ([img0 crop0, img0
 crop1, ...], `ops.augment.multi_crop_batch`'s layout), so the backbone runs
@@ -56,7 +64,8 @@ import torch.nn as nn
 from sais_tpu_torch import DeviceLike, resolve_device
 from sais_tpu_torch.config import ViTConfig
 from sais_tpu_torch.kernels.dino_head_loss import (build_pair_structure,
-                                                   make_fused_dino_loss)
+                                                   make_fused_dino_loss,
+                                                   make_fused_dino_loss_dp)
 from sais_tpu_torch.models.dino_head import (dino_head_bn_init,
                                              dino_head_bottleneck,
                                              dino_head_init,
@@ -124,14 +133,19 @@ def teacher_temp_schedule(cfg: DINOConfig, epochs: int) -> np.ndarray:
 
 def dino_loss(student_out: Sequence[torch.Tensor],
               teacher_out: Sequence[torch.Tensor], center: torch.Tensor,
-              teacher_temp: float, student_temp: float = 0.1
+              teacher_temp: float, student_temp: float = 0.1,
+              total: Optional[Callable] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DINOLoss.forward (main_dino.py:601-621): (loss, batch center mean).
 
     student_out: list over crops of (B, K) logits; teacher_out: list over
     global crops.  The reference's double loop sums -q_iq . logp_v over
     every pair with v != iq; this is the same sum in 3 passes:
-    -(sum_iq q_iq) . (sum_v logp_v) + sum_iq q_iq . logp_iq."""
+    -(sum_iq q_iq) . (sum_v logp_v) + sum_iq q_iq . logp_iq.
+
+    total: turns a sum over these images into one over the whole batch (a
+    data-parallel rank's `DataParallel.total`): the mean over images and
+    the batch center then span every rank's."""
     q = [torch.softmax((t.float() - center) / teacher_temp, -1).detach()
          for t in teacher_out]
     logp = [torch.log_softmax(s.float() / student_temp, -1)
@@ -142,15 +156,20 @@ def dino_loss(student_out: Sequence[torch.Tensor],
     for iq in range(len(q)):
         per_elem = per_elem + q[iq] * logp[iq]
     n_terms = len(q) * (len(student_out) - 1)
-    total = per_elem.sum(-1).mean() / n_terms
-    batch_center = torch.cat([t.detach().float() for t in teacher_out],
-                             0).mean(0)
-    return total, batch_center
+    teacher = torch.cat([t.detach().float() for t in teacher_out], 0)
+    if total is None:
+        return per_elem.sum(-1).mean() / n_terms, teacher.mean(0)
+    count = total(torch.tensor([float(per_elem.shape[0]),
+                                float(teacher.shape[0])],
+                               device=teacher.device))
+    return (total(per_elem.sum(-1).sum()) / (count[0] * n_terms),
+            total(teacher.sum(0)) / count[1])
 
 
 def plain_head_loss(hs, vs, gs, ht, vt, gt, center, teacher_temp, *,
                     n_global: int, n_local: int, student_temp: float,
-                    norm_last_layer: bool = True
+                    norm_last_layer: bool = True,
+                    total: Optional[Callable] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The unfused counterpart of K7, with its arguments (hs, vs, gs, ht,
     vt, gt, center, temp_t): the bf16 last layers of student and teacher
@@ -169,7 +188,7 @@ def plain_head_loss(hs, vs, gs, ht, vt, gt, center, teacher_temp, *,
     if s_out.shape[0] > n_gr:
         souts += regroup(s_out[n_gr:], n_local)
     return dino_loss(souts, regroup(t_out, n_global), center, teacher_temp,
-                     student_temp)
+                     student_temp, total)
 
 
 def update_center(center: torch.Tensor, batch_center: torch.Tensor,
@@ -295,12 +314,13 @@ def _to_device(obj, device):
     return obj
 
 
-def fused_loss_auto(cfg: DINOConfig, device: torch.device) -> bool:
+def fused_loss_auto(cfg: DINOConfig, device: torch.device,
+                    dp_size: int = 1) -> bool:
     """JAX's auto rule for the fused last layer + loss (K7), with the card
     in place of the TPU: on a CUDA device, without the BatchNorm head, at
-    out_dim a multiple of 128 (one shard: the port has no mesh)."""
+    out_dim a multiple of 128, the batch dividing over `dp_size` shards."""
     return (device.type == "cuda" and not cfg.use_bn_in_head
-            and cfg.out_dim % 128 == 0)
+            and cfg.out_dim % 128 == 0 and cfg.batch_size % dp_size == 0)
 
 
 class DINOTrainer:
@@ -317,12 +337,6 @@ class DINOTrainer:
         the teacher on K1; default on a CUDA device at batch >= 32, as the
         JAX package does on a TPU.  fused_loss: the last layer and loss on
         K7 (its plain version on the CPU); default `fused_loss_auto`."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel DINO pre-training (mesh) is not ported yet; "
-                "it comes with torch.distributed DDP and K7's per-shard "
-                "wrapper (ROADMAP.md Queue 1, 'Parallelism, on "
-                "torch.distributed')")
         if fused_loss and cfg.use_bn_in_head:
             raise ValueError(
                 "fused_loss is incompatible with use_bn_in_head: the "
@@ -336,9 +350,23 @@ class DINOTrainer:
             fused_blocks = (cfg.batch_size >= 32
                             and self.device.type == "cuda")
         self.fused_blocks = fused_blocks
+        self.mesh, self.dp = mesh, None
+        dp_size = 1
+        if mesh is not None:
+            from sais_tpu_torch.parallel import mesh as mesh_lib
+            self.dp = mesh_lib.DataParallel(mesh, mesh)
+            dp_size = self.dp.shards
         if fused_loss is None:
-            fused_loss = fused_loss_auto(cfg, self.device)
+            fused_loss = fused_loss_auto(cfg, self.device, dp_size)
         self.fused_loss = bool(fused_loss)
+        if cfg.batch_size % dp_size:
+            raise ValueError(
+                f"fused DINO loss under a {dp_size}-shard mesh needs "
+                f"batch_size % {dp_size} == 0, got {cfg.batch_size}; pass "
+                "fused_loss=False" if self.fused_loss else
+                f"DINO pre-training under a {dp_size}-shard mesh needs "
+                f"batch_size % {dp_size} == 0, got {cfg.batch_size}")
+        self.local_batch = cfg.batch_size // dp_size
         self.cfg = cfg
         self.vit_cfg = vit_cfg
         student = nn.ModuleDict({
@@ -346,6 +374,8 @@ class DINOTrainer:
             "head": dino_head_init(generator, vit_cfg.embed_dim, cfg.out_dim,
                                    use_bn=cfg.use_bn_in_head)})
         self.student = student.to(self.device)
+        if mesh is not None:
+            mesh_lib.replicate(self.student, mesh)
         self.teacher = copy.deepcopy(self.student).requires_grad_(False)
         self.center = torch.zeros((cfg.out_dim,), device=self.device)
         # BatchNorm running statistics, each network's from its own
@@ -370,15 +400,21 @@ class DINOTrainer:
         self.optimizer = OPTIMIZERS[optimizer]()
         self.opt_state = self.optimizer.init(self._params())
         if self.fused_loss:
-            sel, cnt = build_pair_structure(cfg.batch_size,
+            sel, cnt = build_pair_structure(self.local_batch,
                                             cfg.n_global_crops,
                                             cfg.n_local_crops)
             self._pairs = (torch.from_numpy(sel).to(self.device),
                            torch.from_numpy(cnt).to(self.device))
-            self._fused_op = make_fused_dino_loss(
-                cfg.student_temp, cfg.batch_size, cfg.n_global_crops,
-                cfg.n_global_crops + cfg.n_local_crops,
-                norm_last_layer=cfg.norm_last_layer)
+            n_crops = cfg.n_global_crops + cfg.n_local_crops
+            if self.dp is not None:
+                self._fused_op = make_fused_dino_loss_dp(
+                    cfg.student_temp, self.local_batch, cfg.n_global_crops,
+                    n_crops, self.dp.total, dp_size,
+                    norm_last_layer=cfg.norm_last_layer)
+            else:
+                self._fused_op = make_fused_dino_loss(
+                    cfg.student_temp, cfg.batch_size, cfg.n_global_crops,
+                    n_crops, norm_last_layer=cfg.norm_last_layer)
 
     def _params(self) -> Tensors:
         return dict(self.student.named_parameters())
@@ -412,14 +448,15 @@ class DINOTrainer:
         feats = [self._backbone(self.student, globals_, generator)]
         if locals_ is not None and cfg.n_local_crops:
             feats.append(self._backbone(self.student, locals_, generator))
+        total = None if self.dp is None else self.dp.total
         hs = dino_head_bottleneck(self.student["head"],
                                   torch.cat(feats).to(torch.bfloat16),
-                                  self.student_bn)
+                                  self.student_bn, total=total)
         with torch.no_grad():
             ht = dino_head_bottleneck(
                 self.teacher["head"],
                 self._backbone_infer(self.teacher, globals_).to(
-                    torch.bfloat16), self.teacher_bn)
+                    torch.bfloat16), self.teacher_bn, total=total)
         if self.student_bn is not None:
             (hs, sbn), (ht, tbn) = hs, ht
             self._next_bn = ([{k: v.detach() for k, v in st.items()}
@@ -438,8 +475,10 @@ class DINOTrainer:
             return plain_head_loss(
                 *args, n_global=cfg.n_global_crops,
                 n_local=cfg.n_local_crops, student_temp=cfg.student_temp,
-                norm_last_layer=cfg.norm_last_layer)
-        exp_rows = (cfg.n_global_crops + cfg.n_local_crops) * cfg.batch_size
+                norm_last_layer=cfg.norm_last_layer,
+                total=None if self.dp is None else self.dp.total)
+        exp_rows = ((cfg.n_global_crops + cfg.n_local_crops)
+                    * self.local_batch)
         if hs.shape[0] != exp_rows:
             raise ValueError(
                 f"fused DINO loss built for batch {cfg.batch_size} "
@@ -490,7 +529,10 @@ class DINOTrainer:
             p.grad = None
         loss, batch_center = self.head_loss(
             *self.bottlenecks(globals_, locals_, generator), teacher_temp)
-        loss.backward()
+        if self.dp is None:
+            loss.backward()
+        else:
+            self.dp.backward(loss, list(self.student.parameters()))
         return loss, batch_center
 
     def step_async(self, globals_: torch.Tensor,
@@ -500,17 +542,27 @@ class DINOTrainer:
         (`check_loss`) so the host prepares the next batch meanwhile.
 
         globals_: (n_global*B, H, W, 3) normalized crops, image-major rows;
-        locals_: (n_local*B, h, w, 3) or None."""
+        locals_: (n_local*B, h, w, 3) or None; the whole batch's, of which
+        a rank of a mesh takes its block."""
         cfg = self.cfg
         i = min(self.step_idx, len(self.lr_sched) - 1)
         epoch = i // self.niter_per_ep
         lr, wd = float(self.lr_sched[i]), float(self.wd_sched[i])
         momentum = float(self.mom_sched[i])
         temp = float(self.temp_sched[min(epoch, len(self.temp_sched) - 1)])
+        seed = self.step_idx
+        if self.dp is not None:
+            # this rank's images; its own stochastic-depth draws
+            from sais_tpu_torch.parallel.mesh import data_sharding
+            sh = data_sharding(self.mesh)
+            globals_ = globals_[sh.rows(globals_.shape[0])]
+            if locals_ is not None:
+                locals_ = locals_[sh.rows(locals_.shape[0])]
+            seed = self.step_idx * sh.count + sh.index
         globals_ = globals_.to(self.device)
         locals_ = None if locals_ is None else locals_.to(self.device)
         # per-step stochastic-depth draws
-        gen = torch.Generator(device=self.device).manual_seed(self.step_idx)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
 
         params = self._params()
         loss, batch_center = self.loss_and_grads(globals_, locals_, temp,

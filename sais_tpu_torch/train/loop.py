@@ -19,11 +19,18 @@ perform_training.py:49-227):
   (loop.py:189-202);
 - a non-finite loss raises FloatingPointError.
 
-Eager PyTorch on one device (the card unless `device='cpu'`).  The
-temporal encoder's flash path is differentiable (K2 forward, K3 backward),
-so `resolve_flash` applies in training as in inference.  Data-parallel
-(`mesh`, with its padded-batch weights) and sequence-parallel (`seq_mesh`)
-training wait for the parallelism slice.
+Eager PyTorch, one device a process (the card unless `device='cpu'`).
+The temporal encoder's flash path is differentiable (K2 forward, K3
+backward), so `resolve_flash` applies in training as in inference.
+
+- `mesh` (data parallel): each rank takes its block of the batch padded
+  with 'weight' rows; the loss is JAX's masked mean over the whole padded
+  batch (loop.py:100-115), from sums over the ranks, and the gradients
+  are summed in one flat buffer (`parallel.mesh.DataParallel`).
+- `seq_mesh` (sequence parallel): the frame encoder runs as a ring over
+  the mesh's 'seq' axis (`parallel.sequence`); on a ('data', 'seq') mesh
+  with 'data' > 1 each data row of the mesh takes its block of the batch
+  and runs its own ring.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import torch.nn as nn
 from sais_tpu_torch import DeviceLike, resolve_device
 from sais_tpu_torch.config import ModelConfig, TrainConfig
 from sais_tpu_torch.models.full_model import FullModel, prototypes_forward
-from sais_tpu_torch.models.heads import nce_loss, prototype_probs
+from sais_tpu_torch.models.heads import (nce_loss, prototype_probs,
+                                         prototype_similarities)
 from sais_tpu_torch.train import metrics as metrics_lib
 from sais_tpu_torch.train.losses import importance_loss_reference
 
@@ -56,11 +64,11 @@ class PrototypeTrainer:
                  device: DeviceLike = None):
         """use_importance: add the importance loss at train steps (None:
         train_cfg.importance_loss); the model needs its importance head."""
-        if mesh is not None or seq_mesh is not None:
-            raise NotImplementedError(
-                "data- and sequence-parallel training (mesh / seq_mesh) are "
-                "not ported yet; they come with the parallelism slice "
-                "(ROADMAP.md Queue 1, 'Parallelism, on torch.distributed')")
+        if mesh is not None and seq_mesh is not None:
+            raise ValueError(
+                "pass either mesh (data parallel) or seq_mesh (sequence "
+                "parallel); for both at once build one seq_mesh(n_seq, "
+                "n_data) — its 'data' axis shards the batches")
         self.use_importance = (train_cfg.importance_loss
                                if use_importance is None else use_importance)
         self.model_cfg = model_cfg
@@ -72,40 +80,86 @@ class PrototypeTrainer:
             prototypes.detach().to(self.device, torch.float32).clone())
         self.optimizer = torch.optim.SGD(
             [*self.model.parameters(), self.prototypes], lr=train_cfg.lr)
+        self.mesh, self.seq_mesh = mesh, seq_mesh
+        self._encoder_fn = None
+        self.dp = None
+        if mesh is not None or seq_mesh is not None:
+            from sais_tpu_torch.parallel import mesh as mesh_lib
+            batch_mesh = mesh
+            if seq_mesh is not None:
+                from sais_tpu_torch.parallel.sequence import ring_encoder_fn
+                self._encoder_fn = ring_encoder_fn(
+                    seq_mesh, model_cfg.temporal, shard_batch=False)
+                if mesh_lib.axis_size(seq_mesh, mesh_lib.DATA_AXIS) > 1:
+                    batch_mesh = seq_mesh
+            self.dp = mesh_lib.DataParallel(mesh or seq_mesh, batch_mesh)
+            mesh_lib.replicate(self.model, mesh or seq_mesh)
+            mesh_lib.replicate(self.prototypes, mesh or seq_mesh)
 
     # -- steps ----------------------------------------------------------------
 
     def _device_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        batch = {k: v for k, v in batch.items() if k != "tta"}
+        if self.dp is not None:
+            batch = self.dp.shard(batch)
         return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items() if k != "tta"}
+                for k, v in batch.items()}
 
     def _loss(self, b: Dict[str, torch.Tensor], with_importance: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         out = prototypes_forward(self.model, self.model_cfg, b.get("rgb"),
                                  b.get("rgb_mask"), b.get("flow"),
-                                 b.get("flow_mask"), b.get("primary_domain"))
-        loss = nce_loss(out.video_rep, self.prototypes, b["label_cols"])
+                                 b.get("flow_mask"), b.get("primary_domain"),
+                                 encoder_fn=self._encoder_fn)
+        weight = b.get("weight")
+        total = None if self.dp is None else self.dp.total
+        labels = b.get("labels")
+        if weight is None:
+            loss = nce_loss(out.video_rep, self.prototypes, b["label_cols"])
+        else:
+            # padded batches: the masked mean over real rows (loop.py:
+            # 100-115), its sums over every rank's rows
+            logp = torch.log_softmax(prototype_similarities(
+                out.video_rep, self.prototypes), -1)
+            picked = logp.gather(1, b["label_cols"].long()[:, None])[:, 0]
+            weight = weight.to(picked.dtype)
+            loss = -total((picked * weight).sum()) / torch.clamp(
+                total(weight.sum()), min=1.0)
+            if labels is not None:
+                # padded rows must not count as low-skill (label 0)
+                labels = torch.where(weight > 0, labels,
+                                     torch.full_like(labels, -1))
         if with_importance:
             loss = loss + importance_loss_reference(
-                out.importances, b["importance"], b["ipad"], b["labels"])
+                out.importances, b["importance"], b["ipad"], labels,
+                weight=weight, total=total)
         return loss, out.video_rep
+
+    def _probs(self, reps: torch.Tensor) -> torch.Tensor:
+        probs = prototype_probs(reps, self.prototypes)
+        return probs if self.dp is None else self.dp.rows(probs)
 
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step; returns (loss, probabilities under the pre-update
-        prototypes), both detached on the device."""
+        prototypes, the padded batch's rows), both detached on the
+        device."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, reps = self._loss(self._device_batch(batch),
                                 self.use_importance)
-        loss.backward()
+        if self.dp is None:
+            loss.backward()
+        else:
+            self.dp.backward(loss, [*self.model.parameters(),
+                                    self.prototypes])
         with torch.no_grad():
-            probs = prototype_probs(reps, self.prototypes)
+            probs = self._probs(reps)
         self.optimizer.step()
         return loss.detach(), probs
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         loss, reps = self._loss(self._device_batch(batch), False)
-        return loss, prototype_probs(reps, self.prototypes)
+        return loss, self._probs(reps)
 
     # -- epochs ---------------------------------------------------------------
 
@@ -121,18 +175,18 @@ class PrototypeTrainer:
             cols = np.asarray(batch["label_cols"])
             if train:
                 loss, probs = self.train_step(batch)
-                loss, probs = float(loss), probs.cpu().numpy()
+                loss, probs = float(loss), probs.cpu().numpy()[:len(cols)]
             elif "tta" in batch:
                 # 3-way TTA at val / test (perform_training.py:126-128,
                 # 161-204): mean of the per-augment losses and of the
                 # per-augment prototype softmaxes
                 steps = [self.eval_step(v) for v in batch["tta"]]
                 loss = float(np.mean([float(l) for l, _ in steps]))
-                probs = np.mean(np.stack([p.cpu().numpy() for _, p in steps]),
-                                axis=0)
+                probs = np.mean(np.stack([p.cpu().numpy()[:len(cols)]
+                                          for _, p in steps]), axis=0)
             else:
                 loss, probs = self.eval_step(batch)
-                loss, probs = float(loss), probs.cpu().numpy()
+                loss, probs = float(loss), probs.cpu().numpy()[:len(cols)]
             if not np.isfinite(loss):
                 raise FloatingPointError(f"training loss is {loss}, stopping")
             losses.append(loss * len(cols))

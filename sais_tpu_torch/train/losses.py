@@ -18,7 +18,7 @@ Counterpart of `sais_tpu/train/losses.py`:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,7 +35,8 @@ def importance_loss_reference(output_importances: torch.Tensor,
                               importances: torch.Tensor,
                               ipad: torch.Tensor,
                               labels: torch.Tensor,
-                              weight: Optional[torch.Tensor] = None
+                              weight: Optional[torch.Tensor] = None,
+                              total: Optional[Callable] = None
                               ) -> torch.Tensor:
     """calcImportanceLoss (prepare_miscellaneous.py:48-60), quirk preserved.
 
@@ -47,21 +48,26 @@ def importance_loss_reference(output_importances: torch.Tensor,
 
     Without a low-skill row the loss is 0, as in the JAX package, and so
     is its gradient (JAX's is NaN there: the 0 / 0 of the jnp.where branch
-    it does not select)."""
+    it does not select).
+
+    total: optional, turns a sum over these rows into the sum over the
+    whole batch (a data-parallel rank's `DataParallel.total`), for every
+    sum the loss takes."""
+    total = total or (lambda x: x)
     scores = output_importances[:, :, 1:, 0]                  # (B, S, F)
     bce = _bce_with_logits(scores, importances)
     if weight is not None:
         w = weight.to(bce.dtype)[:, None, None]
-        scalar = (bce * w).sum() / torch.clamp(
-            w.sum() * bce.shape[1] * bce.shape[2], min=1.0)
+        scalar = total((bce * w).sum()) / torch.clamp(
+            total(w.sum()) * bce.shape[1] * bce.shape[2], min=1.0)
     else:
         scalar = bce.mean()                                   # the quirk
     inv = (~ipad)[:, :, :-1].to(bce.dtype)                    # (B, S, F)
     low = (labels == 0).to(bce.dtype)                         # (B,)
-    denom = low.sum() * inv.shape[1] * inv.shape[2]
-    total = (scalar * inv * low[:, None, None]).sum()
-    return torch.where(denom > 0, total / torch.clamp(denom, min=1.0),
-                       torch.zeros_like(total))
+    denom = total(low.sum()) * inv.shape[1] * inv.shape[2]
+    summed = total((scalar * inv * low[:, None, None]).sum())
+    return torch.where(denom > 0, summed / torch.clamp(denom, min=1.0),
+                       torch.zeros_like(summed))
 
 
 def masked_importance_loss(output_importances: torch.Tensor,

@@ -410,9 +410,6 @@ def test_classification_trainer_matches_jax(use_flash):
     for name, p in tr.model.state_dict().items():
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=0,
                                    atol=1e-4, err_msg=name)
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        tcls.ClassificationTrainer(cfg, tconfig.TrainConfig(), model,
-                                   mesh=object(), device="cpu")
 
 
 def test_sgd_leaves_members_without_gradient_alone():

@@ -460,8 +460,6 @@ def test_trainer_refusals_and_defaults():
         tdino.DINOTrainer(ViTConfig(**TINY),
                           tdino.DINOConfig(use_bn_in_head=True), 2,
                           fused_loss=True, **kw)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tdino.DINOTrainer(ViTConfig(**TINY), tcfg, 2, mesh=object(), **kw)
     # the BatchNorm head runs the plain head and loss (auto rule)
     bn = tdino.DINOTrainer(ViTConfig(**TINY), tdino.DINOConfig(
         **{**tcfg.__dict__, "use_bn_in_head": True}), 2, **kw)
@@ -519,12 +517,9 @@ def test_cli_pretrain_e2e_and_resume(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--data-parallel"], NotImplementedError, "data-parallel"),
-    (["--num-slices", "2"], NotImplementedError, "Parallelism"),
     (["--source", "flows"], SystemExit, "no flow dirs")])
 def test_cli_pretrain_refusals(tmp_path, flags, error, match):
-    """What pretrain refuses, and `--source flows` with an empty
-    <root>/flows, which exits."""
+    """`--source flows` with an empty <root>/flows exits."""
     from sais_tpu_torch.cli import main as cli
     os.makedirs(tmp_path / "flows")
     with pytest.raises(error, match=match):

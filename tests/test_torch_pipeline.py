@@ -4,7 +4,6 @@ CLI, the device default and the package's import isolation."""
 
 import io
 import os
-import re
 import subprocess
 import sys
 
@@ -232,7 +231,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 
 def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     """Every module of the port, imported in a fresh interpreter (among them
-    the serve daemon, the eval modules, port.verify and utils.profiling),
+    the serve daemon, the eval modules, port.verify, utils.profiling and
+    the parallel package: mesh, distributed, sequence and tp),
     leaves jax, the JAX package and its optimizer and checkpoint libraries
     (optax, orbax), the host libraries the port loads lazily (cv2, h5py,
     PIL) and the ones it does without (pandas, sklearn) out of
@@ -249,7 +249,9 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
         "need = ['sais_tpu_torch.cli.serve', 'sais_tpu_torch.port.verify',"
         " 'sais_tpu_torch.utils.profiling'] + ['sais_tpu_torch.eval.' + m"
         " for m in ('attention_viz', 'video_generation', 'probes',"
-        " 'retrieval', 'copy_detection', 'video_segmentation')]\n"
+        " 'retrieval', 'copy_detection', 'video_segmentation')]"
+        " + ['sais_tpu_torch.parallel.' + m for m in ('mesh',"
+        " 'distributed', 'sequence', 'tp')]\n"
         "bad += [m + ' not imported' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('sais_tpu_torch.')]), bad)\n")
@@ -260,61 +262,6 @@ def test_port_imports_no_jax_and_nothing_of_sais_tpu():
     assert res.returncode == 0, res.stderr
     count, bad = res.stdout.split(" ", 1)
     assert int(count) >= 35 and bad.strip() == "[]", res.stdout
-
-
-ROADMAP = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "ROADMAP.md")
-
-
-def _refuse(case, root):
-    """Run one refusal of the port; returns nothing (it raises)."""
-    from sais_tpu_torch.cli import main as cli
-    cpu = ["-p", str(root), "--device", "cpu"]
-    if case == "DINOTrainer(mesh)":
-        from sais_tpu_torch.train.dino import DINOConfig, DINOTrainer
-        DINOTrainer(tconfig.ViTConfig(), DINOConfig(), 1,
-                    torch.Generator(), mesh=object(), device="cpu")
-    elif case == "PrototypeTrainer(mesh)":
-        from sais_tpu_torch.train.loop import PrototypeTrainer
-        PrototypeTrainer(tconfig.ModelConfig(), tconfig.TrainConfig(), None,
-                         [], torch.zeros(1), mesh=object(), device="cpu")
-    elif case == "RawClassificationTrainer(mesh)":
-        from sais_tpu_torch.train.classification import \
-            RawClassificationTrainer
-        RawClassificationTrainer(tconfig.ModelConfig(),
-                                 tconfig.TrainConfig(), torch.nn.Module(),
-                                 torch.nn.Module(), mesh=object(),
-                                 device="cpu")
-    else:
-        cmd, *flags = case.split()
-        videos = ["-f", "vid"] if cmd in ("extract", "steps") else []
-        segments = ["--segments", "s.csv"] if cmd == "train" else []
-        cli.main([cmd, *videos, *segments, *cpu, *flags])
-
-
-@pytest.mark.parametrize("case", [
-    "extract --data-parallel 2", "steps --seq-parallel 2",
-    "pretrain --data-parallel", "DINOTrainer(mesh)",
-    "PrototypeTrainer(mesh)", "RawClassificationTrainer(mesh)",
-    "serve --data-parallel 2", "train --num-slices 2",
-    "train --init-distributed",
-    "pretrain --num-slices 2"])
-def test_refusals_name_roadmap_items_that_exist(case, tmp_path):
-    """Each refusal of the port raises NotImplementedError and names the
-    ROADMAP.md item that brings what it refuses by its title, as
-    "ROADMAP.md Queue N, '<title>'"; that title opens an item of Queue N
-    (a bold lead), so renumbering the items cannot break the pointer."""
-    with pytest.raises(NotImplementedError) as info:
-        _refuse(case, tmp_path / "absent")
-    msg = " ".join(str(info.value).split())
-    quoted = re.findall(r"ROADMAP\.md Queue (\d+), '([^']+)'", msg)
-    assert quoted, msg
-    with open(ROADMAP) as f:
-        text = f.read()
-    for queue, title in quoted:
-        section = text.split(f"\n### Queue {queue} ")[1].split("\n### ")[0]
-        assert "**" + title in " ".join(section.split()), (queue, title)
-    assert not (tmp_path / "absent").exists()
 
 
 @pytest.mark.parametrize("arch", ["vits8", "vitb8", "dino_vits8"])
@@ -335,7 +282,8 @@ def test_cli_pretrain_takes_patch8_archs_on_the_card(arch, tmp_path,
 
     seen = []
 
-    def trainer(vit_cfg, dcfg, niter_per_ep, generator, optimizer, device):
+    def trainer(vit_cfg, dcfg, niter_per_ep, generator, optimizer, device,
+                mesh=None):
         seen.append((vit_cfg, dcfg, device))
         raise Reached
 

@@ -191,3 +191,166 @@ def test_dvc_ucl_tables_match_pandas(table, balance):
         for ph in ("train", "val", "test"):
             _same(got[ph], want[ph])
         assert got["val"] is got["test"]
+
+
+# ---------------------------------------------------------------------------
+# The library-only tables (JIGSAWS, DART, NS_vs_VUA, inference tables)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("balance", [True, False])
+def test_jigsaws_phase_tables_match_pandas(tmp_path, balance):
+    """JIGSAWS: the JIGSAWS gestures only, leave-one-user-out, train + val
+    merged, the held-out user as val and test; folds 0-3."""
+    rows, df = _both(tmp_path, _timestamp_table(
+        3, gestures=["G1", "G2", "G3", "G5", "G11", "G7", "G12"], users=5))
+    for fold in range(4):
+        got = ref.jigsaws_phase_tables(rows, fold, balance=balance)
+        want = jref.jigsaws_phase_tables(df, fold, balance=balance)
+        for ph in ("train", "val", "test"):
+            _same(got[ph], want[ph])
+
+
+def _dart_table(seed=4, nvideos=12, per_video=5):
+    """NS_DART rows: a Video and five raters' scores per domain, some cells
+    empty (the column then float)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for v in range(nvideos):
+        for i in range(per_video):
+            row = {"Video": f"dart_{v:02d}", "Clip": i}
+            for d in jref.DART_DOMAINS:
+                for k in range(1, 6):
+                    row[f"{d}{k}"] = ("" if rng.random() < 0.1 else
+                                      int(rng.integers(2, 5)))
+            rows.append(row)
+    return rows
+
+
+@pytest.mark.parametrize("style", ["mean", "majority"])
+@pytest.mark.parametrize("domain", ["TR", "GS"])
+def test_dart_tables_match_pandas(tmp_path, style, domain):
+    """The DART trio: dart_band over the band edges and past them, the
+    rater aggregation (mean or majority of the non-NaN scores, banded,
+    with and without the {0, 2} restriction) and the 90 / 10 video split,
+    folds 0-2, row for row."""
+    for score in (1.0, 2.6, 2.61, 2.8, 2.9, 3.0, 3.4, float("nan")):
+        got, want = ref.dart_band(score), jref.dart_band(score)
+        assert got == want or (math.isnan(got) and math.isnan(want))
+    rows, df = _both(tmp_path, _dart_table())
+    for keep in (True, False):
+        got = ref.aggregate_dart_scores(rows, domain, style, keep)
+        want = jref.aggregate_dart_scores(df, domain, style, keep)
+        _same(got, want.reset_index(drop=True))
+        for fold in range(3):
+            for g, w in zip(ref.dart_video_split(got, fold),
+                            jref.dart_video_split(want, fold)):
+                _same(g, w)
+
+
+def _ns_timestamps(seed=5, nvideos=12, per_video=120):
+    """NS gesture timestamps: the Top6 letters and others, a P-129 video,
+    short spans, a Note column with some notes."""
+    rng = np.random.default_rng(seed)
+    letters = ["p", "h", "c", "r", "m", "k", "x", "y"]
+    rows = []
+    for v in range(nvideos):
+        path = f"data\\P-{129 if v == 0 else 200 + v}"
+        for _ in range(per_video):
+            start = int(rng.integers(1, 3000))
+            rows.append({"Path": path, "StartFrame": start,
+                         "EndFrame": start + int(rng.integers(4, 60)),
+                         "Gesture": letters[int(rng.integers(len(letters)))],
+                         "Note": "" if rng.random() < 0.9 else "blur"})
+    return rows
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_ns_vs_vua_tables_match_pandas(tmp_path, fraction):
+    """NS_vs_VUA: the VUA stitch part (File and pairing filters, windows,
+    the 0.9 / 0.1-of-train split, -tf) and the NS part (P-129, > 10
+    frames, > 100 rows, Note-free, Top6, per-gesture split), each phase
+    balanced over the domains; folds 0-1, row for row."""
+    from tests.test_torch_skill import stitch_table
+    stitch, sdf = _both(tmp_path, stitch_table(n_videos=24), "stitch.csv")
+    ns, ndf = _both(tmp_path, _ns_timestamps(), "ns.csv")
+    for fold in range(2):
+        got, gcls = ref.ns_vs_vua_tables(stitch, ns, fold,
+                                         training_fraction=fraction)
+        want, wcls = jref.ns_vs_vua_tables(sdf, ndf, fold,
+                                           training_fraction=fraction)
+        assert gcls == wcls == ["NS", "VUA"]
+        for ph in ("train", "val", "test"):
+            _same(got[ph], want[ph])
+        assert {r["Domain"] for r in got["train"]} == {"NS", "VUA"}
+
+
+class _Store:
+    def __init__(self, n, d, seed):
+        rng = np.random.default_rng(seed)
+        self.videos = {}
+        self.n, self.d, self.rng = n, d, rng
+
+    def read_video(self, name):
+        if name not in self.videos:
+            self.videos[name] = self.rng.standard_normal(
+                (self.n, self.d)).astype(np.float32)
+        return self.videos[name]
+
+
+def test_ns_vs_vua_batches_and_frame_cap_match_jax():
+    """ns_vs_vua_batches over a DomainKeyedStore of two domains' stores
+    (fixed stride 10, the 2000-frame cap, NS = 0 / VUA = 1, buckets to
+    2000, TTA variants) equals the JAX package's batch for batch, bit for
+    bit; frame_cap keeps the first 2000 indices."""
+    from sais_tpu.config import WindowConfig as JWindow
+    from sais_tpu_torch.config import WindowConfig
+    rows = [{"Video": f"{dom}{i}", "Domain": dom, "StartFrame": s,
+             "EndFrame": s + span}
+            for i, (dom, s, span) in enumerate(
+                [("NS", 5, 40), ("VUA", 100, 4000), ("NS", 7, 300),
+                 ("VUA", 1, 150), ("NS", 50, 22000)])]
+    domains = {r["Video"]: r["Domain"] for r in rows}
+    stores = {d: _Store(30000, 8, seed) for d, seed in (("NS", 0),
+                                                        ("VUA", 1))}
+    jstores = {d: _Store(30000, 8, seed) for d, seed in (("NS", 0),
+                                                         ("VUA", 1))}
+    got = list(ref.ns_vs_vua_batches(
+        rows, ref.DomainKeyedStore(stores, domains), None, WindowConfig(),
+        2, True, seed=3, tta=True))
+    want = list(jref.ns_vs_vua_batches(
+        pd.DataFrame(rows), jref.DomainKeyedStore(jstores, domains), None,
+        JWindow(), 2, True, seed=3, tta=True))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for gv, wv in zip(g["tta"], w["tta"]):
+            assert gv.keys() == wv.keys()
+            for k in wv:
+                np.testing.assert_array_equal(gv[k], wv[k], err_msg=k)
+    idx = np.arange(5000)
+    np.testing.assert_array_equal(ref.frame_cap(idx), jref.frame_cap(idx))
+    np.testing.assert_array_equal(ref.frame_cap(idx, 7),
+                                  jref.frame_cap(idx, 7))
+
+
+def test_gesture_inference_tables_match_pandas(tmp_path):
+    """Gronau (random_state 1) and RAPN (0): 3 rows sampled per (PID,
+    gesture) with >= 3 examples after the cleanup and the 10-frame
+    filter; CinVivo: 0.5 s windows over each (category, label) group in
+    sorted order, short groups giving none.  Row for row."""
+    rows = _ns_timestamps(seed=6, nvideos=6, per_video=40)
+    rng = np.random.default_rng(7)
+    for r in rows:
+        r["PID"] = int(rng.integers(1, 5))
+    rows, df = _both(tmp_path, rows)
+    for fn in ("gronau_gesture_inference_table",
+               "rapn_gesture_inference_table"):
+        _same(getattr(ref, fn)(rows), getattr(jref, fn)(df))
+    _same(ref.gronau_gesture_inference_table(rows, ("p", "x")),
+          jref.gronau_gesture_inference_table(df, ("p", "x")))
+    paths = [{"category": c, "label": lab, "path": f"f{i}.jpg"}
+             for i, (c, lab) in enumerate(
+                 [("b", "x")] * 47 + [("a", "y")] * 14 + [("a", "z")] * 31
+                 + [("b", "w")] * 15)]
+    prow, pdf = _both(tmp_path, paths, "paths.csv")
+    _same(ref.cinvivo_inference_table(prow),
+          jref.cinvivo_inference_table(pdf).reset_index(drop=True))

@@ -255,7 +255,8 @@ def _cli_root(tmp_path, monkeypatch, nframes):
 def test_cli_steps(tmp_path, monkeypatch, capsys):
     """`steps --stride-divisor 4096 --flash on --device cpu --random-init`
     (K2's plain version on the CPU) writes results/vid_steps.csv in the
-    steps layout; `--seq-parallel` is refused until the ring is ported."""
+    steps layout; `--seq-parallel 1` (the ring, one gloo rank in this
+    process) writes the same windows within 1e-5."""
     cli = _cli_root(tmp_path, monkeypatch, NFRAMES)
     argv = ["steps", "-f", "vid", "-p", str(tmp_path), "-mod", "RGB",
             "--random-init", "--device", "cpu", "--fps", str(FPS),
@@ -267,27 +268,12 @@ def test_cli_steps(tmp_path, monkeypatch, capsys):
                                 *CLASSES]
     assert df["StartFrame"].tolist() == list(range(0, 270, 30))
     np.testing.assert_allclose(df[CLASSES].sum(axis=1), 1.0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="seq-parallel"):
-        cli.main(argv + ["--seq-parallel", "2"])
+    cli.main(argv + ["--seq-parallel", "1"])
+    ring = pd.read_csv(tmp_path / "results" / "vid_steps.csv", index_col=0)
+    np.testing.assert_allclose(ring[CLASSES], df[CLASSES], atol=1e-5)
     if not torch.cuda.is_available():   # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([a for a in argv if a not in ("--device", "cpu")])
-
-
-@pytest.mark.parametrize("cmd", ["extract", "flow", "decode", "pipeline",
-                                 "steps", "train"])
-def test_cli_refuses_data_parallel(cmd, tmp_path):
-    """`--data-parallel` is refused, not ignored, by every command that runs
-    on one card, before any file is read: the root does not exist."""
-    from sais_tpu_torch.cli import main as cli
-    root = tmp_path / "absent"
-    argv = [cmd, "-p", str(root), "--random-init", "--device", "cpu",
-            "--data-parallel", "2"]
-    argv += (["--segments", str(root / "segs.csv")] if cmd == "train"
-             else ["-f", "vid"])
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        cli.main(argv)
-    assert not root.exists()
 
 
 @pytest.mark.parametrize("flash", ["auto", "on"])

@@ -310,19 +310,6 @@ def test_nonfinite_loss_aborts():
         tr.run_epoch(iter(_batches(1)), train=True)
 
 
-def test_trainer_refuses_what_is_not_ported():
-    _, cfg = _cfgs(False)
-    args = (cfg, tconfig.TrainConfig(), FullModel(cfg), ["0", "1"],
-            torch.rand(2, 256))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        PrototypeTrainer(*args, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        PrototypeTrainer(*args, seq_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        PrototypeTrainer(*args, mesh=object(), use_importance=True,
-                         device="cpu")
-
-
 def _write_store(root, videos, frames, dim, seed=0):
     from sais_tpu_torch.io.feature_store import FeatureStore, rgb_store_path
     rng = np.random.default_rng(seed)
