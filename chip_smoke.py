@@ -532,6 +532,24 @@ def check_wgmma_sass(name, fragments, log):
                   f"{func} spills registers: {spills or 'no ptxas report'}")
 
 
+def flash_ptxas(name, log):
+    """Every K2 / K3 instance's registers, stack and spills from its
+    ptxas report, one line each; fails on a spill."""
+    import re
+    for func, lines in kernel_ptxas(log).items():
+        kernel = re.search(r"flash_(?:fwd|bwd_dq|bwd_dkv)_kernel(?:_wide)?",
+                           func)
+        args = re.findall(r"ILi(\d+)E", func)
+        label = f"{kernel.group(0) if kernel else func}<{','.join(args)}>"
+        info = [x.split("ptxas info    :")[-1].strip() for x in lines
+                if "registers" in x or "spill" in x]
+        print(f"  {name}: {label}: {'; '.join(info)}", flush=True)
+        spill = [x for x in info if "spill stores" in x and
+                 " 0 bytes spill stores, 0 bytes spill loads" not in x]
+        check(info and not spill, f"{label} spills registers: "
+              f"{spill or 'no ptxas report'}")
+
+
 def phase_build():
     from sais_tpu_torch.kernels import _build
     t0 = time.time()
@@ -545,7 +563,8 @@ def phase_build():
                   if "spill stores" in line
                   and " 0 bytes spill stores, 0 bytes spill loads" not in line]
         for line in log.splitlines():
-            if "entry function" in line or "registers" in line:
+            if name not in FLASH_KERNELS and (
+                    "entry function" in line or "registers" in line):
                 print(f"  {name}: {line.strip()}")
         print(f"  {name}: {len(spills)} kernel(s) with spills"
               + "".join(f"; {line}" for line in spills), flush=True)
@@ -553,6 +572,8 @@ def phase_build():
             spilled.append(name)
     for name, fragments in FLASH_KERNELS.items():
         check_tf32_sass(name, fragments)
+        if name in logs:
+            flash_ptxas(name, logs[name])
     check(not spilled, f"{', '.join(spilled)} spill registers")
     for name, fragments in ATTENTION_SASS.items():
         check_wgmma_sass(name, fragments, logs.get(name))
@@ -914,6 +935,10 @@ def phase_k2():
         if not result:
             result = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
+            print(f"K2 at (132, 4, 301, 96): {ms:.4f} ms, against 0.5994 "
+                  f"ms at commit 226f3ca and 0.8402 ms at 53ef9b8 (PERF.md "
+                  f"§6, H100 80GB HBM3 at 700 W); no slower than SDPA "
+                  f"{ms <= library_ms}", flush=True)
             _profile(lambda: flash_attention(q, k, v, mask), "k2_profile",
                      5)
         del q, k, v
@@ -2960,21 +2985,24 @@ def _grad_gaps(ga, gb):
 def k23_widths(card: str):
     """K2 and K3 at (B*S, H, L, Dh) = (32, 4, 129, 32) and (32, 4, 129,
     192), the -dim 128 and -dim 768 MIL batches' attention (17-129 tokens
-    a gesture window), masked tails that differ per element, three
+    a gesture window), and at (8, 4, 2001, 192), the reference's 2000-frame
+    cap at the widest head: masked tails that differ per element, three
     elements with masked keys inside the valid range as well and one
     element with every key masked: each against its plain version
-    (PERF.md §2's limits, 1e-4 of the largest plain value), CUDA-event
-    times beside SDPA's and the bound.  Then Dh 50, which the wrapper
-    packs into 52-wide aligned buffers, against the plain version."""
+    (PERF.md §2's limits, 1e-4 of the largest plain value), K3 twice
+    (bitwise equal), CUDA-event times beside SDPA's and the bound.  Then
+    Dh 50, which the wrapper packs into 52-wide aligned buffers, against
+    the plain version.  Returns {(L, Dh): times}."""
     import torch
     import torch.nn.functional as F
     from sais_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd, flash_attention_reference, key_bias)
-    b, h, l = 32, 4, 129
+    h = 4
     out_rows = {}
-    for dh in (32, 192, 50):
-        g = torch.Generator().manual_seed(dh)
+    for b, l, dh in ((32, 129, 32), (32, 129, 192), (8, 2001, 192),
+                     (32, 129, 50)):
+        g = torch.Generator().manual_seed(dh + l)
         q, k, v, do = (torch.randn((b, h, l, dh), generator=g).cuda()
                        for _ in range(4))
         valid = [l - (37 * i) % l for i in range(b - 1)] + [0]
@@ -2992,8 +3020,12 @@ def k23_widths(card: str):
         ref0[-1] = 0.0
         do[-1] = 0.0
         got = flash_attention_bwd(q, k, v, bias, fwd, lse, do)
+        again = flash_attention_bwd(q, k, v, bias, fwd, lse, do)
         want = flash_attention_bwd_reference(q, k, v, bias, fwd, lse, do)
         torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K3 is not bitwise repeatable at ({b}, {h}, {l}, {dh})")
+        del again
         errs = {"out": ((out - ref0).abs().max().item(),
                         ref0.abs().max().item()),
                 "lse": ((lse[:-1] - ref_lse[:-1]).abs().max().item(),
@@ -3002,26 +3034,32 @@ def k23_widths(card: str):
             errs[name] = ((x - y).abs().max().item(), y.abs().max().item())
         for name, (err, scale) in errs.items():
             check(math.isfinite(err) and err <= 1e-4 * scale,
-                  f"K2/K3 {name} at Dh {dh}: {err} > 1e-4 * {scale}")
+                  f"K2/K3 {name} at ({b}, {h}, {l}, {dh}): {err} > 1e-4 * "
+                  f"{scale}")
         check(torch.count_nonzero(out[-1]).item() == 0
               and all(torch.count_nonzero(x[-1]).item() == 0 for x in got),
-              f"Dh {dh}: the all-masked element is not exactly 0")
+              f"({b}, {h}, {l}, {dh}): the all-masked element is not "
+              f"exactly 0")
         line = ", ".join(f"{n} {e:.3g} (max {s:.3g})"
                          for n, (e, s) in errs.items())
+        del ref, ref0, want
         if dh == 50:
             print(f"K2/K3 (B*S, H, L, Dh) = ({b}, {h}, {l}, {dh}), packed "
                   f"to 52: {line}", flush=True)
             continue
         lib_mask = bias[:, None, None, :]
-        k2_ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, bias))
+        iters = 5 if l > 1000 else 20
+        k2_ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, bias),
+                             iters=iters)
         k2_plain = cuda_time_ms(lambda: flash_attention_reference(
-            q, k, v, bias), iters=5, warmup=1)
+            q, k, v, bias), iters=3 if l > 1000 else 5, warmup=1)
         k2_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=lib_mask))
+            q, k, v, attn_mask=lib_mask), iters=iters)
         k3_ms = cuda_time_ms(lambda: flash_attention_bwd(
-            q, k, v, bias, fwd, lse, do))
+            q, k, v, bias, fwd, lse, do), iters=iters)
         k3_plain = cuda_time_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, bias, fwd, lse, do), iters=5, warmup=1)
+            q, k, v, bias, fwd, lse, do), iters=3 if l > 1000 else 5,
+            warmup=1)
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
         def lib_fwd():
@@ -3029,27 +3067,32 @@ def k23_widths(card: str):
                                                   attn_mask=lib_mask)
 
         with torch.no_grad():
-            lib_fwd_ms = cuda_time_ms(lib_fwd)
+            lib_fwd_ms = cuda_time_ms(lib_fwd, iters=iters)
         k3_lib = cuda_time_ms(lambda: torch.autograd.grad(
-            lib_fwd(), (lq, lk, lv), do)) - lib_fwd_ms
+            lib_fwd(), (lq, lk, lv), do), iters=iters) - lib_fwd_ms
         k2b = k2_bound_ms(b, h, l, dh, valid)
         k3b = k3_bound_ms(b, h, l, dh, valid)
-        # device time a call: at these sizes the CUDA-event times above
-        # can read the host's launch rate instead
-        k2_dev = cuda_device_ms(lambda: flash_attention_fwd(q, k, v, bias))
-        k3_dev = cuda_device_ms(lambda: flash_attention_bwd(
-            q, k, v, bias, fwd, lse, do))
-        out_rows[dh] = dict(k2=(k2_ms, k2b[0], k2b[1], k2_plain, k2_lib),
-                            k3=(k3_ms, k3b[0], k3b[1], k3_plain, k3_lib))
-        line += (f"; device time a call K2 {k2_dev:.4f} ms, K3 "
-                 f"{k3_dev:.4f} ms")
-        print(f"K2/K3 (B*S, H, L, Dh) = ({b}, {h}, {l}, {dh}): {line}; K2 "
-              f"{k2_ms:.4f} ms (bound {k2b[0]:.4f} by {k2b[1]}, plain "
-              f"{k2_plain:.4f}, SDPA {k2_lib:.4f}); K3 {k3_ms:.4f} ms "
-              f"(bound {k3b[0]:.4f} by {k3b[1]}, plain {k3_plain:.4f}, "
-              f"SDPA backward {k3_lib:.4f}); {card}", flush=True)
-        del q, k, v, do, lq, lk, lv
-    torch.cuda.empty_cache()
+        if l < 1000:
+            # device time a call: at these sizes the CUDA-event times above
+            # can read the host's launch rate instead
+            k2_dev = cuda_device_ms(lambda: flash_attention_fwd(q, k, v,
+                                                                bias))
+            k3_dev = cuda_device_ms(lambda: flash_attention_bwd(
+                q, k, v, bias, fwd, lse, do))
+            line += (f"; device time a call K2 {k2_dev:.4f} ms, K3 "
+                     f"{k3_dev:.4f} ms")
+        out_rows[(l, dh)] = dict(
+            k2=(k2_ms, k2b[0], k2b[1], k2_plain, k2_lib),
+            k3=(k3_ms, k3b[0], k3b[1], k3_plain, k3_lib))
+        print(f"K2/K3 (B*S, H, L, Dh) = ({b}, {h}, {l}, {dh}) (K3 two runs "
+              f"bitwise equal): {line}; K2 {k2_ms:.4f} ms (bound "
+              f"{k2b[0]:.4f} by {k2b[1]}, plain {k2_plain:.4f}, SDPA "
+              f"{k2_lib:.4f}; no slower than SDPA {k2_ms <= k2_lib}); K3 "
+              f"{k3_ms:.4f} ms (bound {k3b[0]:.4f} by {k3b[1]}, plain "
+              f"{k3_plain:.4f}, SDPA backward {k3_lib:.4f}; no slower than "
+              f"both {k3_ms <= min(k3_plain, k3_lib)}); {card}", flush=True)
+        del q, k, v, do, lq, lk, lv, fwd, lse, got, out
+        torch.cuda.empty_cache()
     return out_rows
 
 
@@ -3901,13 +3944,20 @@ class ParentKernels:
 def parent_k23(parent):
     """K2 and K3 as the earlier tree built them beside this tree's, in
     turns, at PERF.md's K2 / K3 shapes: K2 at (132, 301) and (8, 2001)
-    masked, K3 at those and at (2, 8193); outputs within 1e-4 of this
-    tree's largest value (both f32; the earlier tree's products carry the
-    signed error that this one repairs).  Returns {name: (earlier ms,
-    this ms)}."""
+    masked, K3 at those and at (2, 8193), both at Dh 96, and both at (32,
+    4, 129, 192) and (8, 4, 2001, 192) masked; outputs within 1e-4 of this
+    tree's largest value (both f32).  K3 is timed alike on both sides:
+    delta computed once outside, the gradients allocated in the call.
+    Returns {name: (earlier ms, this ms)}."""
     import torch
     from sais_tpu_torch.kernels.flash_attention import (
-        _delta, flash_attention_bwd, flash_attention_fwd, key_bias)
+        _bwd_aligned, _delta, _empty_grads, flash_attention_fwd, key_bias)
+
+    def this_k3(q, k, v, bias, do, lse, delta):
+        # as the earlier tree's is called: delta given, grads allocated
+        return _bwd_aligned(q, k, v, bias, do, lse, delta,
+                            _empty_grads(q, k), q.shape[-1] ** -0.5)
+
     times = {}
     for b, l, masked in K3_SHAPES:
         q, k, v, mask, _ = k2_inputs(b, l, seed=l + 5, masked=masked)
@@ -3923,7 +3973,27 @@ def parent_k23(parent):
         delta = _delta(out, do)
         times[f"K3 {shape}"] = ParentKernels.compare(
             "K3", shape, lambda: parent.k3(q, k, v, bias, do, lse, delta),
-            lambda: flash_attention_bwd(q, k, v, bias, out, lse, do),
+            lambda: this_k3(q, k, v, bias, do, lse, delta),
+            (1e-4, 1e-4, 1e-4))
+        del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    # the widest instance, at the -dim 768 MIL batch and at 2001 tokens
+    for b, l in ((32, 129), (8, 2001)):
+        g = torch.Generator().manual_seed(l + 7)
+        q, k, v, do = (torch.randn((b, 4, l, 192), generator=g).cuda()
+                       for _ in range(4))
+        valid = torch.tensor([l - (37 * i) % l for i in range(b - 1)] + [0])
+        bias = key_bias((torch.arange(l)[None, :] >= valid[:, None]).cuda())
+        do[-1] = 0.0
+        shape = (b, 4, l, 192)
+        times[f"K2 {shape}"] = ParentKernels.compare(
+            "K2", shape, lambda: parent.k2(q, k, v, bias),
+            lambda: flash_attention_fwd(q, k, v, bias), (1e-4, 1e-4))
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        delta = _delta(out, do)
+        times[f"K3 {shape}"] = ParentKernels.compare(
+            "K3", shape, lambda: parent.k3(q, k, v, bias, do, lse, delta),
+            lambda: this_k3(q, k, v, bias, do, lse, delta),
             (1e-4, 1e-4, 1e-4))
         del q, k, v, out, lse, do
         torch.cuda.empty_cache()
@@ -5552,7 +5622,7 @@ def main():
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(f"total {time.time() - t_start:.1f} s (the parent tree's final "
-          f"run on an H100 80GB HBM3 at 700 W: 495.4 s, PERF.md §6)",
+          f"run on an H100 80GB HBM3 at 700 W: 576.0 s, PERF.md §6)",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

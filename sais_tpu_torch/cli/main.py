@@ -971,10 +971,13 @@ def cmd_pretrain(args):
 
 
 def cmd_pipeline(args):
+    import torch.distributed as dist
     t0 = time.time()
     cmd_extract(args)
     if args.modalities != "RGB":
         cmd_flow(args)
+    if dist.is_initialized():
+        dist.barrier()   # every rank reads the stores that rank 0 wrote
     cmd_decode(args)
     print(f"total {time.time() - t0:.1f}s")
 

@@ -39,6 +39,15 @@
 // are read in the same order (b0 from row 2t, b1 from row 2t + 1).  No
 // shuffle and no trip through shared memory.
 //
+// What this costs on an H100: mma.sync TF32 peaks near 320 TFLOP/s on the
+// card (65% of the dense TF32 rate; tools/mma_sync_rate.cu); a 3xTF32 k-step is 3 HMMA and, with
+// the tie (unbias) and the f32 add, 12 instructions beside them for its 4
+// values a thread, plus 3 for each value split at use.  So K2's scores and
+// K3 are bound by issue slots and by shared-memory bandwidth (the fragment
+// loads) more than by the tensor cores: planes that remove the splits of B
+// and ldmatrix (ldsm4) that loads four 8 x 4 blocks in one instruction
+// pay where warps re-read the same tile.
+//
 // Shared-memory tiles are f32, row-major, with a row stride of Dh + 4
 // floats (= 4 mod 32 banks).  That one padding serves both ways a tile is
 // read: by row, B[t][g] = T[g][t] at bank 4 g + t, and by column in the
@@ -127,18 +136,21 @@ enum Sum { kWidth, kKeysTie, kWidthTie };
 // c += a b in 3xTF32 for one k-step of 8, b given as its split (s0 the
 // value at row t, s1 at row t + 4): the three products run into a
 // fragment of zeros, small terms first, and the k-step's part is then
-// added to c with f32 round-to-nearest.  The tensor core truncates its
+// added to c with f32 round-to-nearest.  SERIAL (kWidth, kWidthTie): the
+// fragment starts from c * 0 (the same zeros), which makes each k-step
+// wait for the last one's sum; without it ptxas may run many k-steps'
+// products at once (K2 does, within its registers; K3's kernels spilled).  The tensor core truncates its
 // sum toward zero: run into c itself, every product cut c's low bits in
 // the same direction, and a sum of many k-steps shrank coherently (K2's
 // output sat -1.4e-7 of its mean |value| from the dense f32 path's at the
 // MIL fit's shapes, a signed error several times f32's).  Here the
 // truncation is relative to one k-step's part, and the running sum rounds
 // to nearest.
-template <Sum S = kWidth>
+template <Sum S = kWidth, bool SERIAL = true>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, Split s0,
                                      Split s1) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  if (S != kKeysTie)
+  if (S != kKeysTie && SERIAL)
 #pragma unroll
     for (int e = 0; e < 4; ++e) t[e] = c[e] * 0.f;
   mma(t, a.small, s0.big, s1.big);
@@ -197,6 +209,38 @@ __device__ __forceinline__ void accumulate_product(float (&acc)[NT][4],
   }
 }
 
+// Four 8 x 4 blocks of 32-bit values from shared memory in one
+// instruction (ldmatrix .b16 reads a 32-bit value as two 16-bit ones):
+// lane 8 j + r gives the address of row r of block j (16 bytes, 16-byte
+// aligned), and r[j] gets the value at row g, column t of block j.  So
+// the blocks (rows 0-7, cols 0-3), (rows 8-15, cols 0-3), (rows 0-7, cols
+// 4-7), (rows 8-15, cols 4-7) of a row-major tile are an A fragment, and
+// (rows 0-7, cols 0-3), (rows 0-7, cols 4-7) of a tile whose rows are the
+// n index are the B fragment (b0, b1) of a product that reads it by row.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// ldsm4's row offset (in floats) of lane `lane` for an A fragment (rows
+// 0-15, k 0-7) and for the B fragments of two n-tiles (n rows 0-15, k 0-7)
+// of a row-major tile with rows of `ld` floats.
+__device__ __forceinline__ int ldsm_a(int lane, int ld) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 4 * (lane >> 4);
+}
+__device__ __forceinline__ int ldsm_b(int lane, int ld) {
+  return ((lane & 7) + 8 * (lane >> 4)) * ld + 4 * ((lane >> 3) & 1);
+}
+
+// A barrier of the `threads` threads (whole warps) that name barrier `id`
+// (1-15; 0 is __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -210,6 +254,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once a
+// device: the attribute belongs to the device's context, and setting it
+// at every launch cost a runtime call on the host each time.
+template <auto Kernel>
+__host__ cudaError_t allow_shared_once(size_t bytes) {
+  constexpr int kDevices = 64;
+  static bool done[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kDevices && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && dev < kDevices) done[dev] = true;
+  return e;
 }
 
 }  // namespace tf32x3

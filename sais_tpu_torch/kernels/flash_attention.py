@@ -49,6 +49,7 @@ in either pass.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
@@ -141,9 +142,23 @@ def _check_layout(name: str, t: torch.Tensor, device: torch.device) -> None:
 def _aligned(t: torch.Tensor) -> bool:
     """The kernels' row rule: a contiguous last axis of a multiple of 4
     elements, strides in multiples of 4 and a 16-byte aligned start."""
-    return (t.shape[-1] % 4 == 0 and t.stride(-1) == 1
-            and not any(s % 4 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0)
+    sb, sh, sl, sd = t.stride()
+    return (t.shape[3] % 4 == 0 and sd == 1
+            and (sb | sh | sl) % 4 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _on_device(device: torch.device):
+    """The launch's device made current: a kernel launched through the C
+    interface goes to the current device.  Nothing to do (and no host
+    cost) when it already is."""
+    if torch._C._cuda_getDevice() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of `device`, as the C interface takes it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _padded(t: torch.Tensor) -> torch.Tensor:
@@ -236,17 +251,19 @@ def _launch_aligned(q, k, v, bias, zero_masked_rows: bool, scale: float):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     lib = _lib()
-    out = torch.empty((b, lq, h, dh), dtype=torch.float32,
-                      device=q.device).transpose(1, 2)
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    # out: a (B, H, Lq, Dh) view of a (B, Lq, H, Dh) buffer
+    out = torch.empty_strided((b, h, lq, dh), (lq * h * dh, dh, h * dh, 1),
+                              dtype=torch.float32, device=q.device)
+    lse = torch.empty_strided((b, h, lq), (h * lq, lq, 1),
+                              dtype=torch.float32, device=q.device)
+    with _on_device(q.device):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, lq, lk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], scale, int(zero_masked_rows), stream)
+            *out.stride()[:3], scale, int(zero_masked_rows),
+            _stream(q.device))
     _raise_on(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -270,9 +287,12 @@ def _empty_grads(q: torch.Tensor, k: torch.Tensor) -> Grads:
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     kw = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((b, lq, h, dh), **kw).transpose(1, 2),
-            torch.empty((b, lk, h, dh), **kw).transpose(1, 2),
-            torch.empty((b, lk, h, dh), **kw).transpose(1, 2))
+    return (torch.empty_strided((b, h, lq, dh), (lq * h * dh, dh, h * dh, 1),
+                                **kw),
+            torch.empty_strided((b, h, lk, dh), (lk * h * dh, dh, h * dh, 1),
+                                **kw),
+            torch.empty_strided((b, h, lk, dh), (lk * h * dh, dh, h * dh, 1),
+                                **kw))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -333,8 +353,7 @@ def _bwd_aligned(q, k, v, bias, do, lse, delta, grads, scale: float
     lk = k.shape[2]
     dq, dk, dv = grads
     lib = _bwd_lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), do.data_ptr(),
@@ -342,7 +361,7 @@ def _bwd_aligned(q, k, v, bias, do, lse, delta, grads, scale: float
             dv.data_ptr(), b, h, lq, lk, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
-            *dv.stride()[:3], scale, stream)
+            *dv.stride()[:3], scale, _stream(q.device))
     _raise_on(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

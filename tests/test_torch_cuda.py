@@ -209,7 +209,12 @@ def _ragged_mask(b, l, device="cuda"):
                                           (3, 1, 70, 200, 96),
                                           (2, 3, 1, 65, 64),
                                           (2, 2, 65, 129, 128),
-                                          (2, 4, 2001, 2001, 96)])
+                                          (2, 4, 2001, 2001, 96),
+                                          (3, 2, 97, 161, 192),
+                                          (2, 3, 161, 33, 192),
+                                          (3, 4, 129, 129, 192),
+                                          (2, 2, 257, 95, 128),
+                                          (2, 4, 2001, 2001, 192)])
 def test_flash_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
     """K2 against its plain version: out within 1e-4 of the largest plain
     value, lse within 1e-4 of max(1, |lse|) on elements with a valid key
@@ -399,7 +404,13 @@ def test_auto_rule_takes_k2_at_2001_tokens(cuda):
                                           (2, 3, 129, 65, 64),
                                           (2, 2, 65, 129, 128),
                                           (2, 4, 2001, 2001, 96),
-                                          (2, 3, 1, 129, 96)])
+                                          (2, 3, 1, 129, 96),
+                                          (3, 2, 97, 161, 192),
+                                          (2, 3, 161, 33, 192),
+                                          (3, 4, 129, 129, 192),
+                                          (2, 2, 257, 95, 128),
+                                          (2, 3, 1, 65, 192),
+                                          (2, 4, 2001, 2001, 192)])
 def test_flash_bwd_kernel_matches_plain_version(cuda, b, h, lq, lk, dh):
     """K3 against its plain version on out and lse from K2, with masked
     tails that differ per element and one all-masked element: dq, dk and
@@ -433,6 +444,56 @@ def test_flash_bwd_kernel_is_bitwise_repeatable(cuda):
     second = flash_attention_bwd(q, k, v, bias, out, lse, do)
     for a, b in zip(first, second):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", [128, 192])
+def test_flash_wide_kernels_are_bitwise_repeatable(cuda, dh):
+    """The wide instances (Dh 128 and 192) twice on the same inputs give
+    the same bits, K2 and K3: every output has one owner and every sum a
+    fixed order (no atomics), with masked tails and an all-masked
+    element, lengths across the 32- and 64-row tiles."""
+    q, k, v = _qkv(dh + 5, 3, 4, 161, 161, dh)
+    bias = key_bias(_ragged_mask(3, 161))
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    out2, lse2 = flash_attention_fwd(q, k, v, bias)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(dh)
+                     ).to(cuda)
+    first = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    second = flash_attention_bwd(q, k, v, bias, out, lse, do)
+    for a, b in zip(first, second):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", [128, 192])
+def test_flash_wide_kernels_take_projection_views(cuda, dh):
+    """The wide instances through `PackedFlashAttention`: q, k, v as views
+    of one (B, L, 3 D) projection (L across the tiles, masked tails, one
+    all-masked element) give the bits of `FlashAttention` on contiguous
+    copies, forward and backward, within 1e-4 of the plain versions."""
+    b, l, heads = 3, 161, 4
+    qkv = torch.randn((b, l, 3 * heads * dh), device="cuda",
+                      requires_grad=True)
+    bias = key_bias(_ragged_mask(b, l))
+    g = torch.randn((b, heads, l, dh), device="cuda")
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    packed = PackedFlashAttention.apply(qkv, heads, bias, True)
+    packed.backward(g)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    leaves = [t.detach().contiguous().requires_grad_()
+              for t in split_heads(qkv, heads)]
+    alone = FlashAttention.apply(*leaves, bias, True)
+    alone.backward(g)
+    torch.testing.assert_close(packed, alone, rtol=0, atol=0)
+    for got, ref in zip(split_heads(qkv.grad, heads), leaves):
+        torch.testing.assert_close(got, ref.grad, rtol=0, atol=0)
+    q, k, v = (t.detach() for t in leaves)
+    ref, _ = flash_attention_reference(q, k, v, bias)
+    ref[-1] = 0.0
+    err = (packed.detach() - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err
 
 
 def test_flash_bwd_kernel_takes_projection_views(cuda):
