@@ -67,14 +67,14 @@
 //   to their final add (mma3<kWidthTie, false>): 7-9% faster at Dh 128 /
 //   192 than the Dh 96 schedule, which this one ran slower (ptxas issued
 //   the products, then the FFMA, even when the source interleaved them).
-// - P = exp(s - m) goes from the score fragments to shared memory (64 x
-//   40 floats, conflict-free both ways) with the rows' alpha.  P V then
-//   gives each lane 4 rows x 4 CG columns (CG = 1-3 float4 column groups,
-//   48 accumulators at Dh 96 and 192): a float4 load of P serves 4 keys of
-//   a row, a float4 load of V a key of a column group, and each feeds 4 CG
-//   or 4 FFMA (a shuffle of every p from its quad and float2 loads of V
-//   for 4 FFMA each had run P V at a fifth of its FFMA bound).  The output is stored as float4.  Those loads still
-//   bound P V: 16 float4 loads (64 cycles of the SM's shared-memory port)
+// - P = exp(s - m) goes from the score fragments to shared memory (64 x 40
+//   floats, conflict-free both ways) with the rows' alpha.  P V then gives each
+//   lane 4 rows x 4 CG columns (CG = 1-3 float4 column groups, 48 accumulators
+//   at Dh 96 and 192): a float4 load of P serves 4 keys of a row, a float4 load
+//   of V a key of a column group, and each feeds 4 CG or 4 FFMA (a shuffle of
+//   every p from its quad and float2 loads of V for 4 FFMA each had run P V at
+//   a fifth of its FFMA bound).  The output is stored as float4.  Those loads
+//   still bound P V: 16 float4 loads (64 cycles of the SM's shared-memory port)
 //   for 192 FFMA (48 cycles of its four schedulers) every 4 keys.
 // - The last key tile is zero-filled and its missing keys get a bias of
 //   -inf, so their p is exactly 0 (the TPU's -1e30 pad keys give 0 on every
@@ -138,7 +138,9 @@ struct Cfg {
   static constexpr int K = BQ * LD;              // after q' (raw, BQ rows)
   // stage s: K's big plane at K + 2 s TILE, its small plane TILE further
   static constexpr int V = K + 4 * TILE;         // stage s at V + s TILE
-  static constexpr int P = V + 2 * TILE;         // BQ x PLD
+  // P: BQ x PLD, a second buffer from Dh 128 (the next tile's P is written
+  // while the partner warp may still read this one's)
+  static constexpr int P = V + 2 * TILE;
   static constexpr int BIAS = P + PAIR * BQ * PLD;   // 2 stages x BKEY
   // a warp's 64 row values: alpha, l, the partial max and sum of a tile
   static constexpr int ROW = BIAS + 2 * BKEY;
@@ -192,6 +194,10 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS)
   const int key0 = 8 * NKT * half;          // its first key of a tile
   const int pr = lane >> 3, pc = lane & 7;  // P V: rows rw + pr + 4 i
   const int col0 = C::COLS * half + 4 * pc; // columns col0 + 32 m (+0..3)
+  // From Dh 128 a row group past lq (the last query tile) only loads and
+  // syncs: its rows are never stored and its pair exchanges nothing with
+  // others (2.5% faster at (32, 4, 129, 192); 2-4% slower up to Dh 96)
+  const bool active = C::PAIR == 1 || q0 + rw < lq;
   float* rowv = smem + C::ROW + 64 * warp;
   const float* partner = smem + C::ROW + 64 * (warp ^ 4);
 
@@ -343,7 +349,7 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS)
       m[i] = m_new;
       if constexpr (C::PAIR == 1) l[i] = l[i] * alpha[i] + ps[i];
     }
-    if constexpr (C::PAIR > 1) __syncwarp();   // alpha and ps of tile kt - 1 read
+    if constexpr (C::PAIR > 1) __syncwarp();   // tile kt - 1's alpha, ps read
     float* Pw = smem + C::P + (C::PAIR > 1 ? (kt & 1) * BQ * PLD : 0) +
                 (rw + g) * PLD + key0 + 2 * t;
 #pragma unroll
@@ -445,11 +451,13 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS)
       }
       split_k(it);
       __syncthreads();   // tile it split (and, the first time, q') complete
-      float s[NKT][4];
-      scores(s, it);
-      softmax(s, it);
-      __syncwarp();      // P and alpha of the warp's rows
-      pv(it);
+      if (active) {
+        float s[NKT][4];
+        scores(s, it);
+        softmax(s, it);
+        __syncwarp();    // P and alpha of the warp's rows
+        pv(it);
+      }
       __syncthreads();   // stage it & 1 and P free
     }
   } else {
@@ -458,7 +466,7 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS)
     cp_async_wait<1>();
     split_k(0);
     __syncthreads();     // K tile 0 split, q' complete
-    {
+    if (active) {
       float s[NKT][4];
       scores(s, 0);
       softmax(s, 0);
@@ -472,16 +480,18 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::MIN_BLOCKS)
       if (it + 2 < nkt) load(it + 2, false);
       load_v(it + 1);
       cp_async_commit();
-      float s[NKT][4];
-      pv_begin();
-      scores(s, it + 1);
+      if (active) {
+        float s[NKT][4];
+        pv_begin();
+        scores(s, it + 1);
 #pragma unroll
-      for (int kq = 0; kq < BKEY / 4; ++kq) pv_step(it, kq);
-      softmax(s, it + 1);
+        for (int kq = 0; kq < BKEY / 4; ++kq) pv_step(it, kq);
+        softmax(s, it + 1);
+      }
     }
     cp_async_wait<0>();   // V tile nkt - 1
     __syncthreads();
-    pv(nkt - 1);
+    if (active) pv(nkt - 1);
   }
 
   const int any_valid = __syncthreads_or(valid);

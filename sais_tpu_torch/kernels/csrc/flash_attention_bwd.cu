@@ -82,22 +82,22 @@
 // full width for each half, and dk and dv in two launches recompute p^T
 // twice), with two stages of streaming tiles.
 //
-// - dq (flash_bwd_dq_kernel_wide): one block of 8 warps per (batch*head,
-//   64 queries), key tiles of 32 in two stages (raw; with the resident
-//   q' and dO and the ds exchange 209,152 bytes at Dh 192).  Warps w and w + 4 share 16 query
-//   rows: each forms s and dp for 16 of the tile's keys, hands its ds
-//   fragments to the other through shared memory (a named barrier of the
-//   pair), and sums ds K over all 32 keys, in key order, into its half of
-//   the dq columns: 48 running sums a thread at Dh 192.
-// - dk and dv (flash_bwd_dkv_kernel_wide), one launch: one block of 8
-//   warps per (batch*head, 32 keys), query tiles of 32 whose q' and dO are
-//   split once into planes (split_stream) while the next tile lands in a
-//   staging pair (210,560 bytes at Dh 192).  Each warp first forms one 16 x 16 quarter of s^T
-//   (warps 0-3) or dp^T (warps 4-7) and writes p^T or dp^T to shared
-//   memory; then warp w sums dv += p^T dO and dk += ds^T q' over the
-//   tile's queries, in order, for key rows 16 (w & 1) and a quarter of the
-//   columns (w >> 1): 48 running sums a thread, ds^T = p^T (dp^T - delta)
-//   formed as the fragments are loaded (ldsm4).
+// - dq (flash_bwd_dq_kernel_wide): one block of 8 warps per (batch*head, 64
+//   queries), key tiles of 32 in two stages (raw; with the resident q' and dO
+//   and the ds exchange 209,152 bytes at Dh 192).  Warps w and w + 4 share 16
+//   query rows: each forms s and dp for 16 of the tile's keys, hands its ds
+//   fragments to the other through shared memory (a named barrier of the pair),
+//   and sums ds K over all 32 keys, in key order, into its half of the dq
+//   columns: 48 running sums a thread at Dh 192.
+// - dk and dv (flash_bwd_dkv_kernel_wide), one launch: one block of 8 warps per
+//   (batch*head, 32 keys), query tiles of 32 whose q' and dO are split once
+//   into planes (split_stream) while the next tile lands in a staging pair
+//   (210,560 bytes at Dh 192).  Each warp first forms one 16 x 16 quarter of
+//   s^T (warps 0-3) or dp^T (warps 4-7) and writes p^T or dp^T to shared
+//   memory; then warp w sums dv += p^T dO and dk += ds^T q' over the tile's
+//   queries, in order, for key rows 16 (w & 1) and a quarter of the columns
+//   (w >> 1): 48 running sums a thread, ds^T = p^T (dp^T - delta) formed as
+//   the fragments are loaded (ldsm4).
 // - 14 Dh flops a pair: s, dp and ds K in the dq kernel, s^T, dp^T, p^T dO
 //   and ds^T q' in the dk / dv kernel.
 //
@@ -947,7 +947,6 @@ __global__ void __launch_bounds__(THREADS, 1)
           make_float2(c[n][2], c[n][3]);
     }
     __syncthreads();   // p^T and dp^T of the tile complete
-
     // dv += p^T dO, dk += ds^T q', ds^T = p^T (dp^T - delta): k-steps of
     // 8 queries in order, dO and q' read by column from their planes
 #pragma unroll
@@ -1048,13 +1047,13 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// q, dout, dq: (B, H, Lq, Dh); k, v, dk, dv: (B, H, Lk, Dh); all f32 with
-// the given element strides for batch, head and row (the last axis
-// contiguous); dh a multiple of 4 up to 192, scale dh^-0.5 or the
-// caller's (an unpadded width's).  bias: (B, Lk) f32 or null (no key
-// masked); lse, delta: (B, H, Lq) f32 contiguous.  Returns 0, a cudaError_t value after a failed
-// launch, or cudaErrorInvalidValue for shapes the kernels do not take (the
-// Python wrapper checks those first).
+// q, dout, dq: (B, H, Lq, Dh); k, v, dk, dv: (B, H, Lk, Dh); all f32 with the
+// given element strides for batch, head and row (the last axis contiguous); dh
+// a multiple of 4 up to 192, scale dh^-0.5 or the caller's (an unpadded
+// width's).  bias: (B, Lk) f32 or null (no key masked); lse, delta: (B, H, Lq)
+// f32 contiguous.  Returns 0, a cudaError_t value after a failed launch, or
+// cudaErrorInvalidValue for shapes the kernels do not take (the Python wrapper
+// checks those first).
 int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* delta, void* dq, void* dk,

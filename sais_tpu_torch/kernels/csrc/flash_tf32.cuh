@@ -10,21 +10,20 @@
 //                             11 significant bits (the low 13 are ignored)
 //   a b    ~= a_small b_big + a_big b_small + a_big b_big
 //
-// Each TF32 product is exact in f32 (11 x 11 bits fit the 24 of f32), and
-// the three of a k-step run into one fragment of zeros, small terms
-// first, that is then added to the running sum in f32 (mma3), so a
-// product keeps about 22 bits of each operand: f32 FFMA's accuracy, where a single
-// TF32 pass keeps three decimal digits.  a_small b_small (2^-22 relative)
-// is dropped, and so is what the tensor core cuts off x_small (at most
-// 2^-10 of a term at most 2^-12 of x, with x_small's random sign).
-// x_big is the value cvt.rna.tf32.f32 gives; it is computed with an integer
-// add and a mask, and x_small is not rounded again: a split is then three
-// integer and f32 instructions, and two cvt.rna.tf32.f32 per value ran
-// K2 and K3 markedly slower on the card.  A tile that many warps read as
-// B operands is split once, when it lands in shared memory, into a big
+// Each TF32 product is exact in f32 (11 x 11 bits fit the 24 of f32), and the
+// three of a k-step run into one fragment of zeros, small terms first, that is
+// then added to the running sum in f32 (mma3), so a product keeps about 22 bits
+// of each operand: f32 FFMA's accuracy, where a single TF32 pass keeps three
+// decimal digits.  a_small b_small (2^-22 relative) is dropped, and so is what
+// the tensor core cuts off x_small (at most 2^-10 of a term at most 2^-12 of x,
+// with x_small's random sign). x_big is the value cvt.rna.tf32.f32 gives; it is
+// computed with an integer add and a mask, and x_small is not rounded again: a
+// split is then three integer and f32 instructions, and two cvt.rna.tf32.f32
+// per value ran K2 and K3 markedly slower on the card.  A tile that many warps
+// read as B operands is split once, when it lands in shared memory, into a big
 // and a small plane (split_planes, load_b): split at each use, every warp
-// re-split the same values at every k-step, and those splits were the
-// bulk of K3's instructions outside the tensor cores.
+// re-split the same values at every k-step, and those splits were the bulk of
+// K3's instructions outside the tensor cores.
 //
 // Fragments of mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, lane = 4 g + t:
 //   A (16 x 8):  a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
@@ -39,14 +38,14 @@
 // are read in the same order (b0 from row 2t, b1 from row 2t + 1).  No
 // shuffle and no trip through shared memory.
 //
-// What this costs on an H100: mma.sync TF32 peaks near 320 TFLOP/s on the
-// card (65% of the dense TF32 rate; tools/mma_sync_rate.cu); a 3xTF32 k-step is 3 HMMA and, with
-// the tie (unbias) and the f32 add, 12 instructions beside them for its 4
-// values a thread, plus 3 for each value split at use.  So K2's scores and
-// K3 are bound by issue slots and by shared-memory bandwidth (the fragment
-// loads) more than by the tensor cores: planes that remove the splits of B
-// and ldmatrix (ldsm4) that loads four 8 x 4 blocks in one instruction
-// pay where warps re-read the same tile.
+// What this costs on an H100: mma.sync TF32 peaks near 320 TFLOP/s on the card
+// (65% of the dense TF32 rate; tools/mma_sync_rate.cu); a 3xTF32 k-step is 3
+// HMMA and, with the tie (unbias) and the f32 add, 12 instructions beside them
+// for its 4 values a thread, plus 3 for each value split at use.  So K2's
+// scores and K3 are bound by issue slots and by shared-memory bandwidth (the
+// fragment loads) more than by the tensor cores: planes that remove the splits
+// of B and ldmatrix (ldsm4) that loads four 8 x 4 blocks in one instruction pay
+// where warps re-read the same tile.
 //
 // Shared-memory tiles are f32, row-major, with a row stride of Dh + 4
 // floats (= 4 mod 32 banks).  That one padding serves both ways a tile is
@@ -133,19 +132,18 @@ __device__ __forceinline__ float unbias(float t) {
 //              c * 0 there.
 enum Sum { kWidth, kKeysTie, kWidthTie };
 
-// c += a b in 3xTF32 for one k-step of 8, b given as its split (s0 the
-// value at row t, s1 at row t + 4): the three products run into a
-// fragment of zeros, small terms first, and the k-step's part is then
-// added to c with f32 round-to-nearest.  SERIAL (kWidth, kWidthTie): the
-// fragment starts from c * 0 (the same zeros), which makes each k-step
-// wait for the last one's sum; without it ptxas may run many k-steps'
-// products at once (K2 does, within its registers; K3's kernels spilled).  The tensor core truncates its
-// sum toward zero: run into c itself, every product cut c's low bits in
-// the same direction, and a sum of many k-steps shrank coherently (K2's
-// output sat -1.4e-7 of its mean |value| from the dense f32 path's at the
-// MIL fit's shapes, a signed error several times f32's).  Here the
-// truncation is relative to one k-step's part, and the running sum rounds
-// to nearest.
+// c += a b in 3xTF32 for one k-step of 8, b given as its split (s0 the value at
+// row t, s1 at row t + 4): the three products run into a fragment of zeros,
+// small terms first, and the k-step's part is then added to c with f32
+// round-to-nearest.  SERIAL (kWidth, kWidthTie): the fragment starts from c * 0
+// (the same zeros), which makes each k-step wait for the last one's sum;
+// without it ptxas may run many k-steps' products at once (K2 does, within its
+// registers; K3's kernels spilled).  The tensor core truncates its sum toward
+// zero: run into c itself, every product cut c's low bits in the same
+// direction, and a sum of many k-steps shrank coherently (K2's output sat
+// -1.4e-7 of its mean |value| from the dense f32 path's at the MIL fit's
+// shapes, a signed error several times f32's).  Here the truncation is relative
+// to one k-step's part, and the running sum rounds to nearest.
 template <Sum S = kWidth, bool SERIAL = true>
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, Split s0,
                                      Split s1) {
