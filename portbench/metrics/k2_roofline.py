@@ -1,0 +1,7 @@
+"""K2's share of its roofline: 4 Dh flops a (valid query, valid key) pair
+at the float32-accurate rate, or its bytes at the memory rate, over its
+device time."""
+
+
+def read(t):
+    return t.roofline("k2")
