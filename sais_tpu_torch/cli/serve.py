@@ -208,8 +208,10 @@ def serve(service: DecodeService, socket_path: str, log=print) -> None:
     `stats` and `shutdown` answer at once from any connection.  One
     queued decode starts its host decode while it waits (a bounded
     buffer), so request B's decode on the host overlaps request A's work
-    on the card.  `shutdown` lets the decodes in flight finish and answer
-    first; a client that vanishes leaves the daemon serving."""
+    on the card.  `stats` gives the decodes' seconds and their waits from
+    arrival to the decode lock (p50, p95).  `shutdown` lets the decodes
+    in flight finish and answer first; a client that vanishes leaves the
+    daemon serving."""
     if os.path.exists(socket_path):
         os.unlink(socket_path)
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -222,9 +224,11 @@ def serve(service: DecodeService, socket_path: str, log=print) -> None:
     active = [0]                             # requests being answered
     active_cv = threading.Condition()
     latencies: deque = deque(maxlen=10000)   # bounded: a long-lived daemon
+    waits: deque = deque(maxlen=10000)       # arrival -> the decode lock
     lat_lock = threading.Lock()
 
     def answer(req: dict) -> dict:
+        arrived = time.perf_counter()
         if req.get("cmd") == "shutdown":
             stop.set()
             return {"ok": True, "bye": True}
@@ -232,10 +236,12 @@ def serve(service: DecodeService, socket_path: str, log=print) -> None:
             return {"ok": True, "pong": True}
         if req.get("cmd") == "stats":
             with lat_lock:
-                lat = sorted(latencies)
+                lat, wait = sorted(latencies), sorted(waits)
             return {"ok": True, "requests": len(lat),
                     "p50_s": round(_percentile(lat, 0.5), 3),
                     "p95_s": round(_percentile(lat, 0.95), 3),
+                    "queue_p50_s": round(_percentile(wait, 0.5), 3),
+                    "queue_p95_s": round(_percentile(wait, 0.95), 3),
                     "busy": decode_lock.locked()}
         # another decode in flight: start this one's host decode now
         stream = None
@@ -245,6 +251,8 @@ def serve(service: DecodeService, socket_path: str, log=print) -> None:
                 prefetch_slot.release()
         try:
             with decode_lock:
+                with lat_lock:
+                    waits.append(time.perf_counter() - arrived)
                 resp = service.decode_video(req["video"],
                                             bool(req.get("flow", False)),
                                             rgb_stream=stream)

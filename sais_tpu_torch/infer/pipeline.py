@@ -40,6 +40,18 @@ from sais_tpu_torch.models.raft import (RAFT, pad_to_multiple_of_8,
 from sais_tpu_torch.models.vit import VisionTransformer, vit_features
 from sais_tpu_torch.ops.flow_viz import flow_to_rgb_device, flow_to_rgb_uint8
 from sais_tpu_torch.ops.preprocess import normalize_batch, preprocess_batch
+from sais_tpu_torch.utils import profiling
+
+
+def _pinned_upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Host tensor -> CUDA `device` through pinned memory: the host copy
+    (span `sais.extract.pin`), then a copy that does not block the host
+    (span `sais.extract.upload`, counting its `h2d_bytes`)."""
+    with profiling.span("sais.extract.pin"):
+        t = t.pin_memory()
+    with profiling.span("sais.extract.upload"):
+        profiling.count("h2d_bytes", t.nbytes)
+        return t.to(device, non_blocking=True)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -47,7 +59,7 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     memory and does not block the host."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return _pinned_upload(t, device)
     return t.to(device)
 
 
@@ -76,6 +88,9 @@ def _reap_producer(t: threading.Thread, q: "queue.Queue",
         except queue.Empty:
             pass
     t.join()
+
+
+_END = object()   # the end of a stream's batches
 
 
 class _HostStream:
@@ -150,7 +165,7 @@ class FeatureExtractor:
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu" and self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
+            return _pinned_upload(x, self.device)
         return x.to(self.device)
 
     def _sharded(self, owner, method: str, *xs: torch.Tensor
@@ -194,8 +209,9 @@ class FeatureExtractor:
         return self._sharded(self, "features", frames_u8)
 
     def _block_features(self, f: torch.Tensor) -> torch.Tensor:
-        return vit_features(self.model, preprocess_batch(
-            f, self.cfg.preprocess, self.dtype))
+        with profiling.span("sais.extract.vit"):
+            return vit_features(self.model, preprocess_batch(
+                f, self.cfg.preprocess, self.dtype))
 
     def features_resized(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) uint8 crops already resized (the frame pump's), on
@@ -203,8 +219,9 @@ class FeatureExtractor:
         return self._sharded(self, "features_resized", frames_u8)
 
     def _block_features_resized(self, f: torch.Tensor) -> torch.Tensor:
-        return vit_features(self.model, normalize_batch(
-            f, self.cfg.preprocess, self.dtype))
+        with profiling.span("sais.extract.vit"):
+            return vit_features(self.model, normalize_batch(
+                f, self.cfg.preprocess, self.dtype))
 
     def features_normalized(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) normalized float32 frames on the host or the
@@ -212,7 +229,8 @@ class FeatureExtractor:
         return self._sharded(self, "features_normalized", x)
 
     def _block_features_normalized(self, f: torch.Tensor) -> torch.Tensor:
-        return vit_features(self.model, f.to(self.dtype))
+        with profiling.span("sais.extract.vit"):
+            return vit_features(self.model, f.to(self.dtype))
 
     def _host_batch(self, batch: np.ndarray) -> torch.Tensor:
         """One decoded batch through the route the extractor takes, to
@@ -289,20 +307,31 @@ class FeatureExtractor:
         """Stream a video: the frame pump, or a producer thread, decodes
         batches into a bounded queue while the device computes the
         previous ones.  `stream`: a decode of video_path already opened
-        by `open_stream`; it is consumed and closed either way."""
-        if stream is None:
-            stream = self.open_stream(video_path, prefetch)
-        try:
-            outs = [stream.features(b) for b in stream.batches]
-        finally:
-            stream.close()   # the producer abandons the rest on error
-        stream.raise_if_failed()
-        return self._gather(outs)
+        by `open_stream`; it is consumed and closed either way.
+        Spans: `sais.extract.video` around `next` (the wait for the
+        stream's next batch), the upload's, `vit` and `gather`."""
+        with profiling.span("sais.extract.video"):
+            if stream is None:
+                stream = self.open_stream(video_path, prefetch)
+            outs = []
+            batches = iter(stream.batches)
+            try:
+                while True:
+                    with profiling.span("sais.extract.next"):
+                        b = next(batches, _END)
+                    if b is _END:
+                        break
+                    outs.append(stream.features(b))
+            finally:
+                stream.close()   # the producer abandons the rest on error
+            stream.raise_if_failed()
+            return self._gather(outs)
 
     def _gather(self, outs: List[torch.Tensor]) -> np.ndarray:
         if not outs:
             return np.zeros((0, self.cfg.vit.embed_dim), np.float32)
-        return torch.cat(outs).cpu().numpy()
+        with profiling.span("sais.extract.gather"):
+            return torch.cat(outs).cpu().numpy()
 
 
 def _save_flow_images(rgb: np.ndarray, out_dir: str, first: int) -> int:

@@ -37,6 +37,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sais_tpu_torch.utils import profiling
+
 # Bottleneck widths the CUDA kernel takes (csrc/dino_head_loss.cu).
 BOTTLENECKS = (128, 256)
 
@@ -217,6 +219,7 @@ def _run_kernel(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
     return (loss, bc, dhs, dvs, dgs), workspace
 
 
+@profiling.spanned("sais.kernels.fused_loss_and_grads")
 def fused_loss_and_grads(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
                          student_temp: float, inv_norm: float, use_g: bool):
     """K7: (loss, batch_center, dhs, dvs, dgs) as
@@ -244,6 +247,7 @@ fused_loss_and_grads.launches = 0
 STATS_TILE = 192
 
 
+@profiling.spanned("sais.kernels.k7_intermediates")
 def k7_intermediates(hs, ht, vs, vt, gs, gt, center, temp_t, sel, c, *,
                      student_temp: float, inv_norm: float, use_g: bool):
     """The card tests' view of K7's epilogues: one launch of the kernel on

@@ -56,6 +56,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from sais_tpu_torch.utils import profiling
+
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 192   # the widest instance of the CUDA kernels
 
@@ -295,6 +297,7 @@ def _empty_grads(q: torch.Tensor, k: torch.Tensor) -> Grads:
                                 **kw))
 
 
+@profiling.spanned("sais.kernels.flash_attention_bwd")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], out: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor,
@@ -444,6 +447,7 @@ class PackedFlashAttention(torch.autograd.Function):
         return dqkv, None, None, None
 
 
+@profiling.spanned("sais.kernels.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sais_tpu_torch.utils import profiling
+
 _NEG_INF = -1e30
 _INV127 = float(np.float32(1.0 / 127.0))   # the f32 constant JAX multiplies by
 
@@ -471,6 +473,7 @@ def _on_cuda(x, name):
     return True
 
 
+@profiling.spanned("sais.kernels.fused_vit_block")
 def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
                     fc2_b, ln1_s, ln1_b, ln2_s, ln2_b, num_heads: int,
                     valid_len: int, eps: float = 1e-6) -> torch.Tensor:
@@ -501,6 +504,7 @@ def fused_vit_block(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
 fused_vit_block.launches = 0
 
 
+@profiling.spanned("sais.kernels.block_gemm")
 def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None,
                aux=None):
     """The blocks' GEMM alone, in the modes of `block_gemm_reference`
@@ -571,6 +575,7 @@ def block_gemm(a, w, bias, epilogue: str, residual=None, row_scale=None,
 block_gemm.launches = 0
 
 
+@profiling.spanned("sais.kernels.block_gemm_int8")
 def block_gemm_int8(q, q_scale, wq, w_scale, bias, epilogue: str,
                     residual=None):
     """K8's qkv / proj product alone, in the modes of
@@ -621,6 +626,7 @@ def block_gemm_int8(q, q_scale, wq, w_scale, bias, epilogue: str,
 block_gemm_int8.launches = 0
 
 
+@profiling.spanned("sais.kernels.fused_vit_block_int8")
 def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
                          fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
                          num_heads: int, valid_len: int,
@@ -659,6 +665,7 @@ def fused_vit_block_int8(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
 fused_vit_block_int8.launches = 0
 
 
+@profiling.spanned("sais.kernels.fused_block_fwd_train")
 def fused_block_fwd_train(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
                           fc2_w, fc2_b, ln1_s, ln1_b, ln2_s, ln2_b,
                           num_heads: int, valid_len: int, eps: float = 1e-6,
@@ -707,6 +714,7 @@ def _check_bwd_width(d):
             "their row passes keeps D / 32 column sums in registers)")
 
 
+@profiling.spanned("sais.kernels.fused_block_bwd_mlp")
 def fused_block_bwd_mlp(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b,
                         eps: float = 1e-6, s2=None):
     """K5, the backward of the MLP half: (dx1, dfc1_w, dfc1_b, dfc2_w,
@@ -750,6 +758,7 @@ def fused_block_bwd_mlp(x1, dout, fc1_w, fc1_b, fc2_w, fc2_b, ln2_s, ln2_b,
 fused_block_bwd_mlp.launches = 0
 
 
+@profiling.spanned("sais.kernels.fused_block_bwd_attn")
 def fused_block_bwd_attn(x, dx1, qkv_w, qkv_b, proj_w, proj_b, ln1_s, ln1_b,
                          num_heads: int, valid_len: int, eps: float = 1e-6,
                          s1=None):

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from sais_tpu_torch.ops.preprocess import center_crop_bounds
+from sais_tpu_torch.utils import profiling
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -257,6 +258,7 @@ def augment_crop(generator: torch.Generator, images: torch.Tensor,
                                                spec), spec)
 
 
+@profiling.spanned("sais.dino.crops")
 def multi_crop_batch(generator: torch.Generator, images: torch.Tensor,
                      n_global: int = 2, n_local: int = 8,
                      global_size: int = 224, local_size: int = 96

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from sais_tpu_torch.config import MeshConfig
+from sais_tpu_torch.utils import profiling
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -290,19 +291,22 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter],
                      group=None) -> None:
     """Sum each parameter's .grad over the group in one flat f32 buffer, in
     the order given (fixed: the optimizer's).  A parameter the loss did
-    not reach contributes zeros and gets a zero gradient, as in JAX."""
+    not reach contributes zeros and gets a zero gradient, as in JAX.
+    Span `sais.parallel.allreduce`, counting the buffer's `bytes`."""
     params = list(params)
     if not params:
         return
-    flat = torch.cat([
-        (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-         else p.grad.float()).reshape(-1) for p in params])
-    _dist().all_reduce(flat, group=group)
-    offset = 0
-    for p in params:
-        n = p.numel()
-        p.grad = flat[offset:offset + n].view(p.shape).to(p.dtype)
-        offset += n
+    with profiling.span("sais.parallel.allreduce"):
+        flat = torch.cat([
+            (torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+             else p.grad.float()).reshape(-1) for p in params])
+        profiling.count("bytes", flat.nbytes)
+        _dist().all_reduce(flat, group=group)
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[offset:offset + n].view(p.shape).to(p.dtype)
+            offset += n
 
 
 class DataParallel:

@@ -73,6 +73,7 @@ from sais_tpu_torch.models.dino_head import (dino_head_bn_init,
 from sais_tpu_torch.models.vit import (vit_features_trainable_fused,
                                        vit_forward_fused, vit_forward_train,
                                        vit_init)
+from sais_tpu_torch.utils import profiling
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -445,14 +446,16 @@ class DINOTrainer:
         statistics span every crop; the heads' new running statistics
         wait in `_next_bn` for the step to take them."""
         cfg = self.cfg
-        feats = [self._backbone(self.student, globals_, generator)]
-        if locals_ is not None and cfg.n_local_crops:
-            feats.append(self._backbone(self.student, locals_, generator))
         total = None if self.dp is None else self.dp.total
-        hs = dino_head_bottleneck(self.student["head"],
-                                  torch.cat(feats).to(torch.bfloat16),
-                                  self.student_bn, total=total)
-        with torch.no_grad():
+        with profiling.span("sais.dino.student"):
+            feats = [self._backbone(self.student, globals_, generator)]
+            if locals_ is not None and cfg.n_local_crops:
+                feats.append(self._backbone(self.student, locals_,
+                                            generator))
+            hs = dino_head_bottleneck(self.student["head"],
+                                      torch.cat(feats).to(torch.bfloat16),
+                                      self.student_bn, total=total)
+        with torch.no_grad(), profiling.span("sais.dino.teacher"):
             ht = dino_head_bottleneck(
                 self.teacher["head"],
                 self._backbone_infer(self.teacher, globals_).to(
@@ -527,12 +530,14 @@ class DINOTrainer:
         `generator` draws the student's stochastic depth."""
         for p in self.student.parameters():
             p.grad = None
-        loss, batch_center = self.head_loss(
-            *self.bottlenecks(globals_, locals_, generator), teacher_temp)
-        if self.dp is None:
-            loss.backward()
-        else:
-            self.dp.backward(loss, list(self.student.parameters()))
+        hs, ht = self.bottlenecks(globals_, locals_, generator)
+        with profiling.span("sais.dino.head_loss"):
+            loss, batch_center = self.head_loss(hs, ht, teacher_temp)
+        with profiling.span("sais.dino.backward"):
+            if self.dp is None:
+                loss.backward()
+            else:
+                self.dp.backward(loss, list(self.student.parameters()))
         return loss, batch_center
 
     def step_async(self, globals_: torch.Tensor,
@@ -543,7 +548,16 @@ class DINOTrainer:
 
         globals_: (n_global*B, H, W, 3) normalized crops, image-major rows;
         locals_: (n_local*B, h, w, 3) or None; the whole batch's, of which
-        a rank of a mesh takes its block."""
+        a rank of a mesh takes its block.
+
+        Spans: `sais.dino.step` around `upload`, `student`, `teacher`,
+        `head_loss`, `backward` and `update` (`clip`, `optimizer`, `ema`,
+        `center`)."""
+        with profiling.span("sais.dino.step"):
+            return self._step(globals_, locals_)
+
+    def _step(self, globals_: torch.Tensor,
+              locals_: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         i = min(self.step_idx, len(self.lr_sched) - 1)
         epoch = i // self.niter_per_ep
@@ -559,31 +573,36 @@ class DINOTrainer:
             if locals_ is not None:
                 locals_ = locals_[sh.rows(locals_.shape[0])]
             seed = self.step_idx * sh.count + sh.index
-        globals_ = globals_.to(self.device)
-        locals_ = None if locals_ is None else locals_.to(self.device)
+        with profiling.span("sais.dino.upload"):
+            globals_ = globals_.to(self.device)
+            locals_ = None if locals_ is None else locals_.to(self.device)
         # per-step stochastic-depth draws
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
         params = self._params()
         loss, batch_center = self.loss_and_grads(globals_, locals_, temp,
                                                  gen)
-        with torch.no_grad():
-            # parameters the loss does not reach (last_g under
-            # norm_last_layer) have a zero gradient, as in JAX
-            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                     for n, p in params.items()}
-            grads = clip_gradients_per_param(grads, cfg.clip_grad)
-            grads = cancel_last_layer_grads(
-                grads, epoch < cfg.freeze_last_layer_epochs)
-            updates, self.opt_state = self.optimizer.update(
-                grads, self.opt_state, params)
-            for n, p in params.items():
-                decay = lr * wd * float(p.dim() > 1)
-                p.copy_(p + lr * updates[n] - decay * p)
-                p.grad = None
-            ema_update(self.teacher, self.student, momentum)
-            self.center = update_center(self.center, batch_center,
-                                        cfg.center_momentum)
+        with torch.no_grad(), profiling.span("sais.dino.update"):
+            with profiling.span("sais.dino.clip"):
+                # parameters the loss does not reach (last_g under
+                # norm_last_layer) have a zero gradient, as in JAX
+                grads = {n: torch.zeros_like(p) if p.grad is None
+                         else p.grad for n, p in params.items()}
+                grads = clip_gradients_per_param(grads, cfg.clip_grad)
+                grads = cancel_last_layer_grads(
+                    grads, epoch < cfg.freeze_last_layer_epochs)
+            with profiling.span("sais.dino.optimizer"):
+                updates, self.opt_state = self.optimizer.update(
+                    grads, self.opt_state, params)
+                for n, p in params.items():
+                    decay = lr * wd * float(p.dim() > 1)
+                    p.copy_(p + lr * updates[n] - decay * p)
+                    p.grad = None
+            with profiling.span("sais.dino.ema"):
+                ema_update(self.teacher, self.student, momentum)
+            with profiling.span("sais.dino.center"):
+                self.center = update_center(self.center, batch_center,
+                                            cfg.center_momentum)
         if self._next_bn is not None:
             self.student_bn, self.teacher_bn = self._next_bn
             self._next_bn = None

@@ -50,6 +50,7 @@ from sais_tpu_torch.models.heads import (nce_loss, prototype_probs,
                                          prototype_similarities)
 from sais_tpu_torch.train import metrics as metrics_lib
 from sais_tpu_torch.train.losses import importance_loss_reference
+from sais_tpu_torch.utils import profiling
 
 Batch = Dict[str, Any]
 
@@ -102,8 +103,12 @@ class PrototypeTrainer:
         batch = {k: v for k, v in batch.items() if k != "tta"}
         if self.dp is not None:
             batch = self.dp.shard(batch)
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items()}
+        with profiling.span("sais.train.upload"):
+            host = {k: torch.as_tensor(v) for k, v in batch.items()}
+            if profiling.enabled():
+                profiling.count("h2d_bytes",
+                                sum(t.nbytes for t in host.values()))
+            return {k: t.to(self.device) for k, t in host.items()}
 
     def _loss(self, b: Dict[str, torch.Tensor], with_importance: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,19 +147,24 @@ class PrototypeTrainer:
     def train_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step; returns (loss, probabilities under the pre-update
         prototypes, the padded batch's rows), both detached on the
-        device."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, reps = self._loss(self._device_batch(batch),
-                                self.use_importance)
-        if self.dp is None:
-            loss.backward()
-        else:
-            self.dp.backward(loss, [*self.model.parameters(),
-                                    self.prototypes])
-        with torch.no_grad():
-            probs = self._probs(reps)
-        self.optimizer.step()
-        return loss.detach(), probs
+        device.  Spans: `sais.train.step` around `upload`, `forward`,
+        `backward` and `optimizer`."""
+        with profiling.span("sais.train.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            b = self._device_batch(batch)
+            with profiling.span("sais.train.forward"):
+                loss, reps = self._loss(b, self.use_importance)
+            with profiling.span("sais.train.backward"):
+                if self.dp is None:
+                    loss.backward()
+                else:
+                    self.dp.backward(loss, [*self.model.parameters(),
+                                            self.prototypes])
+            with torch.no_grad():
+                probs = self._probs(reps)
+            with profiling.span("sais.train.optimizer"):
+                self.optimizer.step()
+            return loss.detach(), probs
 
     @torch.no_grad()
     def eval_step(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -220,7 +220,8 @@ def test_serve_survives_client_disconnect(tmp_path):
 
 def test_queued_request_prefetches_host_decode(tmp_path):
     """While A holds the decode lock, B's host decode starts and B's
-    decode consumes that stream, with the full video's frames."""
+    decode consumes that stream, with the full video's frames; `stats`
+    reports B's wait for the lock."""
     root = str(tmp_path)
     _videos(root, {"vid_a": 60, "vid_b": 90})
     svc = _service(tmp_path)
@@ -257,6 +258,10 @@ def test_queued_request_prefetches_host_decode(tmp_path):
     assert res_b["frames"] == 90
     assert ("prefetch", "vid_b", True) in events
     assert ("decode", "vid_b", True) in events
+    # B waited for the lock while A decoded
+    stats = _rpc(sock, {"cmd": "stats"})
+    assert 0 <= stats["queue_p50_s"] <= stats["queue_p95_s"]
+    assert stats["queue_p95_s"] > 0
     _stop(sock, t)
 
 
